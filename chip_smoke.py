@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) runs on
+an NVIDIA GPU.  Run from the root of a checkout, on a machine with one
+card:
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure exits non-zero):
+ 1. device: name, power limit, TF32 off for the float32 references;
+ 2. build: both CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
+ 3. kernel vs plain PyTorch version, on the card, at the serving path's
+    shapes (plus ragged ones), float32 and bfloat16;
+ 4. times: each kernel, its plain version and one library call, CUDA
+    events, median of 60 launches with L2 flushed between launches, beside
+    the least time the card could take for the same work;
+ 5. serving: ServingEngine on full-width GPT-2-S (f32, 8 slots, 512
+    positions, 16-token pages) drains 16 requests; the launch counters,
+    reset just before, must show the kernels carried the path; one decode
+    step's logits are held against the plain path on the card.
+The second-to-last line is ``nvidia-smi``'s name and power limit; the
+last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
+"""
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parent / "src"
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM, data sheet
+PEAK_FLOPS = {"float32": 67e12,     # outside the tensor cores
+              "bfloat16": 989e12}   # dense tensor-core rate
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}        # lora_matmul atol = rtol
+PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()
+    return out[0]
+
+
+def time_ms(torch, fn, flush, iters=60, warmup=5):
+    """Median CUDA-event time of one call; ``flush`` runs before each one,
+    outside the events, so every launch finds L2 cold.  A ~1 ms device
+    sleep ahead of the start event lets the host queue the whole call
+    before the device reaches it, so the events time the device work and
+    not the host's launch overhead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(torch, fn, n=200):
+    """Host-clock microseconds per call over ``n`` back-to-back calls
+    ending in a synchronize: the larger of launch overhead and device
+    time, which is what an eager decode loop pays per call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch import models as TM
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import backend, build
+    from repro_torch.kernels.flash_attention import paged_decode, paged_decode_ref
+    from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
+    from repro_torch.serving import Request, ServingEngine
+
+    dev = torch.device("cuda", 0)
+
+    # -- 1. device ---------------------------------------------------------
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | allow_tf32 matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    secs = build.build(force=True)
+    print(f"[build] nvcc sm_90a, in parallel: "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+          + f"; wall {time.perf_counter() - t0:.1f}s")
+
+    # -- 3. kernel vs plain, on the card ----------------------------------
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen) * std
+
+    def lora_inputs(M, K, N, r, dt):
+        return (randn(M, K).to(dev, dt), randn(K, N, std=K ** -0.5).to(dev, dt),
+                randn(r, K, std=r ** -0.5).to(dev, dt), randn(N, r, std=0.02).to(dev, dt))
+
+    def paged_inputs(B, KH, G, D, PS, MP, lengths, dt):
+        NP = B * MP + 1
+        q = randn(B, 1, KH * G, D).to(dev, dt)
+        kp, vp = randn(KH, NP, PS, D).to(dev, dt), randn(KH, NP, PS, D).to(dev, dt)
+        pages = torch.randperm(NP - 1, generator=gen) + 1        # shuffled pool
+        bt = torch.zeros(B, MP, dtype=torch.int32)
+        for b, n in enumerate(lengths):
+            npg = -(-n // PS)
+            bt[b, :npg] = pages[b * MP:b * MP + npg].int()
+        lens = torch.tensor(lengths, dtype=torch.int32)
+        return q, kp, vp, lens.to(dev), bt.to(dev)
+
+    scale = 2.0                       # GPT-2-S: lora_alpha / lora_rank = 8 / 4
+    err = {"lora_matmul": 0.0, "paged_decode": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        dn = str(dt).split(".")[1]
+        for M, K, N, r in ((8, 768, 768, 4), (16, 768, 768, 4), (5, 100, 70, 3)):
+            x, w, a, b = lora_inputs(M, K, N, r, dt)
+            y = lora_matmul(x, w, a, b, scale=scale)
+            torch.cuda.synchronize()
+            yr = lora_matmul_ref(x, w, a, b, scale)
+            e = (y.float() - yr.float()).abs().max().item()
+            good = torch.allclose(y.float(), yr.float(), atol=TOL[dn], rtol=TOL[dn])
+            print(f"[check] lora_matmul {dn} M={M} K={K} N={N} r={r}: "
+                  f"max_abs_err={e:.3g} tol={TOL[dn]} {'ok' if good else 'FAIL'}")
+            if not good:
+                fail(f"lora_matmul disagrees with its plain version ({dn}, M={M})")
+            if dn == "float32" and K == 768:
+                err["lora_matmul"] = max(err["lora_matmul"], e)
+        for B, KH, G, D in ((8, 12, 1, 64), (4, 2, 4, 128)):
+            PS, MP = 16, 32
+            lengths = [0, 1, PS, PS + 1, MP * PS, 37, 200, 301][:B]
+            q, kp, vp, lens, bt = paged_inputs(B, KH, G, D, PS, MP, lengths, dt)
+            o = paged_decode(q, kp, vp, lens, bt)
+            torch.cuda.synchronize()
+            orf = paged_decode_ref(q[:, 0].reshape(B, KH, G, D), kp, vp, lens,
+                                   bt).reshape(o.shape)
+            e = (o.float() - orf.float()).abs().max().item()
+            tol = PAGED_TOL[dn]
+            good = (torch.allclose(o.float(), orf.float(), atol=tol, rtol=tol)
+                    and bool((o[0] == 0).all()) and bool(torch.isfinite(o).all()))
+            print(f"[check] paged_decode {dn} B={B} KH={KH} G={G} D={D} PS={PS} "
+                  f"MP={MP} lengths={lengths}: max_abs_err={e:.3g} tol={tol} "
+                  f"dead-slot zeros={bool((o[0] == 0).all())} {'ok' if good else 'FAIL'}")
+            if not good:
+                fail(f"paged_decode disagrees with its plain version ({dn}, G={G})")
+            if dn == "float32" and G == 1:
+                err["paged_decode"] = max(err["paged_decode"], e)
+
+    # -- 4. times at the serving path's shapes (f32, as the engine serves) --
+    # reading 64 MB (> the 50 MB L2) between launches evicts the operands,
+    # as the decode path finds them: 12 layers of weights and KV pools
+    # pass through L2 between two calls of one layer's kernel
+    flush_buf = torch.ones(16 * 2 ** 20, dtype=torch.int32, device=dev)
+    flush = flush_buf.sum
+    rows = {}
+    for M in (8, 16):
+        K = N = 768
+        r = 4
+        x, w, a, b = lora_inputs(M, K, N, r, torch.float32)
+        ms = time_ms(torch, lambda: lora_matmul(x, w, a, b, scale=scale), flush)
+        warm = time_ms(torch, lambda: lora_matmul(x, w, a, b, scale=scale), lambda: None)
+        b2b = host_us(torch, lambda: lora_matmul(x, w, a, b, scale=scale))
+        plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
+        lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
+        nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
+        flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["float32"] * 1e3
+        rows[("lora_matmul", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                        bound_ms=max(t_bytes, t_ops),
+                                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"[time] lora_matmul f32 M={M} K={K} N={N} r={r}: kernel {ms * 1e3:.2f}us "
+              f"plain {plain * 1e3:.2f}us library(torch.matmul) {lib * 1e3:.2f}us "
+              f"bound {max(t_bytes, t_ops) * 1e3:.2f}us ({nbytes} B, {flops} flop); "
+              f"kernel with L2 warm {warm * 1e3:.2f}us; back-to-back {b2b:.2f}us/call "
+          f"(host clock, L2 warm)")
+    B, KH, G, D, PS, MP = 8, 12, 1, 64, 16, 32
+    lengths = [8, 40, 77, 120, 160, 200, 232, 255]      # serving-like spread
+    q, kp, vp, lens, bt = paged_inputs(B, KH, G, D, PS, MP, lengths, torch.float32)
+    qt = q[:, 0].reshape(B, KH, G, D)
+    ms = time_ms(torch, lambda: paged_decode(q, kp, vp, lens, bt), flush)
+    warm = time_ms(torch, lambda: paged_decode(q, kp, vp, lens, bt), lambda: None)
+    b2b = host_us(torch, lambda: paged_decode(q, kp, vp, lens, bt))
+    plain = time_ms(torch, lambda: paged_decode_ref(qt, kp, vp, lens, bt), flush)
+    L = MP * PS
+    sdpa_mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+    def library():
+        k = kp[:, bt.long()].permute(1, 0, 2, 3, 4).reshape(B, KH, L, D)
+        v = vp[:, bt.long()].permute(1, 0, 2, 3, 4).reshape(B, KH, L, D)
+        return F.scaled_dot_product_attention(qt, k, v, attn_mask=sdpa_mask)
+
+    lib = time_ms(torch, library, flush)
+    tot = sum(lengths)
+    nbytes = (4 * (2 * B * KH * G * D + 2 * KH * tot * D) + 4 * B
+              + 4 * sum(math.ceil(n / PS) for n in lengths))
+    flops = 4 * KH * G * D * tot
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["float32"] * 1e3
+    rows[("paged_decode", B)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                     bound_ms=max(t_bytes, t_ops),
+                                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"[time] paged_decode f32 B={B} KH={KH} G={G} D={D} PS={PS} lengths={lengths}: "
+          f"kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(gather+sdpa) "
+          f"{lib * 1e3:.2f}us bound {max(t_bytes, t_ops) * 1e3:.2f}us ({nbytes} B, {flops} flop); "
+          f"kernel with L2 warm {warm * 1e3:.2f}us; back-to-back {b2b:.2f}us/call "
+          f"(host clock, L2 warm)")
+    del flush_buf
+
+    # -- 5. serving on full-width GPT-2-S ------------------------------------
+    cfg = get_arch("gpt2-s")
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cuda")
+    lora = TM.init_lora_stack(cfg, torch.Generator().manual_seed(1), None,
+                              torch.float32, "cuda")
+    g_b = torch.Generator().manual_seed(2)
+    for layer in lora:           # B != 0, or the rank path would be a no-op
+        for ad in layer["mixer"].values():
+            ad["b"].copy_(torch.randn(ad["b"].shape, generator=g_b) * 0.02)
+    print(f"[serve] GPT-2-S full width: {cfg.num_layers} layers d={cfg.d_model} "
+          f"vocab={cfg.vocab_size} max_seq_len={cfg.max_seq_len}, f32, LoRA r="
+          f"{cfg.lora_rank} on {cfg.lora_targets}; init {time.perf_counter() - t0:.1f}s")
+    eng = ServingEngine(cfg, params, lora=lora, max_slots=8, max_len=512,
+                        page_size=16, device="cuda")
+    eng.submit(Request(uid=1000, prompt=[1, 2, 3, 4, 5], max_new_tokens=4))
+    eng.run()                            # first-call set-up, not measured
+    for k in eng.stats:
+        eng.stats[k] = 0
+    rng = np.random.default_rng(0)
+    plens = rng.permutation(np.linspace(8, 200, 16).astype(int))
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)).tolist(),
+                    max_new_tokens=32) for i, n in enumerate(plens)]
+    for r_ in reqs:
+        eng.submit(r_)
+    backend.reset_launch_counts()        # just before the main path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(backend.LAUNCH_COUNTS)
+    st = eng.stats
+    n_tok = sum(len(r_.output) for r_ in reqs)
+    print(f"[serve] {len(reqs)} requests, prompts {int(plens.min())}-{int(plens.max())} "
+          f"tokens, 32 new each, greedy: {n_tok} tokens in {wall:.3f}s = "
+          f"{n_tok / wall:.1f} tok/s; {st['decode_steps']} decode steps, mean "
+          f"{st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.2f} ms/step; "
+          f"{st['prefill_chunks']} prefill chunks, {st['prefill_s'] * 1e3:.1f} ms total "
+          f"({st['prefill_s'] / max(st['prefill_chunks'], 1) * 1e3:.2f} ms/chunk)")
+    print(f"[serve] launches during the run: {launches}")
+    if not all(r_.done and len(r_.output) == 32 for r_ in reqs):
+        fail("not every request finished with 32 tokens")
+    if not eng.check_consistency(resync=False) or eng.pages_in_use() != 0:
+        fail("page accounting inconsistent after drain")
+    want = {"lora_matmul": 2 * cfg.num_layers * (st["decode_steps"] + st["prefill_chunks"]),
+            "paged_decode": cfg.num_layers * st["decode_steps"]}
+    for k, v in want.items():
+        if launches.get(k, 0) == 0 or launches.get(k) != v:
+            fail(f"{k}: {launches.get(k, 0)} launches on the main path, expected {v}")
+    print(f"[serve] launch counts match the path: {want} "
+          f"(24 lora_matmul per decode step and per chunk, 12 paged_decode per step)")
+
+    # one decode step, kernel path vs plain path, on the same state
+    B = 8
+    caches = TM.init_paged_cache(cfg, 8 * 32 + 1, 16, torch.float32, "cuda")
+    for c in caches:
+        c["k"].normal_(generator=torch.Generator(device=dev).manual_seed(3))
+        c["v"].normal_(generator=torch.Generator(device=dev).manual_seed(4))
+    pos = torch.tensor(lengths, dtype=torch.int32)
+    bt = torch.zeros(B, 32, dtype=torch.int32)
+    pages = torch.randperm(8 * 32, generator=gen) + 1
+    for b_, n in enumerate(lengths):
+        bt[b_, :n // 16 + 1] = pages[b_ * 32:b_ * 32 + n // 16 + 1].int()
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+    outs = []
+    for rt in (TM.default_serve_runtime(), TM.Runtime()):
+        cc = [{k: v.clone() for k, v in c.items()} for c in caches]
+        logits, cc = TM.paged_decode_step(cfg, eng.params, tok.to(dev), cc, bt.to(dev),
+                                          pos.to(dev), lora=eng.lora, rt=rt)
+        torch.cuda.synchronize()
+        outs.append((logits, cc))
+    (lk, ck), (lp, cp) = outs
+    e_log = (lk - lp).abs().max().item()
+    e_kv = max((a[n] - b[n]).abs().max().item() for a, b in zip(ck, cp) for n in "kv")
+    good = (tuple(lk.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(lk).all())
+            and torch.allclose(lk, lp, atol=1e-3, rtol=1e-3) and e_kv < 1e-4)
+    print(f"[serve] paged_decode_step logits kernel vs plain path: shape "
+          f"{tuple(lk.shape)} max_abs_err={e_log:.3g} (atol=rtol=1e-3), pools "
+          f"max_abs_err={e_kv:.3g} (tol 1e-4) {'ok' if good else 'FAIL'}")
+    if not good:
+        fail("decode step through the kernels disagrees with the plain path")
+
+    # -- result ---------------------------------------------------------------
+    kernels = [
+        dict(name="lora_matmul", route="cuda",
+             source="src/repro_torch/kernels/csrc/lora_matmul.cu",
+             replaces="src/repro/kernels/lora_matmul/kernel.py:57",
+             launches=launches["lora_matmul"], max_abs_err=err["lora_matmul"],
+             **rows[("lora_matmul", 8)]),
+        dict(name="paged_decode", route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_decode.cu",
+             replaces="src/repro/kernels/flash_attention/paged_decode.py:184",
+             launches=launches["paged_decode"], max_abs_err=err["paged_decode"],
+             **rows[("paged_decode", 8)]),
+    ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

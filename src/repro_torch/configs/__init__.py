@@ -1,0 +1,21 @@
+"""Config registry: ``get_arch(name)`` and ``ARCHS`` for the paper's two
+models (the architectures the port serves so far)."""
+from __future__ import annotations
+
+from . import gpt2_m, gpt2_s
+from .base import ArchConfig, LayerPattern
+
+# Paper's own models (benchmarks of Section VII).
+PAPER_MODELS = (gpt2_s.CONFIG, gpt2_m.CONFIG)
+
+ARCHS = {c.name: c for c in PAPER_MODELS}
+
+
+def get_arch(name: str) -> ArchConfig:
+    try:
+        return ARCHS[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}") from None
+
+
+__all__ = ["ArchConfig", "LayerPattern", "PAPER_MODELS", "ARCHS", "get_arch"]

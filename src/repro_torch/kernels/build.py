@@ -1,0 +1,99 @@
+"""Build the hand-written CUDA kernels at first use and load them with
+``ctypes``.
+
+Each ``csrc/<name>.cu`` holds one kernel family behind a plain C interface
+(no PyTorch headers, so ``nvcc`` takes seconds, not minutes).  It is
+compiled for Hopper (``sm_90a``) into ``<repo>/build/kernels/lib<name>.so``
+— a git-ignored directory inside the checkout — and rebuilt whenever the
+source is newer than the library.  Nothing here runs at import time: the
+CPU tests import every module of the port on a machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("lora_matmul", "paged_decode")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    for cand in ((os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "src/repro_torch/kernels/csrc at first use")
+
+
+def _stale(name: str) -> bool:
+    lib = BUILD_DIR / f"lib{name}.so"
+    src = CSRC / f"{name}.cu"
+    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+
+
+def _start(name: str) -> subprocess.Popen:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build into a temp name and rename: a concurrent loader never sees a
+    # half-written library
+    fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so.tmp",
+                               dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    proc.tmp, proc.name, proc.t0 = tmp, name, time.perf_counter()
+    return proc
+
+
+def build(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, float]:
+    """Compile every stale source (every source with ``force``), one
+    ``nvcc`` per source, all started together.  Returns seconds per source
+    built; raises with the compiler's output if any build fails."""
+    procs = [_start(n) for n in names if force or _stale(n)]
+    errors = []
+    built = {}
+    for p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            os.unlink(p.tmp)
+            errors.append(f"nvcc failed for {p.name}.cu:\n{out}")
+            continue
+        os.replace(p.tmp, BUILD_DIR / f"lib{p.name}.so")
+        built[p.name] = time.perf_counter() - p.t0
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return built
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if stale."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if _stale(name):
+            build([name])
+        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by ``name``'s launch
+    entry (each library exports ``<name>_error_string``)."""
+    if err != 0:
+        fn = getattr(load(name), f"{name}_error_string")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: "
+                           f"{fn(err).decode()}")

@@ -1,0 +1,43 @@
+"""Plain PyTorch versions of decode attention (the CPU route, and the
+reference the CUDA kernel is held against on the card)."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """q (B, KH, G, D) — one query token per slot, GQA folded; k/v
+    (B, KH, L, D); lengths (B,) live entries per slot at [0, length).
+    Masked full-score softmax in f32; a slot of length 0 gives zeros."""
+    D = q.shape[-1]
+    L = k.shape[2]
+    s = torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float()) * D ** -0.5
+    mask = (torch.arange(L, device=q.device)[None, :]
+            < lengths.to(q.device).long()[:, None])[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+    return o.to(q.dtype)
+
+
+def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, lengths: torch.Tensor,
+                     block_tables: torch.Tensor) -> torch.Tensor:
+    """q (B, KH, G, D); k_pages/v_pages (KH, NP, PS, D) — the global pool
+    (page 0 is the null page); block_tables (B, MP) int32, entry j naming
+    the page of positions [j*PS, (j+1)*PS); lengths (B,).
+
+    Gathers each slot's pages into its logical (MP*PS,) view — entry i IS
+    absolute position i — and applies ``flash_decode_ref``; the twin of
+    ``repro.kernels.flash_attention.paged_decode_ref``."""
+    B = q.shape[0]
+    KH, _, PS, D = k_pages.shape
+    MP = block_tables.shape[1]
+    bt = block_tables.long()
+    k = k_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KH, MP * PS, D)
+    v = v_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KH, MP * PS, D)
+    return flash_decode_ref(q, k, v, lengths)

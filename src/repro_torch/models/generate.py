@@ -1,0 +1,83 @@
+"""Token sampling: greedy / temperature / top-k / top-p.
+
+A serving engine samples token ``t`` of request ``uid`` from its own
+``torch.Generator`` seeded with ``stream_seed(seed, uid, t)``, a pure
+function of the three.  That keeps the property of ``repro``'s
+``fold_in(fold_in(key, uid), t)`` keys — a request's tokens depend on the
+request alone, not on arrival order or which slot it landed in — but not
+its bits: the two frameworks' generators differ.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+_MASK64 = (1 << 64) - 1
+
+
+@dataclass(frozen=True)
+class SampleConfig:
+    temperature: float = 1.0
+    top_k: int = 0                # 0 = off
+    top_p: float = 1.0            # 1.0 = off
+    greedy: bool = False
+    eos_id: int = -1              # -1 = never stop early
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def stream_seed(seed: int, uid: int, token_index: int) -> int:
+    """Seed of request ``uid``'s generator for token ``token_index``."""
+    z = _splitmix64(seed & _MASK64)
+    z = _splitmix64(z ^ (uid & _MASK64))
+    z = _splitmix64(z ^ (token_index & _MASK64))
+    return z & ((1 << 63) - 1)
+
+
+def _filtered(logits: torch.Tensor, sc: SampleConfig) -> torch.Tensor:
+    logits = logits.float() / max(sc.temperature, 1e-6)
+    if sc.top_k:
+        kth = torch.topk(logits, sc.top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if sc.top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        cutoff_idx = (cum < sc.top_p).sum(-1, keepdim=True)
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return logits
+
+
+def sample_logits(logits: torch.Tensor, gen: Optional[torch.Generator],
+                  sc: SampleConfig) -> torch.Tensor:
+    """logits: (B, V) -> token ids (B,) int32; ``gen`` is unused when
+    greedy."""
+    if sc.greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(_filtered(logits, sc), dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+def sample_logits_per_key(logits: torch.Tensor,
+                          streams: Sequence[Optional[Tuple[int, int]]],
+                          sc: SampleConfig, seed: int = 0) -> torch.Tensor:
+    """logits: (B, V); streams[b] = (uid, token_index) of row b, or None
+    for a row nobody reads (it gets 0 without drawing).  Returns (B,)
+    int32."""
+    if sc.greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    out = torch.zeros(logits.shape[0], dtype=torch.int32, device=logits.device)
+    for b, st in enumerate(streams):
+        if st is None:
+            continue
+        gen = torch.Generator(device=logits.device)
+        gen.manual_seed(stream_seed(seed, *st))
+        out[b] = sample_logits(logits[b:b + 1], gen, sc)[0]
+    return out

@@ -1,0 +1,193 @@
+"""Shared primitive layers: dense (+ LoRA), norms, rotary embeddings, MLPs,
+embeddings — plain functions over explicit parameter dicts, as in
+``repro.models.layers``, so each parameter tree matches its JAX twin leaf
+for leaf.  Inits draw from an explicit CPU ``torch.Generator`` and then
+move to ``device``, so one seed gives the same weights on every device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.lora_matmul import lora_matmul
+
+
+def _cast_like(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == x.dtype else t.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# linear (+ LoRA)
+# ---------------------------------------------------------------------------
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+          lora: Optional[dict] = None, lora_scale: float = 1.0,
+          impl: str = "einsum") -> torch.Tensor:
+    """y = x @ w (+ b) (+ lora_scale * (x @ a^T) @ b_lora^T).
+
+    ``lora`` is ``{"a": (r, in), "b": (out, r)}`` or None.  ``impl="fused"``
+    with a Python-number scale routes through ``kernels.lora_matmul`` (the
+    CUDA kernel for a CUDA tensor, its plain version for a CPU one); a
+    tensor scale, or ``impl="einsum"``, takes the separate products.  The
+    bias is added after the kernel, as in JAX."""
+    if (impl == "fused" and lora is not None
+            and isinstance(lora_scale, (int, float))):
+        y = lora_matmul(x, _cast_like(x, w), _cast_like(x, lora["a"]),
+                        _cast_like(x, lora["b"]), scale=float(lora_scale))
+    else:
+        y = x @ _cast_like(x, w)
+        if lora is not None:
+            z = x @ _cast_like(x, lora["a"]).T
+            delta = z @ _cast_like(x, lora["b"]).T
+            y = y + (lora_scale * delta).to(y.dtype)
+    if b is not None:
+        y = y + _cast_like(y, b)
+    return y
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
+    t = torch.randn(shape, generator=gen, dtype=torch.float32) * std
+    return t.to(device=device, dtype=dtype)
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
+               bias: bool = False) -> dict:
+    p = {"w": _normal(gen, (d_in, d_out), d_in ** -0.5, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def init_lora(gen: torch.Generator, d_in: int, d_out: int, rank: int, dtype,
+              device) -> dict:
+    """LoRA init per Hu et al.: A ~ N(0, 1/r), B = 0 (so delta starts at 0)."""
+    return {"a": _normal(gen, (rank, d_in), rank ** -0.5, dtype, device),
+            "b": torch.zeros((d_out, rank), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# norms (computed in f32, cast back)
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(cfg, x: torch.Tensor, p: dict) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["scale"], cfg.norm_eps)
+    return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+def init_norm(cfg, d: int, dtype, device) -> dict:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).  Angles in
+    f32, the rotation in x's dtype (as in JAX)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    angles = positions[..., :, None].float() * freqs
+    cos = torch.cos(angles)[..., :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[..., :, None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def _sub(lora: Optional[dict], name: str) -> Optional[dict]:
+    return None if lora is None or name not in lora else lora[name]
+
+
+def swiglu_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
+               lora_scale: float = 1.0, dense_impl: str = "einsum"):
+    g = dense(x, p["w_gate"]["w"], lora=_sub(lora, "gate"),
+              lora_scale=lora_scale, impl=dense_impl)
+    u = dense(x, p["w_up"]["w"], lora=_sub(lora, "up"),
+              lora_scale=lora_scale, impl=dense_impl)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return dense(h, p["w_down"]["w"], lora=_sub(lora, "down"),
+                 lora_scale=lora_scale, impl=dense_impl)
+
+
+def gelu_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
+             lora_scale: float = 1.0, dense_impl: str = "einsum"):
+    h = dense(x, p["w_up"]["w"], p["w_up"].get("b"), lora=_sub(lora, "up"),
+              lora_scale=lora_scale, impl=dense_impl)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return dense(h, p["w_down"]["w"], p["w_down"].get("b"),
+                 lora=_sub(lora, "down"), lora_scale=lora_scale, impl=dense_impl)
+
+
+def apply_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
+              lora_scale: float = 1.0, dense_impl: str = "einsum"):
+    if cfg.mlp_kind == "swiglu":
+        return swiglu_mlp(cfg, x, p, lora, lora_scale, dense_impl)
+    return gelu_mlp(cfg, x, p, lora, lora_scale, dense_impl)
+
+
+def init_mlp(cfg, gen: torch.Generator, dtype, device) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    bias = cfg.norm == "layernorm"          # GPT-2 family carries biases
+    if cfg.mlp_kind == "swiglu":
+        return {"w_gate": init_dense(gen, d, ff, dtype, device),
+                "w_up": init_dense(gen, d, ff, dtype, device),
+                "w_down": init_dense(gen, ff, d, dtype, device)}
+    return {"w_up": init_dense(gen, d, ff, dtype, device, bias=bias),
+            "w_down": init_dense(gen, ff, d, dtype, device, bias=bias)}
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embeddings(cfg, gen: torch.Generator, dtype, device) -> dict:
+    p = {"tok": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype, device)}
+    if cfg.pos_emb == "learned":
+        p["pos"] = _normal(gen, (cfg.max_seq_len, cfg.d_model), 0.02, dtype, device)
+    if not cfg.tie_embeddings:
+        p["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab_size),
+                               cfg.d_model ** -0.5, dtype, device)
+    return p
+
+
+def embed(cfg, p: dict, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    x = p["tok"][tokens.long()]
+    if cfg.pos_emb == "learned":
+        pos_table = p["pos"]
+        x = x + pos_table[positions.long().clamp(0, pos_table.shape[0] - 1)]
+    return x
+
+
+def unembed(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+    return x @ _cast_like(x, w)

@@ -1,0 +1,103 @@
+"""Top-level model for paged serving: init, one paged decode step, one
+chunked-prefill step.
+
+Params tree (the per-layer twin of ``repro``'s stacked one):
+    {"embed": {...}, "layers": [block dict per layer], "final_norm": {...}}
+LoRA tree: a list with one ``{"mixer": {"q": {"a", "b"}, ...}}`` dict per
+layer (empty dicts where a layer has no adapted projection).
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from ..kernels.backend import resolve_device
+from . import stack as stack_mod
+from .layers import apply_norm, embed, init_embeddings, init_lora, init_norm, unembed
+from .stack import Runtime
+
+_ATTN_TARGETS = ("q", "k", "v", "o")
+_MLP_TARGETS = ("gate", "up", "down")
+
+
+def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
+                device="cuda") -> dict:
+    """Random weights from ``gen`` (a CPU generator: the same seed gives
+    the same weights on every device)."""
+    device = resolve_device(device)
+    return {"embed": init_embeddings(cfg, gen, dtype, device),
+            "layers": [stack_mod.init_block(cfg, pat, gen, dtype, device)
+                       for pat in cfg.layer_kinds],
+            "final_norm": init_norm(cfg, cfg.d_model, dtype, device)}
+
+
+def _lora_dims(cfg, pat, target: str):
+    """-> (block_key, d_in, d_out) for a target name, or None if absent."""
+    h, kh, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    if target in _ATTN_TARGETS and pat.mixer == "attention":
+        return {"q": ("mixer", d, h * hd), "k": ("mixer", d, kh * hd),
+                "v": ("mixer", d, kh * hd), "o": ("mixer", h * hd, d)}[target]
+    if target in _MLP_TARGETS and pat.mlp == "dense":
+        ff = cfg.d_ff
+        return ("mlp", ff, d) if target == "down" else ("mlp", d, ff)
+    return None
+
+
+def init_lora_stack(cfg, gen: torch.Generator, rank: Optional[int] = None,
+                    dtype=torch.float32, device="cuda") -> List[dict]:
+    """LoRA adapters for ``cfg.lora_targets``, one dict per layer."""
+    device = resolve_device(device)
+    rank = rank or cfg.lora_rank
+    out = []
+    for pat in cfg.layer_kinds:
+        block: dict = {}
+        for t in cfg.lora_targets:
+            dims = _lora_dims(cfg, pat, t)
+            if dims is None:
+                continue
+            where, d_in, d_out = dims
+            block.setdefault(where, {})[t] = init_lora(gen, d_in, d_out, rank,
+                                                       dtype, device)
+        out.append(block)
+    return out
+
+
+def paged_decode_step(cfg, params: dict, token: torch.Tensor, caches,
+                      block_tables: torch.Tensor, cur_index: torch.Tensor, *,
+                      lora=None, rt: Runtime = Runtime()):
+    """One decode step over the paged KV pool.  token: (B, 1) int;
+    block_tables: (B, MP) int32; cur_index: (B,) int32 absolute positions.
+    Returns (logits (B, V), caches) — the pools updated in place."""
+    cur_index = cur_index.to(torch.int32)
+    x = embed(cfg, params["embed"], token, cur_index[:, None])
+    x, caches = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
+                                      mode="decode", caches=caches,
+                                      cur_index=cur_index, block_tables=block_tables)
+    x = apply_norm(cfg, x, params["final_norm"])
+    return unembed(cfg, params["embed"], x)[:, 0], caches
+
+
+def paged_prefill_chunk(cfg, params: dict, tokens: torch.Tensor, caches,
+                        block_table: torch.Tensor, start: int, logit_index: int,
+                        *, lora=None, rt: Runtime = Runtime()):
+    """One chunked-prefill step: tokens (1, C) with C == page_size, the
+    prompt chunk covering absolute positions [start, start + C);
+    block_table (MP,) the slot's page row (the chunk's page allocated);
+    logit_index the CHUNK-relative index to read logits at.
+    Returns (logits (1, V), caches)."""
+    C = tokens.shape[1]
+    positions = start + torch.arange(C, dtype=torch.int32, device=tokens.device)
+    x = embed(cfg, params["embed"], tokens, positions)
+    x, caches = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
+                                      mode="chunk", caches=caches,
+                                      cur_index=start, block_tables=block_table)
+    x = x[:, logit_index:logit_index + 1]
+    x = apply_norm(cfg, x, params["final_norm"])
+    return unembed(cfg, params["embed"], x)[:, 0], caches
+
+
+def init_paged_cache(cfg, num_pages: int, page_size: int, dtype=torch.float32,
+                     device="cuda"):
+    return stack_mod.init_paged_stack_cache(cfg, num_pages, page_size, dtype,
+                                            resolve_device(device))

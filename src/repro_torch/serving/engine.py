@@ -1,0 +1,276 @@
+"""Continuous-batching serving engine over a paged KV cache, single
+adapter — the port of the paged path of ``repro.serving.engine``.
+
+* ``max_slots`` sequences decode together; the KV lives in a global page
+  pool ``(KH, num_pages, page_size, D)`` per layer, addressed through
+  per-slot ``(max_pages,)`` block tables.
+* The decode step keeps its state on the device: page alloc/free
+  (``serving.paging``), the decode itself, greedy sampling and the
+  per-slot bookkeeping run as tensor code; one host read per step brings
+  back the (slots,) next tokens and done flags.
+* Admission is reservation-based FIFO: the host mirrors a conservative
+  free-page count and admits a request only when its worst-case demand
+  ``ceil(min(P + max_new, max_len) / page_size)`` fits, so the on-device
+  allocator never underflows (head-of-line backpressure otherwise).
+* Prefill is chunked: prompts stream through ``paged_prefill_chunk`` one
+  page (``page_size`` tokens) at a time.
+* Token ``t`` of request ``uid`` is sampled from a generator seeded by
+  ``(seed, uid, t)`` alone, so outputs do not depend on arrival order,
+  slot or page layout (``models.generate``).
+
+Not ported yet (see ROADMAP.md): the slab and naive engines, preemption
+and residency deadlines, the NaN quarantine, and multi-tenant adapters.
+"""
+from __future__ import annotations
+
+import collections
+import time
+import warnings
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+from ..interop import tree_to
+from ..kernels.backend import resolve_device
+from ..models import model as model_mod
+from ..models.generate import SampleConfig, sample_logits_per_key
+from ..models.stack import Runtime, default_serve_runtime
+from . import paging
+
+
+class AdmissionError(ValueError):
+    """A request the engine can NEVER serve, rejected at ``submit()`` with
+    a typed reason (``empty-prompt`` | ``prompt-too-long``)."""
+
+    def __init__(self, reason: str, msg: str):
+        super().__init__(msg)
+        self.reason = reason
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int = 32
+    eos_id: int = -1
+    # filled by the engine
+    output: List[int] = field(default_factory=list)
+    done: bool = False
+
+
+class ServingEngine:
+    """``params``/``lora`` are the port's trees (``models.init_params`` /
+    ``init_lora_stack``, or ``interop.params_from_numpy``); they are moved
+    to ``device`` and cast to ``dtype``, the dtype the KV pool is kept in
+    too.  ``device="cuda"`` without a card raises."""
+
+    def __init__(self, cfg, params, *, lora=None, rt: Optional[Runtime] = None,
+                 max_slots: int = 4, max_len: int = 256,
+                 sc: SampleConfig = SampleConfig(greedy=True), seed: int = 0,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 device="cuda", dtype=torch.float32):
+        if cfg.attn_window or any(p.mixer != "attention" for p in cfg.pattern):
+            raise NotImplementedError(
+                "paged KV requires an attention-only, non-windowed pattern")
+        if max_len % page_size:
+            raise ValueError(f"max_len={max_len} must be a multiple of "
+                             f"page_size={page_size} (chunk == page)")
+        self.device = dev = resolve_device(device)
+        self.cfg, self.sc, self.seed = cfg, sc, seed
+        self.rt = rt if rt is not None else default_serve_runtime()
+        self.params = tree_to(params, dev, dtype)
+        self.lora = None if lora is None else tree_to(lora, dev, dtype)
+        self.max_slots, self.max_len = max_slots, max_len
+        self.page_size = page_size
+        self.max_pages = max_len // page_size
+        # default pool matches slab capacity exactly (+ the null page)
+        self.num_pages = (num_pages if num_pages is not None
+                          else max_slots * self.max_pages + 1)
+        if self.num_pages < self.max_pages + 1:
+            raise ValueError("num_pages too small for a single request")
+
+        self.queue: collections.deque[Request] = collections.deque()
+        self.slots: List[Optional[Request]] = [None] * max_slots
+        B = max_slots
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._last = torch.zeros(B, **i32)
+        self._positions = torch.zeros(B, **i32)     # next write index
+        self._live = torch.zeros(B, dtype=torch.bool, device=dev)
+        self._ngen = torch.zeros(B, **i32)
+        self._maxnew = torch.zeros(B, **i32)
+        self._eos = torch.full((B,), -1, **i32)
+        self._bidx = torch.arange(B, device=dev)
+        self.caches = model_mod.init_paged_cache(cfg, self.num_pages, page_size,
+                                                 dtype, dev)
+        self._bt = torch.zeros((B, self.max_pages), **i32)
+        self._pager = paging.init_pager(self.num_pages, dev)
+        # conservative host mirror of the on-device free count
+        self._free_host = self.num_pages - 1
+        self._reserved = [0] * B
+        # host-clock seconds around work that ends in a host read of its
+        # result (so the device work is inside the interval)
+        self.stats = {"decode_steps": 0, "prefill_chunks": 0,
+                      "decode_s": 0.0, "prefill_s": 0.0}
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        if len(req.prompt) == 0:
+            raise AdmissionError("empty-prompt", f"request {req.uid}: empty prompt")
+        if len(req.prompt) >= self.max_len:
+            raise AdmissionError(
+                "prompt-too-long",
+                f"request {req.uid}: prompt length {len(req.prompt)} leaves "
+                f"no room to decode (max_len={self.max_len})")
+        self.queue.append(req)
+
+    def prefill_compiles(self) -> int:
+        """Number of distinct prefill programs.  Always 1: every chunk of
+        every prompt runs the same fixed-shape ``paged_prefill_chunk``
+        (chunk == page) and PyTorch executes it eagerly, so no prompt
+        length ever adds a program; kept for the JAX engine's interface."""
+        return 1
+
+    def pages_in_use(self) -> int:
+        """Pages currently allocated out of the pool."""
+        return self.num_pages - 1 - int(self._pager["head"])
+
+    def check_consistency(self, resync: bool = True) -> bool:
+        """Audit the host reservation mirror against the on-device free
+        list: free + reserved must equal the pool, and the allocator can
+        never have handed out more pages than were reserved.  On drift
+        warn and rebuild the mirror from the live slots.  Returns True
+        when the mirror was consistent."""
+        used = self.pages_in_use()
+        reserved = sum(self._reserved)
+        ok = (self._free_host == self.num_pages - 1 - reserved and used <= reserved)
+        if not ok and resync:
+            warnings.warn(
+                f"page-accounting drift: free_host={self._free_host} "
+                f"reserved={reserved} in_use={used} pool={self.num_pages - 1}; "
+                "resyncing from live slots", RuntimeWarning, stacklevel=2)
+            self._reserved = [self._worst_pages(r) if r is not None else 0
+                              for r in self.slots]
+            self._free_host = self.num_pages - 1 - sum(self._reserved)
+        return ok
+
+    def _worst_pages(self, req: Request) -> int:
+        """Worst-case page demand: every position the request can ever
+        write KV at is < min(P + max_new, max_len)."""
+        toks = min(len(req.prompt) + req.max_new_tokens, self.max_len)
+        return -(-toks // self.page_size)
+
+    def _release(self, s: int) -> None:
+        self._free_host += self._reserved[s]
+        self._reserved[s] = 0
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+    def _admit_one(self, s: int, req: Request) -> bool:
+        """Stream ``req``'s prompt through the chunk step (one page per
+        chunk), sample token 0 and claim slot ``s``.  The caller has
+        reserved ``_worst_pages(req)``.  Returns False when the request
+        finished on this first token (pages released, slot stays free)."""
+        P, PS, dev = len(req.prompt), self.page_size, self.device
+        t0 = time.perf_counter()
+        one = torch.ones(1, dtype=torch.bool, device=dev)
+        logits = None
+        for start in range(0, P, PS):
+            m = min(PS, P - start)
+            chunk = req.prompt[start:start + m] + [0] * (PS - m)
+            tokens = torch.tensor([chunk], dtype=torch.int32, device=dev)
+            self._pager, newp, _ = paging.alloc_pages(self._pager, one)
+            self._bt[s, start // PS] = newp[0]
+            li = min(max(P - 1 - start, 0), PS - 1)
+            logits, self.caches = model_mod.paged_prefill_chunk(
+                self.cfg, self.params, tokens, self.caches, self._bt[s], start, li,
+                lora=self.lora, rt=self.rt)
+            self.stats["prefill_chunks"] += 1
+        tok = int(sample_logits_per_key(logits, [(req.uid, 0)], self.sc, self.seed)[0])
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        req.output.append(tok)
+        if tok == req.eos_id or len(req.output) >= req.max_new_tokens or P >= self.max_len:
+            req.done = True
+            self._pager, self._bt = paging.free_pages(self._pager, self._bt,
+                                                      self._bidx == s)
+            self._release(s)
+            return False
+        self._last[s] = tok
+        self._positions[s] = P
+        self._live[s] = True
+        self._ngen[s] = 1
+        self._maxnew[s] = req.max_new_tokens
+        self._eos[s] = req.eos_id
+        self.slots[s] = req
+        return True
+
+    def _admit(self) -> None:
+        for s in range(self.max_slots):
+            while self.slots[s] is None and self.queue:
+                worst = self._worst_pages(self.queue[0])
+                if worst > self._free_host:
+                    return          # FIFO backpressure: wait for pages
+                self._free_host -= worst
+                self._reserved[s] = worst
+                if self._admit_one(s, self.queue.popleft()):
+                    break
+
+    # ------------------------------------------------------------------
+    # stepping
+    # ------------------------------------------------------------------
+    def _decode(self):
+        """Page alloc + decode + sample + bookkeeping + page free for all
+        slots, as tensor code.  Returns (next tokens, done) on device."""
+        PS, MP = self.page_size, self.max_pages
+        live, positions = self._live, self._positions
+        # a live slot about to write at a page boundary needs a fresh page
+        need = live & (positions % PS == 0)
+        self._pager, newp, _ = paging.alloc_pages(self._pager, need)
+        page_idx = torch.clamp(positions // PS, max=MP - 1).long()
+        cur = self._bt[self._bidx, page_idx]
+        self._bt[self._bidx, page_idx] = torch.where(need, newp, cur)
+        logits, self.caches = model_mod.paged_decode_step(
+            self.cfg, self.params, self._last[:, None], self.caches, self._bt,
+            positions, lora=self.lora, rt=self.rt)
+        streams = [None if r is None else (r.uid, len(r.output)) for r in self.slots]
+        nxt = sample_logits_per_key(logits, streams, self.sc, self.seed)
+        nxt = torch.where(live, nxt, torch.zeros_like(nxt))
+        ngen1 = self._ngen + live.to(torch.int32)
+        done = live & ((nxt == self._eos) | (ngen1 >= self._maxnew)
+                       | (positions + 1 >= self.max_len))
+        self._pager, self._bt = paging.free_pages(self._pager, self._bt, done)
+        self._last = torch.where(live, nxt, self._last)
+        self._positions = positions + live.to(torch.int32)
+        self._live = live & ~done
+        self._ngen = ngen1
+        return nxt, done
+
+    def step(self) -> int:
+        """Admit + one decode round for all live slots.  Returns the number
+        of live sequences decoded this step."""
+        self._admit()
+        live = [s for s in range(self.max_slots) if self.slots[s] is not None]
+        if not live:
+            return 0
+        t0 = time.perf_counter()
+        nxt, done = self._decode()
+        nxt_h, done_h = nxt.tolist(), done.tolist()      # the step's one host read
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += 1
+        for s in live:
+            req = self.slots[s]
+            req.output.append(nxt_h[s])
+            if done_h[s]:
+                req.done = True
+                self.slots[s] = None
+                # pages went back on the device this same step
+                self._release(s)
+        return len(live)
+
+    def run(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if not self.queue and all(s is None for s in self.slots):
+                self.check_consistency()    # drained: all pages home
+                return
+            self.step()
