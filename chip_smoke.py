@@ -7,16 +7,28 @@ card:
 
 Phases (each prints its own lines; any failure exits non-zero):
  1. device: name, power limit, TF32 off for the float32 references;
- 2. build: both CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
- 3. kernel vs plain PyTorch version, on the card, at the serving path's
-    shapes (plus ragged ones), float32 and bfloat16;
+ 2. build: all four CUDA sources from src/repro_torch/kernels/csrc with
+    nvcc, in parallel;
+ 3. kernel vs plain PyTorch version, on the card, at the serving and
+    training paths' shapes (plus ragged ones), float32 and bfloat16: the
+    forward LoRA matmul, paged decode, the dX and rank-reduce backward
+    kernels, the autograd backward of ``lora_matmul`` against autograd of
+    its plain version, and the causal flash-attention forward;
  4. times: each kernel, its plain version and one library call, CUDA
     events, median of 60 launches with L2 flushed between launches, beside
     the least time the card could take for the same work;
  5. serving: ServingEngine on full-width GPT-2-S (f32, 8 slots, 512
     positions, 16-token pages) drains 16 requests; the launch counters,
     reset just before, must show the kernels carried the path; one decode
-    step's logits are held against the plain path on the card.
+    step's logits are held against the plain path on the card;
+ 6. training: two SFL global rounds of full-width GPT-2-S through
+    ``repro_torch.launch.train.run`` (3 clients x 4 x 64 tokens, 6 local
+    steps, split 6, AdamW 4e-4, LoRA B != 0); the launch counters, reset
+    just before, must equal the per-step counts the code implies; one
+    local step through the kernels is held against the plain path;
+ 7. the flash-attention op's own path (no model path calls it): the
+    op's entry point once per layer at the training step's attention
+    shape, launch counter reset just before.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -34,6 +46,11 @@ PEAK_FLOPS = {"float32": 67e12,     # outside the tensor cores
               "bfloat16": 989e12}   # dense tensor-core rate
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}        # lora_matmul atol = rtol
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# backward kernels: f32 sums over 768 terms with TF32 off; bf16 gradients
+# at repro's GRAD_TOLS
+GRAD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+            "bfloat16": dict(atol=2e-1, rtol=5e-2)}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # repro's TOLS for f32
 
 
 def fail(msg: str) -> None:
@@ -84,6 +101,14 @@ def host_us(torch, fn, n=200):
     return (time.perf_counter() - t0) / n * 1e6
 
 
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by) of f32 work: the larger of bytes over the
+    memory rate and operations over the f32 rate outside tensor cores."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -97,8 +122,13 @@ def main() -> None:
     from repro_torch import models as TM
     from repro_torch.configs import get_arch
     from repro_torch.kernels import backend, build
-    from repro_torch.kernels.flash_attention import paged_decode, paged_decode_ref
-    from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref, paged_decode,
+                                                     paged_decode_ref)
+    from repro_torch.kernels.lora_matmul import (lora_matmul, lora_matmul_dx_kernel,
+                                                 lora_matmul_dx_ref, lora_matmul_ref,
+                                                 lora_rank_reduce_kernel,
+                                                 lora_rank_reduce_ref)
     from repro_torch.serving import Request, ServingEngine
 
     dev = torch.device("cuda", 0)
@@ -115,6 +145,8 @@ def main() -> None:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     secs = build.build(force=True)
+    if sorted(secs) != sorted(build.SOURCES):
+        fail(f"built {sorted(secs)}, expected {sorted(build.SOURCES)}")
     print(f"[build] nvcc sm_90a, in parallel: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.1f}s")
@@ -141,8 +173,101 @@ def main() -> None:
         lens = torch.tensor(lengths, dtype=torch.int32)
         return q, kp, vp, lens.to(dev), bt.to(dev)
 
+    def close(op, what, got, want, tol):
+        e = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+        good = (torch.allclose(got.float(), want.float(), **tol)
+                and bool(torch.isfinite(got).all()))
+        print(f"[check] {op} {what}: max_abs_err={e:.3g} atol={tol['atol']} "
+              f"rtol={tol['rtol']} {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"{op} disagrees with its plain version ({what})")
+        return e
+
+    def grad_inputs(M, K, N, r, dt):
+        # x, dY ~ N(0, 1), A ~ N(0, 1/K), B ~ N(0, 1/N): z = x A^T and
+        # z2 = dY B are O(1), so each term the backward sums is O(1)
+        return (randn(M, K).to(dev, dt), randn(K, N, std=K ** -0.5).to(dev, dt),
+                randn(r, K, std=K ** -0.5).to(dev, dt),
+                randn(N, r, std=N ** -0.5).to(dev, dt))
+
+    def check_backward(dt, dn):
+        """dX and rank reduce alone, then the autograd backward of
+        lora_matmul against autograd of its plain version (all four
+        cotangents, W frozen and not)."""
+        gt = GRAD_TOL[dn]
+        for M, K, N, r in ((256, 768, 768, 4), (768, 768, 768, 4), (33, 70, 45, 2)):
+            dy = randn(M, N).to(dev, dt)
+            _, w, a, b = grad_inputs(M, K, N, r, dt)
+            dx = lora_matmul_dx_kernel(dy, w, a, b, scale)
+            torch.cuda.synchronize()
+            e = close("lora_matmul_dx", f"{dn} M={M} K={K} N={N} r={r}", dx,
+                      lora_matmul_dx_ref(dy, w, a, b, scale), gt)
+            if dn == "float32" and K == 768:
+                err["lora_matmul_dx"] = max(err["lora_matmul_dx"], e)
+        for M, r, N in ((768, 4, 768), (33, 2, 45)):
+            u = randn(M, r, std=M ** -0.5).to(dev)          # out is O(1)
+            v = randn(M, N).to(dev, dt)
+            out = lora_rank_reduce_kernel(u, v)
+            again = lora_rank_reduce_kernel(u, v)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                fail(f"lora_rank_reduce is not deterministic ({dn}, M={M})")
+            e = close("lora_rank_reduce", f"{dn} M={M} r={r} N={N} (v {dn}, out f32; "
+                      "two runs bit-equal)", out, lora_rank_reduce_ref(u, v),
+                      dict(atol=1e-4, rtol=1e-4))
+            if dn == "float32" and M == 768:
+                err["lora_rank_reduce"] = max(err["lora_rank_reduce"], e)
+        for M, K, N, r in ((256, 768, 768, 4), (33, 70, 45, 2)):
+            for need_w in (False, True):
+                ins = grad_inputs(M, K, N, r, dt)
+                cot = randn(M, N).to(dev, dt)
+                need = (True, need_w, True, True)
+                ink = [t.clone().requires_grad_(n) for t, n in zip(ins, need)]
+                inr = [t.clone().requires_grad_(n) for t, n in zip(ins, need)]
+                backend.reset_launch_counts()
+                lora_matmul(*ink, scale=scale).backward(cot)
+                torch.cuda.synchronize()
+                want = {"lora_matmul": 1, "lora_matmul_dx": 1, "lora_rank_reduce": 2}
+                if dict(backend.LAUNCH_COUNTS) != want:
+                    fail(f"autograd backward launched {dict(backend.LAUNCH_COUNTS)}, "
+                         f"expected {want}")
+                lora_matmul_ref(*inr, scale).backward(cot)
+                # the exact cotangents (float64 autograd of the plain version):
+                # how far each f32 side lies from them, beside max|ref|
+                in64 = [t.double().requires_grad_(n) for t, n in zip(ins, need)]
+                lora_matmul_ref(*in64, scale).backward(cot.double())
+                for name, tk, tr, t64 in zip(("dx", "dw", "da", "db"), ink, inr, in64):
+                    if tr.grad is None:
+                        if tk.grad is not None:
+                            fail(f"autograd backward formed {name} for a frozen input")
+                        continue
+                    close("lora_matmul autograd", f"{dn} {name} M={M} K={K} N={N} r={r} "
+                          f"w.requires_grad={need_w}", tk.grad, tr.grad, gt)
+                    ek, ep = ((g.double() - t64.grad).abs().max().item()
+                              for g in (tk.grad, tr.grad))
+                    print(f"[check]   {name} against float64 autograd: kernel path "
+                          f"{ek:.3g}, plain {dn} path {ep:.3g}, max|ref| "
+                          f"{t64.grad.abs().max().item():.4g}")
+
+    def check_attention(dt, dn):
+        tol = dict(atol=ATTN_TOL[dn], rtol=ATTN_TOL[dn])
+        for B, Sq, Sk, H, KH, D, win in ((12, 64, 64, 12, 12, 64, 0),
+                                         (1, 1024, 1024, 12, 12, 64, 0),
+                                         (1, 40, 72, 2, 1, 16, 0),
+                                         (1, 128, 128, 4, 2, 128, 33)):
+            q = randn(B, Sq, H, D).to(dev, dt)
+            k, v = randn(B, Sk, KH, D).to(dev, dt), randn(B, Sk, KH, D).to(dev, dt)
+            o = flash_attention(q, k, v, window=win)
+            torch.cuda.synchronize()
+            e = close("flash_attention", f"{dn} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} "
+                      f"D={D} window={win}", o, flash_attention_ref(q, k, v, window=win),
+                      tol)
+            if dn == "float32" and D == 64:
+                err["flash_attention"] = max(err["flash_attention"], e)
+
     scale = 2.0                       # GPT-2-S: lora_alpha / lora_rank = 8 / 4
-    err = {"lora_matmul": 0.0, "paged_decode": 0.0}
+    err = {"lora_matmul": 0.0, "paged_decode": 0.0, "lora_matmul_dx": 0.0,
+           "lora_rank_reduce": 0.0, "flash_attention": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
         for M, K, N, r in ((8, 768, 768, 4), (16, 768, 768, 4), (5, 100, 70, 3)):
@@ -177,6 +302,8 @@ def main() -> None:
                 fail(f"paged_decode disagrees with its plain version ({dn}, G={G})")
             if dn == "float32" and G == 1:
                 err["paged_decode"] = max(err["paged_decode"], e)
+        check_backward(dt, dn)
+        check_attention(dt, dn)
 
     # -- 4. times at the serving path's shapes (f32, as the engine serves) --
     # reading 64 MB (> the 50 MB L2) between launches evicts the operands,
@@ -235,6 +362,63 @@ def main() -> None:
           f"{lib * 1e3:.2f}us bound {max(t_bytes, t_ops) * 1e3:.2f}us ({nbytes} B, {flops} flop); "
           f"kernel with L2 warm {warm * 1e3:.2f}us; back-to-back {b2b:.2f}us/call "
           f"(host clock, L2 warm)")
+    # -- 4b. times at the training path's shapes (f32) -------------------------
+    # the forward kernel was designed for serving M (8-16 rows); record what
+    # it does at the server's training M = K*b*S = 768
+    M, K, N, r = 768, 768, 768, 4
+    x, w, a, b = lora_inputs(M, K, N, r, torch.float32)
+    ms = time_ms(torch, lambda: lora_matmul(x, w, a, b, scale=scale), flush)
+    plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
+    lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
+    bms, bby = bound(4 * (M * K + K * N + r * K + N * r + M * N),
+                     2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
+    rows[("lora_matmul", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                                    bound_by=bby)
+    print(f"[time] lora_matmul f32 M={M} K={K} N={N} r={r} (training M): kernel "
+          f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(torch.matmul) "
+          f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby})")
+    for M in (256, 768):               # one client's rows; the server's rows
+        dy = randn(M, N).to(dev)
+        _, w, a, b = lora_inputs(M, K, N, r, torch.float32)
+        ms = time_ms(torch, lambda: lora_matmul_dx_kernel(dy, w, a, b, scale), flush)
+        plain = time_ms(torch, lambda: lora_matmul_dx_ref(dy, w, a, b, scale), flush)
+        lib = time_ms(torch, lambda: dy @ w.T + scale * ((dy @ b) @ a), flush)
+        bms, bby = bound(4 * (M * N + K * N + r * K + N * r + M * K),
+                         2 * M * N * K + 2 * M * N * r + 2 * M * r * K)
+        rows[("lora_matmul_dx", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                           bound_ms=bms, bound_by=bby)
+        print(f"[time] lora_matmul_dx f32 M={M} K={K} N={N} r={r}: kernel "
+              f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(dy @ w.T + "
+              f"s*(dy @ b) @ a) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}); "
+              f"{2 * M * N * K / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    M, r, N = 768, 4, 768
+    u, v = randn(M, r).to(dev), randn(M, N).to(dev)
+    ms = time_ms(torch, lambda: lora_rank_reduce_kernel(u, v), flush)
+    plain = time_ms(torch, lambda: lora_rank_reduce_ref(u, v), flush)
+    lib = time_ms(torch, lambda: u.T @ v, flush)
+    bms, bby = bound(4 * (M * r + M * N + r * N), 2 * M * r * N)
+    rows[("lora_rank_reduce", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                         bound_ms=bms, bound_by=bby)
+    print(f"[time] lora_rank_reduce f32 M={M} r={r} N={N}: kernel {ms * 1e3:.2f}us "
+          f"plain {plain * 1e3:.2f}us library(u.T @ v) {lib * 1e3:.2f}us bound "
+          f"{bms * 1e3:.2f}us ({bby})")
+    for B, S in ((12, 64), (1, 1024)):     # the training batch; one long sequence
+        H = KH = 12
+        D = 64
+        q, k, v = (randn(B, S, H, D).to(dev) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = time_ms(torch, lambda: flash_attention(q, k, v), flush)
+        plain = time_ms(torch, lambda: flash_attention_ref(q, k, v), flush)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush)
+        visible = S * (S + 1) // 2                  # causal pairs per head
+        bms, bby = bound(4 * (2 * B * S * H * D + 2 * B * S * KH * D),
+                         4 * B * H * visible * D)
+        rows[("flash_attention", B)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                            bound_ms=bms, bound_by=bby)
+        print(f"[time] flash_attention f32 B={B} S={S} H={H} D={D} causal: kernel "
+              f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(SDPA is_causal, "
+              f"(B, H, S, D) layout) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby})")
     del flush_buf
 
     # -- 5. serving on full-width GPT-2-S ------------------------------------
@@ -320,6 +504,104 @@ def main() -> None:
     if not good:
         fail("decode step through the kernels disagrees with the plain path")
 
+    # -- 6. training on full-width GPT-2-S -------------------------------------
+    serve_launches = launches
+    from repro_torch.launch.train import build_argparser, run
+    from repro_torch.tree import tree_leaves
+    targs = build_argparser().parse_args(
+        ["--arch", "gpt2-s", "--clients", "3", "--batch", "4", "--seq", "64",
+         "--local-steps", "6", "--steps", "12", "--split", "6", "--lr", "4e-4",
+         "--device", "cuda", "--seed", "0"])
+    lora_t = TM.init_lora_stack(cfg, torch.Generator().manual_seed(1), None,
+                                torch.float32, "cuda")
+    g_b = torch.Generator().manual_seed(2)
+    for layer in lora_t:         # B != 0: both adapter factors get gradients
+        for ad in layer["mixer"].values():
+            ad["b"].copy_(torch.randn(ad["b"].shape, generator=g_b) * 0.02)
+    backend.reset_launch_counts()        # just before the main path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist, sfl = run(targs, lora=lora_t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = dict(backend.LAUNCH_COUNTS)
+    Kc, L, ell = targs.clients, cfg.num_layers, sfl.ell_c
+    steps = len(hist.losses)
+    per_step = {"lora_matmul": 2 * (Kc * ell + L - ell),
+                "lora_rank_reduce": 4 * (Kc * ell + L - ell),
+                "lora_matmul_dx": 2 * (Kc * (ell - 1) + L - ell)}
+    print(f"[train] SFL on full-width GPT-2-S: K={Kc} clients x b={targs.batch} x "
+          f"S={targs.seq}, I={targs.local_steps} local steps, {len(hist.round_losses)} "
+          f"rounds, split ell_c={ell} of L={L} (the allocator's choice is printed "
+          f"above), AdamW lr={targs.lr}, f32, LoRA r={cfg.lora_rank} on "
+          f"{cfg.lora_targets} with B != 0; wall {wall:.2f}s incl. data and allocator")
+    print(f"[train] per round: " + ", ".join(
+        f"{t:.3f}s ({t / targs.local_steps * 1e3:.1f} ms/local step)"
+        for t in hist.round_seconds) + "  (host clock, round ends in a host read "
+        "of its losses; FedAvg included)")
+    print(f"[train] losses: {' '.join(f'{x:.4f}' for x in hist.losses)} "
+          f"({hist.losses[0]:.4f} -> {hist.losses[-1]:.4f})")
+    print(f"[train] launches during the run: {train_launches}; per local step "
+          f"expected {per_step} (lora_matmul 2(K*ell_c + L - ell_c), rank reduce "
+          f"twice that, dX 2(K*(ell_c - 1) + L - ell_c): layer 0's input needs no "
+          f"gradient)")
+    if not all(math.isfinite(x) for x in hist.losses) or steps != 12:
+        fail(f"training losses not finite or wrong count: {hist.losses}")
+    if hist.rolled_back_rounds:
+        fail(f"rounds rolled back: {hist.rolled_back_rounds}")
+    for k, v in per_step.items():
+        if train_launches.get(k, 0) != v * steps or v == 0:
+            fail(f"{k}: {train_launches.get(k, 0)} launches in {steps} local steps, "
+                 f"expected {v * steps}")
+
+    # one local step from the trained state, kernels vs plain path
+    rng = np.random.default_rng(5)
+    tok = rng.integers(0, cfg.vocab_size, (Kc, targs.batch, targs.seq)).astype(np.int32)
+    batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=-1)}
+    outs = []
+    for rt in (TM.default_train_runtime(), TM.Runtime()):
+        sfl.rt = rt
+        st, m = sfl.local_step(state, batch)
+        torch.cuda.synchronize()
+        outs.append((float(m["loss"]), st))
+    sfl.rt = TM.default_train_runtime()
+    (lk, sk), (lp, sp) = outs
+    pairs = [(a_, b_) for side in ("lora_client", "lora_server")
+             for a_, b_ in zip(tree_leaves(getattr(sk, side)),
+                               tree_leaves(getattr(sp, side)))]
+    e_ad = max((a_ - b_).abs().max().item() for a_, b_ in pairs)
+    ad_tol = targs.lr * 1e-2
+    good = abs(lk - lp) <= 1e-4 * max(1.0, abs(lp)) and e_ad <= ad_tol
+    print(f"[train] local_step kernels vs plain path (Runtime()): loss {lk:.6f} vs "
+          f"{lp:.6f} (tol 1e-4 rel), adapters max_abs_err={e_ad:.3g} "
+          f"(tol lr*1e-2 = {ad_tol:.1g}) {'ok' if good else 'FAIL'}")
+    if not good:
+        fail("a local step through the kernels disagrees with the plain path")
+
+    # -- 7. the flash_attention op's own path --------------------------------
+    # No model path calls kernels.flash_attention.flash_attention (training
+    # attention is plain PyTorch, as it is jnp in JAX), so its path is the
+    # op's entry point: once per layer at the training step's attention
+    # shape (K*b sequences of S tokens, 12 heads of 64).
+    q, k, v = (randn(Kc * targs.batch, targs.seq, cfg.num_heads, cfg.head_dim).to(dev)
+               for _ in range(3))
+    backend.reset_launch_counts()        # just before the op's path
+    outs = [flash_attention(q, k, v) for _ in range(L)]
+    torch.cuda.synchronize()
+    attn_launches = dict(backend.LAUNCH_COUNTS)
+    good = (attn_launches == {"flash_attention": L}
+            and all(tuple(o.shape) == tuple(q.shape) and bool(torch.isfinite(o).all())
+                    for o in outs))
+    print(f"[attn] flash_attention op, {L} calls at (B, S, H, D) = {tuple(q.shape)}: "
+          f"launches {attn_launches} {'ok' if good else 'FAIL'}")
+    if not good:
+        fail(f"flash_attention op path launched {attn_launches}, expected "
+             f"{{'flash_attention': {L}}}, or gave a bad output")
+
+    launches = {k: serve_launches.get(k, 0) + train_launches.get(k, 0)
+                + attn_launches.get(k, 0)
+                for k in set(serve_launches) | set(train_launches) | set(attn_launches)}
+
     # -- result ---------------------------------------------------------------
     kernels = [
         dict(name="lora_matmul", route="cuda",
@@ -332,6 +614,22 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention/paged_decode.py:184",
              launches=launches["paged_decode"], max_abs_err=err["paged_decode"],
              **rows[("paged_decode", 8)]),
+        dict(name="lora_matmul_dx", route="cuda",
+             source="src/repro_torch/kernels/csrc/lora_matmul_bwd.cu",
+             replaces="src/repro/kernels/lora_matmul/kernel.py:317",
+             launches=launches["lora_matmul_dx"], max_abs_err=err["lora_matmul_dx"],
+             **rows[("lora_matmul_dx", 768)]),
+        dict(name="lora_rank_reduce", route="cuda",
+             source="src/repro_torch/kernels/csrc/lora_matmul_bwd.cu",
+             replaces="src/repro/kernels/lora_matmul/kernel.py:371",
+             launches=launches["lora_rank_reduce"], max_abs_err=err["lora_rank_reduce"],
+             **rows[("lora_rank_reduce", 768)]),
+        # launched on the op's own path (phase 7) only: no model path calls it
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:72",
+             launches=launches["flash_attention"],
+             max_abs_err=err["flash_attention"], **rows[("flash_attention", 12)]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

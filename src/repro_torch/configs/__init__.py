@@ -1,9 +1,11 @@
 """Config registry: ``get_arch(name)`` and ``ARCHS`` for the paper's two
-models (the architectures the port serves so far)."""
+models (the architectures the port runs so far), ``TrainConfig`` and the
+wireless system of Table II (``DEFAULT_SYSTEM``)."""
 from __future__ import annotations
 
 from . import gpt2_m, gpt2_s
-from .base import ArchConfig, LayerPattern
+from .base import ArchConfig, LayerPattern, TrainConfig
+from .system import DEFAULT_SYSTEM, SystemConfig
 
 # Paper's own models (benchmarks of Section VII).
 PAPER_MODELS = (gpt2_s.CONFIG, gpt2_m.CONFIG)
@@ -18,4 +20,5 @@ def get_arch(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}") from None
 
 
-__all__ = ["ArchConfig", "LayerPattern", "PAPER_MODELS", "ARCHS", "get_arch"]
+__all__ = ["ArchConfig", "LayerPattern", "PAPER_MODELS", "ARCHS", "get_arch",
+           "TrainConfig", "DEFAULT_SYSTEM", "SystemConfig"]

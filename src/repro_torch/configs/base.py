@@ -105,3 +105,20 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """SFL fine-tuning hyper-parameters (paper Section VII defaults) — the
+    twin of ``repro.configs.base.TrainConfig``."""
+
+    batch_size: int = 16                 # b, per client mini-batch
+    learning_rate: float = 4e-4          # eta_c = eta_s
+    num_clients: int = 5                 # K
+    local_steps: int = 12                # I (aggregation interval)
+    global_rounds: int = 10              # E
+    seed: int = 0
+    optimizer: str = "adamw"
+    schedule: str = "constant"
+    weight_decay: float = 0.0
+    max_grad_norm: float = 1.0

@@ -8,24 +8,19 @@ pattern position p.  LoRA trees have the same stacked shape.  The caller
 hands over numpy leaves (``jax.tree.map(np.asarray, params)``): the port
 imports no JAX.  bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays,
 which ``torch.from_numpy`` rejects, so they travel as a ``uint16`` view.
+SFL states cross over too (``sfl_state_from_numpy`` /
+``sfl_state_to_numpy``): client leaves keep their leading K axis, and
+the optimizer moments follow the adapters' layout.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence
+from typing import Any, List, Sequence
 
 import numpy as np
 import torch
 
 from .kernels.backend import resolve_device
-
-
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+from .tree import tree_map
 
 
 def to_tensor(arr, device="cuda", dtype=None) -> torch.Tensor:
@@ -60,30 +55,32 @@ def tree_to(tree: Any, device, dtype=None) -> Any:
     return tree_map(one, tree)
 
 
-def split_layers(stacked: Sequence[dict]) -> List[dict]:
-    """repro layout (P dicts of (R, ...) leaves) -> one dict per layer."""
+def split_layers(stacked: Sequence[dict], axis: int = 0) -> List[dict]:
+    """repro layout (P dicts of leaves stacked over the repeat axis
+    ``axis``) -> one dict per layer.  ``axis=1`` splits K-stacked client
+    trees, whose leaves are (K, R, ...)."""
     P = len(stacked)
-    R = next((np.shape(leaf)[0] for entry in stacked
+    R = next((np.shape(leaf)[axis] for entry in stacked
               for leaf in _leaves(entry)), 0)
-    return [tree_map(lambda v, r=r: v[r], stacked[p])
+    return [tree_map(lambda v, r=r: np.take(v, r, axis=axis), stacked[p])
             for r in range(R) for p in range(P)]
 
 
-def stack_layers(layers: Sequence[dict], pattern_len: int) -> tuple:
+def stack_layers(layers: Sequence[dict], pattern_len: int, axis: int = 0) -> tuple:
     """Inverse of ``split_layers``: per-layer dicts of numpy leaves ->
-    P dicts of (R, ...) stacked leaves."""
+    P dicts of leaves stacked over a new repeat axis ``axis``."""
     out = []
     for p in range(pattern_len):
         per_rep = list(layers[p::pattern_len])
-        out.append(_stack(per_rep))
+        out.append(_stack(per_rep, axis))
     return tuple(out)
 
 
-def _stack(trees: List[Any]) -> Any:
+def _stack(trees: List[Any], axis: int = 0) -> Any:
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return np.stack(trees)
+        return {k: _stack([t[k] for t in trees], axis) for k in first}
+    return np.stack(trees, axis=axis)
 
 
 def _leaves(tree: Any) -> List[Any]:
@@ -114,3 +111,50 @@ def lora_from_numpy(lora: Sequence[dict], device="cuda", dtype=None) -> List[dic
     """repro LoRA tree (P dicts of stacked numpy leaves) -> one adapter
     dict per layer."""
     return tree_map(lambda a: to_tensor(a, device, dtype), split_layers(lora))
+
+
+def lora_to_numpy(lora: Sequence[dict], pattern_len: int) -> tuple:
+    """Inverse of ``lora_from_numpy``: per-layer adapters -> repro's
+    stacked LoRA tree with numpy leaves."""
+    return stack_layers(tree_map(to_numpy, lora), pattern_len)
+
+
+def _opt_from_numpy(opt: dict, axis: int, device, dtype) -> dict:
+    """An optimizer state ({"step", "m", "v"} / {"step", "mu"}) whose moment
+    trees follow the adapter layout."""
+    return {k: (to_tensor(v, "cpu") if k == "step"
+                else tree_map(lambda a: to_tensor(a, device, dtype),
+                              split_layers(v, axis)))
+            for k, v in opt.items()}
+
+
+def _opt_to_numpy(opt: dict, pattern_len: int, axis: int) -> dict:
+    return {k: (to_numpy(v) if k == "step"
+                else stack_layers(tree_map(to_numpy, v), pattern_len, axis))
+            for k, v in opt.items()}
+
+
+def sfl_state_from_numpy(state: dict, device="cuda", dtype=None):
+    """repro's ``SflState`` fields as numpy trees (``lora_client``,
+    ``lora_server``, ``opt_client``, ``opt_server``, ``step``) -> the
+    port's ``core.sfl.SflState``.  Client leaves keep their leading K axis:
+    repro's (K, R, ...) becomes one (K, ...) leaf per layer."""
+    from .core.sfl import SflState
+    conv = lambda a: to_tensor(a, device, dtype)              # noqa: E731
+    return SflState(
+        lora_client=tree_map(conv, split_layers(state["lora_client"], axis=1)),
+        lora_server=tree_map(conv, split_layers(state["lora_server"])),
+        opt_client=_opt_from_numpy(state["opt_client"], 1, device, dtype),
+        opt_server=_opt_from_numpy(state["opt_server"], 0, device, dtype),
+        step=to_tensor(state["step"], "cpu"))
+
+
+def sfl_state_to_numpy(state, pattern_len: int) -> dict:
+    """Inverse of ``sfl_state_from_numpy``: the port's ``SflState`` ->
+    repro's field layout with numpy leaves."""
+    return {"lora_client": stack_layers(tree_map(to_numpy, state.lora_client),
+                                        pattern_len, axis=1),
+            "lora_server": lora_to_numpy(state.lora_server, pattern_len),
+            "opt_client": _opt_to_numpy(state.opt_client, pattern_len, 1),
+            "opt_server": _opt_to_numpy(state.opt_server, pattern_len, 0),
+            "step": to_numpy(state.step)}

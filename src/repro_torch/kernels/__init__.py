@@ -1,15 +1,25 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``, built with ``nvcc``
 for ``sm_90a`` at first use) with their plain PyTorch versions:
 
-* lora_matmul  — fused y = xW + scale·(xAᵀ)Bᵀ (the paper's adapter math)
-* paged_decode — one-token GQA attention over a block-table page pool
+* lora_matmul      — fused y = xW + scale·(xAᵀ)Bᵀ (the paper's adapter
+                     math), differentiable: its backward runs
+* lora_matmul_dx   — dX = dY·Wᵀ + scale·(dY·B)·A, and
+* lora_rank_reduce — uᵀ·v in f32, deterministic (dA and dBᵀ);
+* paged_decode     — one-token GQA attention over a block-table page pool;
+* flash_attention  — causal / sliding-window GQA forward (its op's own
+                     entry point; the model's training attention is
+                     plain PyTorch, as in JAX).
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version
 (``backend.dispatch``); ``backend.LAUNCH_COUNTS`` counts kernel launches.
 """
 from .backend import LAUNCH_COUNTS, reset_launch_counts
-from .flash_attention import flash_decode_ref, paged_decode, paged_decode_ref
-from .lora_matmul import lora_matmul, lora_matmul_ref
+from .flash_attention import (flash_attention, flash_attention_ref, flash_decode_ref,
+                              paged_decode, paged_decode_ref)
+from .lora_matmul import (lora_matmul, lora_matmul_dx, lora_matmul_dx_ref,
+                          lora_matmul_ref, lora_rank_reduce, lora_rank_reduce_ref)
 
-__all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "flash_decode_ref",
-           "paged_decode", "paged_decode_ref", "lora_matmul", "lora_matmul_ref"]
+__all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "flash_attention",
+           "flash_attention_ref", "flash_decode_ref", "paged_decode", "paged_decode_ref",
+           "lora_matmul", "lora_matmul_dx", "lora_matmul_dx_ref", "lora_matmul_ref",
+           "lora_rank_reduce", "lora_rank_reduce_ref"]

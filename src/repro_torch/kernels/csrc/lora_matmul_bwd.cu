@@ -1,0 +1,295 @@
+// Fused LoRA matmul backward for Hopper (sm_90a): the two kernels behind
+// the autograd backward of y = x W + scale * (x A^T) B^T.
+//
+// 1. lora_matmul_dx:      dX = dY W^T + scale * (dY B) A
+//      dY (M, N), W (K, N) in its forward layout, A (r, K), B (N, r);
+//      dX (M, K) in dY's dtype (f32 or bf16), f32 accumulation.
+//    Replaces: src/repro/kernels/lora_matmul/kernel.py::lora_matmul_dx_kernel
+//    (Pallas, TPU).  There the grid's innermost N axis ran in order and
+//    VMEM scratch carried the (bm, bk) and (bm, r) accumulators across it.
+//    Here a loop over N inside the block takes that place.
+//    What bounds it on the H100: at training shapes (M = K * b * S = 768
+//    rows on the server, 256 per client, K = N = 768) it is a real GEMM,
+//    2 * M * K * N flops on ~(M + K) * N * 4 bytes: about 190 flops per
+//    byte at M = 768, above the f32 ridge (67 TFLOP/s / 3.35 TB/s = 20).
+//    Bound by f32 operations without tensor cores: ~13.5 us at M = 768.
+//    Design:
+//     * one block of 256 threads per (64-row M tile, 64-column K tile);
+//       each thread owns a 4 x 4 register tile, rows ty + 16 i and
+//       columns tx + 16 j (strided, so shared-memory reads never conflict);
+//     * dY and W stream through shared memory in 32-wide N chunks, both
+//       in their native layouts (W is read as (K, N): no transposed
+//       copy), stored transposed with one float of padding per row;
+//     * the rank tile dY B (64 x r) is accumulated in the same N loop,
+//       from a B chunk staged beside the others; the epilogue adds
+//       scale * (dY B) A and writes dX once;
+//     * ragged M, N and K edges are masked here (the JAX wrapper pads);
+//       any rank 1 <= r <= RMAX = 64.
+//    Not yet: wgmma / TF32 tensor cores, cp.async double buffering.
+//
+// 2. lora_rank_reduce:    out (r, N) f32 = u^T v
+//      u (M, r) f32, v (M, N) f32 or bf16 (upcast per element).
+//    Replaces: src/repro/kernels/lora_matmul/kernel.py::lora_rank_reduce_kernel
+//    (Pallas, TPU), which kept the (r, bn) accumulator in VMEM across a
+//    sequential M grid axis.
+//    What bounds it on the H100: reading v once (2.36 MB at M = N = 768
+//    in f32, ~0.7 us); 2 r flops per element of v is far below the ridge.
+//    Design:
+//     * grid (N / 32, S): 32 lanes on neighbouring columns n (coalesced
+//       reads of v), 8 warps splitting the block's M range, each thread
+//       holding r f32 sums in registers; u is staged 64 rows at a time in
+//       shared memory and read as a broadcast;
+//     * the 8 warps' sums are added in shared memory in a fixed order;
+//       with S > 1 splits over M, each split writes its partial (r, N)
+//       and a second kernel adds the S partials in order.  No atomics:
+//       the result is the same bit for bit on every run.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int RMAX = 64;        // largest adapter rank taken
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// ---------------------------------------------------------------------------
+// dX
+// ---------------------------------------------------------------------------
+
+constexpr int DX_BM = 64;       // dX rows per block
+constexpr int DX_BK = 64;       // dX columns per block
+constexpr int DX_BN = 32;       // N chunk staged per step
+constexpr int DX_NT = 256;      // 16 x 16 threads, 4 x 4 outputs each
+
+template <typename T>
+__global__ void __launch_bounds__(DX_NT) lora_matmul_dx(
+    const T* __restrict__ dy, const T* __restrict__ w, const T* __restrict__ a,
+    const T* __restrict__ b, T* __restrict__ dx, int M, int K, int N, int r,
+    float scale) {
+  __shared__ float dys[DX_BN][DX_BM + 1];   // dY chunk, transposed
+  __shared__ float ws[DX_BN][DX_BK + 1];    // W chunk, transposed
+  __shared__ float bs[DX_BN][RMAX];         // B chunk
+  __shared__ float zs[DX_BM][RMAX];         // rank tile dY B
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * DX_BM;
+  const int k0 = blockIdx.x * DX_BK;
+
+  for (int i = tid; i < DX_BM * RMAX; i += DX_NT) zs[i / RMAX][i % RMAX] = 0.f;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int n0 = 0; n0 < N; n0 += DX_BN) {
+    // stage: neighbouring threads on neighbouring n (coalesced)
+    for (int i = tid; i < DX_BM * DX_BN; i += DX_NT) {
+      const int m = i / DX_BN, n = i % DX_BN;
+      const int gm = m0 + m, gn = n0 + n;
+      dys[n][m] = (gm < M && gn < N) ? to_f(dy[(size_t)gm * N + gn]) : 0.f;
+    }
+    for (int i = tid; i < DX_BK * DX_BN; i += DX_NT) {
+      const int k = i / DX_BN, n = i % DX_BN;
+      const int gk = k0 + k, gn = n0 + n;
+      ws[n][k] = (gk < K && gn < N) ? to_f(w[(size_t)gk * N + gn]) : 0.f;
+    }
+    for (int i = tid; i < DX_BN * r; i += DX_NT) {
+      const int n = i / r, j = i % r;
+      const int gn = n0 + n;
+      bs[n][j] = gn < N ? to_f(b[(size_t)gn * r + j]) : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int n = 0; n < DX_BN; ++n) {
+      float dv[4], wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dv[i] = dys[n][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = ws[n][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += dv[i] * wv[j];
+    }
+    // rank tile: pair p = (row, rank) is always owned by the same thread
+    for (int p = tid; p < DX_BM * r; p += DX_NT) {
+      const int m = p / r, j = p % r;
+      float s = 0.f;
+      for (int n = 0; n < DX_BN; ++n) s += dys[n][m] * bs[n][j];
+      zs[m][j] += s;
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = ty + 16 * i, gm = m0 + m;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gk = k0 + tx + 16 * j;
+      if (gk >= K) continue;
+      float d = 0.f;
+      for (int q = 0; q < r; ++q) d += zs[m][q] * to_f(a[(size_t)q * K + gk]);
+      store(dx + (size_t)gm * K + gk, acc[i][j] + scale * d);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rank reduce
+// ---------------------------------------------------------------------------
+
+constexpr int RR_LANES = 32;    // columns per block
+constexpr int RR_WARPS = 8;     // warps splitting the block's M range
+constexpr int RR_MC = 64;       // u rows staged per step
+constexpr int RR_JC = 8;        // ranks reduced across warps per pass
+
+template <typename V>
+__global__ void __launch_bounds__(RR_LANES * RR_WARPS) lora_rank_reduce(
+    const float* __restrict__ u, const V* __restrict__ v, float* __restrict__ out,
+    int M, int r, int N, int rows_per_split) {
+  __shared__ float us[RR_MC][RMAX];
+  __shared__ float red[RR_WARPS][RR_JC][RR_LANES];
+
+  const int lane = threadIdx.x % RR_LANES;
+  const int warp = threadIdx.x / RR_LANES;
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x * RR_LANES + lane;
+  const int split = blockIdx.y;
+  const int m_lo = split * rows_per_split;
+  const int m_hi = min(M, m_lo + rows_per_split);
+
+  float acc[RMAX];
+#pragma unroll
+  for (int j = 0; j < RMAX; ++j) acc[j] = 0.f;
+
+  for (int c0 = m_lo; c0 < m_hi; c0 += RR_MC) {
+    const int mc = min(RR_MC, m_hi - c0);
+    for (int i = tid; i < mc * r; i += RR_LANES * RR_WARPS)
+      us[i / r][i % r] = u[(size_t)(c0 + i / r) * r + i % r];
+    __syncthreads();
+    if (n < N) {
+      for (int mm = warp; mm < mc; mm += RR_WARPS) {
+        const float vv = to_f(v[(size_t)(c0 + mm) * N + n]);
+#pragma unroll
+        for (int j = 0; j < RMAX; ++j)
+          if (j < r) acc[j] += us[mm][j] * vv;
+      }
+    }
+    __syncthreads();
+  }
+
+  // add the warps' sums in a fixed order (warp 0 first)
+  float* dst = out + (size_t)split * r * N;
+#pragma unroll
+  for (int j0 = 0; j0 < RMAX; j0 += RR_JC) {
+    if (j0 >= r) break;
+#pragma unroll
+    for (int jj = 0; jj < RR_JC; ++jj) red[warp][jj][lane] = acc[j0 + jj];
+    __syncthreads();
+    if (tid < RR_JC * RR_LANES) {
+      const int jj = tid / RR_LANES, l = tid % RR_LANES;
+      const int gn = blockIdx.x * RR_LANES + l;
+      if (j0 + jj < r && gn < N) {
+        float s = 0.f;
+#pragma unroll
+        for (int g = 0; g < RR_WARPS; ++g) s += red[g][jj][l];
+        dst[(size_t)(j0 + jj) * N + gn] = s;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// out (r, N) = sum over s of part (S, r, N), in order s = 0, 1, ...
+__global__ void rank_reduce_splits(const float* __restrict__ part,
+                                   float* __restrict__ out, int S, int rn) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rn) return;
+  float s = 0.f;
+  for (int k = 0; k < S; ++k) s += part[(size_t)k * rn + i];
+  out[i] = s;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (dy, w, a, b and dx share it).
+// Returns cudaGetLastError() after the launch (0 = launched).
+int lora_matmul_dx_launch(const void* dy, const void* w, const void* a,
+                          const void* b, void* dx, int M, int K, int N, int r,
+                          float scale, int dtype, void* stream) {
+  if (r < 1 || r > RMAX || M < 1 || K < 1 || N < 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((K + DX_BK - 1) / DX_BK, (M + DX_BM - 1) / DX_BM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    lora_matmul_dx<float><<<grid, DX_NT, 0, s>>>(
+        static_cast<const float*>(dy), static_cast<const float*>(w),
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<float*>(dx), M, K, N, r, scale);
+  } else if (dtype == 1) {
+    lora_matmul_dx<__nv_bfloat16><<<grid, DX_NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(w),
+        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+        static_cast<__nv_bfloat16*>(dx), M, K, N, r, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The number of M splits the rank reduce uses for these shapes; the
+// caller sizes the (splits, r, N) f32 workspace from it (none when 1).
+int lora_rank_reduce_splits(int M, int N) {
+  const int col_blocks = (N + RR_LANES - 1) / RR_LANES;
+  int s = (M + 63) / 64;                    // at least 64 rows per split
+  const int want = (264 + col_blocks - 1) / col_blocks;   // ~2 waves
+  if (s > want) s = want;
+  if (s > 32) s = 32;
+  return s < 1 ? 1 : s;
+}
+
+// u (M, r) f32; v (M, N) of v_dtype (0 = float32, 1 = bfloat16);
+// out (r, N) f32; work (splits, r, N) f32 when splits > 1, else unused.
+int lora_rank_reduce_launch(const void* u, const void* v, void* out, void* work,
+                            int M, int r, int N, int v_dtype, void* stream) {
+  if (r < 1 || r > RMAX || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const int S = lora_rank_reduce_splits(M, N);
+  if (S > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
+  const int rows = (M + S - 1) / S;
+  const dim3 grid((N + RR_LANES - 1) / RR_LANES, S);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* dst = S > 1 ? static_cast<float*>(work) : static_cast<float*>(out);
+  if (v_dtype == 0) {
+    lora_rank_reduce<float><<<grid, RR_LANES * RR_WARPS, 0, st>>>(
+        static_cast<const float*>(u), static_cast<const float*>(v), dst, M, r, N, rows);
+  } else if (v_dtype == 1) {
+    lora_rank_reduce<__nv_bfloat16><<<grid, RR_LANES * RR_WARPS, 0, st>>>(
+        static_cast<const float*>(u), static_cast<const __nv_bfloat16*>(v), dst, M, r,
+        N, rows);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (S > 1) {
+    const int rn = r * N;
+    rank_reduce_splits<<<(rn + 255) / 256, 256, 0, st>>>(
+        static_cast<const float*>(work), static_cast<float*>(out), S, rn);
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* lora_matmul_bwd_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -41,3 +41,32 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
     k = k_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KH, MP * PS, D)
     v = v_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KH, MP * PS, D)
     return flash_decode_ref(q, k, v, lengths)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        window: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention with the full score
+    matrix in f32, in the model layout: q (B, Sq, H, D), k/v (B, Sk, KH, D)
+    -> (B, Sq, H, D) in q's dtype.
+
+    Query row i sits at absolute position ``max(Sk - Sq, 0) + i`` (the
+    ``q_offset`` of ``repro.kernels.flash_attention.flash_attention``);
+    key j is visible iff j <= q_pos and, with a window, q_pos - j < window.
+    A row that sees no key gives zeros, as the kernel does.  For Sq <= Sk
+    this is ``repro``'s ``flash_attention_ref`` transposed to the model
+    layout."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qr = q.float().reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float()) * D ** -0.5
+    q_pos = max(Sk - Sq, 0) + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)

@@ -1,11 +1,19 @@
-"""Fused LoRA matmul entry: device routing, checks and the kernel launch.
+"""Fused LoRA matmul entry: device routing, checks, the kernel launches and
+the autograd backward.
 
 ``lora_matmul`` is what ``models.layers.dense(..., impl="fused")`` routes
-every LoRA-adapted projection through.  A CUDA tensor launches the
-hand-written kernel in ``csrc/lora_matmul.cu``; a CPU tensor takes
-``lora_matmul_ref``.  Forward only: serving never differentiates, and an
-input that requires grad raises (the ``torch.autograd.Function`` with the
-dX and rank-reduce backward kernels belongs to the training path).
+every LoRA-adapted projection through.  It is differentiable through
+``_FusedLoraMatmul``, the twin of ``repro``'s custom VJP
+(``repro.kernels.lora_matmul.ops._bwd_value``):
+
+* forward  — ``csrc/lora_matmul.cu`` on a CUDA tensor, ``lora_matmul_ref``
+  on a CPU one;
+* backward — dX through ``csrc/lora_matmul_bwd.cu::lora_matmul_dx`` (only
+  when x needs a gradient), dA = s·(dY·B)ᵀ·x and dBᵀ = (x·Aᵀ)ᵀ·dY through
+  ``lora_rank_reduce`` from the same source (the rank-thin z = x·Aᵀ and
+  z2 = dY·B are plain matmuls, as JAX computes them outside any kernel),
+  and dW as a plain matmul only when W needs a gradient (JAX leaves it
+  to XLA, which drops it for a frozen W).
 """
 from __future__ import annotations
 
@@ -14,40 +22,52 @@ import ctypes
 import torch
 
 from .. import backend, build
-from .ref import lora_matmul_ref
+from .ref import acc_dtype, lora_matmul_dx_ref, lora_matmul_ref, lora_rank_reduce_ref
 
-MAX_RANK = 64                      # RMAX in csrc/lora_matmul.cu
+MAX_RANK = 64                      # RMAX in csrc/lora_matmul{,_bwd}.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _entry():
-    lib = build.load("lora_matmul")
-    fn = lib.lora_matmul_fwd_launch
+def _bind(lib: str, name: str, argtypes):
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
+def _check(op: str, dev: torch.device, dtype, **tensors) -> None:
+    """Raise unless every operand is a contiguous 2-D tensor on ``dev``
+    (a CUDA device), of ``dtype`` when one is given."""
+    for name, t in tensors.items():
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{op}: {name} is on {t.device}; every operand must "
+                             f"be on the CUDA device {dev}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{op}: {name} is {t.dtype}, expected {dtype}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be a contiguous 2-D tensor, got "
+                             f"shape {tuple(t.shape)}")
+
+
+def _check_rank(op: str, r: int) -> None:
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"{op}: rank {r} outside [1, {MAX_RANK}]")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def lora_matmul_kernel(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                        b: torch.Tensor, scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on 2-D operands x (M, K), w (K, N),
+    """Launch the forward CUDA kernel on 2-D operands x (M, K), w (K, N),
     a (r, K), b (N, r): all on one CUDA device, contiguous, and of one
     dtype (float32 or bfloat16).  Raises on anything else."""
-    dev = x.device
-    for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"lora_matmul: {name} is on {t.device}; every "
-                             f"operand must be on x's CUDA device {dev}")
-        if t.dtype != x.dtype:
-            raise TypeError(f"lora_matmul: {name} is {t.dtype}, x is {x.dtype}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"lora_matmul: {name} must be a contiguous 2-D "
-                             f"tensor, got shape {tuple(t.shape)}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"lora_matmul: dtype {x.dtype} not supported "
                         "(float32, bfloat16)")
+    _check("lora_matmul", x.device, x.dtype, x=x, w=w, a=a, b=b)
     M, K = x.shape
     N = w.shape[1]
     r = a.shape[0]
@@ -55,18 +75,144 @@ def lora_matmul_kernel(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         raise ValueError(
             f"lora_matmul: shapes x {tuple(x.shape)} w {tuple(w.shape)} "
             f"a {tuple(a.shape)} b {tuple(b.shape)} do not agree")
-    if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"lora_matmul: rank {r} outside [1, {MAX_RANK}]")
-    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    _check_rank("lora_matmul", r)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
-    with torch.cuda.device(dev):
-        err = _entry()(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                       y.data_ptr(), M, K, N, r, float(scale),
-                       _DTYPE_CODES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    fn = _bind("lora_matmul", "lora_matmul_fwd_launch",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 y.data_ptr(), M, K, N, r, float(scale), _DTYPE_CODES[x.dtype],
+                 _stream(x.device))
     build.check("lora_matmul", err)
     backend.count_launch("lora_matmul")
     return y
+
+
+def lora_matmul_dx_kernel(dy: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                          b: torch.Tensor, scale: float) -> torch.Tensor:
+    """Launch the dX kernel: dy (M, N), w (K, N), a (r, K), b (N, r), all
+    contiguous on one CUDA device and of dy's dtype (float32 or
+    bfloat16).  Returns dX (M, K) in dy's dtype.  Raises on anything
+    else."""
+    if dy.dtype not in _DTYPE_CODES:
+        raise TypeError(f"lora_matmul_dx: dtype {dy.dtype} not supported "
+                        "(float32, bfloat16)")
+    _check("lora_matmul_dx", dy.device, dy.dtype, dy=dy, w=w, a=a, b=b)
+    M, N = dy.shape
+    K = w.shape[0]
+    r = a.shape[0]
+    if w.shape[1] != N or a.shape[1] != K or tuple(b.shape) != (N, r):
+        raise ValueError(
+            f"lora_matmul_dx: shapes dy {tuple(dy.shape)} w {tuple(w.shape)} "
+            f"a {tuple(a.shape)} b {tuple(b.shape)} do not agree")
+    _check_rank("lora_matmul_dx", r)
+    dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
+    if M == 0 or K == 0:
+        return dx
+    fn = _bind("lora_matmul_bwd", "lora_matmul_dx_launch",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(dy.device):
+        err = fn(dy.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 dx.data_ptr(), M, K, N, r, float(scale), _DTYPE_CODES[dy.dtype],
+                 _stream(dy.device))
+    build.check("lora_matmul_bwd", err)
+    backend.count_launch("lora_matmul_dx")
+    return dx
+
+
+def lora_rank_reduce_kernel(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch the rank-reduce kernel: u (M, r) float32, v (M, N) float32
+    or bfloat16, both contiguous on one CUDA device.  Returns u^T v as
+    (r, N) float32, summed in a fixed order (no atomics).  Raises on
+    anything else."""
+    _check("lora_rank_reduce", u.device, torch.float32, u=u)
+    _check("lora_rank_reduce", u.device, None, v=v)
+    if v.dtype not in _DTYPE_CODES:
+        raise TypeError(f"lora_rank_reduce: v dtype {v.dtype} not supported "
+                        "(float32, bfloat16)")
+    M, r = u.shape
+    N = v.shape[1]
+    if v.shape[0] != M:
+        raise ValueError(f"lora_rank_reduce: u {tuple(u.shape)} and v "
+                         f"{tuple(v.shape)} disagree on M")
+    _check_rank("lora_rank_reduce", r)
+    if M == 0 or N == 0:
+        return torch.zeros((r, N), dtype=torch.float32, device=u.device)
+    lib = "lora_matmul_bwd"
+    splits = _bind(lib, "lora_rank_reduce_splits", [ctypes.c_int] * 2)(M, N)
+    out = torch.empty((r, N), dtype=torch.float32, device=u.device)
+    work = (torch.empty((splits, r, N), dtype=torch.float32, device=u.device)
+            if splits > 1 else None)
+    fn = _bind(lib, "lora_rank_reduce_launch",
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(u.device):
+        err = fn(u.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if work is None else work.data_ptr(), M, r, N,
+                 _DTYPE_CODES[v.dtype], _stream(u.device))
+    build.check(lib, err)
+    backend.count_launch("lora_rank_reduce")
+    return out
+
+
+def lora_matmul_dx(dy, w, a, b, scale: float) -> torch.Tensor:
+    """dX = dY Wᵀ + scale·(dY B) A, routed by dy's device (operands cast
+    to dy's dtype, as JAX does before its kernel)."""
+    w, a, b = (t.to(dy.dtype).contiguous() for t in (w, a, b))
+    return backend.dispatch(
+        "lora_matmul_dx",
+        kernel=lambda: lora_matmul_dx_kernel(dy.contiguous(), w, a, b, scale),
+        ref=lambda: lora_matmul_dx_ref(dy, w, a, b, scale), x=dy)
+
+
+def lora_rank_reduce(u, v) -> torch.Tensor:
+    """uᵀ v as (r, N) f32, routed by v's device."""
+    return backend.dispatch(
+        "lora_rank_reduce",
+        kernel=lambda: lora_rank_reduce_kernel(u.float().contiguous(),
+                                               v.contiguous()),
+        ref=lambda: lora_rank_reduce_ref(u, v), x=v)
+
+
+def _forward(x2, w, a, b, scale: float) -> torch.Tensor:
+    return backend.dispatch(
+        "lora_matmul",
+        kernel=lambda: lora_matmul_kernel(x2, w.contiguous(), a.contiguous(),
+                                          b.contiguous(), scale),
+        ref=lambda: lora_matmul_ref(x2, w, a, b, scale), x=x2)
+
+
+class _FusedLoraMatmul(torch.autograd.Function):
+    """y = x2 W + s (x2 Aᵀ) Bᵀ with the fused backward of ``_bwd_value``."""
+
+    @staticmethod
+    def forward(ctx, x2, w, a, b, scale: float):
+        ctx.scale = scale
+        ctx.save_for_backward(x2, w, a, b)
+        return _forward(x2, w, a, b, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w, a, b = ctx.saved_tensors
+        scale = ctx.scale
+        need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
+        dy = dy.contiguous()
+        acc = acc_dtype(x2, w, a, b, dy)
+        dx = dw = da = db = None
+        if need_x:
+            dx = lora_matmul_dx(dy, w, a, b, scale).to(x2.dtype)
+        if need_w:
+            dw = (x2.to(acc).T @ dy.to(acc)).to(w.dtype)
+        if need_a:
+            z2 = dy.to(acc) @ b.to(acc)                   # (M, r)
+            da = (scale * lora_rank_reduce(z2, x2)).to(a.dtype)
+        if need_b:
+            z = x2.to(acc) @ a.to(acc).T                  # (M, r)
+            db = (scale * lora_rank_reduce(z, dy).T).contiguous().to(b.dtype)
+        return dx, dw, da, db, None
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -74,17 +220,10 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     """y = x @ w + scale * (x @ a^T) @ b^T with any leading dims on x.
 
     x: (..., K); w: (K, N); a: (r, K); b: (N, r).  Routed by x's device
-    (``kernels.backend.dispatch``)."""
-    if any(t.requires_grad for t in (x, w, a, b)):
-        raise RuntimeError("lora_matmul is forward-only in the serving port; "
-                           "call it on tensors that do not require grad")
+    (``kernels.backend.dispatch``); differentiable in every operand."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     N = w.shape[1]
-    x2 = x.reshape(-1, K)
-    y = backend.dispatch(
-        "lora_matmul",
-        kernel=lambda: lora_matmul_kernel(x2, w, a, b, scale),
-        ref=lambda: lora_matmul_ref(x2, w, a, b, scale),
-        x=x2)
+    x2 = x.reshape(-1, K).contiguous()
+    y = _FusedLoraMatmul.apply(x2, w, a, b, float(scale))
     return y.reshape(*lead, N)

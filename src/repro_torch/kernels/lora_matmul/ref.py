@@ -1,8 +1,15 @@
-"""Plain PyTorch version of the fused LoRA matmul (the CPU route, and the
-reference the CUDA kernel is held against on the card)."""
+"""Plain PyTorch versions of the fused LoRA matmul and its two backward
+kernels (the CPU route, and the references the CUDA kernels are held
+against on the card)."""
 from __future__ import annotations
 
 import torch
+
+
+def acc_dtype(*ts: torch.Tensor) -> torch.dtype:
+    """The accumulation dtype: f32, or f64 when an operand is f64 (so a
+    float64 ``gradcheck`` of the plain path is exact)."""
+    return torch.float64 if any(t.dtype == torch.float64 for t in ts) else torch.float32
 
 
 def lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -11,8 +18,31 @@ def lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
     x: (M, K); w: (K, N); a: (r, K); b: (N, r).  f32 accumulation, y in
     x's dtype — the twin of ``repro.kernels.lora_matmul.lora_matmul_ref``."""
-    xf = x.float()
-    y = xf @ w.float()
-    z = xf @ a.float().T
-    y = y + scale * (z @ b.float().T)
+    acc = acc_dtype(x, w, a, b)
+    xf = x.to(acc)
+    y = xf @ w.to(acc)
+    z = xf @ a.to(acc).T
+    y = y + scale * (z @ b.to(acc).T)
     return y.to(x.dtype)
+
+
+def lora_matmul_dx_ref(dy: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, scale: float) -> torch.Tensor:
+    """dX = dY @ W^T + scale * (dY @ B) @ A, f32 inside, dX in dy's dtype.
+
+    dy: (M, N); w: (K, N) — the forward layout; a: (r, K); b: (N, r).
+    The twin of ``lora_matmul_dx_kernel`` and of the non-kernel branch of
+    ``repro.kernels.lora_matmul.ops._bwd_value``."""
+    acc = acc_dtype(dy, w, a, b)
+    dyf = dy.to(acc)
+    z2 = dyf @ b.to(acc)
+    dx = dyf @ w.to(acc).T + scale * (z2 @ a.to(acc))
+    return dx.to(dy.dtype)
+
+
+def lora_rank_reduce_ref(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """out = u^T @ v in f32: u (M, r), v (M, N) of any float dtype ->
+    (r, N) f32 (f64 for f64 operands) — the adapter-gradient reduction
+    (dA and dB^T)."""
+    acc = acc_dtype(u, v)
+    return u.to(acc).T @ v.to(acc)

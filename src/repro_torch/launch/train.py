@@ -1,0 +1,121 @@
+"""SflLLM training driver — argument parsing over launch.engine.Trainer.
+
+The paper's Algorithm 1 (``--mode sfl``, the only mode ported): K
+clients + main server + federated server (core.sfl), the resource
+allocator picking the split point (``--split`` overrides it), and the
+engine reporting the modeled wireless wall clock of every round.  It runs
+on the card by default; every LoRA-adapted projection then goes through
+the CUDA forward and backward kernels of ``kernels.lora_matmul``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-s --split 6
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-s --reduced \
+      --device cpu --steps 12 --local-steps 6
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gpt2-s")
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced config (CPU-friendly)")
+    ap.add_argument("--mode", choices=["sfl"], default="sfl",
+                    help="only Algorithm 1 is ported (no --mode pod yet)")
+    ap.add_argument("--steps", type=int, default=24)
+    ap.add_argument("--clients", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=4e-4)
+    ap.add_argument("--rank", type=int, default=4)
+    ap.add_argument("--split", type=int, default=0, help="0 = allocator picks")
+    ap.add_argument("--local-steps", type=int, default=6)
+    ap.add_argument("--log-every", type=int, default=1, help="rounds")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return ap
+
+
+def run(args: argparse.Namespace, *, params=None, lora=None):
+    """Build the data, the allocation and the trainer, and train.  Returns
+    (state, history, sfl).  ``params`` / ``lora`` (the port's trees) replace
+    the weights drawn from ``--seed``; the model config must match them."""
+    import numpy as np
+    import torch
+
+    from ..configs import DEFAULT_SYSTEM, TrainConfig, get_arch
+    from ..core import (Problem, SflLLM, bcd_minimize_delay, latency_report,
+                        sample_clients)
+    from ..data import WordTokenizer, e2e_splits, iid_partition, sfl_batches
+    from ..kernels.backend import resolve_device
+    from ..models import init_lora_stack, init_params
+    from ..optim import adamw
+    from .engine import SflRound, Trainer
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced(num_layers=max(4, len(cfg.pattern)))
+    cfg = cfg.replace(lora_rank=args.rank)
+
+    # data ------------------------------------------------------------------
+    train, val, _ = e2e_splits(4000, 400, 400, seed=args.seed)
+    tok = WordTokenizer.from_corpus([e.text for e in train])
+    cfg = cfg.replace(vocab_size=max(cfg.vocab_size, tok.vocab_size)) \
+        if tok.vocab_size > cfg.vocab_size else cfg
+    parts = [np.array(train, dtype=object)[idx]
+             for idx in iid_partition(len(train), args.clients, args.seed)]
+    data = sfl_batches(tok, parts, args.batch, args.seq, args.seed)
+
+    if params is None:
+        params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                             device=device)
+    if lora is None:
+        lora = init_lora_stack(cfg, torch.Generator().manual_seed(args.seed + 1),
+                               args.rank, device=device)
+    tc = TrainConfig(num_clients=args.clients, batch_size=args.batch,
+                     local_steps=args.local_steps, learning_rate=args.lr)
+    rounds = max(1, args.steps // args.local_steps)
+
+    # resource allocation (paper Algorithm 3) picks split + validates rank --
+    envs = tuple(sample_clients(DEFAULT_SYSTEM, args.seed))
+    prob = Problem(cfg=cfg, sys_cfg=DEFAULT_SYSTEM, envs=envs,
+                   seq_len=args.seq, batch=args.batch,
+                   local_steps=args.local_steps,
+                   rank_candidates=(args.rank,))
+    alloc, hist = bcd_minimize_delay(prob, rank0=args.rank)
+    ell_c = args.split or alloc.ell_c
+    print(f"allocator: split={alloc.ell_c} rank={alloc.rank} "
+          f"modeled total delay {hist[-1]:.1f}s (using split={ell_c})")
+
+    sfl = SflLLM(cfg, params, ell_c=ell_c, train_cfg=tc,
+                 optimizer=adamw(args.lr), device=device)
+    state = sfl.init_state(lora)
+    report = latency_report(
+        cfg, DEFAULT_SYSTEM, envs, alloc.rates_main(DEFAULT_SYSTEM, envs),
+        alloc.rates_fed(DEFAULT_SYSTEM, envs), ell_c, alloc.rank,
+        args.seq, args.batch, args.local_steps, rounds)
+    trainer = Trainer(SflRound(sfl, [len(p) for p in parts]),
+                      local_steps=args.local_steps, log_every=args.log_every,
+                      round_latency=report)
+    state, history = trainer.fit(state, data, global_rounds=rounds)
+    return state, history, sfl
+
+
+def main(argv=None) -> None:
+    args = build_argparser().parse_args(argv)
+    _, hist, sfl = run(args)
+    dev = sfl.device
+    import torch
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    msg = (f"{len(hist.losses)} steps in {hist.wall_seconds:.1f}s "
+           f"({hist.steps_per_sec:.2f} steps/s) on {where}; "
+           f"loss {hist.losses[0]:.3f} -> {hist.losses[-1]:.3f}")
+    if hist.modeled_seconds:
+        msg += f"; modeled wireless wall clock {hist.modeled_seconds:.1f}s"
+    print(msg)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,19 +1,29 @@
-"""GQA attention for paged serving: projections, the page-pool init, the
-one-token paged decode and the chunked-prefill step — the port of the
-paged half of ``repro.models.attention``.
+"""GQA attention: projections, the training path (naive and chunked
+online-softmax attention, causal self-attention) and the paged serving
+path (page-pool init, one-token paged decode, chunked prefill) — the port
+of ``repro.models.attention``.
 
-The pools are updated IN PLACE (index assignment), where JAX returns a
-new array that buffer donation lets XLA write in place; each function
-still returns the cache dict so callers read like their JAX twins.
+The training attention is plain PyTorch, as it is jnp in JAX:
+``online_attention`` is the twin of ``repro``'s ``_flash_attention``
+custom VJP (forward scan with the log-sum-exp saved, backward recomputing
+the probabilities chunk by chunk), here a ``torch.autograd.Function``.
+
+The serving pools are updated IN PLACE (index assignment), where JAX
+returns a new array that buffer donation lets XLA write in place; each
+function still returns the cache dict so callers read like their JAX
+twins.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.flash_attention import paged_decode, paged_decode_ref
 from .layers import apply_rope, dense, init_dense
 
 NEG_INF = -1e30
+# the online-softmax KV chunk; a KV length up to it takes the full-score form
+KV_CHUNK = 512
 
 
 def init_attention(cfg, gen: torch.Generator, dtype, device) -> dict:
@@ -46,6 +56,150 @@ def _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl="einsum"):
 def _out_proj(p, o, lora, lora_scale, dense_impl):
     return dense(o, p["wo"]["w"], p["wo"].get("b"), _lora(lora, "o"), lora_scale,
                  impl=dense_impl)
+
+
+# ---------------------------------------------------------------------------
+# core attention math (training)
+# ---------------------------------------------------------------------------
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
+    """(Sq, Sk) bool; k_pos < 0 marks padding slots."""
+    m = (k_pos[None, :] <= q_pos[:, None]) & (k_pos[None, :] >= 0)
+    if window:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def naive_attention(q, k, v, q_pos, k_pos, window: int = 0) -> torch.Tensor:
+    """Full-score-matrix attention: q (B, Sq, H, D), k/v (B, Sk, KH, D),
+    positions (Sq,), (Sk,).  Scores and the softmax in f32, the output in
+    q's dtype."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qr = q.reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr.float(), k.float()) * D ** -0.5
+    s = s.masked_fill(~_mask(q_pos, k_pos, window), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _chunk_kv(k, v, k_pos, kv_chunk: int):
+    """Pad the KV length to a multiple of ``kv_chunk`` (padding positions
+    -1, masked) and cut it into chunks: (n, B, C, KH, D) and (n, C)."""
+    B, Sk, KH, D = k.shape
+    pad = (-Sk) % kv_chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+    n = (Sk + pad) // kv_chunk
+    kc = k.reshape(B, n, kv_chunk, KH, D).transpose(0, 1)
+    vc = v.reshape(B, n, kv_chunk, KH, D).transpose(0, 1)
+    return kc, vc, k_pos.reshape(n, kv_chunk), pad
+
+
+def _flash_fwd_scan(q, k, v, q_pos, k_pos, window: int, kv_chunk: int):
+    """Online-softmax forward.  Returns (out (B, Sq, KH, G, D) f32,
+    lse (B, KH, G, Sq) f32)."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    kc, vc, pc, _ = _chunk_kv(k, v, k_pos, kv_chunk)
+    qf = q.float().reshape(B, Sq, KH, G, D) * D ** -0.5
+    m = torch.full((B, KH, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KH, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, KH, G, D), dtype=torch.float32, device=q.device)
+    for ki, vi, pi in zip(kc, vc, pc):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, ki.float())
+        valid = _mask(q_pos, pi, window)
+        s = s.masked_fill(~valid, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None]) * valid
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        # p meets V in V's dtype (the flash-kernel convention), f32 sums
+        pv = torch.einsum("bhgqk,bkhd->bqhgd", p.to(vi.dtype).float(), vi.float())
+        acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
+        m = m_new
+    denom = l.clamp_min(1e-30)
+    out = acc / denom.permute(0, 3, 1, 2)[..., None]
+    return out, m + torch.log(denom)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Chunked online-softmax attention that never holds the (Sq, Sk)
+    score matrix, in the forward or the backward — the twin of
+    ``repro.models.attention._flash_attention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, window: int, kv_chunk: int):
+        out, lse = _flash_fwd_scan(q, k, v, q_pos, k_pos, window, kv_chunk)
+        ctx.window, ctx.kv_chunk = window, kv_chunk
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        B, Sq, H, D = q.shape
+        return out.reshape(B, Sq, H, D).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        """Recompute p per chunk from the saved lse: O(seq) residuals."""
+        q, k, v, q_pos, k_pos, out, lse = ctx.saved_tensors
+        B, Sq, H, D = q.shape
+        Sk, KH = k.shape[1], k.shape[2]
+        G = H // KH
+        scale = D ** -0.5
+        kc, vc, pc, _ = _chunk_kv(k, v, k_pos, ctx.kv_chunk)
+        qf = q.float().reshape(B, Sq, KH, G, D)
+        do = dout.float().reshape(B, Sq, KH, G, D)
+        delta = (do * out).sum(-1).permute(0, 2, 3, 1)          # (B, KH, G, Sq)
+        dq = torch.zeros_like(qf)
+        dks, dvs = [], []
+        lowp = lambda t, like: t.to(like.dtype).float()         # noqa: E731
+        for ki, vi, pi in zip(kc, vc, pc):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qf, ki.float()) * scale
+            valid = _mask(q_pos, pi, ctx.window)
+            p = torch.exp(s - lse[..., None]) * valid
+            dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", lowp(p, ki), lowp(do, ki)))
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", lowp(do, vi), vi.float())
+            ds = lowp(p * (dp - delta[..., None]) * scale, ki)
+            dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, ki.float())
+            dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, lowp(qf, ki)))
+        dk = torch.cat(dks, dim=1)[:, :Sk]
+        dv = torch.cat(dvs, dim=1)[:, :Sk]
+        return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
+
+
+def online_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
+                     kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """Flash-style online-softmax attention (never materializes the
+    (Sq, Sk) score matrix in forward or backward).  q: (B, Sq, H, D);
+    k, v: (B, Sk, KH, D); positions (Sq,), (Sk,)."""
+    return _FlashAttention.apply(q, k, v, q_pos, k_pos, window, min(kv_chunk, k.shape[1]))
+
+
+def run_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
+                  kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """A KV length that fits one chunk takes the full-score form (exact
+    attention over the same mask); anything longer the chunked online
+    softmax — the rule of ``repro``'s ``run_attention``."""
+    if k.shape[1] <= kv_chunk:
+        return naive_attention(q, k, v, q_pos, k_pos, window)
+    return online_attention(q, k, v, q_pos, k_pos, window=window, kv_chunk=kv_chunk)
+
+
+def self_attention(cfg, p, x, positions, *, lora=None, lora_scale=1.0,
+                   dense_impl: str = "einsum"):
+    """Causal self-attention over a full sequence (training): x (B, S, d),
+    positions (S,) absolute positions."""
+    B, S, _ = x.shape
+    q, k, v = _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions.expand(B, S), cfg.rope_theta)
+        k = apply_rope(k, positions.expand(B, S), cfg.rope_theta)
+    o = run_attention(q, k, v, positions, positions, window=cfg.attn_window)
+    return _out_proj(p, o.reshape(B, S, -1), lora, lora_scale, dense_impl)
 
 
 def init_paged_attn_cache(cfg, num_pages: int, page_size: int, dtype,

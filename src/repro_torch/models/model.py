@@ -1,5 +1,5 @@
-"""Top-level model for paged serving: init, one paged decode step, one
-chunked-prefill step.
+"""Top-level model: init, the training forward and loss, one paged decode
+step, one chunked-prefill step.
 
 Params tree (the per-layer twin of ``repro``'s stacked one):
     {"embed": {...}, "layers": [block dict per layer], "final_norm": {...}}
@@ -8,7 +8,7 @@ layer (empty dicts where a layer has no adapted projection).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -16,6 +16,8 @@ from ..kernels.backend import resolve_device
 from . import stack as stack_mod
 from .layers import apply_norm, embed, init_embeddings, init_lora, init_norm, unembed
 from .stack import Runtime
+
+IGNORE_ID = -1
 
 _ATTN_TARGETS = ("q", "k", "v", "o")
 _MLP_TARGETS = ("gate", "up", "down")
@@ -61,6 +63,39 @@ def init_lora_stack(cfg, gen: torch.Generator, rank: Optional[int] = None,
                                                        dtype, device)
         out.append(block)
     return out
+
+
+def forward(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
+            rt: Runtime = Runtime()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward (training).  tokens: (B, S) int.  Returns
+    (logits (B, S, V), aux loss) — aux is 0 for the ported (dense)
+    architectures."""
+    S = tokens.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = embed(cfg, params["embed"], tokens, positions)
+    x, _ = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
+                                 lora=lora, rt=rt, mode="train")
+    x = apply_norm(cfg, x, params["final_norm"])
+    logits = unembed(cfg, params["embed"], x)
+    return logits, torch.zeros((), dtype=torch.float32, device=tokens.device)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL over the labels that are not ``IGNORE_ID``, in
+    f32 (the twin of ``repro.core.sfl._ce_loss``)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels != IGNORE_ID).float()
+    return torch.sum((logz - gold) * mask) / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(cfg, params: dict, lora, batch: dict, *, rt: Runtime = Runtime()):
+    """Causal-LM cross entropy.  batch: tokens (B, S), labels (B, S) with
+    ``IGNORE_ID`` masking.  Returns (total, {"loss", "aux"})."""
+    logits, aux = forward(cfg, params, batch["tokens"], lora=lora, rt=rt)
+    loss = cross_entropy(logits, batch["labels"])
+    return loss, {"loss": loss, "aux": aux}
 
 
 def paged_decode_step(cfg, params: dict, token: torch.Tensor, caches,

@@ -1,4 +1,4 @@
-"""Decoder blocks and the layer stack for paged serving.
+"""Decoder blocks and the layer stack: training and paged serving.
 
 Where ``repro`` stacks each pattern position's parameters over the
 repeat axis and ``lax.scan``s over it, the port keeps one entry per layer
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -20,7 +20,8 @@ from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 @dataclass(frozen=True)
 class Runtime:
-    """The serving knobs of ``repro.models.stack.Runtime``."""
+    """The training and serving knobs of ``repro.models.stack.Runtime``
+    that the port runs (no remat, sharding or precision knobs yet)."""
 
     dense_impl: str = "einsum"          # "einsum" | "fused" (kernels.lora_matmul)
     # "flash" routes paged decode through kernels.flash_attention.paged_decode
@@ -29,6 +30,14 @@ class Runtime:
 
     def replace(self, **kw) -> "Runtime":
         return dataclasses.replace(self, **kw)
+
+
+def default_train_runtime() -> Runtime:
+    """The trainers' fast path: every LoRA-adapted projection through the
+    fused ``kernels.lora_matmul`` with its backward kernels.  Training
+    attention is plain PyTorch in every runtime, as it is jnp in JAX
+    (``attention.run_attention``)."""
+    return Runtime(dense_impl="fused")
 
 
 def default_serve_runtime() -> Runtime:
@@ -50,14 +59,20 @@ def init_block(cfg, pat, gen: torch.Generator, dtype, device) -> dict:
 
 
 def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
-                mode: str, cache, cur_index, block_tables):
-    """mode "decode": one token per slot over the paged pool
+                mode: str, cache=None, cur_index=None, block_tables=None,
+                positions=None):
+    """mode "train": causal self-attention over the sequence (positions
+    (S,)); mode "decode": one token per slot over the paged pool
     (block_tables (B, MP), cur_index (B,)); mode "chunk": one paged
     prefill chunk (block_tables (MP,), cur_index the chunk's start).
     Returns (x, cache)."""
     mixer_lora = None if lora is None else lora.get("mixer")
     h = apply_norm(cfg, x, p["norm1"])
-    if mode == "decode":
+    if mode == "train":
+        m = attn_mod.self_attention(
+            cfg, p["mixer"], h, positions, lora=mixer_lora, lora_scale=lora_scale,
+            dense_impl=rt.dense_impl)
+    elif mode == "decode":
         m, cache = attn_mod.paged_decode_attention(
             cfg, p["mixer"], h, cache, block_tables, cur_index,
             lora=mixer_lora, lora_scale=lora_scale,
@@ -67,7 +82,8 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
             cfg, p["mixer"], h, cache, block_tables, cur_index,
             lora=mixer_lora, lora_scale=lora_scale, dense_impl=rt.dense_impl)
     else:
-        raise ValueError(f"mode {mode!r}: the port serves 'decode' and 'chunk'")
+        raise ValueError(f"mode {mode!r}: the port runs 'train', 'decode' and "
+                         "'chunk'")
     x = x + m
     if pat.mlp != "none":
         h = apply_norm(cfg, x, p["norm2"])
@@ -87,16 +103,32 @@ def init_paged_stack_cache(cfg, num_pages: int, page_size: int, dtype,
 
 
 def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None,
-                rt: Runtime, mode: str, caches: List[dict], cur_index,
-                block_tables, lora_scale: Optional[float] = None):
-    """Run every layer in order.  ``lora`` is a per-layer list of adapter
+                rt: Runtime, mode: str = "train", caches: Optional[List[dict]] = None,
+                cur_index=None, block_tables=None, positions=None,
+                lora_scale: Optional[float] = None,
+                rep_slice: Optional[Tuple[int, int]] = None):
+    """Run the layers in order.  ``lora`` is a per-layer list of adapter
     dicts (or None); the scale defaults to ``cfg.lora_alpha / cfg.lora_rank``.
-    Returns (x, caches)."""
+
+    ``rep_slice=(a, b)`` runs pattern repeats [a, b) of the full stack
+    (the SFL split point in repeat units), slicing ``layers``, ``lora``
+    and ``caches`` alike.  A stack cut at a repeat boundary keeps each
+    layer's pattern position, so ``layers`` may also be such a cut.
+    Returns (x, caches); caches is None in mode "train"."""
     scale = (cfg.lora_alpha / cfg.lora_rank) if lora_scale is None else lora_scale
+    if rep_slice is not None:
+        P = len(cfg.pattern)
+        lo, hi = rep_slice[0] * P, rep_slice[1] * P
+        layers = layers[lo:hi]
+        lora = None if lora is None else lora[lo:hi]
+        caches = None if caches is None else caches[lo:hi]
     kinds = cfg.layer_kinds
     for i, p in enumerate(layers):
-        x, caches[i] = apply_block(
+        x, c = apply_block(
             cfg, kinds[i], p, x, lora=None if lora is None else lora[i],
-            lora_scale=scale, rt=rt, mode=mode, cache=caches[i],
-            cur_index=cur_index, block_tables=block_tables)
+            lora_scale=scale, rt=rt, mode=mode,
+            cache=None if caches is None else caches[i],
+            cur_index=cur_index, block_tables=block_tables, positions=positions)
+        if caches is not None:
+            caches[i] = c
     return x, caches

@@ -13,17 +13,25 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch                    # noqa: E402
 from repro_torch.kernels import backend                     # noqa: E402
-from repro_torch.kernels.flash_attention import (paged_decode,  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
+                                                 flash_attention_ref, paged_decode,
                                                  paged_decode_kernel,
                                                  paged_decode_ref)
 from repro_torch.kernels.lora_matmul import (lora_matmul,   # noqa: E402
-                                             lora_matmul_kernel, lora_matmul_ref)
+                                             lora_matmul_dx_kernel,
+                                             lora_matmul_dx_ref, lora_matmul_kernel,
+                                             lora_matmul_ref, lora_rank_reduce_kernel,
+                                             lora_rank_reduce_ref)
 from repro_torch.models import init_lora_stack, init_params  # noqa: E402
 from repro_torch.serving import Request, ServingEngine      # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# gradients in bf16: repro's GRAD_TOLS
+GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=2e-1, rtol=5e-2)}
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -115,3 +123,118 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
             assert backend.LAUNCH_COUNTS["paged_decode"] > 0
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N,r", [(256, 768, 768, 4), (768, 768, 768, 4),
+                                     (33, 70, 45, 2), (1, 7, 1, 1), (70, 130, 300, 64)])
+def test_lora_matmul_dx_kernel_matches_plain(cuda, dtype, M, K, N, r):
+    g = torch.Generator().manual_seed(M + K + r)
+    dy = torch.randn(M, N, generator=g).to(cuda, dtype)
+    w = (torch.randn(K, N, generator=g) * K ** -0.5).to(cuda, dtype)
+    a = (torch.randn(r, K, generator=g) * r ** -0.5).to(cuda, dtype)
+    b = (torch.randn(N, r, generator=g) * 0.05).to(cuda, dtype)
+    before = backend.LAUNCH_COUNTS.get("lora_matmul_dx", 0)
+    dx = lora_matmul_dx_kernel(dy, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS["lora_matmul_dx"] == before + 1
+    assert dx.dtype == dtype and tuple(dx.shape) == (M, K)
+    tol = TOL[dtype]
+    torch.testing.assert_close(dx.float(), lora_matmul_dx_ref(dy, w, a, b, 2.0).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,r,N", [(768, 4, 768), (33, 2, 45), (1, 1, 7), (5000, 64, 70)])
+def test_lora_rank_reduce_kernel_matches_plain_and_is_deterministic(cuda, vdtype, M, r, N):
+    g = torch.Generator().manual_seed(M + N)
+    u = torch.randn(M, r, generator=g).to(cuda)
+    v = torch.randn(M, N, generator=g).to(cuda, vdtype)
+    out = lora_rank_reduce_kernel(u, v)
+    again = lora_rank_reduce_kernel(u, v)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and tuple(out.shape) == (r, N)
+    assert torch.equal(out, again)                      # fixed summation order
+    torch.testing.assert_close(out, lora_rank_reduce_ref(u, v), atol=1e-4 * M ** 0.5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("need_w", [False, True], ids=["w_frozen", "w_grad"])
+@pytest.mark.parametrize("M,K,N,r", [(256, 768, 768, 4), (33, 70, 45, 2)])
+def test_autograd_backward_matches_plain_autograd(cuda, dtype, need_w, M, K, N, r):
+    g = torch.Generator().manual_seed(M + N + r)
+    # z = x A^T and z2 = dY B are O(1): each term the backward sums is O(1)
+    x = torch.randn(M, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(K, N, generator=g) * K ** -0.5).to(cuda, dtype)
+    a = (torch.randn(r, K, generator=g) * K ** -0.5).to(cuda, dtype)
+    b = (torch.randn(N, r, generator=g) * N ** -0.5).to(cuda, dtype)
+    cot = torch.randn(M, N, generator=g).to(cuda, dtype)
+    need = (True, need_w, True, True)
+    ins_k = [t.clone().requires_grad_(n) for t, n in zip((x, w, a, b), need)]
+    ins_r = [t.clone().requires_grad_(n) for t, n in zip((x, w, a, b), need)]
+    backend.reset_launch_counts()
+    lora_matmul(*ins_k, scale=2.0).backward(cot)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS == {"lora_matmul": 1, "lora_matmul_dx": 1,
+                                     "lora_rank_reduce": 2}
+    lora_matmul_ref(*ins_r, 2.0).backward(cot)
+    for name, tk, tr in zip(("dx", "dw", "da", "db"), ins_k, ins_r):
+        if tr.grad is None:
+            assert tk.grad is None
+            continue
+        torch.testing.assert_close(tk.grad.float(), tr.grad.float(),
+                                   msg=lambda m, n=name: f"{n}: {m}", **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,win", [(12, 64, 64, 12, 12, 64, 0),
+                                                (1, 1024, 1024, 12, 12, 64, 0),
+                                                (1, 40, 72, 2, 1, 16, 0),
+                                                (1, 128, 128, 4, 2, 128, 33),
+                                                (2, 8, 4, 2, 2, 8, 2),
+                                                (1, 1, 7, 1, 1, 1, 0)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KH, D, win):
+    g = torch.Generator().manual_seed(Sq + Sk + D)
+    q = torch.randn(B, Sq, H, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, Sk, KH, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, Sk, KH, D, generator=g).to(cuda, dtype)
+    before = backend.LAUNCH_COUNTS.get("flash_attention", 0)
+    o = flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS["flash_attention"] == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(o.float(), flash_attention_ref(q, k, v, window=win).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_training_step_on_the_card_matches_the_cpu_step(cuda):
+    """One SFL local step through the kernels equals the CPU step."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import SflLLM
+    from repro_torch.interop import tree_to
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch("gpt2-s").reduced(num_layers=4, d_model=64, vocab=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    lora = init_lora_stack(cfg, torch.Generator().manual_seed(1), device="cpu")
+    for layer in lora:
+        for ad in layer["mixer"].values():
+            ad["b"].normal_(0, 0.05, generator=torch.Generator().manual_seed(2))
+    tc = TrainConfig(num_clients=2, batch_size=2, local_steps=1)
+    tokens = torch.randint(0, 128, (2, 2, 16), generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": tokens, "labels": tokens}
+    outs = []
+    for dev in ("cpu", "cuda"):
+        sfl = SflLLM(cfg, params, 2, tc, adamw(1e-3), device=dev)
+        backend.reset_launch_counts()
+        st, m = sfl.local_step(sfl.init_state(lora), batch)
+        if dev == "cuda":
+            assert backend.LAUNCH_COUNTS == {"lora_matmul": 2 * (2 * 2 + 2),
+                                             "lora_matmul_dx": 2 * (2 * 1 + 2),
+                                             "lora_rank_reduce": 4 * (2 * 2 + 2)}
+        outs.append((float(m["loss"]), tree_to([st.lora_client, st.lora_server], "cpu")))
+    assert abs(outs[0][0] - outs[1][0]) < 1e-4
+    for a, b in zip(tree_leaves(outs[0][1]), tree_leaves(outs[1][1])):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-3)

@@ -69,9 +69,17 @@ def test_bf16_plain_version_matches_oracle():
 
 
 def test_requires_grad_inputs_raise():
+    """Inputs that require grad no longer raise: the op is differentiable
+    (``_FusedLoraMatmul``) and its gradient matches autograd of the plain
+    version."""
     x, w, a, b = (torch.from_numpy(t) for t in _inputs((4,), 16, 8, 2))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        lora_matmul(x, w, a.requires_grad_(), b)
+    a = a.requires_grad_()
+    y = lora_matmul(x, w, a, b, scale=2.0)
+    assert y.requires_grad
+    (ga,) = torch.autograd.grad(y.sum(), a)
+    a_ref = a.detach().clone().requires_grad_()
+    (ga_ref,) = torch.autograd.grad(lora_matmul_ref(x, w, a_ref, b, 2.0).sum(), a_ref)
+    torch.testing.assert_close(ga, ga_ref, **TOL)
 
 
 def test_kernel_entry_refuses_what_it_cannot_launch():
