@@ -7,13 +7,15 @@ card:
 
 Phases (each prints its own lines; any failure exits non-zero):
  1. device: name, power limit, TF32 off for the float32 references;
- 2. build: all four CUDA sources from src/repro_torch/kernels/csrc with
+ 2. build: all five CUDA sources from src/repro_torch/kernels/csrc with
     nvcc, in parallel;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
     forward LoRA matmul, paged decode, the dX and rank-reduce backward
     kernels, the autograd backward of ``lora_matmul`` against autograd of
-    its plain version, and the causal flash-attention forward;
+    its plain version, the causal flash-attention forward, and the
+    int8-base forward and dX (``lora_matmul(..., w_scale=)``) with their
+    autograd backward;
  4. times: each kernel, its plain version and one library call, CUDA
     events, median of 60 launches with L2 flushed between launches, beside
     the least time the card could take for the same work;
@@ -28,7 +30,18 @@ Phases (each prints its own lines; any failure exits non-zero):
     local step through the kernels is held against the plain path;
  7. the flash-attention op's own path (no model path calls it): the
     op's entry point once per layer at the training step's attention
-    shape, launch counter reset just before.
+    shape, launch counter reset just before;
+ 8. heterogeneous, precision-aware SFL over an int8 base (full-width
+    GPT-2-S from ``precision.quantize_params_int8``, 3 clients x 4 x 64
+    tokens, 6 local steps, 2 rounds, AdamW 4e-4), each fleet through
+    ``SflLLM.from_allocation`` and ``Trainer`` with the allocation's
+    modeled round latency: (a) the allocator's own fleet
+    (``bcd_minimize_delay_per_client`` on the 50 MHz edge problem with
+    bits 4/8/16), (b) a fixed mixed fleet (splits 2/4/6, ranks 2/4/8,
+    activation bits 4/8/16, gradient bits 8, stochastic rounding, error
+    feedback).  The launch counters, reset just before each fleet, must
+    equal the per-step counts its splits imply; for (b) one local step
+    through the kernels is held against the plain path.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -126,9 +139,12 @@ def main() -> None:
                                                      flash_attention_ref, paged_decode,
                                                      paged_decode_ref)
     from repro_torch.kernels.lora_matmul import (lora_matmul, lora_matmul_dx_kernel,
-                                                 lora_matmul_dx_ref, lora_matmul_ref,
+                                                 lora_matmul_dx_ref, lora_matmul_q8_dx_kernel,
+                                                 lora_matmul_q8_dx_ref, lora_matmul_q8_kernel,
+                                                 lora_matmul_q8_ref, lora_matmul_ref,
                                                  lora_rank_reduce_kernel,
                                                  lora_rank_reduce_ref)
+    from repro_torch.precision import quantize_weight_int8
     from repro_torch.serving import Request, ServingEngine
 
     dev = torch.device("cuda", 0)
@@ -265,9 +281,61 @@ def main() -> None:
             if dn == "float32" and D == 64:
                 err["flash_attention"] = max(err["flash_attention"], e)
 
+    def q8_inputs(M, K, N, r, dt):
+        x, w, a, b = grad_inputs(M, K, N, r, dt)
+        wq, ws = quantize_weight_int8(w.float())
+        return x, wq, ws, a, b
+
+    def check_q8(dt, dn):
+        """The int8-base forward and dX kernels alone at the fleets' shapes
+        (a client's M = 256, the pooled server M = 768, serving M = 8) and
+        ragged ones (N not a multiple of 4 reads W byte by byte), then the
+        autograd backward of lora_matmul(..., w_scale=) against autograd of
+        its plain version (dx, da, db; no gradient for W or its scale)."""
+        tol = GRAD_TOL[dn]            # f32: atol = rtol 1e-4; bf16: repro's GRAD_TOLS
+        for M, K, N, r in ((8, 768, 768, 8), (256, 768, 768, 8), (768, 768, 768, 8),
+                           (256, 768, 768, 1), (768, 768, 768, 2), (256, 768, 768, 4),
+                           (33, 70, 45, 2), (5, 100, 70, 1), (70, 130, 301, 64)):
+            x, wq, ws, a, b = q8_inputs(M, K, N, r, dt)
+            y = lora_matmul_q8_kernel(x, wq, ws, a, b, scale)
+            dy = randn(M, N).to(dev, dt)
+            dx = lora_matmul_q8_dx_kernel(dy, wq, ws, a, b, scale)
+            torch.cuda.synchronize()
+            e = close("lora_matmul_q8", f"{dn} M={M} K={K} N={N} r={r}", y,
+                      lora_matmul_q8_ref(x, wq, ws, a, b, scale), tol)
+            e2 = close("lora_matmul_q8_dx", f"{dn} M={M} K={K} N={N} r={r}", dx,
+                       lora_matmul_q8_dx_ref(dy, wq, ws, a, b, scale), tol)
+            if dn == "float32" and K == 768:
+                err["lora_matmul_q8"] = max(err["lora_matmul_q8"], e)
+                err["lora_matmul_q8_dx"] = max(err["lora_matmul_q8_dx"], e2)
+        for M, K, N, r in ((256, 768, 768, 8), (33, 70, 45, 2)):
+            x, wq, ws, a, b = q8_inputs(M, K, N, r, dt)
+            cot = randn(M, N).to(dev, dt)
+            ink = [t.clone().requires_grad_() for t in (x, a, b)]
+            inr = [t.clone().requires_grad_() for t in (x, a, b)]
+            backend.reset_launch_counts()
+            lora_matmul(ink[0], wq, ink[1], ink[2], scale=scale, w_scale=ws).backward(cot)
+            torch.cuda.synchronize()
+            want = {"lora_matmul_q8": 1, "lora_matmul_q8_dx": 1, "lora_rank_reduce": 2}
+            if dict(backend.LAUNCH_COUNTS) != want:
+                fail(f"q8 autograd backward launched {dict(backend.LAUNCH_COUNTS)}, "
+                     f"expected {want}")
+            lora_matmul_q8_ref(inr[0], wq, ws, inr[1], inr[2], scale).backward(cot)
+            in64 = [t.double().requires_grad_() for t in (x, a, b)]
+            lora_matmul_q8_ref(in64[0], wq, ws, in64[1], in64[2], scale).backward(
+                cot.double())
+            for name, tk, tr, t64 in zip(("dx", "da", "db"), ink, inr, in64):
+                close("lora_matmul q8 autograd", f"{dn} {name} M={M} K={K} N={N} r={r}",
+                      tk.grad, tr.grad, tol)
+                ek, ep = ((g.double() - t64.grad).abs().max().item()
+                          for g in (tk.grad, tr.grad))
+                print(f"[check]   {name} against float64 autograd: kernel path {ek:.3g}, "
+                      f"plain {dn} path {ep:.3g}, max|ref| {t64.grad.abs().max().item():.4g}")
+
     scale = 2.0                       # GPT-2-S: lora_alpha / lora_rank = 8 / 4
     err = {"lora_matmul": 0.0, "paged_decode": 0.0, "lora_matmul_dx": 0.0,
-           "lora_rank_reduce": 0.0, "flash_attention": 0.0}
+           "lora_rank_reduce": 0.0, "flash_attention": 0.0, "lora_matmul_q8": 0.0,
+           "lora_matmul_q8_dx": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
         for M, K, N, r in ((8, 768, 768, 4), (16, 768, 768, 4), (5, 100, 70, 3)):
@@ -304,6 +372,7 @@ def main() -> None:
                 err["paged_decode"] = max(err["paged_decode"], e)
         check_backward(dt, dn)
         check_attention(dt, dn)
+        check_q8(dt, dn)
 
     # -- 4. times at the serving path's shapes (f32, as the engine serves) --
     # reading 64 MB (> the 50 MB L2) between launches evicts the operands,
@@ -419,6 +488,33 @@ def main() -> None:
         print(f"[time] flash_attention f32 B={B} S={S} H={H} D={D} causal: kernel "
               f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(SDPA is_causal, "
               f"(B, H, S, D) layout) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby})")
+    # the int8-base kernels at the fleets' training shapes: a client's rows
+    # (M = b * S = 256) and the pooled server's (M = 768), r = 8
+    for M in (256, 768):
+        K = N = 768
+        r = 8
+        x, wq, ws, a, b = q8_inputs(M, K, N, r, torch.float32)
+        dy = randn(M, N).to(dev)
+        for op, kern, plain_fn, lib_fn, nbytes in (
+                ("lora_matmul_q8", lambda: lora_matmul_q8_kernel(x, wq, ws, a, b, scale),
+                 lambda: lora_matmul_q8_ref(x, wq, ws, a, b, scale),
+                 lambda: x @ (wq.float() * ws) + scale * ((x @ a.T) @ b.T),
+                 4 * M * K + K * N + 4 * N + 4 * r * K + 4 * N * r + 4 * M * N),
+                ("lora_matmul_q8_dx",
+                 lambda: lora_matmul_q8_dx_kernel(dy, wq, ws, a, b, scale),
+                 lambda: lora_matmul_q8_dx_ref(dy, wq, ws, a, b, scale),
+                 lambda: dy @ (wq.float() * ws).T + scale * ((dy @ b) @ a),
+                 4 * M * N + K * N + 4 * N + 4 * r * K + 4 * N * r + 4 * M * K)):
+            ms = time_ms(torch, kern, flush)
+            plain = time_ms(torch, plain_fn, flush)
+            lib = time_ms(torch, lib_fn, flush)
+            bms, bby = bound(nbytes, 2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
+            rows[(op, M)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                                 bound_by=bby)
+            print(f"[time] {op} f32 M={M} K={K} N={N} r={r} (W int8): kernel "
+                  f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(dequantize + "
+                  f"torch.matmul) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, "
+                  f"{nbytes} B); {2 * M * N * K / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     del flush_buf
 
     # -- 5. serving on full-width GPT-2-S ------------------------------------
@@ -598,9 +694,131 @@ def main() -> None:
         fail(f"flash_attention op path launched {attn_launches}, expected "
              f"{{'flash_attention': {L}}}, or gave a bad output")
 
+    # -- 8. heterogeneous, precision-aware fleets over an int8 base -------------
+    import dataclasses
+    from repro_torch.configs import DEFAULT_SYSTEM
+    from repro_torch.core import Problem, SflLLM, sample_clients
+    from repro_torch.core.resource import HeteroAllocation, bcd_minimize_delay_per_client
+    from repro_torch.data import WordTokenizer, e2e_splits, iid_partition, sfl_batches
+    from repro_torch.launch.engine import (SflRound, Trainer, allocation_round_latency,
+                                           modeled_total_seconds)
+    from repro_torch.optim import adamw
+    from repro_torch.precision import PrecisionConfig, quantize_params_int8
+
+    Kf, bf, Sf, If, lrf, rounds = 3, 4, 64, 6, 4e-4, 2
+    # the edge problem of benchmarks/bench_precision.py at this run's shapes
+    edge = dataclasses.replace(DEFAULT_SYSTEM, num_clients=Kf, total_bandwidth_hz=50e6,
+                               f_server_hz=1.0e9, f_client_hz_range=(0.3e9, 3.0e9))
+    prob = Problem(cfg=cfg, sys_cfg=edge, envs=tuple(sample_clients(edge, 0)), seq_len=Sf,
+                   batch=bf, local_steps=If, bits_candidates=(4, 8, 16))
+    t0 = time.perf_counter()
+    alloc_a, _ = bcd_minimize_delay_per_client(prob)
+    t_alloc = time.perf_counter() - t0
+    alloc_b = HeteroAllocation(
+        assign_main=alloc_a.assign_main.copy(), assign_fed=alloc_a.assign_fed.copy(),
+        power_main=alloc_a.power_main.copy(), power_fed=alloc_a.power_fed.copy(),
+        ell_c=6, rank=8, act_bits=16, ell_k=np.array([2, 4, 6]),
+        rank_k=np.array([2, 4, 8]), bits_k=np.array([4, 8, 16]))
+    train_ex, _, _ = e2e_splits(4000, 400, 400, seed=0)
+    tok_e2e = WordTokenizer.from_corpus([e.text for e in train_ex])
+    if tok_e2e.vocab_size > cfg.vocab_size:
+        fail(f"E2E vocabulary {tok_e2e.vocab_size} exceeds GPT-2-S's {cfg.vocab_size}")
+    parts = [np.array(train_ex, dtype=object)[idx]
+             for idx in iid_partition(len(train_ex), Kf, 0)]
+    counts = [len(p_) for p_ in parts]
+    base8 = quantize_params_int8(TM.init_params(cfg, torch.Generator().manual_seed(0),
+                                                torch.float32, "cuda"))
+    wq0 = base8["layers"][0]["mixer"]["wq"]
+    print(f"[fleet] int8 base: {wq0['w'].dtype} w + {wq0['w_scale'].dtype} w_scale per "
+          f"projection; allocator (bcd_minimize_delay_per_client, bits 4/8/16, "
+          f"{edge.total_bandwidth_hz / 1e6:.0f} MHz, K={Kf}, S={Sf}, b={bf}, I={If}) "
+          f"{t_alloc:.1f}s on the host")
+    nt = len(cfg.lora_targets)
+    ad_tol = lrf * 1e-2
+
+    def fleet(label, alloc, prec):
+        rt = TM.default_train_runtime().replace(precision=prec)
+        sfl = SflLLM.from_allocation(prob, alloc, base8, adamw(lrf), rt=rt, device="cuda")
+        lora0 = sfl.init_lora(torch.Generator().manual_seed(1))
+        g_b = torch.Generator().manual_seed(2)
+        for layer in lora0:      # B != 0: both adapter factors get gradients
+            for ad in layer["mixer"].values():
+                ad["b"].copy_(torch.randn(ad["b"].shape, generator=g_b) * 0.02)
+        state = sfl.init_state(lora0)
+        report = allocation_round_latency(prob, alloc)
+        trainer = Trainer(SflRound(sfl, counts), local_steps=If, round_latency=report)
+        data = sfl_batches(tok_e2e, parts, bf, Sf, 0)
+        backend.reset_launch_counts()    # just before the fleet's main path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist = trainer.fit(state, data, global_rounds=rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(backend.LAUNCH_COUNTS)
+        ells, L = sfl.ell_k, cfg.num_layers
+        fwd = nt * (sum(ells) + L - min(ells))
+        per_step = {"lora_matmul_q8": fwd, "lora_rank_reduce": 2 * fwd,
+                    "lora_matmul_q8_dx": nt * (sum(e - 1 for e in ells) + L - min(ells))}
+        steps = len(hist.losses)
+        print(f"[fleet {label}] ell_k={list(sfl.ell_k)} r_k={list(sfl.rank_k)} "
+              f"act_bits={list(sfl.act_bits_k or [16] * Kf)} grad_bits="
+              f"{prec.grad_bits} stochastic_rounding={prec.stochastic_rounding} "
+              f"error_feedback={prec.error_feedback}; modeled wireless "
+              f"{hist.modeled_seconds:.3f}s for {rounds} rounds "
+              f"({hist.modeled_seconds / rounds:.3f}s/round), allocation total "
+              f"{modeled_total_seconds(prob, alloc):.3f}s (eq. 17)")
+        print(f"[fleet {label}] per round: " + ", ".join(
+            f"{t_:.3f}s ({t_ / If * 1e3:.1f} ms/local step)" for t_ in hist.round_seconds)
+            + f"; wall {wall:.2f}s (host clock, rounds end in a host read of their losses)")
+        print(f"[fleet {label}] losses: {' '.join(f'{x:.4f}' for x in hist.losses)}")
+        print(f"[fleet {label}] launches: {got}; per local step expected {per_step} "
+              f"(q8 {nt}(sum ell_k + L - min ell_k), q8 dX {nt}(sum(ell_k - 1) + L - "
+              f"min ell_k), rank reduce twice the q8 forward)")
+        if steps != rounds * If or not all(math.isfinite(x) for x in hist.losses):
+            fail(f"fleet {label}: losses not finite or wrong count: {hist.losses}")
+        if hist.rolled_back_rounds:
+            fail(f"fleet {label}: rounds rolled back: {hist.rolled_back_rounds}")
+        want = {k: v * steps for k, v in per_step.items()}
+        if got != want:
+            fail(f"fleet {label}: launched {got}, expected exactly {want}")
+        return sfl, state, got
+
+    prec_b = PrecisionConfig(grad_bits=8, stochastic_rounding=True, error_feedback=True)
+    _, _, fleet_a = fleet("a", alloc_a, PrecisionConfig())
+    sfl_b, state_b, fleet_b = fleet("b", alloc_b, prec_b)
+    if state_b.err_act is None or state_b.err_grad is None:
+        fail("fleet b carries no error-feedback state")
+
+    # fleet b: one local step from the trained state through the kernels and
+    # through the plain path (dequantize + matmul), stochastic rounding off
+    rng = np.random.default_rng(6)
+    tok = rng.integers(0, tok_e2e.vocab_size, (Kf, bf, Sf)).astype(np.int32)
+    batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=-1)}
+    prec_det = prec_b.replace(stochastic_rounding=False)
+    outs = []
+    for rt in (TM.default_train_runtime(), TM.Runtime()):
+        s_ = SflLLM.from_allocation(prob, alloc_b, base8, adamw(lrf),
+                                    rt=rt.replace(precision=prec_det), device="cuda")
+        st, m = s_.local_step(state_b, batch)
+        torch.cuda.synchronize()
+        outs.append((float(m["loss"]), st))
+    (lk, sk), (lp, sp) = outs
+    pairs = [(a_, b_) for side in ("lora_client", "lora_server")
+             for a_, b_ in zip(tree_leaves(getattr(sk, side)), tree_leaves(getattr(sp, side)))]
+    e_ad = max((a_ - b_).abs().max().item() for a_, b_ in pairs)
+    moved = int(((sk.err_act - sp.err_act).abs() > 1e-3).sum())
+    good = abs(lk - lp) <= 1e-4 * max(1.0, abs(lp)) and e_ad <= ad_tol
+    print(f"[fleet b] local_step kernels vs plain path (stochastic rounding off): loss "
+          f"{lk:.6f} vs {lp:.6f} (tol 1e-4 rel), adapters max_abs_err={e_ad:.3g} (tol "
+          f"lr*1e-2 = {ad_tol:.1g}); uploaded entries on another quantization level: "
+          f"{moved} of {sk.err_act[:2].numel()} {'ok' if good else 'FAIL'}")
+    if not good:
+        fail("fleet b: a local step through the kernels disagrees with the plain path")
+
     launches = {k: serve_launches.get(k, 0) + train_launches.get(k, 0)
-                + attn_launches.get(k, 0)
-                for k in set(serve_launches) | set(train_launches) | set(attn_launches)}
+                + attn_launches.get(k, 0) + fleet_a.get(k, 0) + fleet_b.get(k, 0)
+                for k in (set(serve_launches) | set(train_launches) | set(attn_launches)
+                          | set(fleet_a) | set(fleet_b))}
 
     # -- result ---------------------------------------------------------------
     kernels = [
@@ -630,6 +848,18 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention/kernel.py:72",
              launches=launches["flash_attention"],
              max_abs_err=err["flash_attention"], **rows[("flash_attention", 12)]),
+        # the int8-base pair, launched by the fleets of phase 8; times at the
+        # pooled server's M = 768
+        dict(name="lora_matmul_q8", route="cuda",
+             source="src/repro_torch/kernels/csrc/lora_matmul_q8.cu",
+             replaces="src/repro/kernels/lora_matmul/kernel.py:115",
+             launches=launches["lora_matmul_q8"], max_abs_err=err["lora_matmul_q8"],
+             **rows[("lora_matmul_q8", 768)]),
+        dict(name="lora_matmul_q8_dx", route="cuda",
+             source="src/repro_torch/kernels/csrc/lora_matmul_q8.cu",
+             replaces="src/repro/kernels/lora_matmul/kernel.py:174",
+             launches=launches["lora_matmul_q8_dx"], max_abs_err=err["lora_matmul_q8_dx"],
+             **rows[("lora_matmul_q8_dx", 768)]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

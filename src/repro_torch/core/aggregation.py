@@ -4,7 +4,9 @@
 DeltaW_c^t = sum_k (D_k / D) DeltaW_k^t — a weighted average of the
 client-side LoRA adapters.  Client trees carry a leading K axis on every
 leaf (the stacked form); the average is one weighted sum over that axis
-per leaf.  The rank-aware masks of heterogeneous fleets and the robust
+per leaf.  Heterogeneous fleets aggregate slot-wise over each slot's
+owners (``fedavg_het``, with the masks of ``core.lora.client_slot_masks``)
+and re-truncate on broadcast (``broadcast_het``).  The robust
 (Byzantine-tolerant) aggregators are not ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
@@ -42,20 +44,41 @@ def fedavg_stacked(stacked: Any, weights) -> Any:
     return tree_map(_avg, stacked)
 
 
+def fedavg_het(stacked: Any, weights, masks: Any) -> Any:
+    """Rank-aware FedAvg over zero-padded heterogeneous client adapters.
+
+    ``masks`` (``core.lora.client_slot_masks``) give each client's 0/1
+    occupancy of each (layer, rank slot), broadcastable against the
+    K-stacked leaves.  Each slot is the weighted sum of its live entries
+    over the weight mass of its owners, so a rank-2 client never dilutes
+    slots only rank-8 clients train; slots no client owns come back
+    exactly zero.  With ``masks=None`` this IS ``fedavg_stacked``."""
+    if masks is None:
+        return fedavg_stacked(stacked, weights)
+    w = torch.as_tensor(weights, dtype=torch.float32)
+
+    def _avg(v, m):
+        wk = w.to(v.device).reshape((-1,) + (1,) * (v.dim() - 1))
+        wm = wk * m.to(v.device, torch.float32)          # (K, ..slot..)
+        num = torch.sum(wm * v.float(), dim=0)
+        den = torch.sum(wm, dim=0)
+        avg = torch.where(den > 0, num / den.clamp_min(1e-12), torch.zeros_like(num))
+        return avg.to(v.dtype)
+
+    return tree_map(_avg, stacked, masks)
+
+
 def fedavg_partial(stacked: Any, weights, participation, masks: Any = None) -> Any:
     """Eq. 7 under partial participation: dropped clients (participation
-    0) carry no weight, so the result is the survivors' FedAvg.  With
-    ``participation=None`` (or all ones) this is ``fedavg_stacked``.
-    The slot masks of heterogeneous fleets are not ported yet."""
-    if masks is not None:
-        raise NotImplementedError("fedavg_partial: rank-aware slot masks "
-                                  "(heterogeneous fleets) are not ported yet; "
-                                  "see ROADMAP.md")
+    0) carry no weight, so the result is the survivors' FedAvg; composes
+    with the slot masks of heterogeneous fleets.  With
+    ``participation=None`` this is ``fedavg_het`` (and so
+    ``fedavg_stacked`` when ``masks`` is None too)."""
     if participation is None:
-        return fedavg_stacked(stacked, weights)
+        return fedavg_het(stacked, weights, masks)
     w = (torch.as_tensor(weights, dtype=torch.float32)
          * torch.as_tensor(participation, dtype=torch.float32).cpu())
-    return fedavg_stacked(stacked, w)
+    return fedavg_het(stacked, w, masks)
 
 
 def tree_all_finite(tree: Any) -> torch.Tensor:
@@ -75,6 +98,16 @@ def broadcast_stacked(global_tree: Any, num_clients: int) -> Any:
     return tree_map(
         lambda v: v.unsqueeze(0).expand((num_clients,) + tuple(v.shape)).clone(),
         global_tree)
+
+
+def broadcast_het(global_tree: Any, num_clients: int, masks: Any) -> Any:
+    """Broadcast + per-client truncation: every client receives the global
+    adapter with its dead slots (rank >= r_k, layers past its split)
+    re-zeroed.  With ``masks=None`` this is ``broadcast_stacked``."""
+    stacked = broadcast_stacked(global_tree, num_clients)
+    if masks is None:
+        return stacked
+    return tree_map(lambda v, m: v * m.to(v.device, v.dtype), stacked, masks)
 
 
 def broadcast(global_tree: Any, num_clients: int) -> list:

@@ -9,8 +9,12 @@ hands over numpy leaves (``jax.tree.map(np.asarray, params)``): the port
 imports no JAX.  bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays,
 which ``torch.from_numpy`` rejects, so they travel as a ``uint16`` view.
 SFL states cross over too (``sfl_state_from_numpy`` /
-``sfl_state_to_numpy``): client leaves keep their leading K axis, and
-the optimizer moments follow the adapters' layout.
+``sfl_state_to_numpy``): client leaves keep their leading K axis, the
+optimizer moments follow the adapters' layout, and the error-feedback
+accumulators ``err_act``/``err_grad`` (K, b, S, d) cross as they are.
+An int8 base (``quantize_params_int8``) crosses as int8 ``w`` plus its f32
+``w_scale``, which stays f32 whatever ``dtype`` the floats are cast to;
+rank-padded adapters cross like any other.
 """
 from __future__ import annotations
 
@@ -91,12 +95,21 @@ def _leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def _params_to(tree: Any, device, dtype, name: str = "") -> Any:
+    """to_tensor over a params tree; int8 weights keep their dtype and a
+    ``w_scale`` stays float32."""
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_params_to(v, device, dtype, name) for v in tree)
+    return to_tensor(tree, device, None if name == "w_scale" else dtype)
+
+
 def params_from_numpy(params: dict, device="cuda", dtype=None) -> dict:
     """repro params tree (numpy leaves) -> the port's params."""
-    conv = lambda a: to_tensor(a, device, dtype)
-    return {"embed": tree_map(conv, params["embed"]),
-            "layers": tree_map(conv, split_layers(params["layers"])),
-            "final_norm": tree_map(conv, params["final_norm"])}
+    return {"embed": _params_to(params["embed"], device, dtype),
+            "layers": _params_to(split_layers(params["layers"]), device, dtype),
+            "final_norm": _params_to(params["final_norm"], device, dtype)}
 
 
 def params_to_numpy(params: dict, pattern_len: int) -> dict:
@@ -136,17 +149,20 @@ def _opt_to_numpy(opt: dict, pattern_len: int, axis: int) -> dict:
 
 def sfl_state_from_numpy(state: dict, device="cuda", dtype=None):
     """repro's ``SflState`` fields as numpy trees (``lora_client``,
-    ``lora_server``, ``opt_client``, ``opt_server``, ``step``) -> the
-    port's ``core.sfl.SflState``.  Client leaves keep their leading K axis:
+    ``lora_server``, ``opt_client``, ``opt_server``, ``step`` and, when
+    present and not None, ``err_act``/``err_grad``) -> the port's
+    ``core.sfl.SflState``.  Client leaves keep their leading K axis:
     repro's (K, R, ...) becomes one (K, ...) leaf per layer."""
     from .core.sfl import SflState
     conv = lambda a: to_tensor(a, device, dtype)              # noqa: E731
+    err = {k: None if state.get(k) is None else to_tensor(state[k], device)
+           for k in ("err_act", "err_grad")}
     return SflState(
         lora_client=tree_map(conv, split_layers(state["lora_client"], axis=1)),
         lora_server=tree_map(conv, split_layers(state["lora_server"])),
         opt_client=_opt_from_numpy(state["opt_client"], 1, device, dtype),
         opt_server=_opt_from_numpy(state["opt_server"], 0, device, dtype),
-        step=to_tensor(state["step"], "cpu"))
+        step=to_tensor(state["step"], "cpu"), **err)
 
 
 def sfl_state_to_numpy(state, pattern_len: int) -> dict:
@@ -157,4 +173,6 @@ def sfl_state_to_numpy(state, pattern_len: int) -> dict:
             "lora_server": lora_to_numpy(state.lora_server, pattern_len),
             "opt_client": _opt_to_numpy(state.opt_client, pattern_len, 1),
             "opt_server": _opt_to_numpy(state.opt_server, pattern_len, 0),
-            "step": to_numpy(state.step)}
+            "step": to_numpy(state.step),
+            "err_act": None if state.err_act is None else to_numpy(state.err_act),
+            "err_grad": None if state.err_grad is None else to_numpy(state.err_grad)}

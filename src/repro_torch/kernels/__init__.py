@@ -5,6 +5,8 @@ for ``sm_90a`` at first use) with their plain PyTorch versions:
                      math), differentiable: its backward runs
 * lora_matmul_dx   — dX = dY·Wᵀ + scale·(dY·B)·A, and
 * lora_rank_reduce — uᵀ·v in f32, deterministic (dA and dBᵀ);
+* lora_matmul_q8 / lora_matmul_q8_dx — the forward and dX over a weight-
+                     only int8 base (``lora_matmul(..., w_scale=)``);
 * paged_decode     — one-token GQA attention over a block-table page pool;
 * flash_attention  — causal / sliding-window GQA forward (its op's own
                      entry point; the model's training attention is
@@ -17,9 +19,11 @@ from .backend import LAUNCH_COUNTS, reset_launch_counts
 from .flash_attention import (flash_attention, flash_attention_ref, flash_decode_ref,
                               paged_decode, paged_decode_ref)
 from .lora_matmul import (lora_matmul, lora_matmul_dx, lora_matmul_dx_ref,
+                          lora_matmul_q8_dx, lora_matmul_q8_dx_ref, lora_matmul_q8_ref,
                           lora_matmul_ref, lora_rank_reduce, lora_rank_reduce_ref)
 
 __all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "flash_attention",
            "flash_attention_ref", "flash_decode_ref", "paged_decode", "paged_decode_ref",
-           "lora_matmul", "lora_matmul_dx", "lora_matmul_dx_ref", "lora_matmul_ref",
+           "lora_matmul", "lora_matmul_dx", "lora_matmul_dx_ref", "lora_matmul_q8_dx",
+           "lora_matmul_q8_dx_ref", "lora_matmul_q8_ref", "lora_matmul_ref",
            "lora_rank_reduce", "lora_rank_reduce_ref"]

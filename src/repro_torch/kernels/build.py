@@ -2,10 +2,12 @@
 ``ctypes``.
 
 Each ``csrc/<name>.cu`` holds one kernel family behind a plain C interface
-(no PyTorch headers, so ``nvcc`` takes seconds, not minutes).  It is
-compiled for Hopper (``sm_90a``) into ``<repo>/build/kernels/lib<name>.so``
-— a git-ignored directory inside the checkout — and rebuilt whenever the
-source is newer than the library.  Nothing here runs at import time: the
+(no PyTorch headers, so ``nvcc`` takes seconds, not minutes); the
+``csrc/*.cuh`` headers hold device code that several of them include (the
+LoRA GEMM tile of ``lora_tile.cuh``).  Each source is compiled for Hopper
+(``sm_90a``) into ``<repo>/build/kernels/lib<name>.so`` — a git-ignored
+directory inside the checkout — and rebuilt whenever it or any header is
+newer than the library.  Nothing here runs at import time: the
 CPU tests import every module of the port on a machine without ``nvcc``.
 """
 from __future__ import annotations
@@ -21,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("lora_matmul", "lora_matmul_bwd", "paged_decode", "flash_attention")
+SOURCES = ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "paged_decode",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -40,8 +43,10 @@ def _nvcc() -> str:
 
 def _stale(name: str) -> bool:
     lib = BUILD_DIR / f"lib{name}.so"
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (CSRC / f"{name}.cu", *CSRC.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> subprocess.Popen:

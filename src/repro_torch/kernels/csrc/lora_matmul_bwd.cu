@@ -13,10 +13,9 @@
 //    2 * M * K * N flops on ~(M + K) * N * 4 bytes: about 190 flops per
 //    byte at M = 768, above the f32 ridge (67 TFLOP/s / 3.35 TB/s = 20).
 //    Bound by f32 operations without tensor cores: ~13.5 us at M = 768.
-//    Design:
-//     * one block of 256 threads per (64-row M tile, 64-column K tile);
-//       each thread owns a 4 x 4 register tile, rows ty + 16 i and
-//       columns tx + 16 j (strided, so shared-memory reads never conflict);
+//    Design: the 64 x 64 register tile of csrc/lora_tile.cuh (shared with
+//    the two int8-base kernels of csrc/lora_matmul_q8.cu), with P = K
+//    output columns per block and the loop over N inside the block:
 //     * dY and W stream through shared memory in 32-wide N chunks, both
 //       in their native layouts (W is read as (K, N): no transposed
 //       copy), stored transposed with one float of padding per row;
@@ -44,105 +43,28 @@
 //       and a second kernel adds the S partials in order.  No atomics:
 //       the result is the same bit for bit on every run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "lora_tile.cuh"
 
 namespace {
 
-constexpr int RMAX = 64;        // largest adapter rank taken
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
 // ---------------------------------------------------------------------------
-// dX
+// dX: the weight stage of an f32 or bf16 W (K, N), rs[n][k] = W[k][n]
 // ---------------------------------------------------------------------------
-
-constexpr int DX_BM = 64;       // dX rows per block
-constexpr int DX_BK = 64;       // dX columns per block
-constexpr int DX_BN = 32;       // N chunk staged per step
-constexpr int DX_NT = 256;      // 16 x 16 threads, 4 x 4 outputs each
 
 template <typename T>
-__global__ void __launch_bounds__(DX_NT) lora_matmul_dx(
-    const T* __restrict__ dy, const T* __restrict__ w, const T* __restrict__ a,
-    const T* __restrict__ b, T* __restrict__ dx, int M, int K, int N, int r,
-    float scale) {
-  __shared__ float dys[DX_BN][DX_BM + 1];   // dY chunk, transposed
-  __shared__ float ws[DX_BN][DX_BK + 1];    // W chunk, transposed
-  __shared__ float bs[DX_BN][RMAX];         // B chunk
-  __shared__ float zs[DX_BM][RMAX];         // rank tile dY B
+struct WRows {
+  const T* __restrict__ w;
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * DX_BM;
-  const int k0 = blockIdx.x * DX_BK;
-
-  for (int i = tid; i < DX_BM * RMAX; i += DX_NT) zs[i / RMAX][i % RMAX] = 0.f;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += DX_BN) {
-    // stage: neighbouring threads on neighbouring n (coalesced)
-    for (int i = tid; i < DX_BM * DX_BN; i += DX_NT) {
-      const int m = i / DX_BN, n = i % DX_BN;
-      const int gm = m0 + m, gn = n0 + n;
-      dys[n][m] = (gm < M && gn < N) ? to_f(dy[(size_t)gm * N + gn]) : 0.f;
-    }
-    for (int i = tid; i < DX_BK * DX_BN; i += DX_NT) {
-      const int k = i / DX_BN, n = i % DX_BN;
+  __device__ __forceinline__ void stage(float (&rs)[TILE_Q][TILE_P + 1], int n0, int k0,
+                                        int K, int N, int tid) const {
+    // neighbouring threads on neighbouring n (coalesced)
+    for (int i = tid; i < TILE_P * TILE_Q; i += TILE_NT) {
+      const int k = i / TILE_Q, n = i % TILE_Q;
       const int gk = k0 + k, gn = n0 + n;
-      ws[n][k] = (gk < K && gn < N) ? to_f(w[(size_t)gk * N + gn]) : 0.f;
-    }
-    for (int i = tid; i < DX_BN * r; i += DX_NT) {
-      const int n = i / r, j = i % r;
-      const int gn = n0 + n;
-      bs[n][j] = gn < N ? to_f(b[(size_t)gn * r + j]) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int n = 0; n < DX_BN; ++n) {
-      float dv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv[i] = dys[n][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ws[n][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += dv[i] * wv[j];
-    }
-    // rank tile: pair p = (row, rank) is always owned by the same thread
-    for (int p = tid; p < DX_BM * r; p += DX_NT) {
-      const int m = p / r, j = p % r;
-      float s = 0.f;
-      for (int n = 0; n < DX_BN; ++n) s += dys[n][m] * bs[n][j];
-      zs[m][j] += s;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = ty + 16 * i, gm = m0 + m;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gk = k0 + tx + 16 * j;
-      if (gk >= K) continue;
-      float d = 0.f;
-      for (int q = 0; q < r; ++q) d += zs[m][q] * to_f(a[(size_t)q * K + gk]);
-      store(dx + (size_t)gm * K + gk, acc[i][j] + scale * d);
+      rs[n][k] = (gk < K && gn < N) ? to_f(w[(size_t)gk * N + gn]) : 0.f;
     }
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // rank reduce
@@ -230,18 +152,22 @@ int lora_matmul_dx_launch(const void* dy, const void* w, const void* a,
                           const void* b, void* dx, int M, int K, int N, int r,
                           float scale, int dtype, void* stream) {
   if (r < 1 || r > RMAX || M < 1 || K < 1 || N < 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((K + DX_BK - 1) / DX_BK, (M + DX_BM - 1) / DX_BM);
+  const dim3 grid((K + TILE_P - 1) / TILE_P, (M + TILE_M - 1) / TILE_M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    lora_matmul_dx<float><<<grid, DX_NT, 0, s>>>(
-        static_cast<const float*>(dy), static_cast<const float*>(w),
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<float*>(dx), M, K, N, r, scale);
+    using Op = DxOp<float, WRows<float>>;
+    const Op op{{static_cast<const float*>(w)}, static_cast<const float*>(a),
+                static_cast<const float*>(b), K, N, r};
+    lora_tile<float, Op><<<grid, TILE_NT, 0, s>>>(
+        static_cast<const float*>(dy), op, static_cast<float*>(dx), M, N, K, r, scale);
   } else if (dtype == 1) {
-    lora_matmul_dx<__nv_bfloat16><<<grid, DX_NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(dx), M, K, N, r, scale);
+    using Op = DxOp<__nv_bfloat16, WRows<__nv_bfloat16>>;
+    const Op op{{static_cast<const __nv_bfloat16*>(w)},
+                static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+                K, N, r};
+    lora_tile<__nv_bfloat16, Op><<<grid, TILE_NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(dy), op, static_cast<__nv_bfloat16*>(dx), M, N,
+        K, r, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -22,9 +22,10 @@ import ctypes
 import torch
 
 from .. import backend, build
-from .ref import acc_dtype, lora_matmul_dx_ref, lora_matmul_ref, lora_rank_reduce_ref
+from .ref import (acc_dtype, lora_matmul_dx_ref, lora_matmul_q8_dx_ref, lora_matmul_q8_ref,
+                  lora_matmul_ref, lora_rank_reduce_ref)
 
-MAX_RANK = 64                      # RMAX in csrc/lora_matmul{,_bwd}.cu
+MAX_RANK = 64                      # RMAX in csrc/lora_matmul{,_bwd,_q8}.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -158,6 +159,84 @@ def lora_rank_reduce_kernel(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_q8(op: str, dev: torch.device, w_q: torch.Tensor, w_scale: torch.Tensor,
+              K: int, N: int) -> None:
+    """Raise unless w_q is a contiguous int8 (K, N) and w_scale a contiguous
+    float32 (N,), both on the CUDA device ``dev``."""
+    _check(op, dev, torch.int8, w_q=w_q)
+    if tuple(w_q.shape) != (K, N):
+        raise ValueError(f"{op}: w_q {tuple(w_q.shape)}, expected {(K, N)}")
+    if (w_scale.device != dev or w_scale.dtype != torch.float32
+            or tuple(w_scale.shape) != (N,) or not w_scale.is_contiguous()):
+        raise ValueError(f"{op}: w_scale must be a contiguous float32 ({N},) tensor "
+                         f"on {dev}, got {w_scale.dtype} {tuple(w_scale.shape)} on "
+                         f"{w_scale.device}")
+
+
+_Q8_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def lora_matmul_q8_kernel(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                          a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
+    """Launch the int8-base forward kernel: x (M, K), w_q int8 (K, N),
+    w_scale float32 (N,), a (r, K), b (N, r); x, a and b of one dtype
+    (float32 or bfloat16); all contiguous on one CUDA device.  Returns y
+    (M, N) in x's dtype.  Raises on anything else."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"lora_matmul_q8: dtype {x.dtype} not supported "
+                        "(float32, bfloat16)")
+    _check("lora_matmul_q8", x.device, x.dtype, x=x, a=a, b=b)
+    M, K = x.shape
+    N, r = b.shape
+    _check_q8("lora_matmul_q8", x.device, w_q, w_scale, K, N)
+    if tuple(a.shape) != (r, K):
+        raise ValueError(f"lora_matmul_q8: shapes x {tuple(x.shape)} a {tuple(a.shape)} "
+                         f"b {tuple(b.shape)} do not agree")
+    _check_rank("lora_matmul_q8", r)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return y
+    fn = _bind("lora_matmul_q8", "lora_matmul_q8_fwd_launch", _Q8_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a.data_ptr(),
+                 b.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
+                 _DTYPE_CODES[x.dtype], _stream(x.device))
+    build.check("lora_matmul_q8", err)
+    backend.count_launch("lora_matmul_q8")
+    return y
+
+
+def lora_matmul_q8_dx_kernel(dy: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                             a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
+    """Launch the int8-base dX kernel: dy (M, N), w_q int8 (K, N),
+    w_scale float32 (N,), a (r, K), b (N, r); dy, a and b of one dtype
+    (float32 or bfloat16); all contiguous on one CUDA device.  Returns dX
+    (M, K) in dy's dtype.  Raises on anything else."""
+    if dy.dtype not in _DTYPE_CODES:
+        raise TypeError(f"lora_matmul_q8_dx: dtype {dy.dtype} not supported "
+                        "(float32, bfloat16)")
+    _check("lora_matmul_q8_dx", dy.device, dy.dtype, dy=dy, a=a, b=b)
+    M, N = dy.shape
+    r, K = a.shape
+    _check_q8("lora_matmul_q8_dx", dy.device, w_q, w_scale, K, N)
+    if tuple(b.shape) != (N, r):
+        raise ValueError(f"lora_matmul_q8_dx: shapes dy {tuple(dy.shape)} a "
+                         f"{tuple(a.shape)} b {tuple(b.shape)} do not agree")
+    _check_rank("lora_matmul_q8_dx", r)
+    dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
+    if M == 0 or K == 0:
+        return dx
+    fn = _bind("lora_matmul_q8", "lora_matmul_q8_dx_launch", _Q8_ARGTYPES)
+    with torch.cuda.device(dy.device):
+        err = fn(dy.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a.data_ptr(),
+                 b.data_ptr(), dx.data_ptr(), M, K, N, r, float(scale),
+                 _DTYPE_CODES[dy.dtype], _stream(dy.device))
+    build.check("lora_matmul_q8", err)
+    backend.count_launch("lora_matmul_q8_dx")
+    return dx
+
+
 def lora_matmul_dx(dy, w, a, b, scale: float) -> torch.Tensor:
     """dX = dY Wᵀ + scale·(dY B) A, routed by dy's device (operands cast
     to dy's dtype, as JAX does before its kernel)."""
@@ -175,6 +254,18 @@ def lora_rank_reduce(u, v) -> torch.Tensor:
         kernel=lambda: lora_rank_reduce_kernel(u.float().contiguous(),
                                                v.contiguous()),
         ref=lambda: lora_rank_reduce_ref(u, v), x=v)
+
+
+def lora_matmul_q8_dx(dy, w_q, w_scale, a, b, scale: float) -> torch.Tensor:
+    """dX = dY (W_q s)ᵀ + scale·(dY B) A over an int8 base, routed by dy's
+    device (a and b cast to dy's dtype, the scale flattened to (N,) f32)."""
+    a, b = (t.to(dy.dtype).contiguous() for t in (a, b))
+    ws = w_scale.reshape(-1).float().contiguous()
+    return backend.dispatch(
+        "lora_matmul_q8_dx",
+        kernel=lambda: lora_matmul_q8_dx_kernel(dy.contiguous(), w_q.contiguous(), ws,
+                                                a, b, scale),
+        ref=lambda: lora_matmul_q8_dx_ref(dy, w_q, ws, a, b, scale), x=dy)
 
 
 def _forward(x2, w, a, b, scale: float) -> torch.Tensor:
@@ -215,15 +306,60 @@ class _FusedLoraMatmul(torch.autograd.Function):
         return dx, dw, da, db, None
 
 
+class _FusedLoraMatmulQ8(torch.autograd.Function):
+    """y = x2 (W_q s) + s_l (x2 Aᵀ) Bᵀ over an int8 base, with the backward
+    of ``_bwd_value_q8``: dX through the q8 dX kernel (only when x needs
+    it), dA and dBᵀ through ``lora_rank_reduce``, nothing for W_q or s."""
+
+    @staticmethod
+    def forward(ctx, x2, w_q, w_scale, a, b, scale: float):
+        ctx.scale = scale
+        ctx.save_for_backward(x2, w_q, w_scale, a, b)
+        ws = w_scale.reshape(-1).float().contiguous()
+        return backend.dispatch(
+            "lora_matmul_q8",
+            kernel=lambda: lora_matmul_q8_kernel(x2, w_q.contiguous(), ws,
+                                                 a.to(x2.dtype).contiguous(),
+                                                 b.to(x2.dtype).contiguous(), scale),
+            ref=lambda: lora_matmul_q8_ref(x2, w_q, ws, a, b, scale), x=x2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w_q, w_scale, a, b = ctx.saved_tensors
+        scale = ctx.scale
+        need_x, _, _, need_a, need_b = ctx.needs_input_grad[:5]
+        dy = dy.contiguous()
+        acc = acc_dtype(x2, a, b, dy)
+        dx = da = db = None
+        if need_x:
+            dx = lora_matmul_q8_dx(dy, w_q, w_scale, a, b, scale).to(x2.dtype)
+        if need_a:
+            z2 = dy.to(acc) @ b.to(acc)                   # (M, r)
+            da = (scale * lora_rank_reduce(z2, x2)).to(a.dtype)
+        if need_b:
+            z = x2.to(acc) @ a.to(acc).T                  # (M, r)
+            db = (scale * lora_rank_reduce(z, dy).T).contiguous().to(b.dtype)
+        return dx, None, None, da, db, None
+
+
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
-                b: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+                b: torch.Tensor, *, scale: float = 1.0,
+                w_scale: torch.Tensor = None) -> torch.Tensor:
     """y = x @ w + scale * (x @ a^T) @ b^T with any leading dims on x.
 
     x: (..., K); w: (K, N); a: (r, K); b: (N, r).  Routed by x's device
-    (``kernels.backend.dispatch``); differentiable in every operand."""
+    (``kernels.backend.dispatch``); differentiable in every operand.
+
+    ``w_scale`` switches on the weight-only int8 base: ``w`` is then an
+    int8 (K, N) tensor and ``w_scale`` its f32 per-output-channel scale
+    ((N,) or (1, N)); the q8 kernels take them as they are, and no
+    gradient flows to either."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     N = w.shape[1]
     x2 = x.reshape(-1, K).contiguous()
-    y = _FusedLoraMatmul.apply(x2, w, a, b, float(scale))
+    if w_scale is None:
+        y = _FusedLoraMatmul.apply(x2, w, a, b, float(scale))
+    else:
+        y = _FusedLoraMatmulQ8.apply(x2, w, w_scale, a, b, float(scale))
     return y.reshape(*lead, N)

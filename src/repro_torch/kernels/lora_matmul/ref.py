@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the fused LoRA matmul and its two backward
-kernels (the CPU route, and the references the CUDA kernels are held
-against on the card)."""
+"""Plain PyTorch versions of the fused LoRA matmul, its two backward
+kernels and the int8-base (q8) forward and dX (the CPU route, and the
+references the CUDA kernels are held against on the card)."""
 from __future__ import annotations
 
 import torch
+
+from ...precision import dequantize_weight
 
 
 def acc_dtype(*ts: torch.Tensor) -> torch.dtype:
@@ -46,3 +48,22 @@ def lora_rank_reduce_ref(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     (dA and dB^T)."""
     acc = acc_dtype(u, v)
     return u.to(acc).T @ v.to(acc)
+
+
+def lora_matmul_q8_ref(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                       a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
+    """y = x @ (w_q * w_scale) + scale * (x @ a^T) @ b^T over a weight-only
+    int8 base: w_q int8 (K, N), w_scale f32 (N,) or (1, N).  Dequantizes
+    first, then runs ``lora_matmul_ref`` — the twin of
+    ``repro.kernels.lora_matmul.lora_matmul_q8_ref``."""
+    wf = dequantize_weight(w_q, w_scale.reshape(-1), acc_dtype(x, a, b))
+    return lora_matmul_ref(x, wf, a, b, scale)
+
+
+def lora_matmul_q8_dx_ref(dy: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                          a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
+    """dX = dY @ (w_q * w_scale)^T + scale * (dY @ B) @ A, f32 inside, dX
+    in dy's dtype — the dX of the non-kernel branch of
+    ``repro.kernels.lora_matmul.ops._bwd_value_q8``."""
+    wf = dequantize_weight(w_q, w_scale.reshape(-1), acc_dtype(dy, a, b))
+    return lora_matmul_dx_ref(dy, wf, a, b, scale)

@@ -6,8 +6,10 @@ local steps (plus, for SFL, FedAvg).  This module owns that loop once:
 logging, the loss history, and the modeled per-round wall clock over the
 wireless network (``core.latency`` eq. 16-17), accumulated beside the
 measured wall clock so a run reports both "what the hardware did" and
-"what the paper's network would take".  Wireless dynamics, episode
-checkpoints and checkpoint hooks are not ported yet (``ROADMAP.md``).
+"what the paper's network would take" (``allocation_round_latency``
+turns an allocator decision into that clock).  Wireless dynamics,
+episode checkpoints and checkpoint hooks are not ported yet
+(``ROADMAP.md``).
 
 Trainers plug in through adapters exposing
 ``run_round(state, round_batches) -> (state, metrics)`` where
@@ -51,6 +53,34 @@ def modeled_round_seconds(report: Dict[str, Any], local_steps: int) -> float:
     """Per-global-round modeled delay from a core.latency.latency_report:
     I local rounds (eq. 16) + the federated LoRA upload (eq. 15)."""
     return local_steps * report["t_local"] + report["t3"]
+
+
+def modeled_total_seconds(prob, alloc) -> float:
+    """Total modeled training delay of an allocation (eq. 17 with E(r));
+    the per-client objective when the allocation carries ``ell_k``/
+    ``rank_k``."""
+    from ..core.resource import total_delay
+    return total_delay(prob, alloc)
+
+
+def allocation_round_latency(prob, alloc) -> Dict[str, Any]:
+    """``latency_report`` for a resource-allocation decision — homogeneous
+    or per-client — ready for ``Trainer(round_latency=...)``: the rounds
+    then accumulate the wireless wall clock this allocation models."""
+    from ..core.latency import latency_report, latency_report_het
+    rates_m = alloc.rates_main(prob.sys_cfg, prob.envs)
+    rates_f = alloc.rates_fed(prob.sys_cfg, prob.envs)
+    e_rounds = prob.e_model(int(alloc.rank))
+    if getattr(alloc, "ell_k", None) is not None:
+        e_rounds = float(np.mean([prob.e_model(int(r)) for r in alloc.rank_k]))
+        return latency_report_het(
+            prob.cfg, prob.sys_cfg, prob.envs, rates_m, rates_f,
+            alloc.ell_k, alloc.rank_k, prob.seq_len, prob.batch,
+            prob.local_steps, e_rounds)
+    return latency_report(
+        prob.cfg, prob.sys_cfg, prob.envs, rates_m, rates_f,
+        int(alloc.ell_c), int(alloc.rank), prob.seq_len, prob.batch,
+        prob.local_steps, e_rounds)
 
 
 @dataclass

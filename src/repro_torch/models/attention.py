@@ -45,17 +45,17 @@ def _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl="einsum"):
     B, S, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(x, p["wq"]["w"], p["wq"].get("b"), _lora(lora, "q"), lora_scale,
-              impl=dense_impl)
+              impl=dense_impl, w_scale=p["wq"].get("w_scale"))
     k = dense(x, p["wk"]["w"], p["wk"].get("b"), _lora(lora, "k"), lora_scale,
-              impl=dense_impl)
+              impl=dense_impl, w_scale=p["wk"].get("w_scale"))
     v = dense(x, p["wv"]["w"], p["wv"].get("b"), _lora(lora, "v"), lora_scale,
-              impl=dense_impl)
+              impl=dense_impl, w_scale=p["wv"].get("w_scale"))
     return q.reshape(B, S, h, hd), k.reshape(B, S, kh, hd), v.reshape(B, S, kh, hd)
 
 
 def _out_proj(p, o, lora, lora_scale, dense_impl):
     return dense(o, p["wo"]["w"], p["wo"].get("b"), _lora(lora, "o"), lora_scale,
-                 impl=dense_impl)
+                 impl=dense_impl, w_scale=p["wo"].get("w_scale"))
 
 
 # ---------------------------------------------------------------------------

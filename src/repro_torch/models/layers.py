@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.lora_matmul import lora_matmul
+from ..precision import dequantize_weight
 
 
 def _cast_like(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -24,20 +25,32 @@ def _cast_like(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
           lora: Optional[dict] = None, lora_scale: float = 1.0,
-          impl: str = "einsum") -> torch.Tensor:
+          impl: str = "einsum", w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ w (+ b) (+ lora_scale * (x @ a^T) @ b_lora^T).
 
     ``lora`` is ``{"a": (r, in), "b": (out, r)}`` or None.  ``impl="fused"``
     with a Python-number scale routes through ``kernels.lora_matmul`` (the
     CUDA kernel for a CUDA tensor, its plain version for a CPU one); a
     tensor scale, or ``impl="einsum"``, takes the separate products.  The
-    bias is added after the kernel, as in JAX."""
+    bias is added after the kernel, as in JAX.
+
+    Weight-only int8: with ``w_scale`` (the f32 per-output-channel scale
+    of ``precision.quantize_weight_int8``) ``w`` is int8; the fused route
+    hands the pair to the q8 kernels, every other route dequantizes first
+    (``repro``'s ``_w_dense``).  An integer ``w`` without its scale
+    raises: cast to x's dtype it would compute with the raw integers."""
+    if w_scale is None and not w.is_floating_point():
+        raise TypeError(f"dense: w is {w.dtype} but no w_scale was given; an "
+                        "int8 base weight needs its per-channel scale")
     if (impl == "fused" and lora is not None
             and isinstance(lora_scale, (int, float))):
-        y = lora_matmul(x, _cast_like(x, w), _cast_like(x, lora["a"]),
-                        _cast_like(x, lora["b"]), scale=float(lora_scale))
+        y = lora_matmul(x, w if w_scale is not None else _cast_like(x, w),
+                        _cast_like(x, lora["a"]), _cast_like(x, lora["b"]),
+                        scale=float(lora_scale), w_scale=w_scale)
     else:
-        y = x @ _cast_like(x, w)
+        wd = (_cast_like(x, w) if w_scale is None
+              else dequantize_weight(w, w_scale, dtype=x.dtype))
+        y = x @ wd
         if lora is not None:
             z = x @ _cast_like(x, lora["a"]).T
             delta = z @ _cast_like(x, lora["b"]).T
@@ -128,24 +141,24 @@ def _sub(lora: Optional[dict], name: str) -> Optional[dict]:
     return None if lora is None or name not in lora else lora[name]
 
 
+def _proj(x, p: dict, lora, name: str, lora_scale, dense_impl):
+    return dense(x, p["w"], p.get("b"), lora=_sub(lora, name), lora_scale=lora_scale,
+                 impl=dense_impl, w_scale=p.get("w_scale"))
+
+
 def swiglu_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
                lora_scale: float = 1.0, dense_impl: str = "einsum"):
-    g = dense(x, p["w_gate"]["w"], lora=_sub(lora, "gate"),
-              lora_scale=lora_scale, impl=dense_impl)
-    u = dense(x, p["w_up"]["w"], lora=_sub(lora, "up"),
-              lora_scale=lora_scale, impl=dense_impl)
+    g = _proj(x, p["w_gate"], lora, "gate", lora_scale, dense_impl)
+    u = _proj(x, p["w_up"], lora, "up", lora_scale, dense_impl)
     h = F.silu(g.float()).to(x.dtype) * u
-    return dense(h, p["w_down"]["w"], lora=_sub(lora, "down"),
-                 lora_scale=lora_scale, impl=dense_impl)
+    return _proj(h, p["w_down"], lora, "down", lora_scale, dense_impl)
 
 
 def gelu_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
              lora_scale: float = 1.0, dense_impl: str = "einsum"):
-    h = dense(x, p["w_up"]["w"], p["w_up"].get("b"), lora=_sub(lora, "up"),
-              lora_scale=lora_scale, impl=dense_impl)
+    h = _proj(x, p["w_up"], lora, "up", lora_scale, dense_impl)
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return dense(h, p["w_down"]["w"], p["w_down"].get("b"),
-                 lora=_sub(lora, "down"), lora_scale=lora_scale, impl=dense_impl)
+    return _proj(h, p["w_down"], lora, "down", lora_scale, dense_impl)
 
 
 def apply_mlp(cfg, x, p: dict, lora: Optional[dict] = None,

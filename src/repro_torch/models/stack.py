@@ -14,6 +14,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..precision import PrecisionConfig
 from . import attention as attn_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
@@ -21,12 +22,15 @@ from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 @dataclass(frozen=True)
 class Runtime:
     """The training and serving knobs of ``repro.models.stack.Runtime``
-    that the port runs (no remat, sharding or precision knobs yet)."""
+    that the port runs (no remat or sharding knobs yet)."""
 
     dense_impl: str = "einsum"          # "einsum" | "fused" (kernels.lora_matmul)
     # "flash" routes paged decode through kernels.flash_attention.paged_decode
     # (the CUDA kernel on a CUDA tensor); "naive" takes the plain gather
     decode_attn_impl: str = "naive"
+    # split-boundary bit-widths, stochastic rounding and error feedback
+    # (``precision``); the default is fully disarmed (16/16/f32)
+    precision: PrecisionConfig = PrecisionConfig()
 
     def replace(self, **kw) -> "Runtime":
         return dataclasses.replace(self, **kw)
@@ -102,11 +106,30 @@ def init_paged_stack_cache(cfg, num_pages: int, page_size: int, dtype,
             for _ in range(cfg.num_layers)]
 
 
+def _live_rows(rep: int, lo, hi):
+    """Which rows apply repeat ``rep`` under the gate ``lo <= rep < hi``:
+    True (all), False (none), or a CPU bool mask over the batch rows.
+    ``lo``/``hi`` are None, ints, or per-row host sequences / CPU tensors."""
+    if lo is None and hi is None:
+        return True
+    keep = torch.ones((), dtype=torch.bool)
+    if lo is not None:
+        keep = keep & (rep >= torch.as_tensor(lo, device="cpu"))
+    if hi is not None:
+        keep = keep & (rep < torch.as_tensor(hi, device="cpu"))
+    if bool(keep.all()):
+        return True
+    if not bool(keep.any()):
+        return False
+    return keep
+
+
 def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None,
                 rt: Runtime, mode: str = "train", caches: Optional[List[dict]] = None,
                 cur_index=None, block_tables=None, positions=None,
                 lora_scale: Optional[float] = None,
-                rep_slice: Optional[Tuple[int, int]] = None):
+                rep_slice: Optional[Tuple[int, int]] = None,
+                rep_gate: Optional[Tuple[object, object]] = None):
     """Run the layers in order.  ``lora`` is a per-layer list of adapter
     dicts (or None); the scale defaults to ``cfg.lora_alpha / cfg.lora_rank``.
 
@@ -114,21 +137,36 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
     (the SFL split point in repeat units), slicing ``layers``, ``lora``
     and ``caches`` alike.  A stack cut at a repeat boundary keeps each
     layer's pattern position, so ``layers`` may also be such a cut.
+
+    ``rep_gate=(lo, hi)`` (mode "train" only) applies repeat i of the
+    (sliced) stack to a row iff ``lo <= i < hi``; either bound may be
+    None, an int, or a per-row host sequence of the batch.  Gated rows
+    pass through bit-unchanged (``torch.where(keep, block(x), x)``, as
+    JAX's gate); a repeat no row applies is skipped and one every row
+    applies runs ungated — the same values, without the dead blocks.
     Returns (x, caches); caches is None in mode "train"."""
+    gate_lo, gate_hi = rep_gate if rep_gate is not None else (None, None)
+    if (gate_lo is not None or gate_hi is not None) and mode != "train":
+        raise NotImplementedError("rep_gate requires mode='train' "
+                                  "(gated cache slots would be stale)")
     scale = (cfg.lora_alpha / cfg.lora_rank) if lora_scale is None else lora_scale
+    P = len(cfg.pattern)
     if rep_slice is not None:
-        P = len(cfg.pattern)
         lo, hi = rep_slice[0] * P, rep_slice[1] * P
         layers = layers[lo:hi]
         lora = None if lora is None else lora[lo:hi]
         caches = None if caches is None else caches[lo:hi]
     kinds = cfg.layer_kinds
     for i, p in enumerate(layers):
-        x, c = apply_block(
+        live = _live_rows(i // P, gate_lo, gate_hi)
+        if live is False:
+            continue
+        y, c = apply_block(
             cfg, kinds[i], p, x, lora=None if lora is None else lora[i],
             lora_scale=scale, rt=rt, mode=mode,
             cache=None if caches is None else caches[i],
             cur_index=cur_index, block_tables=block_tables, positions=positions)
+        x = y if live is True else torch.where(live.to(x.device)[:, None, None], y, x)
         if caches is not None:
             caches[i] = c
     return x, caches

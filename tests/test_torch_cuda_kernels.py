@@ -20,9 +20,13 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
 from repro_torch.kernels.lora_matmul import (lora_matmul,   # noqa: E402
                                              lora_matmul_dx_kernel,
                                              lora_matmul_dx_ref, lora_matmul_kernel,
-                                             lora_matmul_ref, lora_rank_reduce_kernel,
+                                             lora_matmul_q8_dx_kernel,
+                                             lora_matmul_q8_dx_ref, lora_matmul_q8_kernel,
+                                             lora_matmul_q8_ref, lora_matmul_ref,
+                                             lora_rank_reduce_kernel,
                                              lora_rank_reduce_ref)
 from repro_torch.models import init_lora_stack, init_params  # noqa: E402
+from repro_torch.precision import quantize_params_int8, quantize_weight_int8  # noqa: E402
 from repro_torch.serving import Request, ServingEngine      # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -234,6 +238,128 @@ def test_training_step_on_the_card_matches_the_cpu_step(cuda):
             assert backend.LAUNCH_COUNTS == {"lora_matmul": 2 * (2 * 2 + 2),
                                              "lora_matmul_dx": 2 * (2 * 1 + 2),
                                              "lora_rank_reduce": 4 * (2 * 2 + 2)}
+        outs.append((float(m["loss"]), tree_to([st.lora_client, st.lora_server], "cpu")))
+    assert abs(outs[0][0] - outs[1][0]) < 1e-4
+    for a, b in zip(tree_leaves(outs[0][1]), tree_leaves(outs[1][1])):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the int8-base pair: lora_matmul_q8 and lora_matmul_q8_dx
+# ---------------------------------------------------------------------------
+
+# f32 at atol = rtol 1e-4 (sums over 768 terms, TF32 off); bf16 at repro's
+# GRAD_TOLS
+Q8_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: GRAD_TOL[torch.bfloat16]}
+Q8_SHAPES = [(8, 768, 768, 8), (256, 768, 768, 8), (768, 768, 768, 8), (256, 768, 768, 1),
+             (768, 768, 768, 2), (256, 768, 768, 4), (33, 70, 45, 2), (5, 100, 70, 1),
+             (70, 130, 301, 64), (1, 7, 1, 1)]
+
+
+def _q8_inputs(cuda, dtype, M, K, N, r, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, K, generator=g).to(cuda, dtype)
+    wq, ws = quantize_weight_int8(torch.randn(K, N, generator=g) * K ** -0.5)
+    a = (torch.randn(r, K, generator=g) * K ** -0.5).to(cuda, dtype)
+    b = (torch.randn(N, r, generator=g) * N ** -0.5).to(cuda, dtype)
+    return x, wq.to(cuda), ws.to(cuda), a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N,r", Q8_SHAPES)
+def test_lora_matmul_q8_kernels_match_plain(cuda, dtype, M, K, N, r):
+    x, wq, ws, a, b = _q8_inputs(cuda, dtype, M, K, N, r, M + K + N + r)
+    dy = torch.randn(M, N, generator=torch.Generator().manual_seed(r)).to(cuda, dtype)
+    before = {k: backend.LAUNCH_COUNTS.get(k, 0) for k in ("lora_matmul_q8",
+                                                           "lora_matmul_q8_dx")}
+    y = lora_matmul_q8_kernel(x, wq, ws, a, b, 2.0)
+    dx = lora_matmul_q8_dx_kernel(dy, wq, ws, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert all(backend.LAUNCH_COUNTS[k] == v + 1 for k, v in before.items())
+    assert y.dtype == dx.dtype == dtype
+    assert tuple(y.shape) == (M, N) and tuple(dx.shape) == (M, K)
+    torch.testing.assert_close(y.float(), lora_matmul_q8_ref(x, wq, ws, a, b, 2.0).float(),
+                               **Q8_TOL[dtype])
+    torch.testing.assert_close(dx.float(),
+                               lora_matmul_q8_dx_ref(dy, wq, ws, a, b, 2.0).float(),
+                               **Q8_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N,r", [(256, 768, 768, 8), (768, 768, 768, 2), (33, 70, 45, 2)])
+def test_q8_autograd_backward_matches_plain_autograd(cuda, dtype, M, K, N, r):
+    """dx, da, db of lora_matmul(..., w_scale=) through the kernels against
+    autograd of the plain version (and, printed, both against float64
+    autograd); no gradient for the int8 W or its scale."""
+    x, wq, ws, a, b = _q8_inputs(cuda, dtype, M, K, N, r, 7 * M + r)
+    cot = torch.randn(M, N, generator=torch.Generator().manual_seed(M)).to(cuda, dtype)
+    ink = [t.clone().requires_grad_() for t in (x, a, b)]
+    inr = [t.clone().requires_grad_() for t in (x, a, b)]
+    wsk = ws.clone().requires_grad_()
+    backend.reset_launch_counts()
+    lora_matmul(ink[0], wq, ink[1], ink[2], scale=2.0, w_scale=wsk).backward(cot)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS == {"lora_matmul_q8": 1, "lora_matmul_q8_dx": 1,
+                                     "lora_rank_reduce": 2}
+    assert wsk.grad is None
+    lora_matmul_q8_ref(inr[0], wq, ws, inr[1], inr[2], 2.0).backward(cot)
+    in64 = [t.double().requires_grad_() for t in (x, a, b)]
+    lora_matmul_q8_ref(in64[0], wq, ws, in64[1], in64[2], 2.0).backward(cot.double())
+    for name, tk, tr, t64 in zip(("dx", "da", "db"), ink, inr, in64):
+        print(f"{name}: kernel vs f64 {(tk.grad.double() - t64.grad).abs().max().item():.3g}"
+              f", plain vs f64 {(tr.grad.double() - t64.grad).abs().max().item():.3g}, "
+              f"max|ref| {t64.grad.abs().max().item():.4g}")
+        torch.testing.assert_close(tk.grad.float(), tr.grad.float(),
+                                   msg=lambda m, n=name: f"{n}: {m}", **GRAD_TOL[dtype])
+
+
+def test_q8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x, wq, ws, a, b = _q8_inputs(cuda, torch.float32, 4, 16, 8, 2, 0)
+    with pytest.raises(TypeError):
+        lora_matmul_q8_kernel(x, wq.float(), ws, a, b, 1.0)            # W not int8
+    with pytest.raises(ValueError):
+        lora_matmul_q8_kernel(x, wq, ws[:4], a, b, 1.0)                # scale (4,) for N 8
+    with pytest.raises(ValueError):
+        lora_matmul_q8_dx_kernel(torch.randn(4, 8, device=cuda), wq, ws.cpu(), a, b, 1.0)
+    with pytest.raises(TypeError):
+        lora_matmul_q8_kernel(x, wq, ws, a.bfloat16(), b, 1.0)         # mixed dtypes
+
+
+def test_q8_fleet_step_on_the_card_matches_the_cpu_step(cuda):
+    """One local step of a mixed fleet over an int8 base (splits 1/2/3,
+    ranks 1/2/4, act bits 4/8/16, grad bits 8, error feedback) through the
+    kernels equals the CPU step, with the launches its splits imply.  SGD,
+    so that an entry the two devices round to another quantization level
+    moves the adapters by lr times a small gradient change, not by a
+    whole Adam step."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import SflLLM
+    from repro_torch.interop import tree_to
+    from repro_torch.models import default_train_runtime
+    from repro_torch.optim import sgd
+    from repro_torch.precision import PrecisionConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch("gpt2-s").reduced(num_layers=4, d_model=64, vocab=128)
+    params = quantize_params_int8(init_params(cfg, torch.Generator().manual_seed(0),
+                                              device="cpu"))
+    rt = default_train_runtime().replace(
+        precision=PrecisionConfig(grad_bits=8, error_feedback=True))
+    tc = TrainConfig(num_clients=3, batch_size=2, local_steps=1)
+    tokens = torch.randint(0, 128, (3, 2, 16), generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": tokens, "labels": tokens}
+    outs = []
+    for dev in ("cpu", "cuda"):
+        sfl = SflLLM(cfg, params, (1, 2, 3), tc, sgd(0.1), rt=rt, device=dev,
+                     ranks=(1, 2, 4), act_bits=(4, 8, 16))
+        lora = sfl.init_lora(torch.Generator().manual_seed(1))
+        backend.reset_launch_counts()
+        st, m = sfl.local_step(sfl.init_state(lora), batch)
+        if dev == "cuda":
+            fwd = 2 * (1 + 2 + 3 + 4 - 1)
+            assert backend.LAUNCH_COUNTS == {"lora_matmul_q8": fwd,
+                                             "lora_matmul_q8_dx": 2 * (0 + 1 + 2 + 4 - 1),
+                                             "lora_rank_reduce": 2 * fwd}
         outs.append((float(m["loss"]), tree_to([st.lora_client, st.lora_server], "cpu")))
     assert abs(outs[0][0] - outs[1][0]) < 1e-4
     for a, b in zip(tree_leaves(outs[0][1]), tree_leaves(outs[1][1])):

@@ -268,10 +268,15 @@ def test_aggregation_matches_repro():
                        _np(jagg.broadcast_stacked(jagg.fedavg_stacked(stacked, w), K)),
                        **FN_TOL)
     assert bool(tagg.tree_all_finite(tst)) and bool(jagg.tree_all_finite(stacked))
+    # slot masks (heterogeneous fleets): each slot averaged over its owners
+    masks = {"a": (rng.random((K, 3, 1)) < 0.6).astype(np.float32),
+             "b": (rng.random((K, 1)) < 0.6).astype(np.float32)}
+    _assert_tree_close(
+        tree_map(lambda t: t.numpy(),
+                 tagg.fedavg_partial(tst, w, part, tree_map(torch.from_numpy, masks))),
+        _np(jagg.fedavg_partial(stacked, w, part, masks)), **FN_TOL)
     tst["b"][1, 2] = float("nan")
     assert not bool(tagg.tree_all_finite(tst))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tagg.fedavg_partial(tst, w, None, masks={})
 
 
 # ---------------------------------------------------------------------------
@@ -429,14 +434,27 @@ def test_sfl_train_matches_repro(capsys):
 
 
 def test_sfl_refuses_what_is_not_ported():
+    """The capacity envelope, the mesh, the act_quant shim, dynamic
+    allocation and RoundDynamics are not ported: each raises, naming the
+    roadmap (per-client splits, ranks and act_bits are ported)."""
+    from repro_torch.core.resource import Allocation
     _, tcfg = _cfgs(layers=2)
     tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     tc = TTrainConfig(num_clients=2, batch_size=1, local_steps=1)
-    for kw in (dict(ranks=(2, 4)), dict(mesh=object()), dict(act_bits=8)):
+    for kw in (dict(ell_range=(1, 1)), dict(rank_max=8), dict(mesh=object()),
+               dict(act_quant=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", **kw)
+    prob = argparse.Namespace(cfg=tcfg, envs=(None, None), batch=1, local_steps=1)
+    alloc = Allocation(np.zeros(2, int), np.zeros(2, int), np.ones(2), np.ones(2), 1, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SflLLM(tcfg, tp, (1, 2), tc, t_sgd(0.1), device="cpu")
+        SflLLM.from_allocation(prob, alloc, tp, t_sgd(0.1), dynamic=True, device="cpu")
+    sfl = SflLLM(tcfg, tp, (1, 1), tc, t_sgd(0.1), device="cpu", ranks=(2, 4), act_bits=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sfl.train_round(sfl.init_state(sfl.init_lora(torch.Generator().manual_seed(1))),
+                        {"tokens": np.zeros((1, 2, 1, 4), np.int32),
+                         "labels": np.zeros((1, 2, 1, 4), np.int32)}, [1.0, 1.0],
+                        dynamics=object())
 
 
 def test_sfl_on_cuda_raises_without_a_card():
