@@ -7,7 +7,7 @@ card:
 
 Phases (each prints its own lines; any failure exits non-zero):
  1. device: name, power limit, TF32 off for the float32 references;
- 2. build: all five CUDA sources from src/repro_torch/kernels/csrc with
+ 2. build: all six CUDA sources from src/repro_torch/kernels/csrc with
     nvcc, in parallel;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
@@ -15,10 +15,15 @@ Phases (each prints its own lines; any failure exits non-zero):
     kernels, the autograd backward of ``lora_matmul`` against autograd of
     its plain version, the causal flash-attention forward, and the
     int8-base forward and dX (``lora_matmul(..., w_scale=)``) with their
-    autograd backward;
+    autograd backward, and the decode family: flash decode over slab
+    caches (lengths 0 to L + 1, windows, GQA, ragged D) and the int8-KV
+    pair (flash_decode_q8 over an int8 slab, paged_decode_q8 over an int8
+    pool);
  4. times: each kernel, its plain version and one library call, CUDA
     events, median of 60 launches with L2 flushed between launches, beside
-    the least time the card could take for the same work;
+    the least time the card could take for the same work (the decode
+    family at the engine's shape: masked SDPA over the slab view, and
+    dequantize-then-SDPA for the int8 pair, as the library calls);
  5. serving: ServingEngine on full-width GPT-2-S (f32, 8 slots, 512
     positions, 16-token pages) drains 16 requests; the launch counters,
     reset just before, must show the kernels carried the path; one decode
@@ -41,7 +46,19 @@ Phases (each prints its own lines; any failure exits non-zero):
     activation bits 4/8/16, gradient bits 8, stochastic rounding, error
     feedback).  The launch counters, reset just before each fleet, must
     equal the per-step counts its splits imply; for (b) one local step
-    through the kernels is held against the plain path.
+    through the kernels is held against the plain path;
+ 9. the slab engine (``ServingEngine(paged=False)``) on full-width
+    GPT-2-S (f32, 8 slots, 512 positions) drains phase 5's 16 requests:
+    launch counters reset just before must show 12 ``flash_decode`` per
+    decode step and 24 ``lora_matmul`` per step and per prefill, and the
+    token ids must equal phase 5's; one slab decode step is held against
+    the plain path; then a short run of the naive loop (``fused=False``);
+10. the int8-KV ops' own path (no engine of ``repro`` builds an int8
+    KV): the real GPT-2-S KV of a slab engine and of a paged engine
+    mid-run, quantized per KV head (``precision.quantize_kv_int8``), then
+    each q8 op once per layer — exactly 12 launches each, held against
+    its plain version (f32 atol 1e-5), its distance from the f32 kernel
+    printed.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -58,7 +75,7 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM, data sheet
 PEAK_FLOPS = {"float32": 67e12,     # outside the tensor cores
               "bfloat16": 989e12}   # dense tensor-core rate
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}        # lora_matmul atol = rtol
-PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # every decode kernel
 # backward kernels: f32 sums over 768 terms with TF32 off; bf16 gradients
 # at repro's GRAD_TOLS
 GRAD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
@@ -136,7 +153,9 @@ def main() -> None:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import backend, build
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref, paged_decode,
+                                                     flash_attention_ref, flash_decode,
+                                                     flash_decode_q8_ref, flash_decode_ref,
+                                                     paged_decode, paged_decode_q8_ref,
                                                      paged_decode_ref)
     from repro_torch.kernels.lora_matmul import (lora_matmul, lora_matmul_dx_kernel,
                                                  lora_matmul_dx_ref, lora_matmul_q8_dx_kernel,
@@ -144,7 +163,7 @@ def main() -> None:
                                                  lora_matmul_q8_ref, lora_matmul_ref,
                                                  lora_rank_reduce_kernel,
                                                  lora_rank_reduce_ref)
-    from repro_torch.precision import quantize_weight_int8
+    from repro_torch.precision import quantize_kv_int8, quantize_weight_int8
     from repro_torch.serving import Request, ServingEngine
 
     dev = torch.device("cuda", 0)
@@ -332,10 +351,62 @@ def main() -> None:
                 print(f"[check]   {name} against float64 autograd: kernel path {ek:.3g}, "
                       f"plain {dn} path {ep:.3g}, max|ref| {t64.grad.abs().max().item():.4g}")
 
+    def slab_inputs(B, KH, G, D, L, lengths, dt):
+        q = randn(B, 1, KH * G, D).to(dev, dt)
+        k, v = randn(B, L, KH, D).to(dev, dt), randn(B, L, KH, D).to(dev, dt)
+        return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+    def check_decode(dt, dn):
+        """flash_decode over slab caches in the model layout, then the
+        int8-KV pair, against their plain versions: dead slots, lengths
+        L and L + 1 (a finished slab slot decoding on), windows, GQA and a
+        ragged D (int8 rows read byte by byte)."""
+        tol = dict(atol=PAGED_TOL[dn], rtol=PAGED_TOL[dn])
+        for B, KH, G, D, L, win in ((8, 12, 1, 64, 512, 0), (4, 2, 4, 128, 96, 0),
+                                    (6, 2, 3, 42, 33, 7), (7, 2, 2, 20, 64, 16)):
+            lengths = [0, L + 1, 1, L, 31, 32, 33, 255][:B]
+            q, k, v, lens = slab_inputs(B, KH, G, D, L, [min(n, L + 1) for n in lengths], dt)
+            qt = q[:, 0].reshape(B, KH, G, D)
+            what = f"{dn} B={B} KH={KH} G={G} D={D} L={L} window={win} lengths={lengths}"
+            o = flash_decode(q, k, v, lens, window=win)
+            torch.cuda.synchronize()
+            ref = flash_decode_ref(qt, k.transpose(1, 2), v.transpose(1, 2), lens,
+                                   window=win).reshape(o.shape)
+            e = close("flash_decode", what, o, ref, tol)
+            if not bool((o[0] == 0).all()):
+                fail(f"flash_decode: a dead slot did not give exact zeros ({what})")
+            kq, ks = quantize_kv_int8(k, head_axis=2)
+            vq, vs = quantize_kv_int8(v, head_axis=2)
+            o8 = flash_decode(q, kq, vq, lens, window=win, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            e8 = close("flash_decode_q8", what + " (K/V int8)", o8, flash_decode_q8_ref(
+                qt, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, lens,
+                window=win).reshape(o.shape), tol)
+            if dn == "float32" and D == 64 and G == 1:
+                err["flash_decode"] = max(err["flash_decode"], e)
+                err["flash_decode_q8"] = max(err["flash_decode_q8"], e8)
+        for B, KH, G, D in ((8, 12, 1, 64), (4, 2, 4, 128), (3, 2, 3, 42)):
+            PS, MP = 16, 32
+            lengths = [0, 1, PS, PS + 1, MP * PS, 37, 200, 301][:B]
+            q, kp, vp, lens, bt = paged_inputs(B, KH, G, D, PS, MP, lengths, dt)
+            kq, ks = quantize_kv_int8(kp, head_axis=0)
+            vq, vs = quantize_kv_int8(vp, head_axis=0)
+            o = paged_decode(q, kq, vq, lens, bt, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            e = close("paged_decode_q8", f"{dn} B={B} KH={KH} G={G} D={D} PS={PS} MP={MP} "
+                      f"lengths={lengths} (pool int8)", o, paged_decode_q8_ref(
+                          q[:, 0].reshape(B, KH, G, D), kq, vq, ks, vs, lens,
+                          bt).reshape(o.shape), tol)
+            if not bool((o[0] == 0).all()):
+                fail("paged_decode_q8: a dead slot did not give exact zeros")
+            if dn == "float32" and G == 1:
+                err["paged_decode_q8"] = max(err["paged_decode_q8"], e)
+
     scale = 2.0                       # GPT-2-S: lora_alpha / lora_rank = 8 / 4
     err = {"lora_matmul": 0.0, "paged_decode": 0.0, "lora_matmul_dx": 0.0,
            "lora_rank_reduce": 0.0, "flash_attention": 0.0, "lora_matmul_q8": 0.0,
-           "lora_matmul_q8_dx": 0.0}
+           "lora_matmul_q8_dx": 0.0, "flash_decode": 0.0, "flash_decode_q8": 0.0,
+           "paged_decode_q8": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
         for M, K, N, r in ((8, 768, 768, 4), (16, 768, 768, 4), (5, 100, 70, 3)):
@@ -373,6 +444,7 @@ def main() -> None:
         check_backward(dt, dn)
         check_attention(dt, dn)
         check_q8(dt, dn)
+        check_decode(dt, dn)
 
     # -- 4. times at the serving path's shapes (f32, as the engine serves) --
     # reading 64 MB (> the 50 MB L2) between launches evicts the operands,
@@ -431,6 +503,58 @@ def main() -> None:
           f"{lib * 1e3:.2f}us bound {max(t_bytes, t_ops) * 1e3:.2f}us ({nbytes} B, {flops} flop); "
           f"kernel with L2 warm {warm * 1e3:.2f}us; back-to-back {b2b:.2f}us/call "
           f"(host clock, L2 warm)")
+    # the decode family at the same shape over slab caches of 512 positions
+    # (the slab engine's) and over the same int8 pool
+    L = MP * PS
+    q, k, v, lens = slab_inputs(B, KH, G, D, L, lengths, torch.float32)
+    qt = q[:, 0].reshape(B, KH, G, D)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)              # views, no copy
+    kq, ks = quantize_kv_int8(k, head_axis=2)
+    vq, vs = quantize_kv_int8(v, head_axis=2)
+    kpq, kps = quantize_kv_int8(kp, head_axis=0)
+    vpq, vps = quantize_kv_int8(vp, head_axis=0)
+
+    def deq(t, s_, axis):
+        shape = [1] * t.dim()
+        shape[axis] = -1
+        return t.float() * s_.reshape(shape)
+
+    def paged_deq_sdpa():
+        kf, vf = deq(kpq, kps, 0), deq(vpq, vps, 0)
+        kg = kf[:, bt.long()].permute(1, 0, 2, 3, 4).reshape(B, KH, L, D)
+        vg = vf[:, bt.long()].permute(1, 0, 2, 3, 4).reshape(B, KH, L, D)
+        return F.scaled_dot_product_attention(qt, kg, vg, attn_mask=sdpa_mask)
+
+    tables = 4 * sum(math.ceil(n / PS) for n in lengths)
+    qo = 4 * 2 * B * KH * G * D                                # q read, out written
+    for op, kern, plain_fn, lib_fn, lib_name, nbytes in (
+            ("flash_decode", lambda: flash_decode(q, k, v, lens),
+             lambda: flash_decode_ref(qt, kt, vt, lens),
+             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask),
+             "masked SDPA over the slab view", qo + 4 * 2 * KH * tot * D + 4 * B),
+            ("flash_decode_q8", lambda: flash_decode(q, kq, vq, lens, k_scale=ks, v_scale=vs),
+             lambda: flash_decode_q8_ref(qt, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs,
+                                         lens),
+             lambda: F.scaled_dot_product_attention(
+                 qt, deq(kq, ks, 2).transpose(1, 2), deq(vq, vs, 2).transpose(1, 2),
+                 attn_mask=sdpa_mask),
+             "dequantize + masked SDPA", qo + 2 * KH * tot * D + 4 * B + 2 * 4 * KH),
+            ("paged_decode_q8", lambda: paged_decode(q, kpq, vpq, lens, bt, k_scale=kps,
+                                                     v_scale=vps),
+             lambda: paged_decode_q8_ref(qt, kpq, vpq, kps, vps, lens, bt),
+             paged_deq_sdpa, "dequantize + gather + SDPA",
+             qo + 2 * KH * tot * D + 4 * B + tables + 2 * 4 * KH)):
+        ms = time_ms(torch, kern, flush)
+        warm = time_ms(torch, kern, lambda: None)
+        plain = time_ms(torch, plain_fn, flush)
+        lib = time_ms(torch, lib_fn, flush)
+        bms, bby = bound(nbytes, 4 * KH * G * D * tot)
+        rows[(op, B)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                             bound_by=bby)
+        print(f"[time] {op} f32 q, B={B} KH={KH} G={G} D={D} L={L} lengths={lengths}: "
+              f"kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library({lib_name}) "
+              f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, {nbytes} B); kernel "
+              f"with L2 warm {warm * 1e3:.2f}us")
     # -- 4b. times at the training path's shapes (f32) -------------------------
     # the forward kernel was designed for serving M (8-16 rows); record what
     # it does at the server's training M = K*b*S = 768
@@ -815,10 +939,173 @@ def main() -> None:
     if not good:
         fail("fleet b: a local step through the kernels disagrees with the plain path")
 
-    launches = {k: serve_launches.get(k, 0) + train_launches.get(k, 0)
-                + attn_launches.get(k, 0) + fleet_a.get(k, 0) + fleet_b.get(k, 0)
-                for k in (set(serve_launches) | set(train_launches) | set(attn_launches)
-                          | set(fleet_a) | set(fleet_b))}
+    # -- 9. the slab engine on full-width GPT-2-S ------------------------------
+    L = cfg.num_layers
+    slab = ServingEngine(cfg, params, lora=lora, max_slots=8, max_len=512, paged=False,
+                         device="cuda")
+    if slab.paged:
+        fail("ServingEngine(paged=False) built a paged engine")
+    slab.submit(Request(uid=1000, prompt=[1, 2, 3, 4, 5], max_new_tokens=4))
+    slab.run()                           # first-call set-up, not measured
+    for k in slab.stats:
+        slab.stats[k] = 0
+    sreqs = [Request(uid=r_.uid, prompt=list(r_.prompt), max_new_tokens=32) for r_ in reqs]
+    for r_ in sreqs:
+        slab.submit(r_)
+    backend.reset_launch_counts()        # just before the main path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slab.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    slab_launches = dict(backend.LAUNCH_COUNTS)
+    st = slab.stats
+    n_tok = sum(len(r_.output) for r_ in sreqs)
+    print(f"[slab] ServingEngine(paged=False), 8 slots x 512 positions, f32: the same "
+          f"{len(sreqs)} requests: {n_tok} tokens in {wall:.3f}s = {n_tok / wall:.1f} tok/s; "
+          f"{st['decode_steps']} decode steps, mean "
+          f"{st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.2f} ms/step; "
+          f"{st['prefills']} prefills ({slab.prefill_compiles()} bucket lengths), "
+          f"{st['prefill_s'] * 1e3:.1f} ms total "
+          f"({st['prefill_s'] / max(st['prefills'], 1) * 1e3:.2f} ms/prefill)")
+    print(f"[slab] launches during the run: {slab_launches}")
+    if not all(r_.done and len(r_.output) == 32 for r_ in sreqs):
+        fail("slab engine: not every request finished with 32 tokens")
+    same = sum(a.output == b.output for a, b in zip(reqs, sreqs))
+    print(f"[slab] token ids equal to phase 5's paged engine: {same} of {len(reqs)} "
+          f"requests {'ok' if same == len(reqs) else 'FAIL'}")
+    if same != len(reqs):
+        fail("the slab engine's greedy token ids differ from the paged engine's")
+    want = {"lora_matmul": 2 * L * (st["decode_steps"] + st["prefills"]),
+            "flash_decode": L * st["decode_steps"]}
+    if slab_launches != want:
+        fail(f"slab engine launched {slab_launches}, expected exactly {want}")
+    print(f"[slab] launch counts match the path: {want} (24 lora_matmul per decode "
+          f"step and per prefill, 12 flash_decode per step, no paged_decode)")
+
+    # one slab decode step, kernel path vs plain path, on the same state
+    B = 8
+    caches = TM.init_cache(cfg, B, 512, torch.float32, "cuda")
+    g_kv = torch.Generator(device=dev).manual_seed(3)
+    pos = torch.tensor(lengths, dtype=torch.int32)
+    for c in caches:
+        c["k"].normal_(generator=g_kv)
+        c["v"].normal_(generator=g_kv)
+        c["pos"].copy_(torch.where(torch.arange(512)[None] < pos[:, None],
+                                   torch.arange(512, dtype=torch.int32)[None], -1))
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+    outs = []
+    for rt in (TM.default_serve_runtime(), TM.Runtime()):
+        cc = [{k: v.clone() for k, v in c.items()} for c in caches]
+        logits, cc = TM.decode_step(cfg, slab.params, tok.to(dev), cc, pos.to(dev),
+                                    lora=slab.lora, rt=rt)
+        torch.cuda.synchronize()
+        outs.append((logits, cc))
+    (lk, ck), (lp, cp) = outs
+    e_log = (lk - lp).abs().max().item()
+    e_kv = max((a[n].float() - b[n].float()).abs().max().item()
+               for a, b in zip(ck, cp) for n in ("k", "v", "pos"))
+    good = (tuple(lk.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(lk).all())
+            and torch.allclose(lk, lp, atol=1e-3, rtol=1e-3) and e_kv < 1e-4)
+    print(f"[slab] decode_step logits kernel vs plain path (flash_decode vs "
+          f"decode_masked_attention): shape {tuple(lk.shape)} max_abs_err={e_log:.3g} "
+          f"(atol=rtol=1e-3), caches max_abs_err={e_kv:.3g} (tol 1e-4) "
+          f"{'ok' if good else 'FAIL'}")
+    if not good:
+        fail("slab decode step through the kernels disagrees with the plain path")
+
+    # the naive loop (repro's measured baseline): per-slot decode at batch 1
+    naive = ServingEngine(cfg, params, lora=lora, max_slots=8, max_len=512, fused=False,
+                          device="cuda")
+    nreqs = [Request(uid=r_.uid, prompt=list(r_.prompt), max_new_tokens=8)
+             for r_ in reqs[:8]]
+    for r_ in nreqs:
+        naive.submit(r_)
+    backend.reset_launch_counts()        # just before the main path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    naive.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    naive_launches = dict(backend.LAUNCH_COUNTS)
+    decoded = sum(len(r_.output) - 1 for r_ in nreqs)       # one B=1 decode each
+    want = {"lora_matmul": 2 * L * (decoded + len(nreqs)), "flash_decode": L * decoded}
+    same = all(a.output == b.output[:8] for a, b in zip(nreqs, reqs))
+    st = naive.stats
+    print(f"[naive] ServingEngine(fused=False): {len(nreqs)} requests x 8 tokens in "
+          f"{wall:.3f}s = {sum(len(r_.output) for r_ in nreqs) / wall:.1f} tok/s, "
+          f"{st['decode_steps']} steps ({st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.2f}"
+          f" ms/step, {decoded} batch-1 decodes); launches {naive_launches}, expected "
+          f"{want}; token ids equal to phase 5's first 8: {same} "
+          f"{'ok' if same and naive_launches == want else 'FAIL'}")
+    if naive_launches != want or not same:
+        fail("the naive loop's launches or token ids are off")
+
+    # -- 10. the int8-KV ops' own path ----------------------------------------
+    # No engine of repro builds an int8 KV; the q8 kernels are reached
+    # through the ops' own entry points.  Their inputs: the real GPT-2-S KV
+    # of a slab engine and of a paged engine mid-run, slots live.
+    def mid_run(engine):
+        for r_ in [Request(uid=2000 + r_.uid, prompt=list(r_.prompt), max_new_tokens=32)
+                   for r_ in reqs[:8]]:
+            engine.submit(r_)
+        for _ in range(12):
+            engine.step()
+        live = torch.tensor([r_ is not None for r_ in engine.slots], device=dev)
+        return torch.where(live, engine._positions, torch.zeros_like(engine._positions))
+
+    slab_lens = mid_run(slab)
+    paged_lens = mid_run(eng)
+    H, D = cfg.num_heads, cfg.head_dim
+    qs = [randn(8, 1, H, D).to(dev) for _ in range(L)]
+    q8_in = []
+    for i in range(L):
+        c, p_ = slab.caches[i], eng.caches[i]
+        q8_in.append((quantize_kv_int8(c["k"], head_axis=2) + quantize_kv_int8(c["v"], head_axis=2),
+                      quantize_kv_int8(p_["k"], head_axis=0)
+                      + quantize_kv_int8(p_["v"], head_axis=0)))
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()        # just before the ops' path
+    outs = []
+    for i in range(L):
+        (kq, ks, vq, vs), (kpq, kps, vpq, vps) = q8_in[i]
+        outs.append((flash_decode(qs[i], kq, vq, slab_lens, k_scale=ks, v_scale=vs),
+                     paged_decode(qs[i], kpq, vpq, paged_lens, eng._bt, k_scale=kps,
+                                  v_scale=vps)))
+    torch.cuda.synchronize()
+    q8_launches = dict(backend.LAUNCH_COUNTS)
+    e_plain = {"flash_decode_q8": 0.0, "paged_decode_q8": 0.0}
+    e_f32 = {"flash_decode_q8": 0.0, "paged_decode_q8": 0.0}
+    for i, (o_s, o_p) in enumerate(outs):
+        (kq, ks, vq, vs), (kpq, kps, vpq, vps) = q8_in[i]
+        qt = qs[i][:, 0].reshape(8, cfg.num_kv_heads, -1, D)
+        c, p_ = slab.caches[i], eng.caches[i]
+        r_s = flash_decode_q8_ref(qt, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs,
+                                  slab_lens).reshape(o_s.shape)
+        r_p = paged_decode_q8_ref(qt, kpq, vpq, kps, vps, paged_lens,
+                                  eng._bt).reshape(o_p.shape)
+        f_s = flash_decode(qs[i], c["k"], c["v"], slab_lens)
+        f_p = paged_decode(qs[i], p_["k"], p_["v"], paged_lens, eng._bt)
+        for op, o_, r_, f_ in (("flash_decode_q8", o_s, r_s, f_s),
+                               ("paged_decode_q8", o_p, r_p, f_p)):
+            if not (bool(torch.isfinite(o_).all()) and tuple(o_.shape) == (8, 1, H, D)):
+                fail(f"{op}: non-finite or misshapen output on the ops' path")
+            e_plain[op] = max(e_plain[op], (o_ - r_).abs().max().item())
+            e_f32[op] = max(e_f32[op], (o_ - f_).abs().max().item())
+    want = {"flash_decode_q8": L, "paged_decode_q8": L}
+    good = q8_launches == want and all(e <= 1e-5 for e in e_plain.values())
+    print(f"[int8 kv] slab lengths {slab_lens.tolist()}, paged lengths "
+          f"{paged_lens.tolist()} (real GPT-2-S KV mid-run, quantized per KV head); "
+          f"launches {q8_launches} (expected {want}); max_abs_err against the plain q8 "
+          f"version {e_plain} (atol 1e-5); against the f32 kernel on the unquantized "
+          f"KV {e_f32} {'ok' if good else 'FAIL'}")
+    if not good:
+        fail("the int8-KV ops' path launched the wrong counts or disagrees with its "
+             "plain version")
+
+    runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
+            slab_launches, naive_launches, q8_launches)
+    launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
     kernels = [
@@ -860,6 +1147,24 @@ def main() -> None:
              replaces="src/repro/kernels/lora_matmul/kernel.py:174",
              launches=launches["lora_matmul_q8_dx"], max_abs_err=err["lora_matmul_q8_dx"],
              **rows[("lora_matmul_q8_dx", 768)]),
+        # the slab engine's decode (phase 9) at its shape: 8 slots x 512
+        # positions, lengths 8-255
+        dict(name="flash_decode", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/flash_attention/decode.py:177",
+             launches=launches["flash_decode"], max_abs_err=err["flash_decode"],
+             **rows[("flash_decode", 8)]),
+        # the int8-KV pair, launched on the ops' own path (phase 10) only
+        dict(name="flash_decode_q8", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/flash_attention/decode.py:136",
+             launches=launches["flash_decode_q8"], max_abs_err=err["flash_decode_q8"],
+             **rows[("flash_decode_q8", 8)]),
+        dict(name="paged_decode_q8", route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_decode.cu",
+             replaces="src/repro/kernels/flash_attention/paged_decode.py:134",
+             launches=launches["paged_decode_q8"], max_abs_err=err["paged_decode_q8"],
+             **rows[("paged_decode_q8", 8)]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -14,7 +14,10 @@ optimizer moments follow the adapters' layout, and the error-feedback
 accumulators ``err_act``/``err_grad`` (K, b, S, d) cross as they are.
 An int8 base (``quantize_params_int8``) crosses as int8 ``w`` plus its f32
 ``w_scale``, which stays f32 whatever ``dtype`` the floats are cast to;
-rank-padded adapters cross like any other.
+rank-padded adapters cross like any other.  Slab decode caches cross too
+(``slab_cache_from_numpy`` / ``slab_cache_to_numpy``): ``repro``'s tuple
+over pattern positions of {"k", "v": (R, B, L, KH, D), "pos": (R, B, L)}
+becomes the port's per-layer list, the int32 positions kept as they are.
 """
 from __future__ import annotations
 
@@ -176,3 +179,16 @@ def sfl_state_to_numpy(state, pattern_len: int) -> dict:
             "step": to_numpy(state.step),
             "err_act": None if state.err_act is None else to_numpy(state.err_act),
             "err_grad": None if state.err_grad is None else to_numpy(state.err_grad)}
+
+
+def slab_cache_from_numpy(caches: Sequence[dict], device="cuda", dtype=None) -> List[dict]:
+    """repro's slab caches (``model.init_cache`` / ``prefill``: a tuple over
+    pattern positions of dicts with leaves stacked over repeats) as numpy
+    -> one {"k", "v", "pos"} dict per layer; floats cast to ``dtype``
+    when given, positions stay int32."""
+    return tree_map(lambda a: to_tensor(a, device, dtype), split_layers(caches))
+
+
+def slab_cache_to_numpy(caches: Sequence[dict], pattern_len: int) -> tuple:
+    """Inverse of ``slab_cache_from_numpy``."""
+    return stack_layers(tree_map(to_numpy, caches), pattern_len)

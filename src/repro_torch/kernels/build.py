@@ -4,7 +4,8 @@
 Each ``csrc/<name>.cu`` holds one kernel family behind a plain C interface
 (no PyTorch headers, so ``nvcc`` takes seconds, not minutes); the
 ``csrc/*.cuh`` headers hold device code that several of them include (the
-LoRA GEMM tile of ``lora_tile.cuh``).  Each source is compiled for Hopper
+LoRA GEMM tile of ``lora_tile.cuh``, the decode body of
+``decode_tile.cuh``).  Each source is compiled for Hopper
 (``sm_90a``) into ``<repo>/build/kernels/lib<name>.so`` — a git-ignored
 directory inside the checkout — and rebuilt whenever it or any header is
 newer than the library.  Nothing here runs at import time: the
@@ -24,7 +25,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "paged_decode",
-           "flash_attention")
+           "flash_attention", "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of decode attention (the CPU route, and the
-reference the CUDA kernel is held against on the card)."""
+"""Plain PyTorch versions of the attention kernels (the CPU route, and the
+references the CUDA kernels are held against on the card)."""
 from __future__ import annotations
 
 import torch
@@ -8,20 +8,41 @@ NEG_INF = -1e30
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, *, window: int = 0) -> torch.Tensor:
     """q (B, KH, G, D) — one query token per slot, GQA folded; k/v
-    (B, KH, L, D); lengths (B,) live entries per slot at [0, length).
-    Masked full-score softmax in f32; a slot of length 0 gives zeros."""
+    (B, KH, L, D); lengths (B,) live entries per slot at [0, length); a
+    window also drops entries ``k_idx <= length - 1 - window``.  Masked
+    full-score softmax in f32; a slot with no live entry gives zeros."""
     D = q.shape[-1]
     L = k.shape[2]
     s = torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float()) * D ** -0.5
-    mask = (torch.arange(L, device=q.device)[None, :]
-            < lengths.to(q.device).long()[:, None])[:, None, None]
+    k_idx = torch.arange(L, device=q.device)[None, :]
+    lens = lengths.to(q.device).long()[:, None]
+    mask = k_idx < lens
+    if window:
+        mask &= k_idx > lens - 1 - window
+    mask = mask[:, None, None]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
     return o.to(q.dtype)
+
+
+def _dequantize_kv(kv: torch.Tensor, scale: torch.Tensor, head_axis: int) -> torch.Tensor:
+    """int8 -> f32 times the (KH,) per-KV-head scale, as ``repro`` does."""
+    shape = [1] * kv.dim()
+    shape[head_axis] = -1
+    return kv.float() * scale.to(kv.device).float().reshape(shape)
+
+
+def flash_decode_q8_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        k_scale: torch.Tensor, v_scale: torch.Tensor,
+                        lengths: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """Int8-KV decode: k/v int8 (B, KH, L, D), k_scale/v_scale f32 (KH,);
+    dequantizes (int8 -> f32 * scale) and applies ``flash_decode_ref``."""
+    return flash_decode_ref(q, _dequantize_kv(k, k_scale, 1), _dequantize_kv(v, v_scale, 1),
+                            lengths, window=window)
 
 
 def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -41,6 +62,15 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
     k = k_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KH, MP * PS, D)
     v = v_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KH, MP * PS, D)
     return flash_decode_ref(q, k, v, lengths)
+
+
+def paged_decode_q8_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                        k_scale: torch.Tensor, v_scale: torch.Tensor,
+                        lengths: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """Int8-KV paged decode: int8 pools (KH, NP, PS, D) with f32 (KH,)
+    scales; dequantizes the pool per KV head, then ``paged_decode_ref``."""
+    return paged_decode_ref(q, _dequantize_kv(k_pages, k_scale, 0),
+                            _dequantize_kv(v_pages, v_scale, 0), lengths, block_tables)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,10 +1,12 @@
-"""Serving driver for the port: the paged, single-adapter continuous-
-batching engine on full-width GPT-2-S (``--reduced`` for a tiny variant),
-on the card by default:
+"""Serving driver for the port: the single-adapter continuous-batching
+engine on full-width GPT-2-S (``--reduced`` for a tiny variant), on the
+card by default — the paged KV pool where ``--page-size`` divides
+``--max-len``, the slab layout with ``--slab`` (or otherwise), the naive
+per-slot loop with ``--naive``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
-      --device cpu --requests 8 --slots 4 --gen 8
+      --device cpu --requests 8 --slots 4 --gen 8 [--slab | --naive]
 """
 from __future__ import annotations
 
@@ -23,12 +25,19 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--rank", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
+    ap.add_argument("--naive", action="store_true",
+                    help="per-slot decode loop with host-side sampling (baseline)")
+    ap.add_argument("--slab", action="store_true",
+                    help="fixed-slab KV cache instead of the paged pool")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV page pool size (0 = slab-equivalent capacity)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="serve one warm-up request first, then trace the run with "
+                         "torch.profiler: device busy share and device time by kernel")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -49,9 +58,10 @@ def main(argv=None) -> None:
                            args.rank, dtype, args.device)
     sc = (SampleConfig(greedy=True) if args.temperature == 0.0
           else SampleConfig(temperature=args.temperature))
+    paged = False if (args.slab or args.naive) else None     # None = auto
     eng = ServingEngine(cfg, params, lora=lora, max_slots=args.slots,
                         max_len=args.max_len, sc=sc, seed=args.seed,
-                        page_size=args.page_size,
+                        fused=not args.naive, paged=paged, page_size=args.page_size,
                         num_pages=args.num_pages or None,
                         device=args.device, dtype=dtype)
 
@@ -61,27 +71,85 @@ def main(argv=None) -> None:
                                         rng.integers(4, args.prompt_len + 1)).tolist(),
                     max_new_tokens=args.gen)
             for i in range(args.requests)]
-    for r in reqs:
-        eng.submit(r)
     if eng.device.type == "cuda":
         from ..kernels import build
         build.build()            # nvcc at first use: keep it out of the timing
+    if args.profile:             # first calls (cuBLAS, allocator) out of the trace
+        eng.submit(Request(uid=-1, prompt=[5, 6, 7], max_new_tokens=2))
+        eng.run()
+        for k in eng.stats:
+            eng.stats[k] = 0
+    for r in reqs:
+        eng.submit(r)
 
+    prof = _profiler(eng.device) if args.profile else None
     t0 = time.perf_counter()
     steps = 0
     while any(not r.done for r in reqs):
         eng.step()
         steps += 1
+    if prof is not None:
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        prof.stop()
     wall = time.perf_counter() - t0
     eng.check_consistency()
     total = sum(len(r.output) for r in reqs)
     dev = (torch.cuda.get_device_name(eng.device) if eng.device.type == "cuda"
            else "cpu")
+    mode = "naive" if args.naive else ("slab" if not eng.paged else
+                                       f"paged(ps={eng.page_size},np={eng.num_pages})")
     print(f"served {len(reqs)} requests / {total} tokens in {wall:.2f}s "
           f"({total / wall:.1f} tok/s) on {dev} with {args.slots} slots, "
-          f"{steps} engine steps, {eng.prefill_compiles()} prefill program "
-          f"(paged(ps={eng.page_size},np={eng.num_pages}) engine, {args.dtype})")
+          f"{steps} engine steps, {eng.prefill_compiles()} prefill compiles "
+          f"({mode} engine, {args.dtype})")
     print("sample token ids:", reqs[0].output[:12])
+    st = eng.stats
+    prefills = st["prefills"] + st["prefill_chunks"]
+    print(f"decode {st['decode_steps']} steps, {st['decode_s'] * 1e3:.1f} ms "
+          f"({st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.2f} ms/step); prefill "
+          f"{prefills} calls, {st['prefill_s'] * 1e3:.1f} ms "
+          f"({st['prefill_s'] / max(prefills, 1) * 1e3:.2f} ms/call) (host clock)")
+    if prof is not None:
+        _report(prof, wall)
+
+
+def _profiler(device):
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _report(prof, wall_s: float, top: int = 12) -> None:
+    """Device busy share (the union of the traced kernels' intervals over
+    the run's wall time) and device time by kernel name."""
+    from torch.autograd import DeviceType
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + (b - a))
+    if not spans:
+        print("profile: no device events traced (CPU run, or no device trace)")
+        return
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    total = sum(t for _, t in by_name.values())
+    print(f"profile: device busy {busy / 1e3:.1f} ms of {wall_s * 1e3:.1f} ms wall "
+          f"({100 * busy * 1e-6 / wall_s:.1f}%), {len(spans)} kernels, "
+          f"{total / 1e3:.1f} ms of kernel time")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"profile:   {t / 1e3:8.2f} ms  {100 * t / total:5.1f}%  {n:6d}x  {name[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,14 +1,15 @@
 """GQA attention: projections, the training path (naive and chunked
-online-softmax attention, causal self-attention) and the paged serving
-path (page-pool init, one-token paged decode, chunked prefill) — the port
-of ``repro.models.attention``.
+online-softmax attention, causal self-attention), the slab serving path
+(prefill caches, slab-cache init, one-token slab decode) and the paged
+serving path (page-pool init, one-token paged decode, chunked prefill) —
+the port of ``repro.models.attention``.
 
 The training attention is plain PyTorch, as it is jnp in JAX:
 ``online_attention`` is the twin of ``repro``'s ``_flash_attention``
 custom VJP (forward scan with the log-sum-exp saved, backward recomputing
 the probabilities chunk by chunk), here a ``torch.autograd.Function``.
 
-The serving pools are updated IN PLACE (index assignment), where JAX
+The serving caches and pools are updated IN PLACE (index assignment), where JAX
 returns a new array that buffer donation lets XLA write in place; each
 function still returns the cache dict so callers read like their JAX
 twins.
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import paged_decode, paged_decode_ref
+from ..kernels.flash_attention import flash_decode, paged_decode, paged_decode_ref
 from .layers import apply_rope, dense, init_dense
 
 NEG_INF = -1e30
@@ -190,16 +191,104 @@ def run_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
 
 
 def self_attention(cfg, p, x, positions, *, lora=None, lora_scale=1.0,
-                   dense_impl: str = "einsum"):
-    """Causal self-attention over a full sequence (training): x (B, S, d),
-    positions (S,) absolute positions."""
+                   dense_impl: str = "einsum", return_cache: bool = False,
+                   cache_len: int = 0):
+    """Causal self-attention over a full sequence (training, prefill): x
+    (B, S, d), positions (S,) absolute positions.  With ``return_cache``
+    also returns a decode cache of length ``cache_len or S`` (a ring of
+    the trailing window when ``cfg.attn_window`` is smaller): {"k", "v":
+    (B, L, KH, D), "pos": (B, L) int32, -1 = empty}."""
     B, S, _ = x.shape
     q, k, v = _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions.expand(B, S), cfg.rope_theta)
         k = apply_rope(k, positions.expand(B, S), cfg.rope_theta)
     o = run_attention(q, k, v, positions, positions, window=cfg.attn_window)
-    return _out_proj(p, o.reshape(B, S, -1), lora, lora_scale, dense_impl)
+    y = _out_proj(p, o.reshape(B, S, -1), lora, lora_scale, dense_impl)
+    if not return_cache:
+        return y
+    L = cache_len or S
+    if cfg.attn_window:
+        L = min(L, cfg.attn_window)
+    if L >= S:
+        kc = F.pad(k, (0, 0, 0, 0, 0, L - S))
+        vc = F.pad(v, (0, 0, 0, 0, 0, L - S))
+        pc = F.pad(positions.to(torch.int32), (0, L - S), value=-1)
+    else:
+        # keep the trailing window as a ring, so that entry p % L holds
+        # position p (decode_attention's write rule)
+        shift = (S - L) % L
+        kc = torch.roll(k[:, S - L:], shift, dims=1)
+        vc = torch.roll(v[:, S - L:], shift, dims=1)
+        pc = torch.roll(positions[S - L:].to(torch.int32), shift)
+    # one position row per sequence: decode advances each row on its own
+    return y, {"k": kc.contiguous(), "v": vc.contiguous(),
+               "pos": pc.expand(B, L).contiguous()}
+
+
+def init_attn_cache(cfg, batch: int, cache_len: int, dtype, device) -> dict:
+    """Empty slab cache: {"k", "v": (B, L, KH, D) zeros, "pos": (B, L)
+    int32 = -1}, L = ``cache_len`` (the window, if smaller)."""
+    L = cache_len
+    if cfg.attn_window:
+        L = min(L, cfg.attn_window)
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((batch, L, kh, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, L, kh, hd), dtype=dtype, device=device),
+            "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device)}
+
+
+def decode_masked_attention(q, k, v, q_pos, k_pos, window: int = 0) -> torch.Tensor:
+    """Whole-score decode attention with per-slot positions: q (B, 1, H,
+    D); k/v (B, L, KH, D); q_pos (B,); k_pos (B, L) absolute positions
+    (-1 = empty).  Correct for ring-wrapped windowed caches, where the
+    length-masked ``flash_decode`` is not; the plain path of
+    ``decode_attention``."""
+    B, _, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qr = q.reshape(B, 1, KH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr.float(), k.float()) * D ** -0.5
+    m = (k_pos <= q_pos[:, None]) & (k_pos >= 0)
+    if window:
+        m &= (q_pos[:, None] - k_pos) < window
+    s = torch.where(m[:, None, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_attention(cfg, p, x, cache, cur_index, *, lora=None, lora_scale=1.0,
+                     impl="naive", dense_impl: str = "einsum"):
+    """One-token decode over the slab cache: x (B, 1, d); cache {"k", "v":
+    (B, L, KH, D), "pos": (B, L)}; cur_index a scalar absolute position or
+    a (B,) vector (serving slots each at their own).
+
+    Writes the new KV and position IN PLACE at entry ``cur_index % L`` per
+    sequence (a ring when windowed) and attends over the cache.
+    ``impl="flash"`` on a non-windowed cache routes through
+    ``kernels.flash_attention.flash_decode`` with lengths ``cur_index + 1``
+    (the CUDA kernel for a CUDA tensor, reading the cache in place); any
+    other case takes ``decode_masked_attention``."""
+    B = x.shape[0]
+    L = cache["k"].shape[1]
+    q, k, v = _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl)
+    pos_vec = torch.as_tensor(cur_index, dtype=torch.int32, device=x.device).expand(B)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, pos_vec[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos_vec[:, None], cfg.rope_theta)
+    bidx = torch.arange(B, device=x.device)
+    slot = (pos_vec % L).long()
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, slot] = pos_vec
+    if impl == "flash" and not cfg.attn_window:
+        o = flash_decode(q, cache["k"], cache["v"], (pos_vec + 1).to(torch.int32))
+    else:
+        o = decode_masked_attention(q, cache["k"], cache["v"], pos_vec, cache["pos"],
+                                    cfg.attn_window)
+    y = _out_proj(p, o.reshape(B, 1, -1), lora, lora_scale, dense_impl)
+    return y, cache
 
 
 def init_paged_attn_cache(cfg, num_pages: int, page_size: int, dtype,

@@ -1,4 +1,5 @@
-"""Token sampling: greedy / temperature / top-k / top-p.
+"""Token sampling (greedy / temperature / top-k / top-p) and batched
+autoregressive generation over the slab KV cache (``generate``).
 
 A serving engine samples token ``t`` of request ``uid`` from its own
 ``torch.Generator`` seeded with ``stream_seed(seed, uid, t)``, a pure
@@ -13,6 +14,9 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from . import model as model_mod
+from .stack import Runtime
 
 _MASK64 = (1 << 64) - 1
 
@@ -81,3 +85,39 @@ def sample_logits_per_key(logits: torch.Tensor,
         gen.manual_seed(stream_seed(seed, *st))
         out[b] = sample_logits(logits[b:b + 1], gen, sc)[0]
     return out
+
+
+def generate(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
+             rt: Runtime = Runtime(), max_new_tokens: int = 32,
+             sc: SampleConfig = SampleConfig(),
+             gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill + decode loop over slab caches of S + ``max_new_tokens``
+    positions.  tokens: (B, S) int.  Returns (generated (B,
+    max_new_tokens) int32, done (B,) bool); rows that sampled ``sc.eos_id``
+    stop (their later entries are 0) and the loop ends when every row has.
+
+    Sampling draws from ``gen`` (a ``torch.Generator`` on tokens' device;
+    one seeded with 0 when None): greedy ids equal ``repro``'s
+    ``generate``, sampled ones follow this generator, not JAX's key
+    splits.  One host read per step decides whether every row is done."""
+    B, S = tokens.shape
+    logits, caches = model_mod.prefill(cfg, params, tokens, lora=lora, rt=rt,
+                                       cache_len=S + max_new_tokens)
+    if gen is None and not sc.greedy:
+        gen = torch.Generator(device=tokens.device).manual_seed(0)
+    tok = sample_logits(logits, gen, sc)
+    out = torch.zeros((B, max_new_tokens), dtype=torch.int32, device=tokens.device)
+    out[:, 0] = tok
+    done = (tok == sc.eos_id if sc.eos_id >= 0
+            else torch.zeros(B, dtype=torch.bool, device=tokens.device))
+    for i in range(1, max_new_tokens):
+        if bool(done.all()):
+            break
+        logits, caches = model_mod.decode_step(cfg, params, tok[:, None], caches,
+                                               S - 1 + i, lora=lora, rt=rt)
+        nxt = torch.where(done, tok, sample_logits(logits, gen, sc))
+        out[:, i] = torch.where(done, torch.zeros_like(nxt), nxt)
+        if sc.eos_id >= 0:
+            done = done | (nxt == sc.eos_id)
+        tok = nxt
+    return out, done

@@ -1,5 +1,5 @@
-"""Top-level model: init, the training forward and loss, one paged decode
-step, one chunked-prefill step.
+"""Top-level model: init, the training forward and loss, slab prefill and
+one slab decode step, one paged decode step, one chunked-prefill step.
 
 Params tree (the per-layer twin of ``repro``'s stacked one):
     {"embed": {...}, "layers": [block dict per layer], "final_norm": {...}}
@@ -98,6 +98,39 @@ def loss_fn(cfg, params: dict, lora, batch: dict, *, rt: Runtime = Runtime()):
     return loss, {"loss": loss, "aux": aux}
 
 
+def prefill(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
+            rt: Runtime = Runtime(), cache_len: int = 0, logit_index=None):
+    """Build slab decode caches for ``tokens`` (B, S) int.  Returns
+    (logits (B, V) at token ``logit_index`` — the last one when None;
+    bucket-padded serving prompts read the true last prompt token — and
+    one cache per layer of length ``cache_len`` or S)."""
+    S = tokens.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = embed(cfg, params["embed"], tokens, positions)
+    x, caches = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
+                                      lora=lora, rt=rt, mode="prefill",
+                                      cache_len=cache_len)
+    i = S - 1 if logit_index is None else int(logit_index)
+    x = apply_norm(cfg, x[:, i:i + 1], params["final_norm"])
+    return unembed(cfg, params["embed"], x)[:, 0], caches
+
+
+def decode_step(cfg, params: dict, token: torch.Tensor, caches, cur_index, *,
+                lora=None, rt: Runtime = Runtime()):
+    """One decode step over the slab caches.  token: (B, 1) int;
+    cur_index: a scalar absolute position (an int or a 0-d tensor) or a
+    (B,) vector, each sequence at its own (continuous-batching slots).
+    Returns (logits (B, V), caches) — the caches updated in place."""
+    B = token.shape[0]
+    cur_index = torch.as_tensor(cur_index, dtype=torch.int32, device=token.device)
+    positions = cur_index[:, None] if cur_index.dim() else cur_index.expand(B)[:, None]
+    x = embed(cfg, params["embed"], token, positions)
+    x, caches = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
+                                      mode="decode", caches=caches, cur_index=cur_index)
+    x = apply_norm(cfg, x, params["final_norm"])
+    return unembed(cfg, params["embed"], x)[:, 0], caches
+
+
 def paged_decode_step(cfg, params: dict, token: torch.Tensor, caches,
                       block_tables: torch.Tensor, cur_index: torch.Tensor, *,
                       lora=None, rt: Runtime = Runtime()):
@@ -130,6 +163,11 @@ def paged_prefill_chunk(cfg, params: dict, tokens: torch.Tensor, caches,
     x = x[:, logit_index:logit_index + 1]
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x)[:, 0], caches
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype=torch.float32, device="cuda"):
+    """Empty slab caches for ``batch`` sequences of ``cache_len`` positions."""
+    return stack_mod.init_stack_cache(cfg, batch, cache_len, dtype, resolve_device(device))
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int, dtype=torch.float32,

@@ -1,4 +1,5 @@
-"""Decoder blocks and the layer stack: training and paged serving.
+"""Decoder blocks and the layer stack: training, slab serving (prefill
+and decode) and paged serving.
 
 Where ``repro`` stacks each pattern position's parameters over the
 repeat axis and ``lax.scan``s over it, the port keeps one entry per layer
@@ -25,8 +26,11 @@ class Runtime:
     that the port runs (no remat or sharding knobs yet)."""
 
     dense_impl: str = "einsum"          # "einsum" | "fused" (kernels.lora_matmul)
-    # "flash" routes paged decode through kernels.flash_attention.paged_decode
-    # (the CUDA kernel on a CUDA tensor); "naive" takes the plain gather
+    # "flash" routes decode through the decode kernels — slab caches through
+    # kernels.flash_attention.flash_decode, paged pools through
+    # kernels.flash_attention.paged_decode (the CUDA kernels on a CUDA
+    # tensor); "naive" takes the plain position-masked (slab) or gather
+    # (paged) attention
     decode_attn_impl: str = "naive"
     # split-boundary bit-widths, stochastic rounding and error feedback
     # (``precision``); the default is fully disarmed (16/16/f32)
@@ -45,8 +49,8 @@ def default_train_runtime() -> Runtime:
 
 
 def default_serve_runtime() -> Runtime:
-    """The serving fast path: fused LoRA projections and the paged decode
-    kernel (each routed by device: kernels on CUDA, plain code on CPU)."""
+    """The serving fast path: fused LoRA projections and the decode
+    kernels (each routed by device: kernels on CUDA, plain code on CPU)."""
     return Runtime(dense_impl="fused", decode_attn_impl="flash")
 
 
@@ -64,11 +68,13 @@ def init_block(cfg, pat, gen: torch.Generator, dtype, device) -> dict:
 
 def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
                 mode: str, cache=None, cur_index=None, block_tables=None,
-                positions=None):
+                positions=None, cache_len: int = 0):
     """mode "train": causal self-attention over the sequence (positions
-    (S,)); mode "decode": one token per slot over the paged pool
-    (block_tables (B, MP), cur_index (B,)); mode "chunk": one paged
-    prefill chunk (block_tables (MP,), cur_index the chunk's start).
+    (S,)); mode "prefill": the same, also building a slab cache of length
+    ``cache_len`` (or S); mode "decode": one token per slot, over the
+    paged pool when ``block_tables`` (B, MP) is given, else over the slab
+    cache (cur_index a scalar or (B,)); mode "chunk": one paged prefill
+    chunk (block_tables (MP,), cur_index the chunk's start).
     Returns (x, cache)."""
     mixer_lora = None if lora is None else lora.get("mixer")
     h = apply_norm(cfg, x, p["norm1"])
@@ -76,18 +82,27 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
         m = attn_mod.self_attention(
             cfg, p["mixer"], h, positions, lora=mixer_lora, lora_scale=lora_scale,
             dense_impl=rt.dense_impl)
-    elif mode == "decode":
+    elif mode == "prefill":
+        m, cache = attn_mod.self_attention(
+            cfg, p["mixer"], h, positions, lora=mixer_lora, lora_scale=lora_scale,
+            dense_impl=rt.dense_impl, return_cache=True,
+            cache_len=cache["k"].shape[1] if cache is not None else cache_len)
+    elif mode == "decode" and block_tables is not None:
         m, cache = attn_mod.paged_decode_attention(
             cfg, p["mixer"], h, cache, block_tables, cur_index,
             lora=mixer_lora, lora_scale=lora_scale,
             impl=rt.decode_attn_impl, dense_impl=rt.dense_impl)
+    elif mode == "decode":
+        m, cache = attn_mod.decode_attention(
+            cfg, p["mixer"], h, cache, cur_index, lora=mixer_lora,
+            lora_scale=lora_scale, impl=rt.decode_attn_impl, dense_impl=rt.dense_impl)
     elif mode == "chunk":
         m, cache = attn_mod.paged_chunk_attention(
             cfg, p["mixer"], h, cache, block_tables, cur_index,
             lora=mixer_lora, lora_scale=lora_scale, dense_impl=rt.dense_impl)
     else:
-        raise ValueError(f"mode {mode!r}: the port runs 'train', 'decode' and "
-                         "'chunk'")
+        raise ValueError(f"mode {mode!r}: the port runs 'train', 'prefill', "
+                         "'decode' and 'chunk'")
     x = x + m
     if pat.mlp != "none":
         h = apply_norm(cfg, x, p["norm2"])
@@ -95,6 +110,14 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
                           None if lora is None else lora.get("mlp"),
                           lora_scale, dense_impl=rt.dense_impl)
     return x, cache
+
+
+def init_stack_cache(cfg, batch: int, cache_len: int, dtype, device) -> List[dict]:
+    """One slab cache ({"k", "v": (B, L, KH, D), "pos": (B, L)}) per layer."""
+    if any(pat.mixer != "attention" for pat in cfg.pattern):
+        raise NotImplementedError("only attention caches are ported (no mamba state)")
+    return [attn_mod.init_attn_cache(cfg, batch, cache_len, dtype, device)
+            for _ in range(cfg.num_layers)]
 
 
 def init_paged_stack_cache(cfg, num_pages: int, page_size: int, dtype,
@@ -129,7 +152,8 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
                 cur_index=None, block_tables=None, positions=None,
                 lora_scale: Optional[float] = None,
                 rep_slice: Optional[Tuple[int, int]] = None,
-                rep_gate: Optional[Tuple[object, object]] = None):
+                rep_gate: Optional[Tuple[object, object]] = None,
+                cache_len: int = 0):
     """Run the layers in order.  ``lora`` is a per-layer list of adapter
     dicts (or None); the scale defaults to ``cfg.lora_alpha / cfg.lora_rank``.
 
@@ -144,6 +168,8 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
     pass through bit-unchanged (``torch.where(keep, block(x), x)``, as
     JAX's gate); a repeat no row applies is skipped and one every row
     applies runs ungated — the same values, without the dead blocks.
+    Mode "prefill" builds one slab cache per layer (of length
+    ``cache_len``, or the sequence's) and returns them as ``caches``.
     Returns (x, caches); caches is None in mode "train"."""
     gate_lo, gate_hi = rep_gate if rep_gate is not None else (None, None)
     if (gate_lo is not None or gate_hi is not None) and mode != "train":
@@ -156,6 +182,8 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
         layers = layers[lo:hi]
         lora = None if lora is None else lora[lo:hi]
         caches = None if caches is None else caches[lo:hi]
+    if mode == "prefill" and caches is None:
+        caches = [None] * len(layers)
     kinds = cfg.layer_kinds
     for i, p in enumerate(layers):
         live = _live_rows(i // P, gate_lo, gate_hi)
@@ -165,7 +193,8 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
             cfg, kinds[i], p, x, lora=None if lora is None else lora[i],
             lora_scale=scale, rt=rt, mode=mode,
             cache=None if caches is None else caches[i],
-            cur_index=cur_index, block_tables=block_tables, positions=positions)
+            cur_index=cur_index, block_tables=block_tables, positions=positions,
+            cache_len=cache_len)
         x = y if live is True else torch.where(live.to(x.device)[:, None, None], y, x)
         if caches is not None:
             caches[i] = c

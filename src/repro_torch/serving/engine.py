@@ -1,25 +1,38 @@
-"""Continuous-batching serving engine over a paged KV cache, single
-adapter — the port of the paged path of ``repro.serving.engine``.
+"""Continuous-batching serving engine, single adapter — the port of the
+paged, slab and naive paths of ``repro.serving.engine``.
 
-* ``max_slots`` sequences decode together; the KV lives in a global page
-  pool ``(KH, num_pages, page_size, D)`` per layer, addressed through
-  per-slot ``(max_pages,)`` block tables.
-* The decode step keeps its state on the device: page alloc/free
-  (``serving.paging``), the decode itself, greedy sampling and the
-  per-slot bookkeeping run as tensor code; one host read per step brings
-  back the (slots,) next tokens and done flags.
-* Admission is reservation-based FIFO: the host mirrors a conservative
-  free-page count and admits a request only when its worst-case demand
-  ``ceil(min(P + max_new, max_len) / page_size)`` fits, so the on-device
-  allocator never underflows (head-of-line backpressure otherwise).
-* Prefill is chunked: prompts stream through ``paged_prefill_chunk`` one
-  page (``page_size`` tokens) at a time.
-* Token ``t`` of request ``uid`` is sampled from a generator seeded by
-  ``(seed, uid, t)`` alone, so outputs do not depend on arrival order,
-  slot or page layout (``models.generate``).
+``max_slots`` sequences decode together.  Where the KV lives:
 
-Not ported yet (see ROADMAP.md): the slab and naive engines, preemption
-and residency deadlines, the NaN quarantine, and multi-tenant adapters.
+* PAGED (the default where eligible: ``max_len % page_size == 0``): a
+  global page pool ``(KH, num_pages, page_size, D)`` per layer, addressed
+  through per-slot ``(max_pages,)`` block tables.  Pages allocate and
+  free as tensor code (``serving.paging``); admission is reservation-based
+  FIFO — the host mirrors a conservative free-page count and admits a
+  request only when its worst-case demand ``ceil(min(P + max_new,
+  max_len) / page_size)`` fits, so the on-device allocator never
+  underflows (head-of-line backpressure otherwise).  Prefill is chunked:
+  prompts stream through ``paged_prefill_chunk`` one page at a time.
+* SLAB (``paged=False``, or a ``max_len`` that pages do not divide): one
+  ``(max_slots, max_len, KH, D)`` cache per layer plus a ``(max_slots,
+  max_len)`` position row.  Admission prefills the prompt into a
+  power-of-two length bucket (``bucket_len``; exact length for prompts
+  past the largest bucket) and writes the bucket's KV into slot ``s`` in
+  place; the decode step runs ``decode_step`` on all slots at their own
+  positions, the ``flash_decode`` kernel reading the cache in place.
+* NAIVE (``fused=False``, slab only): ``repro``'s measured baseline —
+  exact-length prefill into a full ``max_len`` cache that replaces the
+  whole cache tree on admission (a copy, as JAX's non-donated update),
+  and a per-slot decode at batch 1 with host-side bookkeeping.
+
+The fused steps keep their state on the device: the decode, the sampling
+and the per-slot bookkeeping run as tensor code, and one host read per
+step brings back the (slots,) next tokens and done flags.  Token ``t`` of
+request ``uid`` is sampled from a generator seeded by ``(seed, uid, t)``
+alone, so outputs do not depend on arrival order, slot, page layout or
+engine mode (``models.generate``).
+
+Not ported yet (see ROADMAP.md): preemption and residency deadlines, the
+NaN quarantine, and multi-tenant adapters.
 """
 from __future__ import annotations
 
@@ -59,21 +72,49 @@ class Request:
     done: bool = False
 
 
+def bucket_len(n: int, max_len: int) -> int:
+    """Smallest power of two >= n (floor 8), capped at the largest power
+    of two <= max_len, so mixed prompt lengths run at most log2(max_len)
+    prefill shapes.  A prompt past the cap (only under a non-power-of-two
+    ``max_len``) has no bucket: the engine prefills it at exact length,
+    and asking here raises."""
+    b = 8
+    while b < n:
+        b *= 2
+    b = min(b, 1 << (max_len.bit_length() - 1))
+    if b < n:
+        raise ValueError(f"prompt length {n} exceeds the largest bucket {b} for "
+                         f"max_len={max_len}; gap prompts prefill at exact length")
+    return b
+
+
 class ServingEngine:
     """``params``/``lora`` are the port's trees (``models.init_params`` /
     ``init_lora_stack``, or ``interop.params_from_numpy``); they are moved
-    to ``device`` and cast to ``dtype``, the dtype the KV pool is kept in
-    too.  ``device="cuda"`` without a card raises."""
+    to ``device`` and cast to ``dtype``, the dtype the KV is kept in too.
+    ``paged=None`` picks the paged pool when the engine is fused, the
+    pattern attention-only and unwindowed, and ``page_size`` divides
+    ``max_len``, else the slab; ``paged=True`` raises where the pool does
+    not apply.  ``fused=False`` is the naive slab loop.
+    ``device="cuda"`` without a card raises."""
 
     def __init__(self, cfg, params, *, lora=None, rt: Optional[Runtime] = None,
                  max_slots: int = 4, max_len: int = 256,
                  sc: SampleConfig = SampleConfig(greedy=True), seed: int = 0,
-                 page_size: int = 16, num_pages: Optional[int] = None,
-                 device="cuda", dtype=torch.float32):
-        if cfg.attn_window or any(p.mixer != "attention" for p in cfg.pattern):
+                 fused: bool = True, prefill_buckets: bool = True,
+                 paged: Optional[bool] = None, page_size: int = 16,
+                 num_pages: Optional[int] = None, device="cuda", dtype=torch.float32):
+        attn_only = all(p.mixer == "attention" for p in cfg.pattern)
+        paged_ok = fused and attn_only and not cfg.attn_window
+        if paged is None:
+            paged = paged_ok and max_len % page_size == 0
+        elif paged and not fused:
+            raise ValueError("paged KV requires the fused engine (page alloc/free "
+                             "run inside the fused step)")
+        elif paged and not paged_ok:
             raise NotImplementedError(
                 "paged KV requires an attention-only, non-windowed pattern")
-        if max_len % page_size:
+        if paged and max_len % page_size:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"page_size={page_size} (chunk == page)")
         self.device = dev = resolve_device(device)
@@ -82,13 +123,10 @@ class ServingEngine:
         self.params = tree_to(params, dev, dtype)
         self.lora = None if lora is None else tree_to(lora, dev, dtype)
         self.max_slots, self.max_len = max_slots, max_len
-        self.page_size = page_size
-        self.max_pages = max_len // page_size
-        # default pool matches slab capacity exactly (+ the null page)
-        self.num_pages = (num_pages if num_pages is not None
-                          else max_slots * self.max_pages + 1)
-        if self.num_pages < self.max_pages + 1:
-            raise ValueError("num_pages too small for a single request")
+        self.paged, self.fused = paged, fused
+        # right-padded bucket prefill masks the pad tail out of an
+        # attention cache; a windowed ring has no such tail
+        self.prefill_buckets = prefill_buckets and attn_only and not cfg.attn_window
 
         self.queue: collections.deque[Request] = collections.deque()
         self.slots: List[Optional[Request]] = [None] * max_slots
@@ -101,17 +139,32 @@ class ServingEngine:
         self._maxnew = torch.zeros(B, **i32)
         self._eos = torch.full((B,), -1, **i32)
         self._bidx = torch.arange(B, device=dev)
-        self.caches = model_mod.init_paged_cache(cfg, self.num_pages, page_size,
-                                                 dtype, dev)
-        self._bt = torch.zeros((B, self.max_pages), **i32)
-        self._pager = paging.init_pager(self.num_pages, dev)
-        # conservative host mirror of the on-device free count
-        self._free_host = self.num_pages - 1
-        self._reserved = [0] * B
         # host-clock seconds around work that ends in a host read of its
         # result (so the device work is inside the interval)
-        self.stats = {"decode_steps": 0, "prefill_chunks": 0,
+        self.stats = {"decode_steps": 0, "prefill_chunks": 0, "prefills": 0,
                       "decode_s": 0.0, "prefill_s": 0.0}
+        if paged:
+            self.page_size = page_size
+            self.max_pages = max_len // page_size
+            # default pool matches slab capacity exactly (+ the null page)
+            self.num_pages = (num_pages if num_pages is not None
+                              else max_slots * self.max_pages + 1)
+            if self.num_pages < self.max_pages + 1:
+                raise ValueError("num_pages too small for a single request")
+            self.caches = model_mod.init_paged_cache(cfg, self.num_pages, page_size,
+                                                     dtype, dev)
+            self._bt = torch.zeros((B, self.max_pages), **i32)
+            self._pager = paging.init_pager(self.num_pages, dev)
+            # conservative host mirror of the on-device free count
+            self._free_host = self.num_pages - 1
+            self._reserved = [0] * B
+        else:
+            self.caches = model_mod.init_cache(cfg, B, max_len, dtype, dev)
+            # prefill token lengths run so far (the shapes repro compiles)
+            self._prefill_lens: set = set()
+            # the naive loop's host-side mirrors of last token and position
+            self._np_last = [0] * B
+            self._np_pos = [0] * B
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -125,11 +178,15 @@ class ServingEngine:
         self.queue.append(req)
 
     def prefill_compiles(self) -> int:
-        """Number of distinct prefill programs.  Always 1: every chunk of
-        every prompt runs the same fixed-shape ``paged_prefill_chunk``
-        (chunk == page) and PyTorch executes it eagerly, so no prompt
-        length ever adds a program; kept for the JAX engine's interface."""
-        return 1
+        """Number of distinct prefill programs, for the JAX engine's
+        interface.  Paged: always 1 — every chunk of every prompt runs the
+        same fixed-shape ``paged_prefill_chunk``.  Slab: the number of
+        distinct prefill lengths run so far (PyTorch runs eagerly, so this
+        counts the shapes ``repro`` would compile: at most log2(max_len)
+        buckets, plus exact-length gap prompts)."""
+        if self.paged:
+            return 1
+        return len(self._prefill_lens)
 
     def pages_in_use(self) -> int:
         """Pages currently allocated out of the pool."""
@@ -140,7 +197,9 @@ class ServingEngine:
         list: free + reserved must equal the pool, and the allocator can
         never have handed out more pages than were reserved.  On drift
         warn and rebuild the mirror from the live slots.  Returns True
-        when the mirror was consistent."""
+        when the mirror was consistent (always, for the slab engine)."""
+        if not self.paged:
+            return True
         used = self.pages_in_use()
         reserved = sum(self._reserved)
         ok = (self._free_host == self.num_pages - 1 - reserved and used <= reserved)
@@ -164,10 +223,23 @@ class ServingEngine:
         self._free_host += self._reserved[s]
         self._reserved[s] = 0
 
+    def _claim(self, s: int, req: Request, tok: int, P: int) -> None:
+        """Slot ``s`` decodes ``req`` from position P after token ``tok``."""
+        self.slots[s] = req
+        if not self.fused:
+            self._np_last[s], self._np_pos[s] = tok, P
+            return
+        self._last[s] = tok
+        self._positions[s] = P
+        self._live[s] = True
+        self._ngen[s] = 1
+        self._maxnew[s] = req.max_new_tokens
+        self._eos[s] = req.eos_id
+
     # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
-    def _admit_one(self, s: int, req: Request) -> bool:
+    def _admit_one_paged(self, s: int, req: Request) -> bool:
         """Stream ``req``'s prompt through the chunk step (one page per
         chunk), sample token 0 and claim slot ``s``.  The caller has
         reserved ``_worst_pages(req)``.  Returns False when the request
@@ -196,30 +268,92 @@ class ServingEngine:
                                                       self._bidx == s)
             self._release(s)
             return False
-        self._last[s] = tok
-        self._positions[s] = P
-        self._live[s] = True
-        self._ngen[s] = 1
-        self._maxnew[s] = req.max_new_tokens
-        self._eos[s] = req.eos_id
-        self.slots[s] = req
+        self._claim(s, req, tok, P)
+        return True
+
+    def _admit_one_slab(self, s: int, req: Request) -> bool:
+        """Prefill ``req`` and claim slot ``s``.  Fused: into a
+        power-of-two bucket (exact length past the largest one), whose KV
+        is written into slot ``s`` in place, its position row's padded
+        tail set to -1.  Naive: at exact length into a full ``max_len``
+        cache that replaces the whole cache tree.  Returns False when the
+        request finished on its first token (slot stays free)."""
+        P, dev = len(req.prompt), self.device
+        t0 = time.perf_counter()
+        if self.fused:
+            cap = 1 << (self.max_len.bit_length() - 1)
+            Lb = (bucket_len(P, self.max_len) if self.prefill_buckets and P <= cap
+                  else P)
+            cache_len = Lb
+        else:
+            Lb, cache_len = P, self.max_len
+        tokens = torch.tensor([req.prompt + [0] * (Lb - P)], dtype=torch.int32,
+                              device=dev)
+        logits, cache1 = model_mod.prefill(self.cfg, self.params, tokens, lora=self.lora,
+                                           rt=self.rt, cache_len=cache_len,
+                                           logit_index=P - 1)
+        self._prefill_lens.add(Lb)
+        self.stats["prefills"] += 1
+        tok = int(sample_logits_per_key(logits, [(req.uid, 0)], self.sc, self.seed)[0])
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        req.output.append(tok)
+        if tok == req.eos_id or req.max_new_tokens <= 1:
+            req.done = True
+            return False
+        if self.fused:
+            for big, one in zip(self.caches, cache1):
+                n = one["k"].shape[1]
+                big["k"][s, :n] = one["k"][0]
+                big["v"][s, :n] = one["v"][0]
+                row = one["pos"][0]
+                big["pos"][s] = -1
+                big["pos"][s, :n] = torch.where(row < P, row, torch.full_like(row, -1))
+        else:
+            # the baseline's shape: a new cache tree per admission
+            def put(big, one):
+                new = big.clone()
+                new[s] = one[0]
+                return new
+            self.caches = [{k: put(big[k], one[k]) for k in big}
+                           for big, one in zip(self.caches, cache1)]
+        self._claim(s, req, tok, P)
         return True
 
     def _admit(self) -> None:
         for s in range(self.max_slots):
             while self.slots[s] is None and self.queue:
+                if not self.paged:
+                    if self._admit_one_slab(s, self.queue.popleft()):
+                        break
+                    continue
                 worst = self._worst_pages(self.queue[0])
                 if worst > self._free_host:
                     return          # FIFO backpressure: wait for pages
                 self._free_host -= worst
                 self._reserved[s] = worst
-                if self._admit_one(s, self.queue.popleft()):
+                if self._admit_one_paged(s, self.queue.popleft()):
                     break
 
     # ------------------------------------------------------------------
     # stepping
     # ------------------------------------------------------------------
-    def _decode(self):
+    def _finish(self, nxt, live, positions):
+        """Sampling bookkeeping shared by the fused steps: returns done and
+        advances the per-slot state."""
+        nxt = torch.where(live, nxt, torch.zeros_like(nxt))
+        ngen1 = self._ngen + live.to(torch.int32)
+        done = live & ((nxt == self._eos) | (ngen1 >= self._maxnew)
+                       | (positions + 1 >= self.max_len))
+        self._last = torch.where(live, nxt, self._last)
+        self._positions = positions + live.to(torch.int32)
+        self._live = live & ~done
+        self._ngen = ngen1
+        return nxt, done
+
+    def _streams(self):
+        return [None if r is None else (r.uid, len(r.output)) for r in self.slots]
+
+    def _decode_paged(self):
         """Page alloc + decode + sample + bookkeeping + page free for all
         slots, as tensor code.  Returns (next tokens, done) on device."""
         PS, MP = self.page_size, self.max_pages
@@ -233,18 +367,48 @@ class ServingEngine:
         logits, self.caches = model_mod.paged_decode_step(
             self.cfg, self.params, self._last[:, None], self.caches, self._bt,
             positions, lora=self.lora, rt=self.rt)
-        streams = [None if r is None else (r.uid, len(r.output)) for r in self.slots]
-        nxt = sample_logits_per_key(logits, streams, self.sc, self.seed)
-        nxt = torch.where(live, nxt, torch.zeros_like(nxt))
-        ngen1 = self._ngen + live.to(torch.int32)
-        done = live & ((nxt == self._eos) | (ngen1 >= self._maxnew)
-                       | (positions + 1 >= self.max_len))
+        nxt = sample_logits_per_key(logits, self._streams(), self.sc, self.seed)
+        nxt, done = self._finish(nxt, live, positions)
         self._pager, self._bt = paging.free_pages(self._pager, self._bt, done)
-        self._last = torch.where(live, nxt, self._last)
-        self._positions = positions + live.to(torch.int32)
-        self._live = live & ~done
-        self._ngen = ngen1
         return nxt, done
+
+    def _decode_slab(self):
+        """Decode every slot at its own position over the slab caches
+        (written in place), sample and advance, as tensor code.  A free
+        slot decodes too, at a position nothing reads: one that finished
+        at ``max_len`` writes entry 0 and passes length max_len + 1, which
+        the kernel clamps to the cache."""
+        live, positions = self._live, self._positions
+        logits, self.caches = model_mod.decode_step(
+            self.cfg, self.params, self._last[:, None], self.caches, positions,
+            lora=self.lora, rt=self.rt)
+        nxt = sample_logits_per_key(logits, self._streams(), self.sc, self.seed)
+        return self._finish(nxt, live, positions)
+
+    def _step_naive(self, live: List[int]) -> None:
+        """The baseline loop: each live slot decodes at batch 1 over its
+        slice of the caches (written in place) at its host-side position,
+        then host-side sampling and bookkeeping."""
+        toks = torch.tensor(self._np_last, dtype=torch.int32, device=self.device)
+        logits = []
+        for s in live:
+            cache_s = [{k: t[s:s + 1] for k, t in c.items()} for c in self.caches]
+            lg, _ = model_mod.decode_step(self.cfg, self.params, toks[s:s + 1, None],
+                                          cache_s, self._np_pos[s], lora=self.lora,
+                                          rt=self.rt)
+            logits.append(lg)
+        streams = [(self.slots[s].uid, len(self.slots[s].output)) for s in live]
+        nxt = sample_logits_per_key(torch.cat(logits), streams, self.sc,
+                                    self.seed).tolist()
+        for s, tok in zip(live, nxt):
+            req = self.slots[s]
+            req.output.append(tok)
+            self._np_pos[s] += 1
+            self._np_last[s] = tok
+            if (tok == req.eos_id or len(req.output) >= req.max_new_tokens
+                    or self._np_pos[s] >= self.max_len):
+                req.done = True
+                self.slots[s] = None
 
     def step(self) -> int:
         """Admit + one decode round for all live slots.  Returns the number
@@ -254,7 +418,12 @@ class ServingEngine:
         if not live:
             return 0
         t0 = time.perf_counter()
-        nxt, done = self._decode()
+        if not self.fused:
+            self._step_naive(live)
+            self.stats["decode_s"] += time.perf_counter() - t0
+            self.stats["decode_steps"] += 1
+            return len(live)
+        nxt, done = self._decode_paged() if self.paged else self._decode_slab()
         nxt_h, done_h = nxt.tolist(), done.tolist()      # the step's one host read
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
@@ -264,8 +433,9 @@ class ServingEngine:
             if done_h[s]:
                 req.done = True
                 self.slots[s] = None
-                # pages went back on the device this same step
-                self._release(s)
+                if self.paged:
+                    # pages went back on the device this same step
+                    self._release(s)
         return len(live)
 
     def run(self, max_steps: int = 10_000) -> None:

@@ -14,9 +14,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_arch                    # noqa: E402
 from repro_torch.kernels import backend                     # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 flash_attention_ref, paged_decode,
-                                                 paged_decode_kernel,
-                                                 paged_decode_ref)
+                                                 flash_attention_ref, flash_decode,
+                                                 flash_decode_kernel,
+                                                 flash_decode_q8_kernel,
+                                                 flash_decode_q8_ref, flash_decode_ref,
+                                                 paged_decode, paged_decode_kernel,
+                                                 paged_decode_q8_kernel,
+                                                 paged_decode_q8_ref, paged_decode_ref)
 from repro_torch.kernels.lora_matmul import (lora_matmul,   # noqa: E402
                                              lora_matmul_dx_kernel,
                                              lora_matmul_dx_ref, lora_matmul_kernel,
@@ -26,7 +30,8 @@ from repro_torch.kernels.lora_matmul import (lora_matmul,   # noqa: E402
                                              lora_rank_reduce_kernel,
                                              lora_rank_reduce_ref)
 from repro_torch.models import init_lora_stack, init_params  # noqa: E402
-from repro_torch.precision import quantize_params_int8, quantize_weight_int8  # noqa: E402
+from repro_torch.precision import (quantize_kv_int8, quantize_params_int8,  # noqa: E402
+                                   quantize_weight_int8)
 from repro_torch.serving import Request, ServingEngine      # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -364,3 +369,157 @@ def test_q8_fleet_step_on_the_card_matches_the_cpu_step(cuda):
     assert abs(outs[0][0] - outs[1][0]) < 1e-4
     for a, b in zip(tree_leaves(outs[0][1]), tree_leaves(outs[1][1])):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-3)
+
+
+# -- the decode family: flash_decode (slab), its int8 twin, the int8 pool ----
+
+DECODE_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+              torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# (B, KH, G, D, L, window): the engine's shape, GQA with G > 1, ragged D
+# (D % 4 != 0 reads int8 rows byte by byte), L not a multiple of the tile
+SLAB_SHAPES = [(8, 12, 1, 64, 512, 0), (4, 2, 4, 128, 96, 0), (5, 1, 8, 64, 40, 0),
+               (6, 2, 3, 42, 33, 7), (7, 2, 2, 20, 64, 16), (3, 1, 1, 1, 1, 0)]
+
+
+def _slab_lengths(B, L):
+    """0 (dead), 1, tile edges, L and L + 1 (a finished slot decoding on)."""
+    return ([0, L + 1, 1, L, 31, 32, 33, L - 1] + list(range(2, B)))[:B]
+
+
+def _slab_inputs(cuda, dtype, B, KH, G, D, L, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, KH, G, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
+    lens = torch.tensor([max(0, n) for n in _slab_lengths(B, L)], dtype=torch.int32,
+                        device=cuda)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KH,G,D,L,window", SLAB_SHAPES)
+def test_flash_decode_kernel_matches_plain(cuda, dtype, B, KH, G, D, L, window):
+    q, k, v, lens = _slab_inputs(cuda, dtype, B, KH, G, D, L, B * 100 + D + window)
+    before = backend.LAUNCH_COUNTS.get("flash_decode", 0)
+    o = flash_decode_kernel(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS["flash_decode"] == before + 1
+    ref = flash_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2), lens, window=window)
+    torch.testing.assert_close(o.float(), ref.float(), **DECODE_TOL[dtype])
+    assert (o[0] == 0).all() and bool(torch.isfinite(o.float()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KH,G,D,L,window", SLAB_SHAPES)
+def test_flash_decode_q8_kernel_matches_plain(cuda, dtype, B, KH, G, D, L, window):
+    q, k, v, lens = _slab_inputs(cuda, dtype, B, KH, G, D, L, B * 10 + D + window)
+    kq, ks = quantize_kv_int8(k, head_axis=2)
+    vq, vs = quantize_kv_int8(v, head_axis=2)
+    before = backend.LAUNCH_COUNTS.get("flash_decode_q8", 0)
+    o = flash_decode_q8_kernel(q, kq, vq, lens, ks, vs, window=window)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS["flash_decode_q8"] == before + 1
+    ref = flash_decode_q8_ref(q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, lens,
+                              window=window)
+    torch.testing.assert_close(o.float(), ref.float(), **DECODE_TOL[dtype])
+    assert o.dtype == dtype and (o[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KH,G,D,PS,MP", [(8, 12, 1, 64, 16, 32), (4, 2, 4, 128, 16, 8),
+                                            (5, 1, 8, 64, 8, 6), (3, 2, 3, 42, 5, 4)])
+def test_paged_decode_q8_kernel_matches_plain(cuda, dtype, B, KH, G, D, PS, MP):
+    g = torch.Generator().manual_seed(B * 7 + D)
+    NP = B * MP + 1
+    q = torch.randn(B, KH, G, D, generator=g).to(cuda, dtype)
+    kq, ks = quantize_kv_int8(torch.randn(KH, NP, PS, D, generator=g).to(cuda), head_axis=0)
+    vq, vs = quantize_kv_int8(torch.randn(KH, NP, PS, D, generator=g).to(cuda), head_axis=0)
+    lengths = [0, 1, PS, PS + 1, MP * PS, 2 * PS - 1, 3, PS * MP - 1][:B]
+    pages = torch.randperm(NP - 1, generator=g) + 1
+    bt = torch.zeros(B, MP, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        npg = -(-n // PS)
+        bt[i, :npg] = pages[i * MP:i * MP + npg].int()
+    lens, bt = torch.tensor(lengths, dtype=torch.int32, device=cuda), bt.to(cuda)
+    before = backend.LAUNCH_COUNTS.get("paged_decode_q8", 0)
+    o = paged_decode_q8_kernel(q, kq, vq, lens, bt, ks, vs)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS["paged_decode_q8"] == before + 1
+    ref = paged_decode_q8_ref(q, kq, vq, ks, vs, lens, bt)
+    torch.testing.assert_close(o.float(), ref.float(), **DECODE_TOL[dtype])
+    assert (o[0] == 0).all()
+
+
+def test_q8_decode_reads_unaligned_rows_byte_by_byte(cuda):
+    """D % 4 == 0 but the int8 cache starts one byte into its buffer: no
+    row is 4-byte aligned, so the kernel takes the byte path."""
+    B, KH, G, D, L = 3, 2, 2, 64, 40
+    q, k, v, lens = _slab_inputs(cuda, torch.float32, B, KH, G, D, L, 5)
+    kq, ks = quantize_kv_int8(k, head_axis=2)
+    vq, vs = quantize_kv_int8(v, head_axis=2)
+    n = kq.numel()
+    kb = torch.zeros(n + 1, dtype=torch.int8, device=cuda)
+    vb = torch.zeros(n + 1, dtype=torch.int8, device=cuda)
+    kb[1:] = kq.reshape(-1)
+    vb[1:] = vq.reshape(-1)
+    ku, vu = kb[1:].view(kq.shape), vb[1:].view(vq.shape)
+    assert ku.data_ptr() % 4 == 1 and ku.is_contiguous()
+    o = flash_decode_q8_kernel(q, ku, vu, lens, ks, vs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, flash_decode_q8_kernel(q, kq, vq, lens, ks, vs),
+                               atol=0, rtol=0)
+
+
+def test_decode_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q, k, v, lens = _slab_inputs(cuda, torch.float32, 2, 2, 2, 16, 8, 0)
+    kq, ks = quantize_kv_int8(k, head_axis=2)
+    vq, vs = quantize_kv_int8(v, head_axis=2)
+    with pytest.raises(TypeError):
+        flash_decode_kernel(q, k.bfloat16(), v.bfloat16(), lens)       # dtype mismatch
+    with pytest.raises(TypeError):
+        flash_decode_kernel(q, k, v, lens.long())                      # int64 lengths
+    with pytest.raises(ValueError):
+        flash_decode_kernel(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, lens)
+    with pytest.raises(ValueError):
+        flash_decode_kernel(q, k[:, :, :1].contiguous(), v[:, :, :1].contiguous(), lens)
+    with pytest.raises(ValueError):
+        flash_decode_kernel(q, k, v, lens, window=-1)
+    with pytest.raises(TypeError):
+        flash_decode_q8_kernel(q, k, v, lens, ks, vs)                  # float K/V
+    with pytest.raises(ValueError):
+        flash_decode_q8_kernel(q, kq, vq, lens, ks[:1], vs)            # (1,) for KH 2
+    with pytest.raises(ValueError):
+        flash_decode_q8_kernel(q, kq, vq, lens, ks.cpu(), vs)
+    pool = torch.zeros(2, 3, 4, 16, dtype=torch.int8, device=cuda)
+    bt = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        paged_decode_q8_kernel(q, pool, pool, lens, bt, ks, vs.double())
+    with pytest.raises(TypeError):
+        flash_decode(q[:, None].reshape(2, 1, 4, 16), kq, vq, lens)    # no scales
+
+
+def test_slab_and_naive_engines_on_the_card_match_the_cpu_engine(cuda):
+    cfg = get_arch("gpt2-s").reduced(num_layers=2, d_model=64, vocab=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    lora = init_lora_stack(cfg, torch.Generator().manual_seed(1), device="cpu")
+    for layer in lora:
+        for ad in layer["mixer"].values():
+            ad["b"].normal_(0, 0.05, generator=torch.Generator().manual_seed(2))
+    outs = []
+    for dev, kw in (("cpu", dict(paged=False)), ("cuda", dict(paged=False)),
+                    ("cuda", dict(fused=False)), ("cuda", dict(max_len=50))):
+        eng = ServingEngine(cfg, params, lora=lora, max_slots=3, page_size=8, device=dev,
+                            **{"max_len": 48, **kw})
+        assert not eng.paged
+        reqs = [Request(uid=i, prompt=list(range(1 + i, 6 + 3 * i)), max_new_tokens=6)
+                for i in range(5)]
+        for r in reqs:
+            eng.submit(r)
+        backend.reset_launch_counts()
+        eng.run()
+        if dev == "cuda":
+            assert backend.LAUNCH_COUNTS["lora_matmul"] > 0
+            assert backend.LAUNCH_COUNTS["flash_decode"] > 0
+            assert "paged_decode" not in backend.LAUNCH_COUNTS
+        outs.append([r.output for r in reqs])
+    assert all(o == outs[0] for o in outs)
