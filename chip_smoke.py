@@ -11,7 +11,9 @@ Phases (each prints its own lines; any failure exits non-zero):
     nvcc, in parallel;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
-    forward LoRA matmul, paged decode, the dX and rank-reduce backward
+    forward LoRA matmul, its multi-tenant gather (distinct, repeated and
+    out-of-range indices, ragged M/N/K, ranks 1 and 64; each tenant's rows
+    bit-equal to the single-adapter kernel on them), paged decode, the dX and rank-reduce backward
     kernels, the autograd backward of ``lora_matmul`` against autograd of
     its plain version, the causal flash-attention forward, and the
     int8-base forward and dX (``lora_matmul(..., w_scale=)``) with their
@@ -58,7 +60,18 @@ Phases (each prints its own lines; any failure exits non-zero):
     mid-run, quantized per KV head (``precision.quantize_kv_int8``), then
     each q8 op once per layer — exactly 12 launches each, held against
     its plain version (f32 atol 1e-5), its distance from the f32 kernel
-    printed.
+    printed;
+11. multi-tenant serving: the paged engine on full-width GPT-2-S (f32, 8
+    slots, 512 positions) with an ``AdapterRegistry`` of 8 pool slots over
+    12 tenants (rank-4 q, v adapters, B != 0) drains phase 5's 16 requests
+    with tenant = uid % 12: launch counters reset just before must show 24
+    ``lora_matmul_gather`` and 12 ``paged_decode`` per decode step, 24
+    ``lora_matmul`` per prefill chunk and nothing else; every request's
+    ids must equal a single-adapter engine's serving it with its tenant's
+    adapter, LRU must evict, one prompt under all 12 tenants must not give
+    one answer, a hot swap between two steps must leave every pool
+    tensor's storage in place, and one mixed-tenant decode step is held
+    against the plain path.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -158,13 +171,15 @@ def main() -> None:
                                                      paged_decode, paged_decode_q8_ref,
                                                      paged_decode_ref)
     from repro_torch.kernels.lora_matmul import (lora_matmul, lora_matmul_dx_kernel,
-                                                 lora_matmul_dx_ref, lora_matmul_q8_dx_kernel,
+                                                 lora_matmul_dx_ref, lora_matmul_gather_kernel,
+                                                 lora_matmul_gathered_ref,
+                                                 lora_matmul_q8_dx_kernel,
                                                  lora_matmul_q8_dx_ref, lora_matmul_q8_kernel,
                                                  lora_matmul_q8_ref, lora_matmul_ref,
                                                  lora_rank_reduce_kernel,
                                                  lora_rank_reduce_ref)
     from repro_torch.precision import quantize_kv_int8, quantize_weight_int8
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import AdapterRegistry, Request, ServingEngine
 
     dev = torch.device("cuda", 0)
 
@@ -402,8 +417,62 @@ def main() -> None:
             if dn == "float32" and G == 1:
                 err["paged_decode_q8"] = max(err["paged_decode_q8"], e)
 
+    def gather_inputs(M, K, N, r, A, dt):
+        return (randn(M, K).to(dev, dt), randn(K, N, std=K ** -0.5).to(dev, dt),
+                randn(A, r, K, std=r ** -0.5).to(dev, dt),
+                randn(A, N, r, std=0.02).to(dev, dt))
+
+    def check_gather(dt, dn):
+        """The gather entry against its plain version: the decode shape
+        (M = 8 slots, 8 distinct adapters), repeated and out-of-range
+        indices ([-A, 0) counts from the end, the rest are NaN rows),
+        ragged M/N/K, ranks 1 and 64; then each tenant's rows bit-equal to
+        the single-adapter kernel on them (one body, one arithmetic order)."""
+        tol = dict(atol=TOL[dn], rtol=TOL[dn])
+        for M, K, N, r, A, kind in ((8, 768, 768, 4, 8, "distinct"),
+                                    (16, 768, 768, 4, 8, "repeated"),
+                                    (8, 768, 768, 4, 8, "out-of-range"),
+                                    (37, 300, 129, 4, 5, "distinct"),
+                                    (5, 100, 70, 1, 3, "repeated"),
+                                    (33, 768, 768, 64, 4, "distinct"),
+                                    (9, 130, 45, 64, 16, "out-of-range")):
+            x, w, a, b = gather_inputs(M, K, N, r, A, dt)
+            if kind == "distinct":
+                idx = torch.arange(M) % A
+            elif kind == "repeated":
+                idx = torch.tensor([A - 1, 0, A - 1, A - 1, 1 % A])[torch.arange(M) % 5]
+            else:
+                idx = torch.tensor([-A - 1, -1, A, A + 3, 0, -A, A - 1, 1])[torch.arange(M) % 8]
+            idx = idx.to(dev, torch.int32)
+            y = lora_matmul_gather_kernel(x, w, a, b, idx, scale)
+            torch.cuda.synchronize()
+            want = lora_matmul_gathered_ref(x, w, a, b, idx, scale)
+            nan_ok = torch.equal(torch.isnan(y), torch.isnan(want))
+            fin = torch.isfinite(want)
+            e = (y.float() - want.float()).abs()[fin].max().item()
+            good = nan_ok and torch.allclose(y.float()[fin], want.float()[fin], **tol)
+            print(f"[check] lora_matmul_gather {dn} M={M} K={K} N={N} r={r} A={A} {kind} "
+                  f"indices: max_abs_err={e:.3g} atol=rtol={TOL[dn]}, NaN rows where the "
+                  f"plain version's: {nan_ok} {'ok' if good else 'FAIL'}")
+            if not good:
+                fail(f"lora_matmul_gather disagrees with its plain version ({dn}, {kind})")
+            if dn == "float32" and K == 768:
+                err["lora_matmul_gather"] = max(err["lora_matmul_gather"], e)
+        M, K, N, r, A = 40, 768, 768, 4, 8
+        x, w, a, b = gather_inputs(M, K, N, r, A, dt)
+        idx = torch.randint(0, A, (M,), generator=gen)
+        y = lora_matmul_gather_kernel(x, w, a, b, idx.to(dev, torch.int32), scale)
+        same = all(torch.equal(y[(idx == t).to(dev)],
+                               lora_matmul(x[(idx == t).to(dev)].contiguous(), w, a[t], b[t],
+                                           scale=scale))
+                   for t in range(A) if (idx == t).any())
+        print(f"[check] lora_matmul_gather {dn} M={M} A={A}: each tenant's rows bit-equal to "
+              f"lora_matmul on them: {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            fail("the gather's rows differ from the single-adapter kernel's")
+
     scale = 2.0                       # GPT-2-S: lora_alpha / lora_rank = 8 / 4
-    err = {"lora_matmul": 0.0, "paged_decode": 0.0, "lora_matmul_dx": 0.0,
+    err = {"lora_matmul": 0.0, "lora_matmul_gather": 0.0, "paged_decode": 0.0, "lora_matmul_dx": 0.0,
            "lora_rank_reduce": 0.0, "flash_attention": 0.0, "lora_matmul_q8": 0.0,
            "lora_matmul_q8_dx": 0.0, "flash_decode": 0.0, "flash_decode_q8": 0.0,
            "paged_decode_q8": 0.0}
@@ -422,6 +491,7 @@ def main() -> None:
                 fail(f"lora_matmul disagrees with its plain version ({dn}, M={M})")
             if dn == "float32" and K == 768:
                 err["lora_matmul"] = max(err["lora_matmul"], e)
+        check_gather(dt, dn)
         for B, KH, G, D in ((8, 12, 1, 64), (4, 2, 4, 128)):
             PS, MP = 16, 32
             lengths = [0, 1, PS, PS + 1, MP * PS, 37, 200, 301][:B]
@@ -473,6 +543,30 @@ def main() -> None:
               f"bound {max(t_bytes, t_ops) * 1e3:.2f}us ({nbytes} B, {flops} flop); "
               f"kernel with L2 warm {warm * 1e3:.2f}us; back-to-back {b2b:.2f}us/call "
           f"(host clock, L2 warm)")
+    # the gather at the multi-tenant decode shape: 8 slots, 8 distinct adapters
+    M, K, N, r, A = 8, 768, 768, 4, 8
+    x, w, a, b = gather_inputs(M, K, N, r, A, torch.float32)
+    idx = torch.arange(M, dtype=torch.int32, device=dev) % A
+    ms = time_ms(torch, lambda: lora_matmul_gather_kernel(x, w, a, b, idx, scale), flush)
+    warm = time_ms(torch, lambda: lora_matmul_gather_kernel(x, w, a, b, idx, scale),
+                   lambda: None)
+    plain = time_ms(torch, lambda: lora_matmul_gathered_ref(x, w, a, b, idx, scale), flush)
+
+    def gather_library():
+        il = idx.long()
+        z = torch.bmm(x[:, None], a[il].transpose(1, 2))                  # (M, 1, r)
+        return x @ w + scale * torch.bmm(z, b[il].transpose(1, 2))[:, 0]
+
+    lib = time_ms(torch, gather_library, flush)
+    used = len(set(idx.tolist()))
+    nbytes = 4 * (M * K + K * N + used * (r * K + N * r) + M * N + M)
+    bms, bby = bound(nbytes, 2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
+    rows[("lora_matmul_gather", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                           bound_ms=bms, bound_by=bby)
+    print(f"[time] lora_matmul_gather f32 M={M} K={K} N={N} r={r} A={A} ({used} adapters "
+          f"used): kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(x @ w + "
+          f"s*bmm(bmm(x, A[idx]^T), B[idx]^T)) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us "
+          f"({bby}, {nbytes} B); kernel with L2 warm {warm * 1e3:.2f}us")
     B, KH, G, D, PS, MP = 8, 12, 1, 64, 16, 32
     lengths = [8, 40, 77, 120, 160, 200, 232, 255]      # serving-like spread
     q, kp, vp, lens, bt = paged_inputs(B, KH, G, D, PS, MP, lengths, torch.float32)
@@ -1103,8 +1197,132 @@ def main() -> None:
         fail("the int8-KV ops' path launched the wrong counts or disagrees with its "
              "plain version")
 
+    # -- 11. multi-tenant serving on full-width GPT-2-S -------------------------
+    from repro_torch.launch.serve import tenant_adapter
+    NT, POOL = 12, 8
+    ads = [tenant_adapter(cfg, 100 + t, cfg.lora_rank) for t in range(NT)]
+    reg = AdapterRegistry(cfg, pool_size=POOL, device="cuda")
+    for t, ad in enumerate(ads):
+        reg.publish(t, ad)
+    mt = ServingEngine(cfg, params, adapters=reg, max_slots=8, max_len=512, page_size=16,
+                       device="cuda")
+    mreqs = [Request(uid=r_.uid, prompt=list(r_.prompt), max_new_tokens=32, tenant=r_.uid % NT)
+             for r_ in reqs]
+    for r_ in mreqs:
+        mt.submit(r_)
+    backend.reset_launch_counts()        # just before the main path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mt_launches = dict(backend.LAUNCH_COUNTS)
+    st = mt.stats
+    n_tok = sum(len(r_.output) for r_ in mreqs)
+    print(f"[tenants] ServingEngine(adapters=AdapterRegistry(pool_size={POOL})), {NT} tenants "
+          f"(rank {cfg.lora_rank} on {cfg.lora_targets}, B != 0), 8 slots x 512 positions, "
+          f"f32, phase 5's {len(mreqs)} requests with tenant = uid % {NT}: {n_tok} tokens in "
+          f"{wall:.3f}s = {n_tok / wall:.1f} tok/s; {st['decode_steps']} decode steps, mean "
+          f"{st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.2f} ms/step; "
+          f"{st['prefill_chunks']} prefill chunks, {st['prefill_s'] * 1e3:.1f} ms total; "
+          f"{st['adapter_swaps']} adapter swaps, {reg.stats['evictions']} evictions; "
+          f"tokens per tenant {dict(sorted(st['tenant_tokens'].items()))}")
+    print(f"[tenants] launches during the run: {mt_launches}")
+    if not all(r_.done and len(r_.output) == 32 for r_ in mreqs):
+        fail("multi-tenant engine: not every request finished with 32 tokens")
+    if not mt.check_consistency(resync=False) or mt.pages_in_use() != 0:
+        fail("multi-tenant engine: page accounting inconsistent after drain")
+    want = {"lora_matmul_gather": 2 * L * st["decode_steps"],
+            "paged_decode": L * st["decode_steps"],
+            "lora_matmul": 2 * L * st["prefill_chunks"]}
+    if mt_launches != want or st["decode_steps"] == 0:
+        fail(f"multi-tenant engine launched {mt_launches}, expected exactly {want}")
+    if reg.stats["evictions"] < 1:
+        fail("multi-tenant engine: 12 tenants over 8 pool slots evicted nothing")
+    print(f"[tenants] launch counts match the path: {want} (24 lora_matmul_gather and 12 "
+          f"paged_decode per decode step, 24 lora_matmul per prefill chunk, no lora_matmul "
+          f"in decode, no flash_decode)")
+
+    # each request against a single-adapter paged engine with its tenant's adapter
+    same = 0
+    for t in range(NT):
+        mine = [r_ for r_ in mreqs if r_.tenant == t]
+        one = ServingEngine(cfg, params, lora=ads[t], max_slots=8, max_len=512, page_size=16,
+                            device="cuda")
+        sreqs_t = [Request(uid=r_.uid, prompt=list(r_.prompt), max_new_tokens=32)
+                   for r_ in mine]
+        for r_ in sreqs_t:
+            one.submit(r_)
+        one.run()
+        same += sum(a_.output == b_.output for a_, b_ in zip(mine, sreqs_t))
+        del one
+    print(f"[tenants] token ids equal to single-adapter engines serving each request with "
+          f"its tenant's adapter: {same} of {len(mreqs)} {'ok' if same == len(mreqs) else 'FAIL'}")
+    if same != len(mreqs):
+        fail("multi-tenant token ids differ from the per-tenant single-adapter engines'")
+
+    # one prompt under every tenant, with a hot swap between two steps
+    shared = [Request(uid=3000 + t, prompt=list(reqs[0].prompt), max_new_tokens=8, tenant=t)
+              for t in range(NT)]
+    for r_ in shared:
+        mt.submit(r_)
+    for _ in range(2):
+        mt.step()
+    hot = next(t for t in range(NT) if reg.resident(t))
+    ptrs = [p_.data_ptr() for p_ in tree_leaves(reg.pool)]
+    v_new = tenant_adapter(cfg, 999, cfg.lora_rank)
+    version = reg.publish(hot, v_new)
+    torch.cuda.synchronize()
+    kept = [p_.data_ptr() for p_ in tree_leaves(reg.pool)] == ptrs
+    loaded = all(torch.equal(p_[reg.slot_of(hot)].cpu(), h_)
+                 for p_, h_ in zip(tree_leaves(reg.pool), tree_leaves(v_new)))
+    mt.run()
+    answers = {tuple(r_.output) for r_ in shared}
+    good = (kept and loaded and version == 2 and reg.stats["hot_swaps"] == 1
+            and all(r_.done for r_ in shared) and len(answers) > 1)
+    print(f"[tenants] hot swap of resident tenant {hot} between two steps: version {version}, "
+          f"pool storage unchanged {kept}, slot holds the new weights {loaded}; one prompt "
+          f"under {NT} tenants gave {len(answers)} distinct answers {'ok' if good else 'FAIL'}")
+    if not good:
+        fail("hot swap moved the pool, or the tenants' answers did not differ")
+
+    # one mixed-tenant decode step, kernel path vs plain path, on the same state
+    B = 8
+    caches = TM.init_paged_cache(cfg, 8 * 32 + 1, 16, torch.float32, "cuda")
+    for c in caches:
+        c["k"].normal_(generator=torch.Generator(device=dev).manual_seed(3))
+        c["v"].normal_(generator=torch.Generator(device=dev).manual_seed(4))
+    pos = torch.tensor(lengths, dtype=torch.int32)
+    bt = torch.zeros(B, 32, dtype=torch.int32)
+    pages = torch.randperm(8 * 32, generator=gen) + 1
+    for b_, n in enumerate(lengths):
+        bt[b_, :n // 16 + 1] = pages[b_ * 32:b_ * 32 + n // 16 + 1].int()
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+    aidx = torch.tensor([3, 0, 7, 3, 5, 1, 6, 2], dtype=torch.int32, device=dev)
+    outs = []
+    for rt in (TM.default_serve_runtime(), TM.Runtime()):
+        cc = [{k: v.clone() for k, v in c.items()} for c in caches]
+        backend.reset_launch_counts()
+        logits, cc = TM.paged_decode_step(cfg, mt.params, tok.to(dev), cc, bt.to(dev),
+                                          pos.to(dev), lora=reg.pool, rt=rt, adapter_idx=aidx)
+        torch.cuda.synchronize()
+        outs.append((logits, cc, dict(backend.LAUNCH_COUNTS)))
+    (lk, ck, nk), (lp, cp, npl) = outs
+    e_log = (lk - lp).abs().max().item()
+    e_kv = max((a[n] - b[n]).abs().max().item() for a, b in zip(ck, cp) for n in "kv")
+    good = (tuple(lk.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(lk).all())
+            and torch.allclose(lk, lp, atol=1e-3, rtol=1e-3) and e_kv < 1e-4
+            and nk == {"lora_matmul_gather": 2 * L, "paged_decode": L} and not npl)
+    print(f"[tenants] paged_decode_step(adapter_idx={aidx.tolist()}) logits kernel vs plain "
+          f"path: shape {tuple(lk.shape)} max_abs_err={e_log:.3g} (atol=rtol=1e-3), pools "
+          f"max_abs_err={e_kv:.3g} (tol 1e-4); launches {nk} vs plain {npl} "
+          f"{'ok' if good else 'FAIL'}")
+    if not good:
+        fail("a mixed-tenant decode step through the kernels disagrees with the plain path")
+
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
-            slab_launches, naive_launches, q8_launches)
+            slab_launches, naive_launches, q8_launches,
+            mt_launches)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -1165,6 +1383,12 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention/paged_decode.py:134",
              launches=launches["paged_decode_q8"], max_abs_err=err["paged_decode_q8"],
              **rows[("paged_decode_q8", 8)]),
+        # the multi-tenant decode (phase 11) at its shape: 8 slots, 8 adapters
+        dict(name="lora_matmul_gather", route="cuda",
+             source="src/repro_torch/kernels/csrc/lora_matmul.cu",
+             replaces="src/repro/kernels/lora_matmul/kernel.py:236",
+             launches=launches["lora_matmul_gather"], max_abs_err=err["lora_matmul_gather"],
+             **rows[("lora_matmul_gather", 8)]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

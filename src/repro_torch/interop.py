@@ -18,6 +18,11 @@ rank-padded adapters cross like any other.  Slab decode caches cross too
 (``slab_cache_from_numpy`` / ``slab_cache_to_numpy``): ``repro``'s tuple
 over pattern positions of {"k", "v": (R, B, L, KH, D), "pos": (R, B, L)}
 becomes the port's per-layer list, the int32 positions kept as they are.
+A multi-tenant adapter pool crosses with the LoRA functions: ``repro``'s
+``AdapterRegistry.pool`` leaves are (R, A, ...), and ``lora_from_numpy``
+splits the repeat axis into the port's per-layer (A, ...) pool (the
+layout of ``serving.AdapterRegistry.pool``); ``lora_to_numpy`` stacks it
+back.
 """
 from __future__ import annotations
 

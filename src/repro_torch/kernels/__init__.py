@@ -7,6 +7,9 @@ for ``sm_90a`` at first use) with their plain PyTorch versions:
 * lora_rank_reduce — uᵀ·v in f32, deterministic (dA and dBᵀ);
 * lora_matmul_q8 / lora_matmul_q8_dx — the forward and dX over a weight-
                      only int8 base (``lora_matmul(..., w_scale=)``);
+* lora_matmul_gathered — the multi-tenant forward: row m wears adapter
+                     idx[m] of a pool (the gather entry of lora_matmul's
+                     source);
 * paged_decode     — one-token GQA attention over a block-table page pool,
                      and paged_decode_q8 over an int8 pool;
 * flash_decode     — the same over per-slot slab caches read in the
@@ -24,12 +27,14 @@ from .flash_attention import (flash_attention, flash_attention_ref, flash_decode
                               flash_decode_q8_ref, flash_decode_ref, paged_decode,
                               paged_decode_q8_ref, paged_decode_ref)
 from .lora_matmul import (lora_matmul, lora_matmul_dx, lora_matmul_dx_ref,
+                          lora_matmul_gathered, lora_matmul_gathered_ref,
                           lora_matmul_q8_dx, lora_matmul_q8_dx_ref, lora_matmul_q8_ref,
                           lora_matmul_ref, lora_rank_reduce, lora_rank_reduce_ref)
 
 __all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "flash_attention",
            "flash_attention_ref", "flash_decode", "flash_decode_q8_ref", "flash_decode_ref",
            "paged_decode", "paged_decode_q8_ref", "paged_decode_ref",
-           "lora_matmul", "lora_matmul_dx", "lora_matmul_dx_ref", "lora_matmul_q8_dx",
+           "lora_matmul", "lora_matmul_dx", "lora_matmul_dx_ref", "lora_matmul_gathered",
+           "lora_matmul_gathered_ref", "lora_matmul_q8_dx",
            "lora_matmul_q8_dx_ref", "lora_matmul_q8_ref", "lora_matmul_ref",
            "lora_rank_reduce", "lora_rank_reduce_ref"]

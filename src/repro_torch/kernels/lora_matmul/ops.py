@@ -14,6 +14,11 @@ every LoRA-adapted projection through.  It is differentiable through
   z2 = dY·B are plain matmuls, as JAX computes them outside any kernel),
   and dW as a plain matmul only when W needs a gradient (JAX leaves it
   to XLA, which drops it for a frozen W).
+
+``lora_matmul_gathered`` is the multi-tenant forward (row m wears adapter
+``idx[m]`` of a pool): ``csrc/lora_matmul.cu``'s gather entry on a CUDA
+tensor, ``lora_matmul_gathered_ref`` on a CPU one; forward only, as the
+serving decode never differentiates.
 """
 from __future__ import annotations
 
@@ -22,8 +27,9 @@ import ctypes
 import torch
 
 from .. import backend, build
-from .ref import (acc_dtype, lora_matmul_dx_ref, lora_matmul_q8_dx_ref, lora_matmul_q8_ref,
-                  lora_matmul_ref, lora_rank_reduce_ref)
+from .ref import (acc_dtype, lora_matmul_dx_ref, lora_matmul_gathered_ref,
+                  lora_matmul_q8_dx_ref, lora_matmul_q8_ref, lora_matmul_ref,
+                  lora_rank_reduce_ref)
 
 MAX_RANK = 64                      # RMAX in csrc/lora_matmul{,_bwd,_q8}.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -89,6 +95,53 @@ def lora_matmul_kernel(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                  _stream(x.device))
     build.check("lora_matmul", err)
     backend.count_launch("lora_matmul")
+    return y
+
+
+def lora_matmul_gather_kernel(x: torch.Tensor, w: torch.Tensor, a_pool: torch.Tensor,
+                              b_pool: torch.Tensor, idx: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """Launch the gather forward: x (M, K), w (K, N), a_pool (A, r, K),
+    b_pool (A, N, r) of one dtype (float32 or bfloat16), idx (M,) int32;
+    all contiguous on one CUDA device.  Returns y (M, N) in x's dtype.
+    ``idx`` stays on the device (no host read); an index outside the pool
+    gives a NaN row, as the plain version's.  Raises on anything else."""
+    op = "lora_matmul_gather"
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{op}: dtype {x.dtype} not supported (float32, bfloat16)")
+    _check(op, x.device, x.dtype, x=x, w=w)
+    for name, t, dt, nd in (("a_pool", a_pool, x.dtype, 3), ("b_pool", b_pool, x.dtype, 3),
+                            ("idx", idx, torch.int32, 1)):
+        if t.device != x.device:
+            raise ValueError(f"{op}: {name} is on {t.device}; every operand must be "
+                             f"on the CUDA device {x.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{op}: {name} is {t.dtype}, expected {dt}")
+        if t.dim() != nd or not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be a contiguous {nd}-D tensor, got "
+                             f"shape {tuple(t.shape)}")
+    M, K = x.shape
+    N = w.shape[1]
+    A, r = a_pool.shape[:2]
+    if (w.shape[0] != K or tuple(a_pool.shape) != (A, r, K)
+            or tuple(b_pool.shape) != (A, N, r) or tuple(idx.shape) != (M,) or A < 1):
+        raise ValueError(
+            f"{op}: shapes x {tuple(x.shape)} w {tuple(w.shape)} a_pool "
+            f"{tuple(a_pool.shape)} b_pool {tuple(b_pool.shape)} idx "
+            f"{tuple(idx.shape)} do not agree")
+    _check_rank(op, r)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return y
+    fn = _bind("lora_matmul", "lora_matmul_gather_launch",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
+                 idx.data_ptr(), y.data_ptr(), M, K, N, r, A, float(scale),
+                 _DTYPE_CODES[x.dtype], _stream(x.device))
+    build.check("lora_matmul", err)
+    backend.count_launch(op)
     return y
 
 
@@ -362,4 +415,39 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         y = _FusedLoraMatmul.apply(x2, w, a, b, float(scale))
     else:
         y = _FusedLoraMatmulQ8.apply(x2, w, w_scale, a, b, float(scale))
+    return y.reshape(*lead, N)
+
+
+def lora_matmul_gathered(x: torch.Tensor, w: torch.Tensor, a_pool: torch.Tensor,
+                         b_pool: torch.Tensor, adapter_idx, *,
+                         scale: float = 1.0) -> torch.Tensor:
+    """Batched-gather LoRA matmul: row m of x wears adapter
+    ``adapter_idx[m]`` of the pool.
+
+    x: (..., K); w: (K, N); a_pool: (A, r, K); b_pool: (A, N, r);
+    adapter_idx: integer, either matching x's leading dims or a (B,)
+    vector broadcast over the remaining leading dims (one adapter per
+    batch row: the serving-slot case), as ``repro``'s
+    ``lora_matmul_gathered``.  Forward only.  Routed by x's device:
+    ``lora_matmul_gather_kernel`` for a CUDA tensor (w and the pools cast
+    to x's dtype, the index to int32, all on the device),
+    ``lora_matmul_gathered_ref`` for a CPU one."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    N = w.shape[1]
+    x2 = x.reshape(-1, K).contiguous()
+    ai = torch.as_tensor(adapter_idx, device=x.device)
+    if tuple(ai.shape) != tuple(lead):
+        ai = ai.reshape(tuple(ai.shape) + (1,) * (len(lead) - ai.dim()))
+    idx = ai.expand(lead).reshape(-1)
+
+    def kernel():
+        wk, ak, bk = (t.to(x2.dtype).contiguous() for t in (w, a_pool, b_pool))
+        return lora_matmul_gather_kernel(x2, wk, ak, bk,
+                                         idx.to(torch.int32).contiguous(), scale)
+
+    y = backend.dispatch(
+        "lora_matmul_gathered", kernel=kernel,
+        ref=lambda: lora_matmul_gathered_ref(x2, w, a_pool, b_pool, idx, float(scale)),
+        x=x2)
     return y.reshape(*lead, N)

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the fused LoRA matmul, its two backward
-kernels and the int8-base (q8) forward and dX (the CPU route, and the
-references the CUDA kernels are held against on the card)."""
+kernels, the int8-base (q8) forward and dX, and the multi-tenant gather
+forward (the CPU route, and the references the CUDA kernels are held
+against on the card)."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +26,38 @@ def lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     y = xf @ w.to(acc)
     z = xf @ a.to(acc).T
     y = y + scale * (z @ b.to(acc).T)
+    return y.to(x.dtype)
+
+
+def take_adapters(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pool[idx]`` along axis 0 with ``jnp.take``'s default (fill) mode,
+    as ``repro`` gathers adapters: an index in [-A, 0) counts from the
+    end, any other index outside [0, A) gives a NaN entry."""
+    A = pool.shape[0]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + A, idx)
+    ok = (idx >= 0) & (idx < A)
+    sel = pool[torch.where(ok, idx, torch.zeros_like(idx))]
+    nan = torch.full((), float("nan"), dtype=pool.dtype, device=pool.device)
+    return torch.where(ok.reshape(ok.shape + (1,) * (sel.dim() - ok.dim())), sel, nan)
+
+
+def lora_matmul_gathered_ref(x: torch.Tensor, w: torch.Tensor, a_pool: torch.Tensor,
+                             b_pool: torch.Tensor, idx: torch.Tensor,
+                             scale: float) -> torch.Tensor:
+    """y[m] = x[m] @ w + scale * (x[m] @ a_pool[idx[m]]^T) @ b_pool[idx[m]]^T.
+
+    x: (M, K); w: (K, N); a_pool: (A, r, K); b_pool: (A, N, r); idx: (M,)
+    int adapter index per row (``take_adapters``: an index outside the
+    pool gives a NaN row).  f32 accumulation, y in x's dtype — the twin
+    of ``repro.kernels.lora_matmul.lora_matmul_gathered_ref``."""
+    acc = acc_dtype(x, w, a_pool, b_pool)
+    xf = x.to(acc)
+    y = xf @ w.to(acc)
+    a_sel = take_adapters(a_pool, idx).to(acc)                    # (M, r, K)
+    b_sel = take_adapters(b_pool, idx).to(acc)                    # (M, N, r)
+    z = torch.einsum("mk,mrk->mr", xf, a_sel)
+    y = y + scale * torch.einsum("mr,mnr->mn", z, b_sel)
     return y.to(x.dtype)
 
 

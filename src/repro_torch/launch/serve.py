@@ -1,12 +1,15 @@
-"""Serving driver for the port: the single-adapter continuous-batching
-engine on full-width GPT-2-S (``--reduced`` for a tiny variant), on the
-card by default — the paged KV pool where ``--page-size`` divides
-``--max-len``, the slab layout with ``--slab`` (or otherwise), the naive
-per-slot loop with ``--naive``:
+"""Serving driver for the port: the continuous-batching engine on
+full-width GPT-2-S (``--reduced`` for a tiny variant), on the card by
+default — the paged KV pool where ``--page-size`` divides ``--max-len``,
+the slab layout with ``--slab`` (or otherwise), the naive per-slot loop
+with ``--naive``; ``--adapters N`` serves N tenants' adapters from one
+paged engine through an ``AdapterRegistry`` of ``--adapter-pool`` slots:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
       --device cpu --requests 8 --slots 4 --gen 8 [--slab | --naive]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
+      --device cpu --adapters 5 --adapter-pool 4 --tenant-trace zipf --tenant-quota 1
 """
 from __future__ import annotations
 
@@ -32,6 +35,18 @@ def main(argv=None) -> None:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV page pool size (0 = slab-equivalent capacity)")
+    ap.add_argument("--adapters", type=int, default=0,
+                    help="serve N distinct tenant adapters from ONE engine "
+                         "(multi-tenant; paged engine only; 0 = single shared adapter)")
+    ap.add_argument("--adapter-pool", type=int, default=0,
+                    help="device-resident adapter slots (0 = auto: enough for the "
+                         "batch, capped at 8 so cold tenants exercise LRU paging)")
+    ap.add_argument("--tenant-trace", choices=["roundrobin", "zipf"],
+                    default="roundrobin",
+                    help="how requests map to tenants: uniform round-robin or a "
+                         "Zipf-skewed popularity mix")
+    ap.add_argument("--tenant-quota", type=int, default=0,
+                    help="max live slots per tenant (0 = unlimited)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     ap.add_argument("--seed", type=int, default=0)
@@ -46,7 +61,7 @@ def main(argv=None) -> None:
     from ..configs import get_arch
     from ..models import init_lora_stack, init_params
     from ..models.generate import SampleConfig
-    from ..serving import Request, ServingEngine
+    from ..serving import AdapterRegistry, Request, ServingEngine
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -54,22 +69,41 @@ def main(argv=None) -> None:
     dtype = getattr(torch, args.dtype)
     params = init_params(cfg, torch.Generator().manual_seed(args.seed),
                          dtype, args.device)
-    lora = init_lora_stack(cfg, torch.Generator().manual_seed(args.seed + 1),
-                           args.rank, dtype, args.device)
+    registry, lora = None, None
+    if args.adapters:
+        # one trained adapter per tenant (federated fleets emit these); the
+        # pool holds a bounded working set and LRU-pages the rest
+        pool = args.adapter_pool or max(args.slots, min(args.adapters, 8))
+        registry = AdapterRegistry(cfg, pool_size=pool, rank=args.rank, dtype=dtype,
+                                   device=args.device)
+        for t in range(args.adapters):
+            registry.publish(t, tenant_adapter(cfg, args.seed + 1 + t, args.rank))
+    else:
+        lora = init_lora_stack(cfg, torch.Generator().manual_seed(args.seed + 1),
+                               args.rank, dtype, args.device)
     sc = (SampleConfig(greedy=True) if args.temperature == 0.0
           else SampleConfig(temperature=args.temperature))
     paged = False if (args.slab or args.naive) else None     # None = auto
-    eng = ServingEngine(cfg, params, lora=lora, max_slots=args.slots,
+    eng = ServingEngine(cfg, params, lora=lora, adapters=registry,
+                        tenant_quota=args.tenant_quota, max_slots=args.slots,
                         max_len=args.max_len, sc=sc, seed=args.seed,
                         fused=not args.naive, paged=paged, page_size=args.page_size,
                         num_pages=args.num_pages or None,
                         device=args.device, dtype=dtype)
 
     rng = np.random.default_rng(args.seed)
+
+    def tenant_of(i: int) -> int:
+        if not args.adapters:
+            return 0
+        if args.tenant_trace == "zipf":
+            return int(rng.zipf(1.5)) % args.adapters
+        return i % args.adapters
+
     reqs = [Request(uid=i,
                     prompt=rng.integers(5, cfg.vocab_size,
                                         rng.integers(4, args.prompt_len + 1)).tolist(),
-                    max_new_tokens=args.gen)
+                    max_new_tokens=args.gen, tenant=tenant_of(i))
             for i in range(args.requests)]
     if eng.device.type == "cuda":
         from ..kernels import build
@@ -77,8 +111,7 @@ def main(argv=None) -> None:
     if args.profile:             # first calls (cuBLAS, allocator) out of the trace
         eng.submit(Request(uid=-1, prompt=[5, 6, 7], max_new_tokens=2))
         eng.run()
-        for k in eng.stats:
-            eng.stats[k] = 0
+        eng.reset_stats()
     for r in reqs:
         eng.submit(r)
 
@@ -103,6 +136,14 @@ def main(argv=None) -> None:
           f"({total / wall:.1f} tok/s) on {dev} with {args.slots} slots, "
           f"{steps} engine steps, {eng.prefill_compiles()} prefill compiles "
           f"({mode} engine, {args.dtype})")
+    if registry is not None:
+        tt = eng.stats["tenant_tokens"]
+        dist = " ".join(f"t{t}:{tt[t]}" for t in sorted(tt))
+        print(f"multi-tenant: {args.adapters} tenants over {registry.pool_size} pool "
+              f"slots ({args.tenant_trace} trace), {eng.stats['adapter_swaps']} adapter "
+              f"swaps ({registry.stats['evictions']} evictions, "
+              f"{registry.stats['hot_swaps']} hot swaps)")
+        print(f"per-tenant tokens: {dist}")
     print("sample token ids:", reqs[0].output[:12])
     st = eng.stats
     prefills = st["prefills"] + st["prefill_chunks"]
@@ -112,6 +153,23 @@ def main(argv=None) -> None:
           f"({st['prefill_s'] / max(prefills, 1) * 1e3:.2f} ms/call) (host clock)")
     if prof is not None:
         _report(prof, wall)
+
+
+def tenant_adapter(cfg, seed: int, rank: int):
+    """Tenant ``seed``'s adapter, on the CPU (the registry keeps it as the
+    host copy): LoRA's A from ``init_lora_stack`` and a random B ~ N(0,
+    0.02²) from the same generator.  B must not be 0 — under LoRA's B = 0
+    init every tenant computes the same thing, and a gather that ignored
+    its index would pass unseen."""
+    import torch
+    from ..models import init_lora_stack
+    gen = torch.Generator().manual_seed(seed)
+    lora = init_lora_stack(cfg, gen, rank, torch.float32, "cpu")
+    for layer in lora:
+        for block in layer.values():
+            for ad in block.values():
+                ad["b"].copy_(torch.randn(ad["b"].shape, generator=gen) * 0.02)
+    return lora
 
 
 def _profiler(device):

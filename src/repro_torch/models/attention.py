@@ -41,22 +41,25 @@ def _lora(lora, name):
     return None if lora is None or name not in lora else lora[name]
 
 
-def _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl="einsum"):
-    """Project and reshape to (B, S, H|KH, D), rope NOT yet applied."""
+def _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl="einsum", adapter_idx=None):
+    """Project and reshape to (B, S, H|KH, D), rope NOT yet applied.
+    ``adapter_idx`` (B,) gathers each row's adapter out of a pooled
+    ``lora`` (``layers.dense``)."""
     B, S, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(x, p["wq"]["w"], p["wq"].get("b"), _lora(lora, "q"), lora_scale,
-              impl=dense_impl, w_scale=p["wq"].get("w_scale"))
-    k = dense(x, p["wk"]["w"], p["wk"].get("b"), _lora(lora, "k"), lora_scale,
-              impl=dense_impl, w_scale=p["wk"].get("w_scale"))
-    v = dense(x, p["wv"]["w"], p["wv"].get("b"), _lora(lora, "v"), lora_scale,
-              impl=dense_impl, w_scale=p["wv"].get("w_scale"))
+
+    def proj(wname, lname):
+        return dense(x, p[wname]["w"], p[wname].get("b"), _lora(lora, lname), lora_scale,
+                     impl=dense_impl, w_scale=p[wname].get("w_scale"),
+                     adapter_idx=adapter_idx)
+
+    q, k, v = proj("wq", "q"), proj("wk", "k"), proj("wv", "v")
     return q.reshape(B, S, h, hd), k.reshape(B, S, kh, hd), v.reshape(B, S, kh, hd)
 
 
-def _out_proj(p, o, lora, lora_scale, dense_impl):
+def _out_proj(p, o, lora, lora_scale, dense_impl, adapter_idx=None):
     return dense(o, p["wo"]["w"], p["wo"].get("b"), _lora(lora, "o"), lora_scale,
-                 impl=dense_impl, w_scale=p["wo"].get("w_scale"))
+                 impl=dense_impl, w_scale=p["wo"].get("w_scale"), adapter_idx=adapter_idx)
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +262,7 @@ def decode_masked_attention(q, k, v, q_pos, k_pos, window: int = 0) -> torch.Ten
 
 
 def decode_attention(cfg, p, x, cache, cur_index, *, lora=None, lora_scale=1.0,
-                     impl="naive", dense_impl: str = "einsum"):
+                     impl="naive", dense_impl: str = "einsum", adapter_idx=None):
     """One-token decode over the slab cache: x (B, 1, d); cache {"k", "v":
     (B, L, KH, D), "pos": (B, L)}; cur_index a scalar absolute position or
     a (B,) vector (serving slots each at their own).
@@ -269,10 +272,11 @@ def decode_attention(cfg, p, x, cache, cur_index, *, lora=None, lora_scale=1.0,
     ``impl="flash"`` on a non-windowed cache routes through
     ``kernels.flash_attention.flash_decode`` with lengths ``cur_index + 1``
     (the CUDA kernel for a CUDA tensor, reading the cache in place); any
-    other case takes ``decode_masked_attention``."""
+    other case takes ``decode_masked_attention``.  ``adapter_idx`` (B,)
+    gathers each slot's adapter out of a pooled ``lora``."""
     B = x.shape[0]
     L = cache["k"].shape[1]
-    q, k, v = _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl)
+    q, k, v = _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl, adapter_idx)
     pos_vec = torch.as_tensor(cur_index, dtype=torch.int32, device=x.device).expand(B)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, pos_vec[:, None], cfg.rope_theta)
@@ -287,7 +291,7 @@ def decode_attention(cfg, p, x, cache, cur_index, *, lora=None, lora_scale=1.0,
     else:
         o = decode_masked_attention(q, cache["k"], cache["v"], pos_vec, cache["pos"],
                                     cfg.attn_window)
-    y = _out_proj(p, o.reshape(B, 1, -1), lora, lora_scale, dense_impl)
+    y = _out_proj(p, o.reshape(B, 1, -1), lora, lora_scale, dense_impl, adapter_idx)
     return y, cache
 
 
@@ -306,7 +310,7 @@ def init_paged_attn_cache(cfg, num_pages: int, page_size: int, dtype,
 
 def paged_decode_attention(cfg, p, x, cache, block_table, cur_index, *,
                            lora=None, lora_scale=1.0, impl="naive",
-                           dense_impl: str = "einsum"):
+                           dense_impl: str = "einsum", adapter_idx=None):
     """One-token decode over the paged pool: x (B, 1, d); cache {"k","v"}
     (KH, NP, PS, D); block_table (B, MP) int32; cur_index (B,) absolute
     positions.
@@ -317,11 +321,13 @@ def paged_decode_attention(cfg, p, x, cache, block_table, cur_index, *,
     scatter's only duplicate indices land on the null page, which no live
     slot ever reads.  ``impl="flash"`` routes through
     ``kernels.flash_attention.paged_decode`` (the CUDA kernel for a CUDA
-    tensor); any other impl takes the plain gather version."""
+    tensor); any other impl takes the plain gather version.
+    ``adapter_idx`` (B,) gathers each slot's adapter out of a pooled
+    ``lora`` (multi-tenant serving)."""
     B = x.shape[0]
     PS = cache["k"].shape[2]
     MP = block_table.shape[1]
-    q, k, v = _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl)
+    q, k, v = _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl, adapter_idx)
     pos_vec = cur_index.to(torch.int32).expand(B)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, pos_vec[:, None], cfg.rope_theta)
@@ -341,7 +347,7 @@ def paged_decode_attention(cfg, p, x, cache, block_table, cur_index, *,
         KH = cache["k"].shape[0]
         o = paged_decode_ref(q[:, 0].reshape(B, KH, H // KH, D), cache["k"],
                              cache["v"], lengths, block_table)
-    y = _out_proj(p, o.reshape(B, 1, -1), lora, lora_scale, dense_impl)
+    y = _out_proj(p, o.reshape(B, 1, -1), lora, lora_scale, dense_impl, adapter_idx)
     return y, cache
 
 

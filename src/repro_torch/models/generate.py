@@ -6,7 +6,11 @@ A serving engine samples token ``t`` of request ``uid`` from its own
 function of the three.  That keeps the property of ``repro``'s
 ``fold_in(fold_in(key, uid), t)`` keys — a request's tokens depend on the
 request alone, not on arrival order or which slot it landed in — but not
-its bits: the two frameworks' generators differ.
+its bits: the two frameworks' generators differ.  A multi-tenant engine
+mixes the request's tenant in first (``stream_seed(seed, uid, t,
+tenant)``), as ``repro`` folds the tenant into its key first: a tenant's
+stream does not depend on co-residency or adapter slot, and two tenants
+with the same uid draw different streams.
 """
 from __future__ import annotations
 
@@ -37,9 +41,14 @@ def _splitmix64(z: int) -> int:
     return z ^ (z >> 31)
 
 
-def stream_seed(seed: int, uid: int, token_index: int) -> int:
-    """Seed of request ``uid``'s generator for token ``token_index``."""
+def stream_seed(seed: int, uid: int, token_index: int,
+                tenant: Optional[int] = None) -> int:
+    """Seed of request ``uid``'s generator for token ``token_index``; a
+    ``tenant`` is mixed in before the uid (None: no mixing at all, so the
+    single-adapter seeds are the same with and without the argument)."""
     z = _splitmix64(seed & _MASK64)
+    if tenant is not None:
+        z = _splitmix64(z ^ (tenant & _MASK64))
     z = _splitmix64(z ^ (uid & _MASK64))
     z = _splitmix64(z ^ (token_index & _MASK64))
     return z & ((1 << 63) - 1)
@@ -70,11 +79,12 @@ def sample_logits(logits: torch.Tensor, gen: Optional[torch.Generator],
 
 
 def sample_logits_per_key(logits: torch.Tensor,
-                          streams: Sequence[Optional[Tuple[int, int]]],
+                          streams: Sequence[Optional[Tuple[int, ...]]],
                           sc: SampleConfig, seed: int = 0) -> torch.Tensor:
-    """logits: (B, V); streams[b] = (uid, token_index) of row b, or None
-    for a row nobody reads (it gets 0 without drawing).  Returns (B,)
-    int32."""
+    """logits: (B, V); streams[b] = (uid, token_index) of row b, or (uid,
+    token_index, tenant) under multi-tenant serving (``stream_seed``), or
+    None for a row nobody reads (it gets 0 without drawing).  Returns
+    (B,) int32."""
     if sc.greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     out = torch.zeros(logits.shape[0], dtype=torch.int32, device=logits.device)

@@ -11,7 +11,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.lora_matmul import lora_matmul
+from ..kernels.lora_matmul import lora_matmul, lora_matmul_gathered, take_adapters
 from ..precision import dequantize_weight
 
 
@@ -25,7 +25,8 @@ def _cast_like(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
           lora: Optional[dict] = None, lora_scale: float = 1.0,
-          impl: str = "einsum", w_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+          impl: str = "einsum", w_scale: Optional[torch.Tensor] = None,
+          adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ w (+ b) (+ lora_scale * (x @ a^T) @ b_lora^T).
 
     ``lora`` is ``{"a": (r, in), "b": (out, r)}`` or None.  ``impl="fused"``
@@ -38,12 +39,38 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     of ``precision.quantize_weight_int8``) ``w`` is int8; the fused route
     hands the pair to the q8 kernels, every other route dequantizes first
     (``repro``'s ``_w_dense``).  An integer ``w`` without its scale
-    raises: cast to x's dtype it would compute with the raw integers."""
+    raises: cast to x's dtype it would compute with the raw integers.
+
+    Multi-tenant: with ``adapter_idx`` (a (B,) integer tensor, one entry
+    per leading batch row of x) the lora leaves are a POOL — ``{"a": (A,
+    r, in), "b": (A, out, r)}`` — and row b wears adapter
+    ``adapter_idx[b]``.  ``impl="fused"`` with a Python-number scale goes
+    through ``kernels.lora_matmul_gathered`` (the gather kernel on a CUDA
+    tensor), anything else through the gathered products in plain
+    PyTorch; an int8 base is dequantized first on both.  A pool of size 1
+    unstacks to the single-adapter path: bit-identical to passing the
+    adapter itself, as in ``repro``."""
     if w_scale is None and not w.is_floating_point():
         raise TypeError(f"dense: w is {w.dtype} but no w_scale was given; an "
                         "int8 base weight needs its per-channel scale")
-    if (impl == "fused" and lora is not None
-            and isinstance(lora_scale, (int, float))):
+    if adapter_idx is not None and lora is not None and lora["a"].shape[0] == 1:
+        lora = {"a": lora["a"][0], "b": lora["b"][0]}
+        adapter_idx = None
+    fused = impl == "fused" and lora is not None and isinstance(lora_scale, (int, float))
+    if adapter_idx is not None and lora is not None:
+        wd = (_cast_like(x, w) if w_scale is None
+              else dequantize_weight(w, w_scale, dtype=x.dtype))
+        if fused:
+            y = lora_matmul_gathered(x, wd, lora["a"], lora["b"], adapter_idx,
+                                     scale=float(lora_scale))
+        else:
+            y = x @ wd
+            a_sel = take_adapters(_cast_like(x, lora["a"]), adapter_idx)
+            b_sel = take_adapters(_cast_like(x, lora["b"]), adapter_idx)
+            z = torch.einsum("b...i,bri->b...r", x, a_sel)
+            delta = torch.einsum("b...r,bor->b...o", z, b_sel)
+            y = y + (lora_scale * delta).to(y.dtype)
+    elif fused:
         y = lora_matmul(x, w if w_scale is not None else _cast_like(x, w),
                         _cast_like(x, lora["a"]), _cast_like(x, lora["b"]),
                         scale=float(lora_scale), w_scale=w_scale)
@@ -141,31 +168,34 @@ def _sub(lora: Optional[dict], name: str) -> Optional[dict]:
     return None if lora is None or name not in lora else lora[name]
 
 
-def _proj(x, p: dict, lora, name: str, lora_scale, dense_impl):
+def _proj(x, p: dict, lora, name: str, lora_scale, dense_impl, adapter_idx=None):
     return dense(x, p["w"], p.get("b"), lora=_sub(lora, name), lora_scale=lora_scale,
-                 impl=dense_impl, w_scale=p.get("w_scale"))
+                 impl=dense_impl, w_scale=p.get("w_scale"), adapter_idx=adapter_idx)
 
 
 def swiglu_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
-               lora_scale: float = 1.0, dense_impl: str = "einsum"):
-    g = _proj(x, p["w_gate"], lora, "gate", lora_scale, dense_impl)
-    u = _proj(x, p["w_up"], lora, "up", lora_scale, dense_impl)
+               lora_scale: float = 1.0, dense_impl: str = "einsum",
+               adapter_idx: Optional[torch.Tensor] = None):
+    g = _proj(x, p["w_gate"], lora, "gate", lora_scale, dense_impl, adapter_idx)
+    u = _proj(x, p["w_up"], lora, "up", lora_scale, dense_impl, adapter_idx)
     h = F.silu(g.float()).to(x.dtype) * u
-    return _proj(h, p["w_down"], lora, "down", lora_scale, dense_impl)
+    return _proj(h, p["w_down"], lora, "down", lora_scale, dense_impl, adapter_idx)
 
 
 def gelu_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
-             lora_scale: float = 1.0, dense_impl: str = "einsum"):
-    h = _proj(x, p["w_up"], lora, "up", lora_scale, dense_impl)
+             lora_scale: float = 1.0, dense_impl: str = "einsum",
+             adapter_idx: Optional[torch.Tensor] = None):
+    h = _proj(x, p["w_up"], lora, "up", lora_scale, dense_impl, adapter_idx)
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return _proj(h, p["w_down"], lora, "down", lora_scale, dense_impl)
+    return _proj(h, p["w_down"], lora, "down", lora_scale, dense_impl, adapter_idx)
 
 
 def apply_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
-              lora_scale: float = 1.0, dense_impl: str = "einsum"):
+              lora_scale: float = 1.0, dense_impl: str = "einsum",
+              adapter_idx: Optional[torch.Tensor] = None):
     if cfg.mlp_kind == "swiglu":
-        return swiglu_mlp(cfg, x, p, lora, lora_scale, dense_impl)
-    return gelu_mlp(cfg, x, p, lora, lora_scale, dense_impl)
+        return swiglu_mlp(cfg, x, p, lora, lora_scale, dense_impl, adapter_idx)
+    return gelu_mlp(cfg, x, p, lora, lora_scale, dense_impl, adapter_idx)
 
 
 def init_mlp(cfg, gen: torch.Generator, dtype, device) -> dict:

@@ -116,32 +116,40 @@ def prefill(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
 
 
 def decode_step(cfg, params: dict, token: torch.Tensor, caches, cur_index, *,
-                lora=None, rt: Runtime = Runtime()):
+                lora=None, rt: Runtime = Runtime(), adapter_idx=None):
     """One decode step over the slab caches.  token: (B, 1) int;
     cur_index: a scalar absolute position (an int or a 0-d tensor) or a
     (B,) vector, each sequence at its own (continuous-batching slots).
+    ``adapter_idx`` (B,): multi-tenant decode — the lora leaves are
+    per-layer pools and slot b wears adapter ``adapter_idx[b]``.
     Returns (logits (B, V), caches) — the caches updated in place."""
     B = token.shape[0]
     cur_index = torch.as_tensor(cur_index, dtype=torch.int32, device=token.device)
     positions = cur_index[:, None] if cur_index.dim() else cur_index.expand(B)[:, None]
     x = embed(cfg, params["embed"], token, positions)
     x, caches = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
-                                      mode="decode", caches=caches, cur_index=cur_index)
+                                      mode="decode", caches=caches, cur_index=cur_index,
+                                      adapter_idx=adapter_idx)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x)[:, 0], caches
 
 
 def paged_decode_step(cfg, params: dict, token: torch.Tensor, caches,
                       block_tables: torch.Tensor, cur_index: torch.Tensor, *,
-                      lora=None, rt: Runtime = Runtime()):
+                      lora=None, rt: Runtime = Runtime(), adapter_idx=None):
     """One decode step over the paged KV pool.  token: (B, 1) int;
     block_tables: (B, MP) int32; cur_index: (B,) int32 absolute positions.
-    Returns (logits (B, V), caches) — the pools updated in place."""
+    ``adapter_idx`` (B,): multi-tenant decode — the lora leaves are
+    per-layer pools ((A, r, in) and (A, out, r)) and slot b wears adapter
+    ``adapter_idx[b]`` (the gather kernel on the card, under the fused
+    runtime).  Returns (logits (B, V), caches) — the pools updated in
+    place."""
     cur_index = cur_index.to(torch.int32)
     x = embed(cfg, params["embed"], token, cur_index[:, None])
     x, caches = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
                                       mode="decode", caches=caches,
-                                      cur_index=cur_index, block_tables=block_tables)
+                                      cur_index=cur_index, block_tables=block_tables,
+                                      adapter_idx=adapter_idx)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x)[:, 0], caches
 

@@ -68,14 +68,16 @@ def init_block(cfg, pat, gen: torch.Generator, dtype, device) -> dict:
 
 def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
                 mode: str, cache=None, cur_index=None, block_tables=None,
-                positions=None, cache_len: int = 0):
+                positions=None, cache_len: int = 0, adapter_idx=None):
     """mode "train": causal self-attention over the sequence (positions
     (S,)); mode "prefill": the same, also building a slab cache of length
     ``cache_len`` (or S); mode "decode": one token per slot, over the
     paged pool when ``block_tables`` (B, MP) is given, else over the slab
     cache (cur_index a scalar or (B,)); mode "chunk": one paged prefill
     chunk (block_tables (MP,), cur_index the chunk's start).
-    Returns (x, cache)."""
+    ``adapter_idx`` (mode "decode" only) makes the LoRA leaves (A, ...)
+    pools with per-slot adapter selection (multi-tenant serving; see
+    ``layers.dense``).  Returns (x, cache)."""
     mixer_lora = None if lora is None else lora.get("mixer")
     h = apply_norm(cfg, x, p["norm1"])
     if mode == "train":
@@ -91,11 +93,12 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
         m, cache = attn_mod.paged_decode_attention(
             cfg, p["mixer"], h, cache, block_tables, cur_index,
             lora=mixer_lora, lora_scale=lora_scale,
-            impl=rt.decode_attn_impl, dense_impl=rt.dense_impl)
+            impl=rt.decode_attn_impl, dense_impl=rt.dense_impl, adapter_idx=adapter_idx)
     elif mode == "decode":
         m, cache = attn_mod.decode_attention(
             cfg, p["mixer"], h, cache, cur_index, lora=mixer_lora,
-            lora_scale=lora_scale, impl=rt.decode_attn_impl, dense_impl=rt.dense_impl)
+            lora_scale=lora_scale, impl=rt.decode_attn_impl, dense_impl=rt.dense_impl,
+            adapter_idx=adapter_idx)
     elif mode == "chunk":
         m, cache = attn_mod.paged_chunk_attention(
             cfg, p["mixer"], h, cache, block_tables, cur_index,
@@ -108,7 +111,7 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
         h = apply_norm(cfg, x, p["norm2"])
         x = x + apply_mlp(cfg, h, p["mlp"],
                           None if lora is None else lora.get("mlp"),
-                          lora_scale, dense_impl=rt.dense_impl)
+                          lora_scale, dense_impl=rt.dense_impl, adapter_idx=adapter_idx)
     return x, cache
 
 
@@ -153,7 +156,7 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
                 lora_scale: Optional[float] = None,
                 rep_slice: Optional[Tuple[int, int]] = None,
                 rep_gate: Optional[Tuple[object, object]] = None,
-                cache_len: int = 0):
+                cache_len: int = 0, adapter_idx=None):
     """Run the layers in order.  ``lora`` is a per-layer list of adapter
     dicts (or None); the scale defaults to ``cfg.lora_alpha / cfg.lora_rank``.
 
@@ -170,7 +173,13 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
     applies runs ungated — the same values, without the dead blocks.
     Mode "prefill" builds one slab cache per layer (of length
     ``cache_len``, or the sequence's) and returns them as ``caches``.
+    ``adapter_idx`` (B,) (mode "decode" only): multi-tenant decode — each
+    layer's lora leaves are pools, (A, r, in) and (A, out, r), and slot b
+    wears adapter ``adapter_idx[b]``.
     Returns (x, caches); caches is None in mode "train"."""
+    if adapter_idx is not None and mode != "decode":
+        raise ValueError(f"adapter_idx is for mode 'decode', not {mode!r} (a paged "
+                         "chunk slices its request's adapter out of the pool)")
     gate_lo, gate_hi = rep_gate if rep_gate is not None else (None, None)
     if (gate_lo is not None or gate_hi is not None) and mode != "train":
         raise NotImplementedError("rep_gate requires mode='train' "
@@ -194,7 +203,7 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
             lora_scale=scale, rt=rt, mode=mode,
             cache=None if caches is None else caches[i],
             cur_index=cur_index, block_tables=block_tables, positions=positions,
-            cache_len=cache_len)
+            cache_len=cache_len, adapter_idx=adapter_idx)
         x = y if live is True else torch.where(live.to(x.device)[:, None, None], y, x)
         if caches is not None:
             caches[i] = c

@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine, single adapter — the port of the
-paged, slab and naive paths of ``repro.serving.engine``.
+"""Continuous-batching serving engine — the port of the paged, slab and
+naive paths of ``repro.serving.engine``, serving one adapter or, on the
+paged path, many tenants' adapters at once.
 
 ``max_slots`` sequences decode together.  Where the KV lives:
 
@@ -31,8 +32,17 @@ request ``uid`` is sampled from a generator seeded by ``(seed, uid, t)``
 alone, so outputs do not depend on arrival order, slot, page layout or
 engine mode (``models.generate``).
 
-Not ported yet (see ROADMAP.md): preemption and residency deadlines, the
-NaN quarantine, and multi-tenant adapters.
+MULTI-TENANT (``adapters=``, paged only): an ``AdapterRegistry``'s device
+pool replaces the single adapter.  Admission pins the tenants of the live
+slots and ``acquire``s the request's adapter (LRU paging from host
+copies); every prefill chunk runs with that adapter sliced out of the pool
+(the single-adapter ``lora_matmul``), and the decode step gathers each
+slot's adapter by its pool index (``adapter_idx=self._aslot``: the gather
+kernel on the card).  Sampling streams carry the tenant, and
+``tenant_quota`` caps a tenant's live slots.
+
+Not ported yet (see ROADMAP.md): preemption and residency deadlines, and
+the NaN quarantine.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ from ..kernels.backend import resolve_device
 from ..models import model as model_mod
 from ..models.generate import SampleConfig, sample_logits_per_key
 from ..models.stack import Runtime, default_serve_runtime
+from ..tree import tree_map
 from . import paging
 
 
@@ -67,6 +78,7 @@ class Request:
     prompt: List[int]
     max_new_tokens: int = 32
     eos_id: int = -1
+    tenant: int = 0                # adapter owner (multi-tenant serving)
     # filled by the engine
     output: List[int] = field(default_factory=list)
     done: bool = False
@@ -96,6 +108,10 @@ class ServingEngine:
     pattern attention-only and unwindowed, and ``page_size`` divides
     ``max_len``, else the slab; ``paged=True`` raises where the pool does
     not apply.  ``fused=False`` is the naive slab loop.
+    ``adapters`` (an ``AdapterRegistry`` on the engine's device) serves
+    many tenants' adapters instead of ``lora``; it needs the paged engine
+    and ``pool_size >= max_slots``.  ``tenant_quota`` caps each tenant's
+    live slots (0 = no cap; only with ``adapters``).
     ``device="cuda"`` without a card raises."""
 
     def __init__(self, cfg, params, *, lora=None, rt: Optional[Runtime] = None,
@@ -103,7 +119,8 @@ class ServingEngine:
                  sc: SampleConfig = SampleConfig(greedy=True), seed: int = 0,
                  fused: bool = True, prefill_buckets: bool = True,
                  paged: Optional[bool] = None, page_size: int = 16,
-                 num_pages: Optional[int] = None, device="cuda", dtype=torch.float32):
+                 num_pages: Optional[int] = None, device="cuda", dtype=torch.float32,
+                 adapters=None, tenant_quota: int = 0):
         attn_only = all(p.mixer == "attention" for p in cfg.pattern)
         paged_ok = fused and attn_only and not cfg.attn_window
         if paged is None:
@@ -117,7 +134,25 @@ class ServingEngine:
         if paged and max_len % page_size:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"page_size={page_size} (chunk == page)")
+        if adapters is not None:
+            if lora is not None:
+                raise ValueError("pass either lora= or adapters=, not both")
+            if not paged:
+                raise NotImplementedError(
+                    "multi-tenant adapters require the paged engine "
+                    "(fused, attention-only, max_len % page_size == 0)")
+            if adapters.pool_size < max_slots:
+                # with pool >= slots an admission can always pin the <=
+                # max_slots - 1 live tenants and still find a victim slot
+                raise ValueError(f"adapter pool_size={adapters.pool_size} must be >= "
+                                 f"max_slots={max_slots}")
+        elif tenant_quota:
+            raise ValueError("tenant_quota needs adapters=")
         self.device = dev = resolve_device(device)
+        if adapters is not None and adapters.device != dev:
+            raise ValueError(f"the adapter pool is on {adapters.device}, the engine "
+                             f"on {dev}")
+        self.adapters, self.tenant_quota = adapters, tenant_quota
         self.cfg, self.sc, self.seed = cfg, sc, seed
         self.rt = rt if rt is not None else default_serve_runtime()
         self.params = tree_to(params, dev, dtype)
@@ -139,10 +174,12 @@ class ServingEngine:
         self._maxnew = torch.zeros(B, **i32)
         self._eos = torch.full((B,), -1, **i32)
         self._bidx = torch.arange(B, device=dev)
-        # host-clock seconds around work that ends in a host read of its
-        # result (so the device work is inside the interval)
-        self.stats = {"decode_steps": 0, "prefill_chunks": 0, "prefills": 0,
-                      "decode_s": 0.0, "prefill_s": 0.0}
+        # multi-tenant per-slot state: adapter pool slot (the decode step's
+        # adapter_idx) and tenant id (repro's step folds it into its keys;
+        # the port seeds each stream on the host from Request.tenant)
+        self._aslot = torch.zeros(B, **i32)
+        self._tenant = torch.zeros(B, **i32)
+        self.reset_stats()
         if paged:
             self.page_size = page_size
             self.max_pages = max_len // page_size
@@ -165,6 +202,15 @@ class ServingEngine:
             # the naive loop's host-side mirrors of last token and position
             self._np_last = [0] * B
             self._np_pos = [0] * B
+
+    def reset_stats(self) -> None:
+        """Zero the counters.  Times are host-clock seconds around work that
+        ends in a host read of its result (so the device work is inside the
+        interval); ``tenant_tokens`` counts delivered tokens per tenant and
+        ``adapter_swaps`` the registry's adapter loads (multi-tenant)."""
+        self.stats = {"decode_steps": 0, "prefill_chunks": 0, "prefills": 0,
+                      "decode_s": 0.0, "prefill_s": 0.0, "tenant_tokens": {},
+                      "adapter_swaps": 0}
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -219,6 +265,18 @@ class ServingEngine:
         toks = min(len(req.prompt) + req.max_new_tokens, self.max_len)
         return -(-toks // self.page_size)
 
+    def _note_token(self, req: Request) -> None:
+        """Per-tenant delivered-token accounting (multi-tenant only)."""
+        if self.adapters is not None:
+            tt = self.stats["tenant_tokens"]
+            tt[req.tenant] = tt.get(req.tenant, 0) + 1
+
+    def _stream(self, req: Request):
+        """The sampling stream of ``req``'s next token: (uid, index), with
+        the tenant under multi-tenant serving."""
+        n = len(req.output)
+        return (req.uid, n) if self.adapters is None else (req.uid, n, req.tenant)
+
     def _release(self, s: int) -> None:
         self._free_host += self._reserved[s]
         self._reserved[s] = 0
@@ -242,10 +300,21 @@ class ServingEngine:
     def _admit_one_paged(self, s: int, req: Request) -> bool:
         """Stream ``req``'s prompt through the chunk step (one page per
         chunk), sample token 0 and claim slot ``s``.  The caller has
-        reserved ``_worst_pages(req)``.  Returns False when the request
-        finished on this first token (pages released, slot stays free)."""
+        reserved ``_worst_pages(req)``.  Under multi-tenant serving the
+        request's adapter is acquired first (the live slots' tenants
+        pinned) and every chunk runs with it sliced out of the pool.
+        Returns False when the request finished on this first token (pages
+        released, slot stays free)."""
         P, PS, dev = len(req.prompt), self.page_size, self.device
         t0 = time.perf_counter()
+        lora, aslot = self.lora, None
+        if self.adapters is not None:
+            # slot s is still free here, so at most max_slots - 1 tenants are
+            # pinned and (pool_size >= max_slots) a victim always exists
+            pinned = {r.tenant for r in self.slots if r is not None}
+            aslot = self.adapters.acquire(req.tenant, pinned=pinned)
+            self.stats["adapter_swaps"] = self.adapters.stats["swaps"]
+            lora = tree_map(lambda v: v[aslot], self.adapters.pool)
         one = torch.ones(1, dtype=torch.bool, device=dev)
         logits = None
         for start in range(0, P, PS):
@@ -257,11 +326,12 @@ class ServingEngine:
             li = min(max(P - 1 - start, 0), PS - 1)
             logits, self.caches = model_mod.paged_prefill_chunk(
                 self.cfg, self.params, tokens, self.caches, self._bt[s], start, li,
-                lora=self.lora, rt=self.rt)
+                lora=lora, rt=self.rt)
             self.stats["prefill_chunks"] += 1
-        tok = int(sample_logits_per_key(logits, [(req.uid, 0)], self.sc, self.seed)[0])
+        tok = int(sample_logits_per_key(logits, [self._stream(req)], self.sc, self.seed)[0])
         self.stats["prefill_s"] += time.perf_counter() - t0
         req.output.append(tok)
+        self._note_token(req)
         if tok == req.eos_id or len(req.output) >= req.max_new_tokens or P >= self.max_len:
             req.done = True
             self._pager, self._bt = paging.free_pages(self._pager, self._bt,
@@ -269,6 +339,9 @@ class ServingEngine:
             self._release(s)
             return False
         self._claim(s, req, tok, P)
+        if aslot is not None:
+            self._aslot[s] = aslot
+            self._tenant[s] = req.tenant
         return True
 
     def _admit_one_slab(self, s: int, req: Request) -> bool:
@@ -294,7 +367,7 @@ class ServingEngine:
                                            logit_index=P - 1)
         self._prefill_lens.add(Lb)
         self.stats["prefills"] += 1
-        tok = int(sample_logits_per_key(logits, [(req.uid, 0)], self.sc, self.seed)[0])
+        tok = int(sample_logits_per_key(logits, [self._stream(req)], self.sc, self.seed)[0])
         self.stats["prefill_s"] += time.perf_counter() - t0
         req.output.append(tok)
         if tok == req.eos_id or req.max_new_tokens <= 1:
@@ -319,9 +392,31 @@ class ServingEngine:
         self._claim(s, req, tok, P)
         return True
 
+    def _admissible_index(self) -> int:
+        """Index of the first queued request whose tenant is under
+        ``tenant_quota`` live slots (-1 if none): one chatty tenant's
+        backlog cannot hold the whole batch, and FIFO order holds within
+        what the quota allows."""
+        if self.adapters is None or not self.tenant_quota:
+            return 0 if self.queue else -1
+        livec = collections.Counter(r.tenant for r in self.slots if r is not None)
+        for i, req in enumerate(self.queue):
+            if livec[req.tenant] < self.tenant_quota:
+                return i
+        return -1
+
     def _admit(self) -> None:
         for s in range(self.max_slots):
             while self.slots[s] is None and self.queue:
+                qi = self._admissible_index()
+                if qi < 0:
+                    return          # every queued tenant is at its quota
+                if qi:
+                    # promote the first under-quota request to the head, so
+                    # the FIFO backpressure below holds for it
+                    req = self.queue[qi]
+                    del self.queue[qi]
+                    self.queue.appendleft(req)
                 if not self.paged:
                     if self._admit_one_slab(s, self.queue.popleft()):
                         break
@@ -351,7 +446,7 @@ class ServingEngine:
         return nxt, done
 
     def _streams(self):
-        return [None if r is None else (r.uid, len(r.output)) for r in self.slots]
+        return [None if r is None else self._stream(r) for r in self.slots]
 
     def _decode_paged(self):
         """Page alloc + decode + sample + bookkeeping + page free for all
@@ -364,9 +459,11 @@ class ServingEngine:
         page_idx = torch.clamp(positions // PS, max=MP - 1).long()
         cur = self._bt[self._bidx, page_idx]
         self._bt[self._bidx, page_idx] = torch.where(need, newp, cur)
+        mt = self.adapters is not None     # the pool, gathered by each slot's index
         logits, self.caches = model_mod.paged_decode_step(
             self.cfg, self.params, self._last[:, None], self.caches, self._bt,
-            positions, lora=self.lora, rt=self.rt)
+            positions, lora=self.adapters.pool if mt else self.lora, rt=self.rt,
+            adapter_idx=self._aslot if mt else None)
         nxt = sample_logits_per_key(logits, self._streams(), self.sc, self.seed)
         nxt, done = self._finish(nxt, live, positions)
         self._pager, self._bt = paging.free_pages(self._pager, self._bt, done)
@@ -430,6 +527,7 @@ class ServingEngine:
         for s in live:
             req = self.slots[s]
             req.output.append(nxt_h[s])
+            self._note_token(req)
             if done_h[s]:
                 req.done = True
                 self.slots[s] = None

@@ -23,6 +23,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  paged_decode_q8_ref, paged_decode_ref)
 from repro_torch.kernels.lora_matmul import (lora_matmul,   # noqa: E402
                                              lora_matmul_dx_kernel,
+                                             lora_matmul_gather_kernel,
+                                             lora_matmul_gathered,
+                                             lora_matmul_gathered_ref,
                                              lora_matmul_dx_ref, lora_matmul_kernel,
                                              lora_matmul_q8_dx_kernel,
                                              lora_matmul_q8_dx_ref, lora_matmul_q8_kernel,
@@ -32,7 +35,8 @@ from repro_torch.kernels.lora_matmul import (lora_matmul,   # noqa: E402
 from repro_torch.models import init_lora_stack, init_params  # noqa: E402
 from repro_torch.precision import (quantize_kv_int8, quantize_params_int8,  # noqa: E402
                                    quantize_weight_int8)
-from repro_torch.serving import Request, ServingEngine      # noqa: E402
+from repro_torch.serving import (AdapterRegistry, Request,  # noqa: E402
+                                 ServingEngine)
 
 pytestmark = pytest.mark.cuda
 
@@ -523,3 +527,152 @@ def test_slab_and_naive_engines_on_the_card_match_the_cpu_engine(cuda):
             assert "paged_decode" not in backend.LAUNCH_COUNTS
         outs.append([r.output for r in reqs])
     assert all(o == outs[0] for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# the multi-tenant gather (lora_matmul.cu's gather entry)
+# ---------------------------------------------------------------------------
+
+GATHER_SHAPES = [(8, 768, 768, 4, 8), (16, 768, 768, 4, 16), (5, 100, 70, 3, 3),
+                 (33, 300, 129, 64, 5), (7, 130, 45, 1, 2), (1, 7, 1, 1, 1)]
+
+
+def _gather_inputs(M, K, N, r, A, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, K, generator=g).to(dev, dtype)
+    w = (torch.randn(K, N, generator=g) * K ** -0.5).to(dev, dtype)
+    a = (torch.randn(A, r, K, generator=g) * r ** -0.5).to(dev, dtype)
+    b = (torch.randn(A, N, r, generator=g) * 0.05).to(dev, dtype)
+    return x, w, a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("order", ["distinct", "repeated", "out_of_range"])
+@pytest.mark.parametrize("M,K,N,r,A", GATHER_SHAPES)
+def test_lora_matmul_gather_kernel_matches_plain(cuda, dtype, order, M, K, N, r, A):
+    x, w, a, b = _gather_inputs(M, K, N, r, A, dtype, cuda, M * 1000 + r * 10 + A)
+    if order == "distinct":
+        idx = torch.arange(M) % A
+    elif order == "repeated":
+        idx = torch.full((M,), A - 1)
+        idx[::3] = 0
+    else:                        # [-A, 0) counts from the end; the rest are NaN rows
+        idx = torch.tensor([-A - 1, -1, A, A + 3, 0, -A, A - 1, 1 % A])[torch.arange(M) % 8]
+    idx = idx.to(cuda, torch.int32)
+    before = backend.LAUNCH_COUNTS.get("lora_matmul_gather", 0)
+    y = lora_matmul_gather_kernel(x, w, a, b, idx, 2.0)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS["lora_matmul_gather"] == before + 1
+    want = lora_matmul_gathered_ref(x, w, a, b, idx, 2.0)
+    assert torch.equal(torch.isnan(y), torch.isnan(want))
+    torch.testing.assert_close(y.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype],
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gathered_rows_bit_equal_lora_matmul_on_each_tenants_rows(cuda, dtype):
+    """The gather and the single-adapter forward are one body with the same
+    arithmetic order, and a row's result does not depend on its tile
+    neighbours: each tenant's rows are bit for bit lora_matmul on them."""
+    M, K, N, r, A = 40, 768, 768, 4, 8
+    x, w, a, b = _gather_inputs(M, K, N, r, A, dtype, cuda, 7)
+    idx = torch.randint(0, A, (M,), generator=torch.Generator().manual_seed(8))
+    y = lora_matmul_gathered(x, w, a, b, idx.to(cuda, torch.int32), scale=2.0)
+    for t in range(A):
+        rows = (idx == t).to(cuda)
+        if rows.any():
+            assert torch.equal(y[rows], lora_matmul(x[rows].contiguous(), w, a[t], b[t],
+                                                    scale=2.0))
+
+
+def test_gather_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(4, 16, device=cuda)
+    w = torch.randn(16, 8, device=cuda)
+    a, b = torch.randn(3, 2, 16, device=cuda), torch.randn(3, 8, 2, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        lora_matmul_gather_kernel(x, w, a, b, idx.long(), 1.0)            # idx not int32
+    with pytest.raises(TypeError):
+        lora_matmul_gather_kernel(x, w, a.double(), b, idx, 1.0)
+    with pytest.raises(ValueError):
+        lora_matmul_gather_kernel(x, w, a, b, idx.cpu(), 1.0)             # idx off the card
+    with pytest.raises(ValueError):
+        lora_matmul_gather_kernel(x, w, a.transpose(1, 2).contiguous().transpose(1, 2), b,
+                                  idx, 1.0)                               # not contiguous
+    with pytest.raises(ValueError):
+        lora_matmul_gather_kernel(x, w, a, b[:, :7], idx, 1.0)            # N disagrees
+    with pytest.raises(ValueError):
+        lora_matmul_gather_kernel(x, w, torch.randn(3, 65, 16, device=cuda),
+                                  torch.randn(3, 8, 65, device=cuda), idx, 1.0)  # rank > 64
+
+
+def _digest(t):
+    import hashlib
+    return hashlib.sha256(t.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def lora_matmul_digests(dev):
+    """SHA-256 (first 16 hex digits) of lora_matmul_kernel's output bytes on
+    inputs made by numpy at fixed seeds: (dtype, M, K, N, r) -> digest."""
+    import numpy as np
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, K, N, r in ((8, 768, 768, 4), (16, 768, 768, 4), (5, 100, 70, 3),
+                           (33, 300, 129, 64)):
+            rng = np.random.default_rng(M * 1000 + K + r)
+            x = rng.normal(size=(M, K)).astype(np.float32)
+            w = (rng.normal(size=(K, N)) * K ** -0.5).astype(np.float32)
+            a = (rng.normal(size=(r, K)) * r ** -0.5).astype(np.float32)
+            b = (rng.normal(size=(N, r)) * 0.05).astype(np.float32)
+            ts = [torch.from_numpy(v).to(dev, dtype) for v in (x, w, a, b)]
+            y = lora_matmul_kernel(*ts, 2.0)
+            out[(str(dtype).split(".")[1], M, K, N, r)] = _digest(y)
+    return out
+
+
+# lora_matmul_kernel's outputs before the forward body took its adapter
+# policy (the single-adapter kernel as first ported), built from that
+# source and run on an NVIDIA H100 80GB HBM3 (torch 2.11+cu128, CUDA 12.8)
+LORA_MATMUL_DIGESTS = {
+    ("float32", 8, 768, 768, 4): "06ccc44a637795b7",
+    ("float32", 16, 768, 768, 4): "d87df61815fcd0ce",
+    ("float32", 5, 100, 70, 3): "f5986165a42e1d50",
+    ("float32", 33, 300, 129, 64): "84d24bc2811d8793",
+    ("bfloat16", 8, 768, 768, 4): "b5a54e9bff764d5a",
+    ("bfloat16", 16, 768, 768, 4): "3e1c43c690970996",
+    ("bfloat16", 5, 100, 70, 3): "1c758a734036a79e",
+    ("bfloat16", 33, 300, 129, 64): "4b3e635456d0e777",
+}
+
+
+def test_lora_matmul_kernel_bit_identical_to_its_outputs_before_the_gather(cuda):
+    assert lora_matmul_digests(cuda) == LORA_MATMUL_DIGESTS
+
+
+def test_multi_tenant_engine_on_the_card_matches_the_cpu_engine(cuda):
+    cfg = get_arch("gpt2-s").reduced(num_layers=2, d_model=64, vocab=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    outs = []
+    for dev in ("cpu", "cuda"):
+        reg = AdapterRegistry(cfg, pool_size=3, device=dev)
+        for t in range(5):
+            lora = init_lora_stack(cfg, torch.Generator().manual_seed(10 + t), device="cpu")
+            for layer in lora:
+                for ad in layer["mixer"].values():
+                    ad["b"].normal_(0, 0.05, generator=torch.Generator().manual_seed(20 + t))
+            reg.publish(t, lora)
+        eng = ServingEngine(cfg, params, adapters=reg, max_slots=3, max_len=48,
+                            page_size=8, device=dev)
+        reqs = [Request(uid=i, prompt=list(range(1 + i, 6 + 3 * i)), max_new_tokens=6,
+                        tenant=i % 5) for i in range(7)]
+        for r in reqs:
+            eng.submit(r)
+        backend.reset_launch_counts()
+        eng.run()
+        if dev == "cuda":
+            st = eng.stats
+            assert backend.LAUNCH_COUNTS["lora_matmul_gather"] == 4 * st["decode_steps"]
+            assert backend.LAUNCH_COUNTS["lora_matmul"] == 4 * st["prefill_chunks"]
+            assert reg.stats["evictions"] > 0
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
