@@ -1,16 +1,17 @@
-"""Config registry: ``get_arch(name)`` and ``ARCHS`` for the paper's two
-models (the architectures the port runs so far), ``TrainConfig`` and the
-wireless system of Table II (``DEFAULT_SYSTEM``)."""
+"""Config registry: ``get_arch(name)`` and ``ARCHS`` for the architectures
+the port runs so far — the paper's two models and Mamba2-2.7B (served
+only) — ``TrainConfig`` and the wireless system of Table II
+(``DEFAULT_SYSTEM``)."""
 from __future__ import annotations
 
-from . import gpt2_m, gpt2_s
+from . import gpt2_m, gpt2_s, mamba2_2_7b
 from .base import ArchConfig, LayerPattern, TrainConfig
 from .system import DEFAULT_SYSTEM, SystemConfig
 
 # Paper's own models (benchmarks of Section VII).
 PAPER_MODELS = (gpt2_s.CONFIG, gpt2_m.CONFIG)
 
-ARCHS = {c.name: c for c in PAPER_MODELS}
+ARCHS = {c.name: c for c in PAPER_MODELS + (mamba2_2_7b.CONFIG,)}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -3,8 +3,8 @@
 A config is a *pattern* of layer blocks (mixer, mlp) repeated over depth.
 Field names, defaults and ``reduced`` match ``repro.configs.base`` so that
 a config built on either side describes the same model; only what the
-serving slice reads is kept (no MoE/Mamba knobs: those archs are not
-ported yet).
+ported slices read is kept (no MoE or modality-frontend knobs: those
+archs are not ported yet).
 """
 from __future__ import annotations
 
@@ -54,6 +54,13 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
 
+    # Mamba2 / SSD -----------------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256                # SSD chunk length
+
     # fine-tuning (the paper's technique) -----------------------------------
     lora_rank: int = 4
     lora_alpha: float = 8.0
@@ -73,6 +80,15 @@ class ArchConfig:
     @property
     def pattern_repeats(self) -> int:
         return self.num_layers // len(self.pattern)
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     @property
     def layer_kinds(self) -> Tuple[LayerPattern, ...]:
@@ -100,6 +116,9 @@ class ArchConfig:
             head_dim=(d_model // num_heads) if num_heads else 0,
             d_ff=0 if self.d_ff == 0 else max(64, d_model * 2),
             vocab_size=vocab,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=32 if self.ssm_state else self.ssm_head_dim,
+            ssm_chunk=32,
             max_seq_len=256,
         )
 

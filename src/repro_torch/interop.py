@@ -13,11 +13,15 @@ SFL states cross over too (``sfl_state_from_numpy`` /
 optimizer moments follow the adapters' layout, and the error-feedback
 accumulators ``err_act``/``err_grad`` (K, b, S, d) cross as they are.
 An int8 base (``quantize_params_int8``) crosses as int8 ``w`` plus its f32
-``w_scale``, which stays f32 whatever ``dtype`` the floats are cast to;
-rank-padded adapters cross like any other.  Slab decode caches cross too
+``w_scale``; ``w_scale``, a Mamba2 block's ``A_log``, ``D`` and
+``dt_bias`` and its ``ssm`` state stay f32 whatever ``dtype`` the other
+floats are cast to (``F32_LEAVES``, as ``repro`` keeps them); rank-padded
+adapters cross like any other.  Slab decode caches cross too
 (``slab_cache_from_numpy`` / ``slab_cache_to_numpy``): ``repro``'s tuple
-over pattern positions of {"k", "v": (R, B, L, KH, D), "pos": (R, B, L)}
-becomes the port's per-layer list, the int32 positions kept as they are.
+over pattern positions of dicts stacked over repeats — {"k", "v": (R, B,
+L, KH, D), "pos": (R, B, L)} for attention, {"ssm": (R, B, nh, hd, N),
+"conv": (R, B, W-1, conv_dim)} for Mamba2 — becomes the port's per-layer
+list, the int32 positions kept as they are.
 A multi-tenant adapter pool crosses with the LoRA functions: ``repro``'s
 ``AdapterRegistry.pool`` leaves are (R, A, ...), and ``lora_from_numpy``
 splits the repeat axis into the port's per-layer (A, ...) pool (the
@@ -57,14 +61,29 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+# leaves kept float32 when a tree's floats are cast to another dtype
+F32_LEAVES = frozenset({"w_scale", "A_log", "D", "dt_bias", "ssm"})
+
+
+def _cast(dtype, name: str, floating: bool):
+    """The dtype a leaf named ``name`` is cast to (None: keep its own)."""
+    return dtype if floating and name not in F32_LEAVES else None
+
+
+def _map_named(fn, tree: Any, name: str = "") -> Any:
+    """``tree_map`` that also hands ``fn`` the leaf's dict key."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named(fn, v, name) for v in tree)
+    return None if tree is None else fn(tree, name)
+
+
 def tree_to(tree: Any, device, dtype=None) -> Any:
     """Move every tensor leaf to ``device``; floating leaves also to
-    ``dtype`` when given."""
-    def one(t):
-        if dtype is not None and t.is_floating_point():
-            return t.to(device=device, dtype=dtype)
-        return t.to(device=device)
-    return tree_map(one, tree)
+    ``dtype`` when given, except the ``F32_LEAVES``."""
+    return _map_named(lambda t, name: t.to(
+        device=device, dtype=_cast(dtype, name, t.is_floating_point())), tree)
 
 
 def split_layers(stacked: Sequence[dict], axis: int = 0) -> List[dict]:
@@ -103,14 +122,10 @@ def _leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
-def _params_to(tree: Any, device, dtype, name: str = "") -> Any:
-    """to_tensor over a params tree; int8 weights keep their dtype and a
-    ``w_scale`` stays float32."""
-    if isinstance(tree, dict):
-        return {k: _params_to(v, device, dtype, k) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_params_to(v, device, dtype, name) for v in tree)
-    return to_tensor(tree, device, None if name == "w_scale" else dtype)
+def _params_to(tree: Any, device, dtype) -> Any:
+    """to_tensor over a params or cache tree; int8 weights and int32
+    positions keep their dtype and the ``F32_LEAVES`` stay float32."""
+    return _map_named(lambda a, name: to_tensor(a, device, _cast(dtype, name, True)), tree)
 
 
 def params_from_numpy(params: dict, device="cuda", dtype=None) -> dict:
@@ -189,9 +204,10 @@ def sfl_state_to_numpy(state, pattern_len: int) -> dict:
 def slab_cache_from_numpy(caches: Sequence[dict], device="cuda", dtype=None) -> List[dict]:
     """repro's slab caches (``model.init_cache`` / ``prefill``: a tuple over
     pattern positions of dicts with leaves stacked over repeats) as numpy
-    -> one {"k", "v", "pos"} dict per layer; floats cast to ``dtype``
-    when given, positions stay int32."""
-    return tree_map(lambda a: to_tensor(a, device, dtype), split_layers(caches))
+    -> one cache dict per layer ({"k", "v", "pos"} or {"ssm", "conv"});
+    floats cast to ``dtype`` when given, except the f32 ``ssm`` state;
+    positions stay int32."""
+    return _params_to(split_layers(caches), device, dtype)
 
 
 def slab_cache_to_numpy(caches: Sequence[dict], pattern_len: int) -> tuple:

@@ -17,7 +17,9 @@ for ``sm_90a`` at first use) with their plain PyTorch versions:
                      flash_decode_q8 over an int8 slab;
 * flash_attention  — causal / sliding-window GQA forward (its op's own
                      entry point; the model's training attention is
-                     plain PyTorch, as in JAX).
+                     plain PyTorch, as in JAX);
+* ssd_scan         — the chunked SSD (Mamba2) forward with its final state
+                     (``ssd_scan_with_state``: Mamba2 prefill).
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version
 (``backend.dispatch``); ``backend.LAUNCH_COUNTS`` counts kernel launches.
@@ -30,6 +32,8 @@ from .lora_matmul import (lora_matmul, lora_matmul_dx, lora_matmul_dx_ref,
                           lora_matmul_gathered, lora_matmul_gathered_ref,
                           lora_matmul_q8_dx, lora_matmul_q8_dx_ref, lora_matmul_q8_ref,
                           lora_matmul_ref, lora_rank_reduce, lora_rank_reduce_ref)
+from .ssd_scan import (ssd_chunked, ssd_scan, ssd_scan_with_state,
+                       ssd_sequential_ref)
 
 __all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "flash_attention",
            "flash_attention_ref", "flash_decode", "flash_decode_q8_ref", "flash_decode_ref",
@@ -37,4 +41,5 @@ __all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "flash_attention",
            "lora_matmul", "lora_matmul_dx", "lora_matmul_dx_ref", "lora_matmul_gathered",
            "lora_matmul_gathered_ref", "lora_matmul_q8_dx",
            "lora_matmul_q8_dx_ref", "lora_matmul_q8_ref", "lora_matmul_ref",
-           "lora_rank_reduce", "lora_rank_reduce_ref"]
+           "lora_rank_reduce", "lora_rank_reduce_ref", "ssd_chunked", "ssd_scan",
+           "ssd_scan_with_state", "ssd_sequential_ref"]

@@ -1,0 +1,121 @@
+"""SSD scan entries: the model layout, the pre-scaling, the padding, device
+routing, checks and the kernel launch.  A CUDA tensor launches
+``csrc/ssd_scan.cu``; a CPU tensor takes ``ref.ssd_chunked``.
+``repro``'s ``interpret`` argument is gone: the device alone routes."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import backend, build
+from .ref import ssd_chunked, ssd_sequential_ref
+
+SSD_MAX_STATE = 256                # NMAX in csrc/ssd_scan.cu
+
+
+def _entry():
+    fn = build.load("ssd_scan").ssd_scan_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_scan_kernel(xdt: torch.Tensor, g: torch.Tensor, Bm: torch.Tensor,
+                    Cm: torch.Tensor, *, chunk: int):
+    """Launch the CUDA kernel on the kernel layout: xdt (B, nh, S, hd) =
+    x * dt, g (B, nh, S) = A * dt, Bm/Cm (B, S, N); float32, contiguous, on
+    one CUDA device; S a multiple of Q = min(chunk, S); N <= 256.  Returns
+    (y (B, nh, S, hd), h_last (B, nh, hd, N)), float32.  Raises on
+    anything else."""
+    operands = (("xdt", xdt), ("g", g), ("Bm", Bm), ("Cm", Cm))
+    for name, t in operands:
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: {name} is {t.dtype}; the kernel takes float32 "
+                            "(the op casts)")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan: {name} must be contiguous")
+    if xdt.dim() != 4:
+        raise ValueError(f"ssd_scan: xdt must be (B, nh, S, hd), got {tuple(xdt.shape)}")
+    B, nh, S, hd = xdt.shape
+    N = Bm.shape[-1]
+    if (tuple(g.shape) != (B, nh, S) or tuple(Bm.shape) != (B, S, N)
+            or Cm.shape != Bm.shape):
+        raise ValueError(f"ssd_scan: shapes xdt {tuple(xdt.shape)} g {tuple(g.shape)} "
+                         f"Bm {tuple(Bm.shape)} Cm {tuple(Cm.shape)} do not agree")
+    if not 1 <= N <= SSD_MAX_STATE:
+        raise ValueError(f"ssd_scan: state size {N} outside [1, {SSD_MAX_STATE}]")
+    Q = min(chunk, S)
+    if Q < 1 or S % Q:
+        raise ValueError(f"ssd_scan: S={S} is not a multiple of the chunk {Q} "
+                         "(the op pads)")
+    dev = xdt.device
+    for name, t in operands:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"ssd_scan: {name} is on {t.device}; every operand must "
+                             f"be on xdt's CUDA device {dev}")
+    y = torch.empty_like(xdt)
+    h_last = torch.empty((B, nh, hd, N), dtype=torch.float32, device=dev)
+    if xdt.numel() == 0:
+        return y, h_last.zero_()
+    with torch.cuda.device(dev):
+        err = _entry()(xdt.data_ptr(), g.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                       y.data_ptr(), h_last.data_ptr(), B, nh, S, hd, N, Q,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    build.check("ssd_scan", err)
+    backend.count_launch("ssd_scan")
+    return y, h_last
+
+
+def _kernel_route(xh, Bm, Cm, dt, A, chunk: int):
+    """Model layout -> the kernel's: xdt = x * dt (B, nh, S, hd), g = A * dt
+    (B, nh, S), f32, padded to a multiple of Q = min(chunk, S) with zeros
+    (g = 0 and xdt = 0 leave the state unchanged)."""
+    B, S, nh, hd = xh.shape
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    dtf = dt.float()
+    xdt = (xh.float() * dtf[..., None]).permute(0, 2, 1, 3)
+    g = (dtf * A.float()[None, None, :]).permute(0, 2, 1)
+    Bk, Ck = Bm.float(), Cm.float()
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, pad))
+        g = F.pad(g, (0, pad))
+        Bk = F.pad(Bk, (0, 0, 0, pad))
+        Ck = F.pad(Ck, (0, 0, 0, pad))
+    y, h_last = ssd_scan_kernel(xdt.contiguous(), g.contiguous(), Bk.contiguous(),
+                                Ck.contiguous(), chunk=Q)
+    return y[:, :, :S].permute(0, 2, 1, 3), h_last
+
+
+def ssd_scan_with_state(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                        dt: torch.Tensor, A: torch.Tensor, *, chunk: int = 256):
+    """SSD forward, model layout: xh (B, S, nh, hd); Bm/Cm (B, S, N); dt
+    (B, S, nh) post-softplus; A (nh,) negative.  Returns (y (B, S, nh, hd),
+    h_last (B, nh, hd, N)), both float32, WITHOUT the D-residual — the
+    return of ``repro.models.ssm.ssd_chunked``.  Routed by xh's device
+    (``kernels.backend.dispatch``); the kernel has no backward, so a CUDA
+    call under autograd raises."""
+    if xh.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xh, Bm, Cm, dt, A)):
+        raise NotImplementedError("ssd_scan has no backward kernel: Mamba2 training "
+                                  "is a later slice")
+    return backend.dispatch(
+        "ssd_scan", kernel=lambda: _kernel_route(xh, Bm, Cm, dt, A, chunk),
+        ref=lambda: ssd_chunked(xh, Bm, Cm, dt, A, chunk=chunk), x=xh)
+
+
+def ssd_scan(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, dt: torch.Tensor,
+             A: torch.Tensor, *, chunk: int = 256, use_kernel: bool = True) -> torch.Tensor:
+    """``repro.kernels.ssd_scan.ssd_scan``: the SSD forward in the model
+    layout, y (B, S, nh, hd) in xh's dtype, without the D-residual (the
+    caller adds D * x, as ``models.ssm`` does).  ``use_kernel=False`` takes
+    the per-token oracle ``ssd_sequential_ref`` on any device, as in
+    ``repro``."""
+    if not use_kernel:
+        y, _ = ssd_sequential_ref(xh, Bm, Cm, dt, A)
+    else:
+        y, _ = ssd_scan_with_state(xh, Bm, Cm, dt, A, chunk=chunk)
+    return y.to(xh.dtype)

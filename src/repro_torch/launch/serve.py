@@ -1,15 +1,20 @@
-"""Serving driver for the port: the continuous-batching engine on
-full-width GPT-2-S (``--reduced`` for a tiny variant), on the card by
-default — the paged KV pool where ``--page-size`` divides ``--max-len``,
-the slab layout with ``--slab`` (or otherwise), the naive per-slot loop
-with ``--naive``; ``--adapters N`` serves N tenants' adapters from one
-paged engine through an ``AdapterRegistry`` of ``--adapter-pool`` slots:
+"""Serving entry point of the port: the continuous-batching engine on a
+full-width ``--arch`` (GPT-2-S by default, or Mamba2-2.7B; ``--reduced``
+for a tiny variant), on the card by default — the paged KV pool where
+``--page-size`` divides ``--max-len``, the slab layout with ``--slab`` (or
+otherwise), the naive per-slot loop with ``--naive``; ``--adapters N``
+serves N tenants' adapters from one paged engine through an
+``AdapterRegistry`` of ``--adapter-pool`` slots.  Mamba2 always takes the
+slab engine (its recurrent state is not paged), so the engine refuses
+``--adapters`` for it, as ``repro``'s does:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
       --device cpu --requests 8 --slots 4 --gen 8 [--slab | --naive]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
       --device cpu --adapters 5 --adapter-pool 4 --tenant-trace zipf --tenant-quota 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --reduced \
+      --device cpu --requests 4 --slots 2 --gen 6 --prompt-len 12 [--naive]
 """
 from __future__ import annotations
 

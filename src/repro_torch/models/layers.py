@@ -2,7 +2,8 @@
 embeddings — plain functions over explicit parameter dicts, as in
 ``repro.models.layers``, so each parameter tree matches its JAX twin leaf
 for leaf.  Inits draw from an explicit CPU ``torch.Generator`` and then
-move to ``device``, so one seed gives the same weights on every device.
+move to ``device``, so one seed gives the same weights on every device
+(a CUDA generator draws on the card instead: ``_normal``).
 """
 from __future__ import annotations
 
@@ -88,7 +89,11 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
-    t = torch.randn(shape, generator=gen, dtype=torch.float32) * std
+    """N(0, std²) drawn in f32 on ``gen``'s device (the CPU for the usual
+    CPU generator; a CUDA generator draws large weights on the card, with
+    other numbers than a CPU one of the same seed), then moved to
+    ``device``."""
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * std
     return t.to(device=device, dtype=dtype)
 
 
@@ -111,10 +116,16 @@ def init_lora(gen: torch.Generator, d_in: int, d_out: int, rank: int, dtype,
 # norms (computed in f32, cast back)
 # ---------------------------------------------------------------------------
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, the precision norms and activations compute in, or as it
+    is when it is f64 (a double-precision run of the model)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = upcast(x)
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (y * scale.float()).to(x.dtype)
+    return (y * scale.to(xf.dtype)).to(x.dtype)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -21,12 +21,14 @@ IGNORE_ID = -1
 
 _ATTN_TARGETS = ("q", "k", "v", "o")
 _MLP_TARGETS = ("gate", "up", "down")
+_SSM_TARGETS = ("ssm_in", "ssm_out")
 
 
 def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
                 device="cuda") -> dict:
-    """Random weights from ``gen`` (a CPU generator: the same seed gives
-    the same weights on every device)."""
+    """Random weights from ``gen``: a CPU generator gives the same weights
+    on every device; a CUDA one draws them on the card (other numbers, but
+    no host time for billions of draws)."""
     device = resolve_device(device)
     return {"embed": init_embeddings(cfg, gen, dtype, device),
             "layers": [stack_mod.init_block(cfg, pat, gen, dtype, device)
@@ -40,6 +42,10 @@ def _lora_dims(cfg, pat, target: str):
     if target in _ATTN_TARGETS and pat.mixer == "attention":
         return {"q": ("mixer", d, h * hd), "k": ("mixer", d, kh * hd),
                 "v": ("mixer", d, kh * hd), "o": ("mixer", h * hd, d)}[target]
+    if target in _SSM_TARGETS and pat.mixer == "mamba":
+        d_in = cfg.d_inner
+        total = 2 * d_in + 2 * cfg.ssm_state + cfg.ssm_num_heads
+        return ("mixer", d, total) if target == "ssm_in" else ("mixer", d_in, d)
     if target in _MLP_TARGETS and pat.mlp == "dense":
         ff = cfg.d_ff
         return ("mlp", ff, d) if target == "down" else ("mlp", d, ff)
@@ -174,7 +180,8 @@ def paged_prefill_chunk(cfg, params: dict, tokens: torch.Tensor, caches,
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.float32, device="cuda"):
-    """Empty slab caches for ``batch`` sequences of ``cache_len`` positions."""
+    """Empty slab caches for ``batch`` sequences of ``cache_len`` positions
+    (a Mamba2 layer's state has no length axis)."""
     return stack_mod.init_stack_cache(cfg, batch, cache_len, dtype, resolve_device(device))
 
 

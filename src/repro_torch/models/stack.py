@@ -1,5 +1,5 @@
 """Decoder blocks and the layer stack: training, slab serving (prefill
-and decode) and paged serving.
+and decode) and paged serving; attention and Mamba2 mixers.
 
 Where ``repro`` stacks each pattern position's parameters over the
 repeat axis and ``lax.scan``s over it, the port keeps one entry per layer
@@ -17,6 +17,7 @@ import torch
 
 from ..precision import PrecisionConfig
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 
@@ -32,6 +33,10 @@ class Runtime:
     # tensor); "naive" takes the plain position-masked (slab) or gather
     # (paged) attention
     decode_attn_impl: str = "naive"
+    # "kernel" routes a Mamba2 block's SSD scan through
+    # kernels.ssd_scan.ssd_scan_with_state (the CUDA kernel on a CUDA
+    # tensor); "chunked" takes the plain ssd_chunked, repro's model twin
+    ssd_impl: str = "chunked"
     # split-boundary bit-widths, stochastic rounding and error feedback
     # (``precision``); the default is fully disarmed (16/16/f32)
     precision: PrecisionConfig = PrecisionConfig()
@@ -45,21 +50,22 @@ def default_train_runtime() -> Runtime:
     fused ``kernels.lora_matmul`` with its backward kernels.  Training
     attention is plain PyTorch in every runtime, as it is jnp in JAX
     (``attention.run_attention``)."""
-    return Runtime(dense_impl="fused")
+    return Runtime(dense_impl="fused", ssd_impl="kernel")
 
 
 def default_serve_runtime() -> Runtime:
-    """The serving fast path: fused LoRA projections and the decode
-    kernels (each routed by device: kernels on CUDA, plain code on CPU)."""
-    return Runtime(dense_impl="fused", decode_attn_impl="flash")
+    """The serving fast path: fused LoRA projections, the decode kernels
+    and the SSD scan kernel (each routed by device: kernels on CUDA, plain
+    code on CPU)."""
+    return Runtime(dense_impl="fused", decode_attn_impl="flash", ssd_impl="kernel")
 
 
 def init_block(cfg, pat, gen: torch.Generator, dtype, device) -> dict:
-    if pat.mixer != "attention" or pat.mlp not in ("dense", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: only attention + dense-MLP blocks are ported")
-    p: dict = {"norm1": init_norm(cfg, cfg.d_model, dtype, device),
-               "mixer": attn_mod.init_attention(cfg, gen, dtype, device)}
+    if pat.mlp not in ("dense", "none"):
+        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported")
+    mixer = (attn_mod.init_attention(cfg, gen, dtype, device) if pat.mixer == "attention"
+             else ssm_mod.init_mamba(cfg, gen, dtype, device))
+    p: dict = {"norm1": init_norm(cfg, cfg.d_model, dtype, device), "mixer": mixer}
     if pat.mlp != "none":
         p["norm2"] = init_norm(cfg, cfg.d_model, dtype, device)
         p["mlp"] = init_mlp(cfg, gen, dtype, device)
@@ -77,10 +83,15 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
     chunk (block_tables (MP,), cur_index the chunk's start).
     ``adapter_idx`` (mode "decode" only) makes the LoRA leaves (A, ...)
     pools with per-slot adapter selection (multi-tenant serving; see
-    ``layers.dense``).  Returns (x, cache)."""
+    ``layers.dense``).  A Mamba2 block runs modes "train", "prefill"
+    (its cache is the {"ssm", "conv"} state) and slab "decode"; paged
+    modes raise, as in ``repro``.  Returns (x, cache)."""
     mixer_lora = None if lora is None else lora.get("mixer")
     h = apply_norm(cfg, x, p["norm1"])
-    if mode == "train":
+    if pat.mixer == "mamba":
+        m, cache = _mamba_mixer(cfg, p["mixer"], h, mixer_lora, lora_scale, rt, mode,
+                                cache, block_tables, adapter_idx)
+    elif mode == "train":
         m = attn_mod.self_attention(
             cfg, p["mixer"], h, positions, lora=mixer_lora, lora_scale=lora_scale,
             dense_impl=rt.dense_impl)
@@ -115,12 +126,36 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
     return x, cache
 
 
+def _mamba_mixer(cfg, p, h, lora, lora_scale, rt: Runtime, mode: str, cache,
+                 block_tables, adapter_idx):
+    if mode == "chunk" or block_tables is not None:
+        raise NotImplementedError(
+            "paged serving is attention-only (mamba state is not paged); "
+            "init_paged_stack_cache rejects such patterns")
+    if adapter_idx is not None:
+        raise NotImplementedError("multi-tenant adapters need the paged engine, "
+                                  "which is attention-only")
+    kw = dict(lora=lora, lora_scale=lora_scale, dense_impl=rt.dense_impl)
+    if mode == "decode":
+        return ssm_mod.mamba_step(cfg, p, h, cache, **kw)
+    if mode == "prefill":
+        return ssm_mod.mamba_block(cfg, p, h, return_state=True, ssd_impl=rt.ssd_impl,
+                                   **kw)
+    if mode == "train":
+        return ssm_mod.mamba_block(cfg, p, h, ssd_impl=rt.ssd_impl, **kw), cache
+    raise ValueError(f"mode {mode!r}: the port runs 'train', 'prefill', 'decode' "
+                     "and 'chunk'")
+
+
 def init_stack_cache(cfg, batch: int, cache_len: int, dtype, device) -> List[dict]:
-    """One slab cache ({"k", "v": (B, L, KH, D), "pos": (B, L)}) per layer."""
-    if any(pat.mixer != "attention" for pat in cfg.pattern):
-        raise NotImplementedError("only attention caches are ported (no mamba state)")
+    """One slab cache per layer: {"k", "v": (B, L, KH, D), "pos": (B, L)}
+    for an attention layer, {"ssm": (B, nh, hd, N) f32, "conv": (B, W-1,
+    conv_dim)} for a Mamba2 layer (no length axis: ``cache_len`` is
+    unused there)."""
     return [attn_mod.init_attn_cache(cfg, batch, cache_len, dtype, device)
-            for _ in range(cfg.num_layers)]
+            if pat.mixer == "attention"
+            else ssm_mod.init_mamba_cache(cfg, batch, dtype, device)
+            for pat in cfg.layer_kinds]
 
 
 def init_paged_stack_cache(cfg, num_pages: int, page_size: int, dtype,

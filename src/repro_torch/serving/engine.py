@@ -20,6 +20,11 @@ paged path, many tenants' adapters at once.
   past the largest bucket) and writes the bucket's KV into slot ``s`` in
   place; the decode step runs ``decode_step`` on all slots at their own
   positions, the ``flash_decode`` kernel reading the cache in place.
+  A Mamba2 layer keeps a fixed-size recurrent state per slot instead
+  ({"ssm", "conv"}): prompts prefill at exact length (no buckets: a pad
+  tail would run through the recurrence) and admission overwrites slot
+  ``s``'s whole state.  A free slot keeps decoding on garbage state that
+  nothing reads until the next admission replaces all of it.
 * NAIVE (``fused=False``, slab only): ``repro``'s measured baseline —
   exact-length prefill into a full ``max_len`` cache that replaces the
   whole cache tree on admission (a copy, as JAX's non-donated update),
@@ -160,7 +165,7 @@ class ServingEngine:
         self.max_slots, self.max_len = max_slots, max_len
         self.paged, self.fused = paged, fused
         # right-padded bucket prefill masks the pad tail out of an
-        # attention cache; a windowed ring has no such tail
+        # attention cache; a windowed ring and mamba state have no such tail
         self.prefill_buckets = prefill_buckets and attn_only and not cfg.attn_window
 
         self.queue: collections.deque[Request] = collections.deque()
@@ -346,9 +351,10 @@ class ServingEngine:
 
     def _admit_one_slab(self, s: int, req: Request) -> bool:
         """Prefill ``req`` and claim slot ``s``.  Fused: into a
-        power-of-two bucket (exact length past the largest one), whose KV
-        is written into slot ``s`` in place, its position row's padded
-        tail set to -1.  Naive: at exact length into a full ``max_len``
+        power-of-two bucket (exact length past the largest one, or for a
+        mamba pattern), whose KV is written into slot ``s`` in place, its
+        position row's padded tail set to -1 (a Mamba2 layer's state
+        replaces the slot's).  Naive: at exact length into a full ``max_len``
         cache that replaces the whole cache tree.  Returns False when the
         request finished on its first token (slot stays free)."""
         P, dev = len(req.prompt), self.device
@@ -375,6 +381,12 @@ class ServingEngine:
             return False
         if self.fused:
             for big, one in zip(self.caches, cache1):
+                if "ssm" in one:
+                    # a Mamba2 layer: slot s's whole recurrent state is the
+                    # prompt's, so nothing of its last occupant survives
+                    big["ssm"][s] = one["ssm"][0]
+                    big["conv"][s] = one["conv"][0]
+                    continue
                 n = one["k"].shape[1]
                 big["k"][s, :n] = one["k"][0]
                 big["v"][s, :n] = one["v"][0]

@@ -32,6 +32,8 @@ from repro_torch.kernels.lora_matmul import (lora_matmul,   # noqa: E402
                                              lora_matmul_q8_ref, lora_matmul_ref,
                                              lora_rank_reduce_kernel,
                                              lora_rank_reduce_ref)
+from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_scan_kernel,  # noqa: E402
+                                          ssd_scan_with_state, ssd_sequential_ref)
 from repro_torch.models import init_lora_stack, init_params  # noqa: E402
 from repro_torch.precision import (quantize_kv_int8, quantize_params_int8,  # noqa: E402
                                    quantize_weight_int8)
@@ -676,3 +678,102 @@ def test_multi_tenant_engine_on_the_card_matches_the_cpu_engine(cuda):
             assert reg.stats["evictions"] > 0
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan (csrc/ssd_scan.cu)
+# ---------------------------------------------------------------------------
+
+# (B, S, nh, hd, N, chunk): tests/test_kernels.py's four, then the
+# full-width Mamba2-2.7B prefill (80 heads of 64, state 128, chunk 256) at
+# one short, one ragged single-chunk, two-chunk and ragged two-chunk S
+SSD_SHAPES = [(2, 64, 4, 32, 16, 16), (1, 100, 2, 16, 8, 32), (2, 31, 3, 8, 4, 16),
+              (1, 256, 2, 64, 32, 64), (1, 8, 80, 64, 128, 256), (1, 200, 80, 64, 128, 256),
+              (1, 512, 80, 64, 128, 256), (1, 300, 80, 64, 128, 256),
+              (2, 70, 3, 100, 256, 48)]
+
+
+def _ssd_inputs(B, S, nh, hd, N, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    xh = torch.randn(B, S, nh, hd, generator=g)
+    Bm = torch.randn(B, S, N, generator=g) * N ** -0.5
+    Cm = torch.randn(B, S, N, generator=g) * N ** -0.5
+    dt = torch.nn.functional.softplus(torch.randn(B, S, nh, generator=g))
+    A = -torch.exp(torch.linspace(0.0, 1.5, nh))
+    return [t.to(dev) for t in (xh, Bm, Cm, dt, A)]
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,Q", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, nh, hd, N, Q):
+    ins = _ssd_inputs(B, S, nh, hd, N, cuda, seed=S)
+    backend.reset_launch_counts()
+    y, h = ssd_scan_with_state(*ins, chunk=Q)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS == {"ssd_scan": 1}
+    yr, hr = ssd_chunked(*ins, chunk=Q)
+    tol = dict(atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(y, yr, **tol)
+    torch.testing.assert_close(h, hr, **tol)
+    if S <= 256:
+        ys, hs = ssd_sequential_ref(*ins)
+        torch.testing.assert_close(y, ys, **tol)
+        torch.testing.assert_close(h, hs, **tol)
+
+
+def test_ssd_scan_refuses_autograd_and_bad_operands_on_the_card(cuda):
+    xh, Bm, Cm, dt, A = _ssd_inputs(1, 40, 2, 8, 8, cuda)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ssd_scan_with_state(xh.requires_grad_(), Bm, Cm, dt, A, chunk=16)
+    xdt = torch.zeros(1, 2, 32, 8, device=cuda)
+    g = torch.zeros(1, 2, 32, device=cuda)
+    Bk = torch.zeros(1, 32, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_kernel(xdt.transpose(2, 3).contiguous().transpose(2, 3), g, Bk, Bk,
+                        chunk=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_kernel(xdt, g, Bk.cpu(), Bk, chunk=16)
+
+
+def test_mamba_slab_engines_on_the_card_match_the_cpu_engine(cuda):
+    cfg = get_arch("mamba2-2.7b").reduced(num_layers=2, d_model=64, vocab=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    lora = init_lora_stack(cfg, torch.Generator().manual_seed(1), device="cpu")
+    for layer in lora:
+        for ad in layer["mixer"].values():
+            ad["b"].normal_(0, 0.05, generator=torch.Generator().manual_seed(2))
+    outs = []
+    for dev, fused in (("cpu", True), ("cuda", True), ("cuda", False)):
+        eng = ServingEngine(cfg, params, lora=lora, max_slots=3, max_len=64, device=dev,
+                            fused=fused)
+        reqs = [Request(uid=i, prompt=list(range(1 + i, 6 + 9 * i)), max_new_tokens=6)
+                for i in range(5)]
+        for r in reqs:
+            eng.submit(r)
+        backend.reset_launch_counts()
+        eng.run()
+        if dev == "cuda":
+            st = eng.stats
+            assert backend.LAUNCH_COUNTS["ssd_scan"] == 2 * st["prefills"]
+            assert backend.LAUNCH_COUNTS["lora_matmul"] == (
+                6 * st["prefills"] + 4 * (st["decode_steps"] if fused else
+                                          sum(len(r.output) - 1 for r in reqs)))
+        outs.append([r.output for r in reqs])
+    assert all(o == outs[0] for o in outs)
+
+
+@pytest.mark.parametrize("S,Q", [(200, 256), (300, 256), (45, 16)])
+def test_ssd_scan_kernel_at_the_models_decays_no_further_from_f64_than_chunked(cuda, S, Q):
+    """A = -linspace(1, 16), as the model draws it: cum reaches the
+    thousands inside a 256-token chunk.  The kernel's y and state are held
+    against the per-token oracle in f64, no further from it than twice
+    ``ssd_chunked``'s distance (the f32 prefix sum it once took rounded
+    the decays up to 22x further)."""
+    xh, Bm, Cm, dt, _ = _ssd_inputs(1, S, 16, 64, 128, cuda, seed=S)
+    ins = (xh, Bm, Cm, dt, -torch.linspace(1.0, 16.0, 16, device=cuda))
+    y, h = ssd_scan_with_state(*ins, chunk=Q)
+    yc, hc = ssd_chunked(*ins, chunk=Q)
+    y64, h64 = ssd_sequential_ref(*(t.double() for t in ins))
+    torch.testing.assert_close(y.double(), y64, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(h.double(), h64, atol=1e-4, rtol=1e-3)
+    for k, c, r in ((y, yc, y64), (h, hc, h64)):
+        assert (k.double() - r).abs().max() <= 2 * (c.double() - r).abs().max()
