@@ -8,12 +8,15 @@ card:
 Phases (each prints its own lines; any failure exits non-zero):
  1. device: name, power limit, TF32 off for the float32 references;
  2. build: all seven CUDA sources from src/repro_torch/kernels/csrc with
-    nvcc, in parallel;
+    nvcc, in parallel; ptxas's registers, shared memory and spills of each
+    kernel of the two LoRA libraries;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
-    forward LoRA matmul, its multi-tenant gather (distinct, repeated and
-    out-of-range indices, ragged M/N/K, ranks 1 and 64; each tenant's rows
-    bit-equal to the single-adapter kernel on them), paged decode, the dX and rank-reduce backward
+    forward LoRA matmul in both its regimes (M <= 16 and above, Mamba2's
+    projections at M 8 and 200), its multi-tenant gather (distinct,
+    repeated and out-of-range indices, ragged M/N/K, ranks 1 and 64; each
+    tenant's rows bit-equal to the single-adapter kernel on them in the
+    same regime), paged decode, the dX and rank-reduce backward
     kernels, the autograd backward of ``lora_matmul`` against autograd of
     its plain version, the causal flash-attention forward, and the
     int8-base forward and dX (``lora_matmul(..., w_scale=)``) with their
@@ -31,7 +34,10 @@ Phases (each prints its own lines; any failure exits non-zero):
     family at the engine's shape: masked SDPA over the slab view, and
     dequantize-then-SDPA for the int8 pair, as the library calls; the SSD
     scan at S 200 and 512 has no library call; ``lora_matmul`` also at
-    Mamba2's projection shapes);
+    Mamba2's projection shapes at M 8 and 200; the 3xTF32 tile's bound
+    counts three TF32 products per f32 product); two runs bit-equal for
+    ``lora_matmul`` at M 8 and 768 and dX at M 256; a sweep of M with each
+    regime forced, at K = N = 768 and at ``ssm_in``;
  5. serving: ServingEngine on full-width GPT-2-S (f32, 8 slots, 512
     positions, 16-token pages) drains 16 requests; the launch counters,
     reset just before, must show the kernels carried the path; one decode
@@ -104,7 +110,8 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, data sheet
 PEAK_FLOPS = {"float32": 67e12,     # outside the tensor cores
-              "bfloat16": 989e12}   # dense tensor-core rate
+              "bfloat16": 989e12,   # dense tensor-core rate
+              "tf32": 495e12}       # dense tensor-core rate
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}        # lora_matmul atol = rtol
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # every decode kernel
 # backward kernels: f32 sums over 768 terms with TF32 off; bf16 gradients
@@ -170,6 +177,15 @@ def bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bound_3xtf32(nbytes: float, flops: float):
+    """(bound_ms, bound_by) of f32 work on the 3xTF32 tensor-core tile:
+    the larger of bytes over the memory rate and three TF32 products per
+    f32 product over the TF32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -190,12 +206,14 @@ def main() -> None:
                                                      paged_decode_ref)
     from repro_torch.kernels.lora_matmul import (lora_matmul, lora_matmul_dx_kernel,
                                                  lora_matmul_dx_ref, lora_matmul_gather_kernel,
+                                                 lora_matmul_kernel,
                                                  lora_matmul_gathered_ref,
                                                  lora_matmul_q8_dx_kernel,
                                                  lora_matmul_q8_dx_ref, lora_matmul_q8_kernel,
                                                  lora_matmul_q8_ref, lora_matmul_ref,
                                                  lora_rank_reduce_kernel,
                                                  lora_rank_reduce_ref)
+    from repro_torch.kernels.lora_matmul.plan import DECODE, DECODE_MAX_M, TILE
     from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_scan_kernel,
                                               ssd_scan_with_state, ssd_sequential_ref)
     from repro_torch.precision import quantize_kv_int8, quantize_weight_int8
@@ -220,6 +238,9 @@ def main() -> None:
     print(f"[build] nvcc sm_90a, in parallel: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.1f}s")
+    for lib in ("lora_matmul", "lora_matmul_bwd"):      # redesigned in this slice
+        for line in build.resource_usage(lib):
+            print(f"[ptxas] {lib}: {line}")
 
     # -- 3. kernel vs plain, on the card ----------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -478,18 +499,42 @@ def main() -> None:
                 fail(f"lora_matmul_gather disagrees with its plain version ({dn}, {kind})")
             if dn == "float32" and K == 768:
                 err["lora_matmul_gather"] = max(err["lora_matmul_gather"], e)
-        M, K, N, r, A = 40, 768, 768, 4, 8
-        x, w, a, b = gather_inputs(M, K, N, r, A, dt)
-        idx = torch.randint(0, A, (M,), generator=gen)
-        y = lora_matmul_gather_kernel(x, w, a, b, idx.to(dev, torch.int32), scale)
-        same = all(torch.equal(y[(idx == t).to(dev)],
-                               lora_matmul(x[(idx == t).to(dev)].contiguous(), w, a[t], b[t],
-                                           scale=scale))
-                   for t in range(A) if (idx == t).any())
-        print(f"[check] lora_matmul_gather {dn} M={M} A={A}: each tenant's rows bit-equal to "
-              f"lora_matmul on them: {same} {'ok' if same else 'FAIL'}")
-        if not same:
-            fail("the gather's rows differ from the single-adapter kernel's")
+        # a row's arithmetic depends on the regime, K and N, not on M or the
+        # other rows: at a decode M each tenant's rows alone, at a tile M
+        # each tenant's rows first and other rows after them up to T + 1
+        # rows (so the call stays in the tile regime at another M)
+        K, N, r, A = 768, 768, 4, 8
+        for M in (12, 40):
+            x, w, a, b = gather_inputs(M, K, N, r, A, dt)
+            idx = torch.randint(0, A, (M,), generator=gen)
+            y = lora_matmul_gather_kernel(x, w, a, b, idx.to(dev, torch.int32), scale)
+            same = True
+            for t in range(A):
+                rows = (idx == t).to(dev)
+                n = int(rows.sum())
+                if n == 0:
+                    continue
+                xt = x[rows]
+                if M > DECODE_MAX_M:
+                    xt = torch.cat([xt, x[~rows][:max(0, DECODE_MAX_M + 1 - n)]])
+                yt = lora_matmul(xt.contiguous(), w, a[t], b[t], scale=scale)[:n]
+                same = same and torch.equal(y[rows], yt)
+            print(f"[check] lora_matmul_gather {dn} M={M} A={A}: each tenant's rows bit-equal "
+                  f"to lora_matmul on them ({'decode' if M <= DECODE_MAX_M else 'tile'} "
+                  f"regime both): {same} {'ok' if same else 'FAIL'}")
+            if not same:
+                fail("the gather's rows differ from the single-adapter kernel's")
+        # the same within the single-adapter kernel: a call's first rows
+        # equal the call on those rows alone while both take one regime
+        # (the tile shape differs: 32 x 32 at M 17, 64 x 64 at M 200)
+        x, w, a, b = lora_inputs(200, K, N, r, dt)
+        for m_small, m_big in ((3, 16), (17, 200)):
+            same = torch.equal(lora_matmul(x[:m_small], w, a, b, scale=scale),
+                               lora_matmul(x[:m_big], w, a, b, scale=scale)[:m_small])
+            print(f"[check] lora_matmul {dn}: M={m_small} rows bit-equal to the first rows "
+                  f"at M={m_big}: {same} {'ok' if same else 'FAIL'}")
+            if not same:
+                fail(f"lora_matmul's rows depend on M within a regime ({m_small}, {m_big})")
 
     def ssd_inputs(B, S, nh, hd, N):
         # the distributions of repro's test sweep: B/C ~ N(0, 1/N), dt =
@@ -557,7 +602,13 @@ def main() -> None:
            "paged_decode_q8": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
-        for M, K, N, r in ((8, 768, 768, 4), (16, 768, 768, 4), (5, 100, 70, 3)):
+        # both regimes (M <= 16 decode, above it the 3xTF32 tile), both sides
+        # of the threshold, Mamba2's projections at decode and prefill M,
+        # ragged shapes whose pitches take element copies
+        for M, K, N, r in ((8, 768, 768, 4), (16, 768, 768, 4), (17, 768, 768, 4),
+                           (768, 768, 768, 4), (5, 100, 70, 3), (33, 300, 129, 64),
+                           (1, 7, 1, 1), (8, 2560, 10576, 4), (8, 5120, 2560, 4),
+                           (200, 2560, 10576, 4), (200, 5120, 2560, 4)):
             x, w, a, b = lora_inputs(M, K, N, r, dt)
             y = lora_matmul(x, w, a, b, scale=scale)
             torch.cuda.synchronize()
@@ -730,33 +781,52 @@ def main() -> None:
               f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, {nbytes} B); kernel "
               f"with L2 warm {warm * 1e3:.2f}us")
     # -- 4b. times at the training path's shapes (f32) -------------------------
-    # the forward kernel was designed for serving M (8-16 rows); record what
-    # it does at the server's training M = K*b*S = 768
+    # the forward and dX at M above the decode threshold run the 3xTF32
+    # tile: their bound is 3 TF32 products per f32 product over 495 TFLOP/s
+    # (or the bytes), with the f32-FFMA bound printed beside it; two runs on
+    # the same inputs must give equal bits (no atomics)
+    def same_bits(op, what, fn):
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        good = torch.equal(first, again)
+        print(f"[check] {op} {what}: two runs bit-equal: {good} {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"{op} is not deterministic ({what})")
+
     M, K, N, r = 768, 768, 768, 4
     x, w, a, b = lora_inputs(M, K, N, r, torch.float32)
+    same_bits("lora_matmul", f"f32 M={M} K={K} N={N} r={r}",
+              lambda: lora_matmul(x, w, a, b, scale=scale))
     ms = time_ms(torch, lambda: lora_matmul(x, w, a, b, scale=scale), flush)
     plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
     lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
-    bms, bby = bound(4 * (M * K + K * N + r * K + N * r + M * N),
-                     2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
+    nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
+    flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+    bms, bby = bound_3xtf32(nbytes, flops)
     rows[("lora_matmul", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                                     bound_by=bby)
-    print(f"[time] lora_matmul f32 M={M} K={K} N={N} r={r} (training M): kernel "
-          f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(torch.matmul) "
-          f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby})")
+    print(f"[time] lora_matmul f32 M={M} K={K} N={N} r={r} (training M, tile regime): "
+          f"kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(torch.matmul) "
+          f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us (3xTF32, {bby}; f32 FFMA bound "
+          f"{bound(nbytes, flops)[0] * 1e3:.2f}us); {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     for M in (256, 768):               # one client's rows; the server's rows
         dy = randn(M, N).to(dev)
         _, w, a, b = lora_inputs(M, K, N, r, torch.float32)
+        if M == 256:
+            same_bits("lora_matmul_dx", f"f32 M={M} K={K} N={N} r={r}",
+                      lambda: lora_matmul_dx_kernel(dy, w, a, b, scale))
         ms = time_ms(torch, lambda: lora_matmul_dx_kernel(dy, w, a, b, scale), flush)
         plain = time_ms(torch, lambda: lora_matmul_dx_ref(dy, w, a, b, scale), flush)
         lib = time_ms(torch, lambda: dy @ w.T + scale * ((dy @ b) @ a), flush)
-        bms, bby = bound(4 * (M * N + K * N + r * K + N * r + M * K),
-                         2 * M * N * K + 2 * M * N * r + 2 * M * r * K)
+        nbytes = 4 * (M * N + K * N + r * K + N * r + M * K)
+        flops = 2 * M * N * K + 2 * M * N * r + 2 * M * r * K
+        bms, bby = bound_3xtf32(nbytes, flops)
         rows[("lora_matmul_dx", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                            bound_ms=bms, bound_by=bby)
         print(f"[time] lora_matmul_dx f32 M={M} K={K} N={N} r={r}: kernel "
               f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(dy @ w.T + "
-              f"s*(dy @ b) @ a) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}); "
+              f"s*(dy @ b) @ a) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us (3xTF32, {bby}; "
+              f"f32 FFMA bound {bound(nbytes, flops)[0] * 1e3:.2f}us); "
               f"{2 * M * N * K / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     M, r, N = 768, 4, 768
     u, v = randn(M, r).to(dev), randn(M, N).to(dev)
@@ -814,21 +884,47 @@ def main() -> None:
                   f"torch.matmul) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, "
                   f"{nbytes} B); {2 * M * N * K / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     # -- 4c. times at Mamba2-2.7B's serving shapes (f32) -----------------------
-    # lora_matmul at a decode step's projections (8 slots): ssm_in (K 2560,
+    # lora_matmul at a decode step's projections (8 slots: the decode
+    # regime) and at a 200-token prefill (the tile regime): ssm_in (K 2560,
     # N 2 * 5120 + 2 * 128 + 80) and ssm_out (K 5120, N 2560)
-    for what, K, N in (("ssm_in", 2560, 10576), ("ssm_out", 5120, 2560)):
-        M, r = 8, 4
-        x, w, a, b = lora_inputs(M, K, N, r, torch.float32)
-        ms = time_ms(torch, lambda: lora_matmul(x, w, a, b, scale=scale), flush)
-        plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
-        lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
-        bms, bby = bound(4 * (M * K + K * N + r * K + N * r + M * N),
-                         2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
-        rows[("lora_matmul", what)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                           bound_ms=bms, bound_by=bby)
-        print(f"[time] lora_matmul f32 M={M} K={K} N={N} r={r} (Mamba2 {what}): kernel "
-              f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(torch.matmul) "
-              f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby})")
+    for M in (8, 200):
+        for what, K, N in (("ssm_in", 2560, 10576), ("ssm_out", 5120, 2560)):
+            r = 4
+            x, w, a, b = lora_inputs(M, K, N, r, torch.float32)
+            if M == 8 and what == "ssm_out":
+                same_bits("lora_matmul", f"f32 M={M} K={K} N={N} r={r}",
+                          lambda: lora_matmul(x, w, a, b, scale=scale))
+            ms = time_ms(torch, lambda: lora_matmul(x, w, a, b, scale=scale), flush)
+            plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
+            lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
+            nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
+            flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+            tile = M > DECODE_MAX_M
+            bms, bby = (bound_3xtf32 if tile else bound)(nbytes, flops)
+            rows[("lora_matmul", what, M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                                  bound_ms=bms, bound_by=bby)
+            print(f"[time] lora_matmul f32 M={M} K={K} N={N} r={r} (Mamba2 {what}, "
+                  f"{'tile' if tile else 'decode'} regime): kernel {ms * 1e3:.2f}us plain "
+                  f"{plain * 1e3:.2f}us library(torch.matmul) {lib * 1e3:.2f}us bound "
+                  f"{bms * 1e3:.2f}us ({'3xTF32, ' if tile else ''}{bby}"
+                  + (f"; f32 FFMA bound {bound(nbytes, flops)[0] * 1e3:.2f}us" if tile else "")
+                  + f"); {nbytes / (ms * 1e-3) / 1e12:.2f} TB/s, "
+                  f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    # -- 4d. the regime crossover: each regime forced at every M ---------------
+    # (the decode regime re-reads W once per 16 rows; the tile pays three
+    # TF32 products per f32 product but reads W once per 64 rows)
+    for what, K, N in (("K=N=768", 768, 768), ("ssm_in", 2560, 10576)):
+        r = 4
+        for M in (1, 8, 16, 17, 32, 64, 200, 768):
+            x, w, a, b = lora_inputs(M, K, N, r, torch.float32)
+            t = {reg: time_ms(torch, lambda: lora_matmul_kernel(x, w, a, b, scale, regime=reg),
+                              flush, iters=20, warmup=2) for reg in (DECODE, TILE)}
+            lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush, iters=20,
+                          warmup=2)
+            pick = "decode" if M <= DECODE_MAX_M else "tile"
+            print(f"[sweep] lora_matmul f32 {what} M={M}: decode regime {t[DECODE] * 1e3:.2f}us, "
+                  f"tile regime {t[TILE] * 1e3:.2f}us, library {lib * 1e3:.2f}us; the plan "
+                  f"takes {pick} (T = {DECODE_MAX_M})")
     # the SSD scan at the full-width prefill: the kernel alone on its
     # pre-scaled operands, the op (pre-scaling, kernel, layout) and the
     # plain ssd_chunked; no single PyTorch call computes the scan

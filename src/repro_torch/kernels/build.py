@@ -4,32 +4,37 @@
 Each ``csrc/<name>.cu`` holds one kernel family behind a plain C interface
 (no PyTorch headers, so ``nvcc`` takes seconds, not minutes); the
 ``csrc/*.cuh`` headers hold device code that several of them include (the
-LoRA GEMM tile of ``lora_tile.cuh``, the decode body of
-``decode_tile.cuh``).  Each source is compiled for Hopper
-(``sm_90a``) into ``<repo>/build/kernels/lib<name>.so`` — a git-ignored
-directory inside the checkout — and rebuilt whenever it or any header is
-newer than the library.  Nothing here runs at import time: the
+3xTF32 LoRA GEMM tile of ``lora_mma.cuh``, the int8-base tile of
+``lora_tile.cuh``, the decode body of ``decode_tile.cuh``).  Each source
+is compiled for Hopper (``sm_90a``) into
+``<repo>/build/kernels/lib<name>.so`` — a git-ignored directory inside the
+checkout — and rebuilt whenever it or any header is newer than the
+library.  Nothing here runs at import time: the
 CPU tests import every module of the port on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "paged_decode",
            "flash_attention", "flash_decode", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# source -> the compiler's output of its last build in this process
+# (``-Xptxas -v``: registers, shared memory and spills of every kernel)
+LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -78,10 +83,43 @@ def build(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, floa
             errors.append(f"nvcc failed for {p.name}.cu:\n{out}")
             continue
         os.replace(p.tmp, BUILD_DIR / f"lib{p.name}.so")
+        LOGS[p.name] = out
         built[p.name] = time.perf_counter() - p.t0
     if errors:
         raise RuntimeError("\n".join(errors))
     return built
+
+
+def resource_usage(name: str) -> List[str]:
+    """One line per kernel of ``name``'s last build: its (demangled) name,
+    registers, static shared memory and spill bytes, from ptxas's
+    ``-v`` report in ``LOGS``."""
+    lines, cur = [], None
+    for ln in LOGS.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"fn": m.group(1), "regs": "?", "smem": "0", "spill": "0/0"}
+            lines.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill"] = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["regs"] = m.group(1)
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = sm.group(1) if sm else "0"
+    filt = shutil.which("c++filt")
+    if filt and lines:
+        names = subprocess.run([filt], input="\n".join(d["fn"] for d in lines),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(lines):
+            for d, n in zip(lines, names):
+                d["fn"] = n.replace("(anonymous namespace)::", "")
+    return [f"{d['fn'].split('(')[0]}: {d['regs']} registers, {d['smem']} B static "
+            f"shared memory, spill stores/loads {d['spill']} B" for d in lines]
 
 
 def load(name: str) -> ctypes.CDLL:

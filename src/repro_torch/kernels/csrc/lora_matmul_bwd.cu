@@ -11,20 +11,18 @@
 //    What bounds it on the H100: at training shapes (M = K * b * S = 768
 //    rows on the server, 256 per client, K = N = 768) it is a real GEMM,
 //    2 * M * K * N flops on ~(M + K) * N * 4 bytes: about 190 flops per
-//    byte at M = 768, above the f32 ridge (67 TFLOP/s / 3.35 TB/s = 20).
-//    Bound by f32 operations without tensor cores: ~13.5 us at M = 768.
-//    Design: the 64 x 64 register tile of csrc/lora_tile.cuh (shared with
-//    the two int8-base kernels of csrc/lora_matmul_q8.cu), with P = K
-//    output columns per block and the loop over N inside the block:
-//     * dY and W stream through shared memory in 32-wide N chunks, both
-//       in their native layouts (W is read as (K, N): no transposed
-//       copy), stored transposed with one float of padding per row;
-//     * the rank tile dY B (64 x r) is accumulated in the same N loop,
-//       from a B chunk staged beside the others; the epilogue adds
-//       scale * (dY B) A and writes dX once;
-//     * ragged M, N and K edges are masked here (the JAX wrapper pads);
-//       any rank 1 <= r <= RMAX = 64.
-//    Not yet: wgmma / TF32 tensor cores, cp.async double buffering.
+//    byte at M = 768, above the f32 ridge.  On the tensor cores in 3xTF32
+//    (three TF32 mma per product, 495 TFLOP/s) the bound is 5.5 us at
+//    M = 768 and 1.8 us at M = 256 (13.7 and 4.6 us at f32 FFMA's 67).
+//    Design: the 3xTF32 mma.sync tile on a cp.async ring of
+//    csrc/lora_mma.cuh (see its note), with L = dY, the reduction over N
+//    and R[n][k] = W[k][n]: W is read in its (K, N) layout, rows of N that
+//    the ring stages as they lie (q-major), no transposed copy.  The rank
+//    tile dY B (BM x r) is summed in f32 in the same N loop and the
+//    epilogue adds scale * (dY B) A.  64 x 64 tiles at M = 768 (144
+//    blocks), 32 x 32 at M = 256 (192 blocks); ragged M, N and K edges are
+//    masked, element copies where N is not a multiple of 16 bytes; any
+//    rank 1 <= r <= RMAX = 64; no atomics: two runs give equal bits.
 //
 // 2. lora_rank_reduce:    out (r, N) f32 = u^T v
 //      u (M, r) f32, v (M, N) f32 or bf16 (upcast per element).
@@ -43,28 +41,68 @@
 //       and a second kernel adds the S partials in order.  No atomics:
 //       the result is the same bit for bit on every run.
 
-#include "lora_tile.cuh"
+#include "lora_mma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// dX: the weight stage of an f32 or bf16 W (K, N), rs[n][k] = W[k][n]
+// dX: the operand policy of csrc/lora_mma.cuh
 // ---------------------------------------------------------------------------
 
 template <typename T>
-struct WRows {
-  const T* __restrict__ w;
-
-  __device__ __forceinline__ void stage(float (&rs)[TILE_Q][TILE_P + 1], int n0, int k0,
-                                        int K, int N, int tid) const {
-    // neighbouring threads on neighbouring n (coalesced)
-    for (int i = tid; i < TILE_P * TILE_Q; i += TILE_NT) {
-      const int k = i / TILE_Q, n = i % TILE_Q;
-      const int gk = k0 + k, gn = n0 + n;
-      rs[n][k] = (gk < K && gn < N) ? to_f(w[(size_t)gk * N + gn]) : 0.f;
+struct DxOp {
+  static constexpr bool RQ = true;      // R[n][k] = W[k][n]: rows of W run along n
+  static constexpr bool US = true;      // U = B, one adapter for every row
+  const T* w;
+  const T* a;
+  const T* b;
+  int K, r;
+  __device__ __forceinline__ bool live(int) const { return true; }
+  // us[j][q] = B[n0 + q][j]
+  __device__ __forceinline__ void stage_u(T* us, int n0, int N, int, int tid) const {
+    for (int i = tid; i < MMA_BK * r; i += MMA_NT) {
+      const int j = i / MMA_BK, q = i % MMA_BK;
+      const bool ok = n0 + q < N;
+      copy_elem(us + i, ok ? b + (size_t)(n0 + q) * r + j : b, ok);
     }
   }
+  __device__ __forceinline__ float u(int, int j, int n) const { return to_f(b[(size_t)n * r + j]); }
+  __device__ __forceinline__ float v(int, int j, int k) const { return to_f(a[(size_t)j * K + k]); }
 };
+
+template <typename T, int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(MMA_NT) dx_tile(const T* __restrict__ dy,
+                                                  const T* __restrict__ w,
+                                                  const T* __restrict__ a,
+                                                  const T* __restrict__ b, T* __restrict__ dx,
+                                                  int M, int K, int N, int r, float scale) {
+  extern __shared__ __align__(16) unsigned char tsm[];
+  mma_tile<T, BM, BN, VEC>(dy, DxOp<T>{w, a, b, K, r}, dx, M, N, K, r, scale, tsm);
+}
+
+template <typename T, int BM, int BN, bool VEC>
+cudaError_t run_dx(const void* dy, const void* w, const void* a, const void* b, void* dx,
+                   int M, int K, int N, int r, float scale, int S, cudaStream_t st) {
+  const dim3 grid(S, (M + BM - 1) / BM, (K + BN - 1) / BN);
+  return cluster_launch<dx_tile<T, BM, BN, VEC>, MMA_NT>(
+      grid, S, mma_smem_bytes<T, BM, BN, true, true>(r), st, static_cast<const T*>(dy),
+      static_cast<const T*>(w), static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<T*>(dx), M, K, N, r, scale);
+}
+
+template <typename T>
+cudaError_t run_dx_plan(const void* dy, const void* w, const void* a, const void* b,
+                        void* dx, int M, int K, int N, int r, float scale, int bm, int bn,
+                        int S, int vec, cudaStream_t st) {
+  if (S < 1 || S > 8 || (S & (S - 1))) return cudaErrorInvalidValue;
+  if (bm == 64 && bn == 64)
+    return vec ? run_dx<T, 64, 64, true>(dy, w, a, b, dx, M, K, N, r, scale, S, st)
+               : run_dx<T, 64, 64, false>(dy, w, a, b, dx, M, K, N, r, scale, S, st);
+  if (bm == 32 && bn == 32)
+    return vec ? run_dx<T, 32, 32, true>(dy, w, a, b, dx, M, K, N, r, scale, S, st)
+               : run_dx<T, 32, 32, false>(dy, w, a, b, dx, M, K, N, r, scale, S, st);
+  return cudaErrorInvalidValue;
+}
 
 // ---------------------------------------------------------------------------
 // rank reduce
@@ -146,32 +184,21 @@ __global__ void rank_reduce_splits(const float* __restrict__ part,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (dy, w, a, b and dx share it).
-// Returns cudaGetLastError() after the launch (0 = launched).
-int lora_matmul_dx_launch(const void* dy, const void* w, const void* a,
-                          const void* b, void* dx, int M, int K, int N, int r,
-                          float scale, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (dy, w, a, b and dx share it); the
+// tile (bm, bn), the splits along N and vec are plan.py's dx_plan.
+// Returns the launch's cudaError_t (0 = launched).
+int lora_matmul_dx_launch(const void* dy, const void* w, const void* a, const void* b,
+                          void* dx, int M, int K, int N, int r, float scale, int dtype,
+                          int bm, int bn, int splits, int vec, void* stream) {
   if (r < 1 || r > RMAX || M < 1 || K < 1 || N < 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((K + TILE_P - 1) / TILE_P, (M + TILE_M - 1) / TILE_M);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    using Op = DxOp<float, WRows<float>>;
-    const Op op{{static_cast<const float*>(w)}, static_cast<const float*>(a),
-                static_cast<const float*>(b), K, N, r};
-    lora_tile<float, Op><<<grid, TILE_NT, 0, s>>>(
-        static_cast<const float*>(dy), op, static_cast<float*>(dx), M, N, K, r, scale);
-  } else if (dtype == 1) {
-    using Op = DxOp<__nv_bfloat16, WRows<__nv_bfloat16>>;
-    const Op op{{static_cast<const __nv_bfloat16*>(w)},
-                static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-                K, N, r};
-    lora_tile<__nv_bfloat16, Op><<<grid, TILE_NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(dy), op, static_cast<__nv_bfloat16*>(dx), M, N,
-        K, r, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)run_dx_plan<float>(dy, w, a, b, dx, M, K, N, r, scale, bm, bn, splits, vec,
+                                   st);
+  if (dtype == 1)
+    return (int)run_dx_plan<__nv_bfloat16>(dy, w, a, b, dx, M, K, N, r, scale, bm, bn,
+                                           splits, vec, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The number of M splits the rank reduce uses for these shapes; the

@@ -17,10 +17,8 @@
 //    flops per byte at M = 768 — above the f32 ridge (67 TFLOP/s over
 //    3.35 TB/s = 20).  Bound by f32 operations without tensor cores:
 //    ~13.8 us at M = 768, ~4.6 us at M = 256.
-//    Design (the 64 x 64 register tile of csrc/lora_tile.cuh, shared
-//    with lora_matmul_dx, rather than csrc/lora_matmul.cu's serving GEMV
-//    tile, which re-reads W for every 16 rows), with P = N output columns
-//    per block and the loop over K inside the block:
+//    Design (the 64 x 64 register tile of csrc/lora_tile.cuh), with P = N
+//    output columns per block and the loop over K inside the block:
 //     * x and W stream through shared memory in 32-deep K chunks.  W is
 //       read as int8 in its (K, N) layout, four neighbouring columns per
 //       thread (one char4): a warp reads two 64-byte row pieces, whole
@@ -48,9 +46,8 @@
 //    N grid axis.
 //    What bounds it: the same GEMM work as the forward, f32 operations:
 //    ~13.8 us at M = 768, ~4.6 us at M = 256.
-//    Design: the dX product of csrc/lora_tile.cuh (its DxOp, the same
-//    instantiation lora_matmul_dx uses, with an int8 weight stage in place
-//    of the f32 one: 64 x 64 per block, 4 x 4 per thread, N loop inside
+//    Design: the dX product of csrc/lora_tile.cuh (its DxOp with an int8
+//    weight stage: 64 x 64 per block, 4 x 4 per thread, N loop inside
 //    the block, the rank tile dY B summed in the same loop).  The scale
 //    sits on the N reduction axis and cannot be factored out, so W is
 //    dequantized while it is staged: each thread reads a char4 of int8 W

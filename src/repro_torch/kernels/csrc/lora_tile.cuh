@@ -1,6 +1,6 @@
-// The register tile shared by the LoRA GEMM kernels for Hopper (sm_90a):
-// lora_matmul_dx (csrc/lora_matmul_bwd.cu), lora_matmul_q8 and
-// lora_matmul_q8_dx (csrc/lora_matmul_q8.cu).  Each of the three is
+// The register tile of the int8-base LoRA GEMM kernels for Hopper
+// (sm_90a): lora_matmul_q8 and lora_matmul_q8_dx (csrc/lora_matmul_q8.cu).
+// Each of the two is
 //
 //   out[m][p] = op.finish(sum_q L[m][q] R[q][p], p)
 //               + scale * sum_j Z[m][j] V[j][p],   Z[m][j] = sum_q L[m][q] U[q][j]
@@ -11,7 +11,6 @@
 // `Op` says where R, U and V live and how R is staged:
 //
 //   product      Q  P  R[q][p]          U[q][j]   V[j][p]   finish
-//   dX           N  K  W[p][q]          B[q][j]   A[j][p]   acc
 //   q8 dX        N  K  W_q[p][q] s[q]   B[q][j]   A[j][p]   acc
 //   q8 forward   K  N  W_q[q][p]        A[j][q]   B[p][j]   s[p] acc
 //
@@ -26,7 +25,8 @@
 //    staged beside the others; the epilogue adds scale * Z V and writes
 //    the output once;
 //  * ragged M, Q and P edges are masked here; any rank 1 <= r <= RMAX.
-// Not yet: wgmma / TF32 tensor cores, cp.async double buffering.
+// Not yet: tensor cores, cp.async.  The f32 and bf16 dX moved to the
+// 3xTF32 mma.sync tile of csrc/lora_mma.cuh; this pair is next.
 
 #pragma once
 

@@ -6,8 +6,8 @@ every LoRA-adapted projection through.  It is differentiable through
 ``_FusedLoraMatmul``, the twin of ``repro``'s custom VJP
 (``repro.kernels.lora_matmul.ops._bwd_value``):
 
-* forward  — ``csrc/lora_matmul.cu`` on a CUDA tensor, ``lora_matmul_ref``
-  on a CPU one;
+* forward  — ``csrc/lora_matmul.cu`` on a CUDA tensor (the regime and
+  split from ``plan.py``), ``lora_matmul_ref`` on a CPU one;
 * backward — dX through ``csrc/lora_matmul_bwd.cu::lora_matmul_dx`` (only
   when x needs a gradient), dA = s·(dY·B)ᵀ·x and dBᵀ = (x·Aᵀ)ᵀ·dY through
   ``lora_rank_reduce`` from the same source (the rank-thin z = x·Aᵀ and
@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from .. import backend, build
+from .plan import dx_plan, forward_plan
 from .ref import (acc_dtype, lora_matmul_dx_ref, lora_matmul_gathered_ref,
                   lora_matmul_q8_dx_ref, lora_matmul_q8_ref, lora_matmul_ref,
                   lora_rank_reduce_ref)
@@ -66,11 +67,26 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _aligned(*tensors) -> bool:
+    """Every streamed operand starts on a 16-byte boundary (16-byte copies
+    allowed; the plan also needs row pitches of whole 16-byte units)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _plan_args(plan) -> tuple:
+    return (plan.regime, plan.row_tile, plan.col_tile, plan.splits, int(plan.vec))
+
+
+_FWD_PLAN_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p]      # the plan, the stream
+
+
 def lora_matmul_kernel(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
-                       b: torch.Tensor, scale: float) -> torch.Tensor:
+                       b: torch.Tensor, scale: float, regime: int = None) -> torch.Tensor:
     """Launch the forward CUDA kernel on 2-D operands x (M, K), w (K, N),
     a (r, K), b (N, r): all on one CUDA device, contiguous, and of one
-    dtype (float32 or bfloat16).  Raises on anything else."""
+    dtype (float32 or bfloat16).  M picks the regime (``plan.py``);
+    ``regime`` forces one, for the crossover sweep.  Raises on anything
+    else."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"lora_matmul: dtype {x.dtype} not supported "
                         "(float32, bfloat16)")
@@ -86,13 +102,14 @@ def lora_matmul_kernel(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
+    plan = forward_plan(M, K, N, x.element_size(), _aligned(x, w), regime)
     fn = _bind("lora_matmul", "lora_matmul_fwd_launch",
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+               + [ctypes.c_float, ctypes.c_int] + _FWD_PLAN_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                  y.data_ptr(), M, K, N, r, float(scale), _DTYPE_CODES[x.dtype],
-                 _stream(x.device))
+                 *_plan_args(plan), _stream(x.device))
     build.check("lora_matmul", err)
     backend.count_launch("lora_matmul")
     return y
@@ -133,13 +150,14 @@ def lora_matmul_gather_kernel(x: torch.Tensor, w: torch.Tensor, a_pool: torch.Te
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
+    plan = forward_plan(M, K, N, x.element_size(), _aligned(x, w))
     fn = _bind("lora_matmul", "lora_matmul_gather_launch",
                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+               + [ctypes.c_float, ctypes.c_int] + _FWD_PLAN_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
                  idx.data_ptr(), y.data_ptr(), M, K, N, r, A, float(scale),
-                 _DTYPE_CODES[x.dtype], _stream(x.device))
+                 _DTYPE_CODES[x.dtype], *_plan_args(plan), _stream(x.device))
     build.check("lora_matmul", err)
     backend.count_launch(op)
     return y
@@ -166,12 +184,14 @@ def lora_matmul_dx_kernel(dy: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
     if M == 0 or K == 0:
         return dx
+    plan = dx_plan(M, K, N, dy.element_size(), _aligned(dy, w))
     fn = _bind("lora_matmul_bwd", "lora_matmul_dx_launch",
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+               + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(dy.device):
         err = fn(dy.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
                  dx.data_ptr(), M, K, N, r, float(scale), _DTYPE_CODES[dy.dtype],
+                 plan.row_tile, plan.col_tile, plan.splits, int(plan.vec),
                  _stream(dy.device))
     build.check("lora_matmul_bwd", err)
     backend.count_launch("lora_matmul_dx")

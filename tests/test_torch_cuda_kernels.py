@@ -32,6 +32,7 @@ from repro_torch.kernels.lora_matmul import (lora_matmul,   # noqa: E402
                                              lora_matmul_q8_ref, lora_matmul_ref,
                                              lora_rank_reduce_kernel,
                                              lora_rank_reduce_ref)
+from repro_torch.kernels.lora_matmul.plan import DECODE_MAX_M  # noqa: E402
 from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_scan_kernel,  # noqa: E402
                                           ssd_scan_with_state, ssd_sequential_ref)
 from repro_torch.models import init_lora_stack, init_params  # noqa: E402
@@ -59,7 +60,13 @@ def cuda():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("M,K,N,r", [(8, 768, 768, 4), (16, 768, 768, 4),
-                                     (5, 100, 70, 3), (33, 300, 129, 64), (1, 7, 1, 1)])
+                                     (5, 100, 70, 3), (33, 300, 129, 64), (1, 7, 1, 1),
+                                     # both sides of the decode threshold T = 16, the
+                                     # training M, Mamba2's projections at decode and
+                                     # prefill M
+                                     (17, 768, 768, 4), (768, 768, 768, 4),
+                                     (8, 2560, 10576, 4), (8, 5120, 2560, 4),
+                                     (200, 2560, 10576, 4), (200, 5120, 2560, 4)])
 def test_lora_matmul_kernel_matches_plain(cuda, dtype, M, K, N, r):
     g = torch.Generator().manual_seed(M * 1000 + r)
     x = torch.randn(M, K, generator=g).to(cuda, dtype)
@@ -142,7 +149,9 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("M,K,N,r", [(256, 768, 768, 4), (768, 768, 768, 4),
-                                     (33, 70, 45, 2), (1, 7, 1, 1), (70, 130, 300, 64)])
+                                     (33, 70, 45, 2), (1, 7, 1, 1), (70, 130, 300, 64),
+                                     (16, 768, 768, 4), (17, 768, 768, 4),
+                                     (8, 2560, 10576, 4), (200, 5120, 2560, 4)])
 def test_lora_matmul_dx_kernel_matches_plain(cuda, dtype, M, K, N, r):
     g = torch.Generator().manual_seed(M + K + r)
     dy = torch.randn(M, N, generator=g).to(cuda, dtype)
@@ -572,19 +581,26 @@ def test_lora_matmul_gather_kernel_matches_plain(cuda, dtype, order, M, K, N, r,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_gathered_rows_bit_equal_lora_matmul_on_each_tenants_rows(cuda, dtype):
-    """The gather and the single-adapter forward are one body with the same
-    arithmetic order, and a row's result does not depend on its tile
-    neighbours: each tenant's rows are bit for bit lora_matmul on them."""
-    M, K, N, r, A = 40, 768, 768, 4, 8
+@pytest.mark.parametrize("M", [12, 40])
+def test_gathered_rows_bit_equal_lora_matmul_on_each_tenants_rows(cuda, dtype, M):
+    """The gather and the single-adapter forward are one body per regime
+    with the same arithmetic order, and a row's result depends on the
+    regime, K and N, not on M or its tile neighbours: each tenant's rows
+    are bit for bit lora_matmul on them, alone at a decode M (12) and, at a
+    tile M (40), first in a call padded with other rows to T + 1 rows."""
+    K, N, r, A = 768, 768, 4, 8
     x, w, a, b = _gather_inputs(M, K, N, r, A, dtype, cuda, 7)
     idx = torch.randint(0, A, (M,), generator=torch.Generator().manual_seed(8))
     y = lora_matmul_gathered(x, w, a, b, idx.to(cuda, torch.int32), scale=2.0)
     for t in range(A):
         rows = (idx == t).to(cuda)
-        if rows.any():
-            assert torch.equal(y[rows], lora_matmul(x[rows].contiguous(), w, a[t], b[t],
-                                                    scale=2.0))
+        n = int(rows.sum())
+        if n:
+            xt = x[rows]
+            if M > DECODE_MAX_M:
+                xt = torch.cat([xt, x[~rows][:max(0, DECODE_MAX_M + 1 - n)]])
+            assert torch.equal(y[rows], lora_matmul(xt.contiguous(), w, a[t], b[t],
+                                                    scale=2.0)[:n])
 
 
 def test_gather_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
@@ -620,7 +636,7 @@ def lora_matmul_digests(dev):
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         for M, K, N, r in ((8, 768, 768, 4), (16, 768, 768, 4), (5, 100, 70, 3),
-                           (33, 300, 129, 64)):
+                           (33, 300, 129, 64), (17, 768, 768, 4), (200, 2560, 10576, 4)):
             rng = np.random.default_rng(M * 1000 + K + r)
             x = rng.normal(size=(M, K)).astype(np.float32)
             w = (rng.normal(size=(K, N)) * K ** -0.5).astype(np.float32)
@@ -632,23 +648,59 @@ def lora_matmul_digests(dev):
     return out
 
 
-# lora_matmul_kernel's outputs before the forward body took its adapter
-# policy (the single-adapter kernel as first ported), built from that
-# source and run on an NVIDIA H100 80GB HBM3 (torch 2.11+cu128, CUDA 12.8)
+# lora_matmul_kernel's outputs on the two-regime body (split-K decode tile
+# for M <= 16, 3xTF32 mma tile above), recorded on an NVIDIA H100 80GB HBM3
+# at a 700.00 W power limit (torch 2.11+cu128, CUDA 12.8)
 LORA_MATMUL_DIGESTS = {
-    ("float32", 8, 768, 768, 4): "06ccc44a637795b7",
-    ("float32", 16, 768, 768, 4): "d87df61815fcd0ce",
-    ("float32", 5, 100, 70, 3): "f5986165a42e1d50",
-    ("float32", 33, 300, 129, 64): "84d24bc2811d8793",
-    ("bfloat16", 8, 768, 768, 4): "b5a54e9bff764d5a",
-    ("bfloat16", 16, 768, 768, 4): "3e1c43c690970996",
+    ("float32", 8, 768, 768, 4): "992a2423d1e7df2b",
+    ("float32", 16, 768, 768, 4): "aacc306a5761ab81",
+    ("float32", 5, 100, 70, 3): "b21af82546865f5b",
+    ("float32", 33, 300, 129, 64): "6b93261844fed0df",
+    ("float32", 17, 768, 768, 4): "7ab11e63ee003cd0",
+    ("float32", 200, 2560, 10576, 4): "1c24a8eec34716e5",
+    ("bfloat16", 8, 768, 768, 4): "871c648998e49662",
+    ("bfloat16", 16, 768, 768, 4): "a46fdbc589b94a79",
     ("bfloat16", 5, 100, 70, 3): "1c758a734036a79e",
-    ("bfloat16", 33, 300, 129, 64): "4b3e635456d0e777",
+    ("bfloat16", 33, 300, 129, 64): "e1bb74246a915161",
+    ("bfloat16", 17, 768, 768, 4): "0c573c034d37daae",
+    ("bfloat16", 200, 2560, 10576, 4): "c52891440e3a7689",
 }
 
 
-def test_lora_matmul_kernel_bit_identical_to_its_outputs_before_the_gather(cuda):
+def test_lora_matmul_kernel_bit_identical_to_its_outputs_after_the_redesign(cuda):
     assert lora_matmul_digests(cuda) == LORA_MATMUL_DIGESTS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("m_small,m_big", [(3, 16), (17, 200), (200, 768)])
+def test_lora_matmul_rows_do_not_depend_on_m_within_a_regime(cuda, dtype, m_small, m_big):
+    """The first rows of a call equal the call on those rows alone, bit for
+    bit, while both calls take one regime (the tile shapes differ: 32 x 32
+    at M 17, 64 x 64 at M 200 and 768)."""
+    g = torch.Generator().manual_seed(m_big)
+    K = N = 768
+    x = torch.randn(m_big, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(K, N, generator=g) * K ** -0.5).to(cuda, dtype)
+    a = torch.randn(4, K, generator=g).to(cuda, dtype)
+    b = (torch.randn(N, 4, generator=g) * 0.05).to(cuda, dtype)
+    assert torch.equal(lora_matmul_kernel(x[:m_small].contiguous(), w, a, b, 2.0),
+                       lora_matmul_kernel(x, w, a, b, 2.0)[:m_small])
+
+
+@pytest.mark.parametrize("op,M,K,N", [("lora_matmul", 8, 5120, 2560),
+                                      ("lora_matmul", 17, 768, 768),
+                                      ("lora_matmul", 768, 768, 768),
+                                      ("lora_matmul_dx", 256, 768, 768)])
+def test_kernels_give_equal_bits_on_two_runs(cuda, op, M, K, N):
+    """No atomics and a fixed order: the same inputs give the same bits."""
+    g = torch.Generator().manual_seed(M + K)
+    lhs = torch.randn(M, K if op == "lora_matmul" else N, generator=g).to(cuda)
+    w = (torch.randn(K, N, generator=g) * K ** -0.5).to(cuda)
+    a, b = torch.randn(4, K, generator=g).to(cuda), torch.randn(N, 4, generator=g).to(cuda)
+    fn = lora_matmul_kernel if op == "lora_matmul" else lora_matmul_dx_kernel
+    first, again = fn(lhs, w, a, b, 2.0), fn(lhs, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 def test_multi_tenant_engine_on_the_card_matches_the_cpu_engine(cuda):

@@ -1,0 +1,246 @@
+"""The arithmetic and the launch plans of the LoRA kernels' two regimes,
+held on the CPU before the card.
+
+* 3xTF32: the tile regime of ``csrc/lora_mma.cuh`` splits each f32
+  operand v into big = cvt.rna.tf32(v) and small = cvt.rna.tf32(v - big)
+  and accumulates small*big + big*small + big*big in f32.  Emulated here in
+  torch with the integer form the kernel rounds with, (bits + 0x1000) &
+  ~0x1fff (round to nearest, ties away from zero, on the 13 mantissa bits
+  TF32 drops), at the main path's shapes with phase 4's input
+  distributions: three passes keep f32 accuracy, one pass does not, and a
+  bf16 operand is exact in TF32 (so bf16 takes one pass).
+* The plan (``kernels/lora_matmul/plan.py``): which regime, split and tile
+  the CUDA launchers get, and that the wrappers hand it over unchanged.
+"""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.lora_matmul.plan import (DECODE, DECODE_MAX_M, MAX_SPLITS,
+                                                  MIN_SPLIT_ROWS, MIN_TILE_SPLIT_ROWS, SMS,
+                                                  TILE, decode_split, dx_plan,
+                                                  forward_plan, tile_splits)
+
+ops = importlib.import_module("repro_torch.kernels.lora_matmul.ops")
+
+TOL = dict(atol=1e-4, rtol=1e-4)        # chip_smoke.py's f32 lora_matmul / GRAD_TOL
+SHAPES = [(8, 2560, 10576), (8, 5120, 2560), (768, 768, 768)]   # ssm_in, ssm_out, SFL
+
+
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: keep 10 explicit mantissa bits of an f32, round
+    to nearest with ties away from zero (add half of the dropped 13 bits'
+    range to the magnitude, then clear them)."""
+    bits = v.contiguous().view(torch.int32)
+    sign = bits & torch.tensor(-2 ** 31, dtype=torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (sign | mag).view(torch.float32)
+
+
+def split3(v: torch.Tensor):
+    big = tf32_rna(v)
+    return big, tf32_rna(v - big)
+
+
+def product_3x(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as the tile computes it: the three TF32 products (each exact
+    in f32) summed into one f32 accumulator."""
+    xb, xs = split3(x)
+    wb, ws = split3(w)
+    return torch.cat([xs, xb, xb], 1) @ torch.cat([wb, ws, wb], 0)
+
+
+def inputs(M, K, N, seed=0):
+    # phase 4's distributions: x ~ N(0, 1), W ~ N(0, 1/K)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32))
+    return x, w
+
+
+def test_tf32_rna_rounds_to_nearest_with_ties_away_from_zero():
+    ulp = 2.0 ** -10                     # TF32's unit in the last place at 1.0
+    v = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23, 1 + 1.5 * ulp,
+                      1 + ulp / 4, 3.0, 0.0], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 1.0, 3.0, 0.0],
+                        dtype=torch.float32)
+    assert torch.equal(tf32_rna(v), want)
+    r = torch.from_numpy(np.random.default_rng(1).standard_normal(4096).astype(np.float32))
+    t = tf32_rna(r)
+    assert not bool((t.view(torch.int32) & 0x1FFF).any())          # 13 bits dropped
+    assert bool(((t - r).abs() <= r.abs() * 2.0 ** -11).all())      # half an ulp
+
+
+def test_big_plus_small_keeps_22_bits():
+    r = torch.from_numpy(np.random.default_rng(2).standard_normal(1 << 16).astype(np.float32))
+    big, small = split3(r)
+    err = (r.double() - big.double() - small.double()).abs()
+    assert bool((err <= r.double().abs() * 2.0 ** -22).all())
+
+
+@pytest.mark.parametrize("M,K,N", SHAPES)
+def test_three_pass_tf32_keeps_f32_accuracy(M, K, N):
+    x, w = inputs(M, K, N)
+    exact = x.double() @ w.double()
+    y3 = product_3x(x, w)
+    d3 = (y3.double() - exact).abs().max().item()
+    d32 = ((x @ w).double() - exact).abs().max().item()
+    assert torch.allclose(y3.double(), exact, **TOL)
+    assert d3 <= 4 * d32, (d3, d32)
+
+
+@pytest.mark.parametrize("M,K,N", SHAPES)
+def test_single_pass_tf32_misses_the_f32_tolerance(M, K, N):
+    x, w = inputs(M, K, N)
+    y1 = tf32_rna(x) @ tf32_rna(w)
+    assert not torch.allclose(y1.double(), x.double() @ w.double(), **TOL)
+
+
+def test_bf16_is_exact_in_tf32():
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(1 << 16).astype(np.float32))
+    v = r.to(torch.bfloat16).float()
+    big, small = split3(v)
+    assert torch.equal(big, v) and not bool(small.any())
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+
+KN = [(768, 768), (2560, 10576), (5120, 2560), (100, 70), (300, 129), (7, 1), (70, 45)]
+
+
+def blocks(p, M, P):
+    """Blocks in the plan's grid for an (M, P) output."""
+    return -(-M // p.row_tile) * -(-P // p.col_tile) * p.splits
+
+
+def order_key(p):
+    """The plan's fields that fix the order in which a row's terms are
+    summed: the split and, in the decode regime, the column tile (which
+    sets the block's k lanes); the mma tile's shape does not (32-deep
+    chunks in order within a split, whatever the tile)."""
+    return (p.regime, p.col_tile, p.splits) if p.regime == DECODE else (p.regime, p.splits)
+
+
+@pytest.mark.parametrize("K,N", KN)
+def test_plan_depends_on_m_only_through_the_threshold(K, N):
+    dec = {order_key(forward_plan(M, K, N)) for M in range(1, DECODE_MAX_M + 1)}
+    til = {order_key(forward_plan(M, K, N)) for M in (DECODE_MAX_M + 1, 40, 200, 256, 768)}
+    assert len(dec) == 1 and len(til) == 1
+    assert dec.pop()[0] == DECODE and til.pop()[0] == TILE
+    assert {forward_plan(M, K, N).row_tile for M in range(1, 9)} == {8}
+    assert {forward_plan(M, K, N).row_tile for M in range(9, DECODE_MAX_M + 1)} == {16}
+    assert order_key(dx_plan(5, K, N)) == order_key(dx_plan(768, K, N))
+
+
+@pytest.mark.parametrize("K,N", KN)
+def test_splits_are_powers_of_two_of_enough_rows(K, N):
+    bn, s = decode_split(K, N)
+    assert bn in (32, 64, 128) and s & (s - 1) == 0 and 1 <= s <= MAX_SPLITS
+    assert s == 1 or K // s >= MIN_SPLIT_ROWS
+    t = tile_splits(K, N)
+    assert t & (t - 1) == 0 and 1 <= t <= MAX_SPLITS
+    assert t == 1 or K // t >= MIN_TILE_SPLIT_ROWS
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (8, 768, 768, (DECODE, 8, 32, 8)),      # GPT-2-S decode: 24 x 8 = 192 blocks
+    (16, 768, 768, (DECODE, 16, 32, 8)),    # paged prefill chunk
+    (8, 2560, 10576, (DECODE, 8, 128, 2)),  # Mamba2 ssm_in: 83 x 2 = 166
+    (8, 5120, 2560, (DECODE, 8, 128, 8)),   # Mamba2 ssm_out: 20 x 8 = 160
+    (200, 2560, 10576, (TILE, 64, 64, 2)),  # Mamba2 prefill: 4 x 166 x 2
+    (200, 5120, 2560, (TILE, 64, 64, 8)),   # 4 x 40 x 8
+    (17, 768, 768, (TILE, 32, 32, 4)),      # 1 x 24 x 4 (no shape reaches 132)
+    (256, 768, 768, (TILE, 64, 64, 4)),     # one client's rows: 4 x 12 x 4 = 192
+    (768, 768, 768, (TILE, 64, 64, 4)),     # the server's rows: 12 x 12 x 4 = 576
+])
+def test_plan_fills_the_card_at_the_main_paths_shapes(M, K, N, want):
+    p = forward_plan(M, K, N)
+    assert (p.regime, p.row_tile, p.col_tile, p.splits) == want
+    assert p.vec and (blocks(p, M, N) >= SMS or M < 32)
+
+
+@pytest.mark.parametrize("M", [256, 768])
+def test_dx_plan_fills_the_card(M):
+    p = dx_plan(M, 768, 768)
+    assert p.regime == TILE and blocks(p, M, 768) >= SMS and p.vec
+
+
+@pytest.mark.parametrize("M,K,N,dx", [(5, 100, 70, False), (33, 300, 129, False),
+                                      (33, 70, 45, True), (1, 7, 1, False)])
+def test_unaligned_pitches_choose_element_copies(M, K, N, dx):
+    p = dx_plan(M, K, N) if dx else forward_plan(M, K, N)
+    assert not p.vec
+    assert forward_plan(8, 768, 768).vec and forward_plan(40, 768, 768).vec
+    assert not forward_plan(8, 768, 768, aligned=False).vec
+    # bf16 moves 8 elements per 16 bytes: N = 772 is whole in f32, not in bf16
+    assert forward_plan(40, 768, 772).vec and not forward_plan(40, 768, 772, 2).vec
+    assert not forward_plan(40, 770, 768).vec        # the tile also streams x's rows
+    assert forward_plan(8, 770, 768).vec             # the decode streams only W's
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """Run the kernel wrappers on CPU tensors with the C entries replaced
+    by recorders: returns {entry name: [argument tuples]}."""
+    calls = {}
+
+    def bind(lib, name, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes), (name, len(args), len(argtypes))
+            calls.setdefault(name, []).append(args)
+            return 0
+        return fn
+
+    class NoDevice:
+        def __init__(self, dev):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(ops, "_bind", bind)
+    monkeypatch.setattr(ops, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(ops, "_stream", lambda dev: 0)
+    monkeypatch.setattr(ops.torch.cuda, "device", NoDevice)
+    monkeypatch.setattr(ops.backend, "count_launch", lambda op: None)
+    return calls
+
+
+@pytest.mark.parametrize("M", [1, 8, DECODE_MAX_M, DECODE_MAX_M + 1, 40, 200])
+def test_gather_and_single_adapter_entries_get_the_same_plan(launches, M):
+    K, N, r, A = 768, 768, 4, 3
+    x, w = torch.zeros(M, K), torch.zeros(K, N)
+    ops.lora_matmul_kernel(x, w, torch.zeros(r, K), torch.zeros(N, r), 2.0)
+    ops.lora_matmul_gather_kernel(x, w, torch.zeros(A, r, K), torch.zeros(A, N, r),
+                                  torch.zeros(M, dtype=torch.int32), 2.0)
+    (one,), (pool,) = launches["lora_matmul_fwd_launch"], launches["lora_matmul_gather_launch"]
+    p = forward_plan(M, K, N)
+    want = (p.regime, p.row_tile, p.col_tile, p.splits, int(p.vec))
+    assert one[11:16] == want and pool[13:18] == want
+    assert one[5:9] == (M, K, N, r) and pool[6:11] == (M, K, N, r, A)
+
+
+def test_dx_wrapper_passes_its_plan(launches):
+    M, K, N, r = 256, 768, 770, 4
+    ops.lora_matmul_dx_kernel(torch.zeros(M, N), torch.zeros(K, N), torch.zeros(r, K),
+                              torch.zeros(N, r), 2.0)
+    (args,) = launches["lora_matmul_dx_launch"]
+    p = dx_plan(M, K, N)
+    assert args[5:9] == (M, K, N, r)
+    assert args[11:15] == (p.row_tile, p.col_tile, p.splits, 0) and p.splits == 4
+
+
+def test_a_forced_regime_reaches_the_launch(launches):
+    x, w = torch.zeros(32, 768), torch.zeros(768, 768)
+    a, b = torch.zeros(4, 768), torch.zeros(768, 4)
+    ops.lora_matmul_kernel(x, w, a, b, 1.0, regime=DECODE)
+    ops.lora_matmul_kernel(x, w, a, b, 1.0)
+    forced, chosen = launches["lora_matmul_fwd_launch"]
+    assert forced[11:15] == (DECODE, 16, 32, 8) and chosen[11] == TILE
