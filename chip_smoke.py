@@ -9,7 +9,7 @@ Phases (each prints its own lines; any failure exits non-zero):
  1. device: name, power limit, TF32 off for the float32 references;
  2. build: all seven CUDA sources from src/repro_torch/kernels/csrc with
     nvcc, in parallel; ptxas's registers, shared memory and spills of each
-    kernel of the two LoRA libraries;
+    kernel of the three LoRA libraries (the TF32 tile's instantiations);
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
     forward LoRA matmul in both its regimes (M <= 16 and above, Mamba2's
@@ -19,8 +19,9 @@ Phases (each prints its own lines; any failure exits non-zero):
     same regime), paged decode, the dX and rank-reduce backward
     kernels, the autograd backward of ``lora_matmul`` against autograd of
     its plain version, the causal flash-attention forward, and the
-    int8-base forward and dX (``lora_matmul(..., w_scale=)``) with their
-    autograd backward, and the decode family: flash decode over slab
+    int8-base forward and dX (``lora_matmul(..., w_scale=)``, also at
+    Mamba2's ``ssm_out`` shape) with their autograd backward, and the
+    decode family: flash decode over slab
     caches (lengths 0 to L + 1, windows, GQA, ragged D) and the int8-KV
     pair (flash_decode_q8 over an int8 slab, paged_decode_q8 over an int8
     pool); and the SSD scan (y and the final state) against ``ssd_chunked``
@@ -35,9 +36,10 @@ Phases (each prints its own lines; any failure exits non-zero):
     dequantize-then-SDPA for the int8 pair, as the library calls; the SSD
     scan at S 200 and 512 has no library call; ``lora_matmul`` also at
     Mamba2's projection shapes at M 8 and 200; the 3xTF32 tile's bound
-    counts three TF32 products per f32 product); two runs bit-equal for
-    ``lora_matmul`` at M 8 and 768 and dX at M 256; a sweep of M with each
-    regime forced, at K = N = 768 and at ``ssm_in``;
+    counts three TF32 products per f32 product, the q8 pair's two, as the
+    int8 W is exact in TF32); two runs bit-equal for ``lora_matmul`` at
+    M 8 and 768, dX at M 256 and the q8 pair at M 256; a sweep of M with
+    each regime forced, at K = N = 768 and at ``ssm_in``;
  5. serving: ServingEngine on full-width GPT-2-S (f32, 8 slots, 512
     positions, 16-token pages) drains 16 requests; the launch counters,
     reset just before, must show the kernels carried the path; one decode
@@ -177,12 +179,13 @@ def bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound_3xtf32(nbytes: float, flops: float):
-    """(bound_ms, bound_by) of f32 work on the 3xTF32 tensor-core tile:
-    the larger of bytes over the memory rate and three TF32 products per
-    f32 product over the TF32 rate."""
+def bound_tf32(nbytes: float, flops: float, passes: int):
+    """(bound_ms, bound_by) of f32 work on the TF32 tensor-core tile: the
+    larger of bytes over the memory rate and `passes` TF32 products per
+    f32 product over the TF32 rate (3xTF32: three; an operand exact in
+    TF32, as int8 is: two)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    t_ops = passes * flops / PEAK_FLOPS["tf32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -238,7 +241,7 @@ def main() -> None:
     print(f"[build] nvcc sm_90a, in parallel: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.1f}s")
-    for lib in ("lora_matmul", "lora_matmul_bwd"):      # redesigned in this slice
+    for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8"):   # the TF32 tile's
         for line in build.resource_usage(lib):
             print(f"[ptxas] {lib}: {line}")
 
@@ -363,14 +366,16 @@ def main() -> None:
 
     def check_q8(dt, dn):
         """The int8-base forward and dX kernels alone at the fleets' shapes
-        (a client's M = 256, the pooled server M = 768, serving M = 8) and
-        ragged ones (N not a multiple of 4 reads W byte by byte), then the
+        (a client's M = 256, the pooled server M = 768, serving M = 8),
+        Mamba2's ``ssm_out`` at M 200 (eight splits of K 5120) and ragged
+        ones (pitches not whole 16 bytes copy element by element), then the
         autograd backward of lora_matmul(..., w_scale=) against autograd of
         its plain version (dx, da, db; no gradient for W or its scale)."""
         tol = GRAD_TOL[dn]            # f32: atol = rtol 1e-4; bf16: repro's GRAD_TOLS
         for M, K, N, r in ((8, 768, 768, 8), (256, 768, 768, 8), (768, 768, 768, 8),
                            (256, 768, 768, 1), (768, 768, 768, 2), (256, 768, 768, 4),
-                           (33, 70, 45, 2), (5, 100, 70, 1), (70, 130, 301, 64)):
+                           (33, 70, 45, 2), (5, 100, 70, 1), (70, 130, 301, 64),
+                           (200, 5120, 2560, 4)):
             x, wq, ws, a, b = q8_inputs(M, K, N, r, dt)
             y = lora_matmul_q8_kernel(x, wq, ws, a, b, scale)
             dy = randn(M, N).to(dev, dt)
@@ -802,7 +807,7 @@ def main() -> None:
     lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
     nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
     flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
-    bms, bby = bound_3xtf32(nbytes, flops)
+    bms, bby = bound_tf32(nbytes, flops, 3)
     rows[("lora_matmul", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                                     bound_by=bby)
     print(f"[time] lora_matmul f32 M={M} K={K} N={N} r={r} (training M, tile regime): "
@@ -820,7 +825,7 @@ def main() -> None:
         lib = time_ms(torch, lambda: dy @ w.T + scale * ((dy @ b) @ a), flush)
         nbytes = 4 * (M * N + K * N + r * K + N * r + M * K)
         flops = 2 * M * N * K + 2 * M * N * r + 2 * M * r * K
-        bms, bby = bound_3xtf32(nbytes, flops)
+        bms, bby = bound_tf32(nbytes, flops, 3)
         rows[("lora_matmul_dx", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                            bound_ms=bms, bound_by=bby)
         print(f"[time] lora_matmul_dx f32 M={M} K={K} N={N} r={r}: kernel "
@@ -857,12 +862,20 @@ def main() -> None:
               f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(SDPA is_causal, "
               f"(B, H, S, D) layout) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby})")
     # the int8-base kernels at the fleets' training shapes: a client's rows
-    # (M = b * S = 256) and the pooled server's (M = 768), r = 8
-    for M in (256, 768):
+    # (M = b * S = 256) and the pooled server's (M = 768), r = 8; on the
+    # TF32 tile in two passes (the int8 W is exact in TF32): their bound is
+    # two TF32 products per f32 product, the f32-FFMA bound beside it.  Also
+    # at r = 4, the rank of the f32 tile's rows above: the rank tile Z = L U
+    # is f32 FFMA, BM * r * 32 per chunk beside the tensor-core product
+    for M, r in ((256, 8), (768, 8), (768, 4)):
         K = N = 768
-        r = 8
         x, wq, ws, a, b = q8_inputs(M, K, N, r, torch.float32)
         dy = randn(M, N).to(dev)
+        if M == 256:
+            same_bits("lora_matmul_q8", f"f32 M={M} K={K} N={N} r={r}",
+                      lambda: lora_matmul_q8_kernel(x, wq, ws, a, b, scale))
+            same_bits("lora_matmul_q8_dx", f"f32 M={M} K={K} N={N} r={r}",
+                      lambda: lora_matmul_q8_dx_kernel(dy, wq, ws, a, b, scale))
         for op, kern, plain_fn, lib_fn, nbytes in (
                 ("lora_matmul_q8", lambda: lora_matmul_q8_kernel(x, wq, ws, a, b, scale),
                  lambda: lora_matmul_q8_ref(x, wq, ws, a, b, scale),
@@ -876,13 +889,15 @@ def main() -> None:
             ms = time_ms(torch, kern, flush)
             plain = time_ms(torch, plain_fn, flush)
             lib = time_ms(torch, lib_fn, flush)
-            bms, bby = bound(nbytes, 2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
-            rows[(op, M)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                                 bound_by=bby)
+            flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+            bms, bby = bound_tf32(nbytes, flops, 2)
+            rows[(op, M) if r == 8 else (op, M, r)] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=bby)
             print(f"[time] {op} f32 M={M} K={K} N={N} r={r} (W int8): kernel "
                   f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(dequantize + "
-                  f"torch.matmul) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, "
-                  f"{nbytes} B); {2 * M * N * K / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+                  f"torch.matmul) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us (2xTF32, "
+                  f"{bby}, {nbytes} B; f32 FFMA bound {bound(nbytes, flops)[0] * 1e3:.2f}us); "
+                  f"{2 * M * N * K / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     # -- 4c. times at Mamba2-2.7B's serving shapes (f32) -----------------------
     # lora_matmul at a decode step's projections (8 slots: the decode
     # regime) and at a 200-token prefill (the tile regime): ssm_in (K 2560,
@@ -900,7 +915,7 @@ def main() -> None:
             nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
             flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
             tile = M > DECODE_MAX_M
-            bms, bby = (bound_3xtf32 if tile else bound)(nbytes, flops)
+            bms, bby = bound_tf32(nbytes, flops, 3) if tile else bound(nbytes, flops)
             rows[("lora_matmul", what, M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                                   bound_ms=bms, bound_by=bby)
             print(f"[time] lora_matmul f32 M={M} K={K} N={N} r={r} (Mamba2 {what}, "
@@ -1179,8 +1194,11 @@ def main() -> None:
     nt = len(cfg.lora_targets)
     ad_tol = lrf * 1e-2
 
-    def fleet(label, alloc, prec):
-        rt = TM.default_train_runtime().replace(precision=prec)
+    def fleet(label, alloc, prec, rt=None):
+        """Trains one fleet for `rounds` rounds; through the kernels and
+        held to their exact launch counts, or through `rt` when given."""
+        kern = rt is None
+        rt = (TM.default_train_runtime() if kern else rt).replace(precision=prec)
         sfl = SflLLM.from_allocation(prob, alloc, base8, adamw(lrf), rt=rt, device="cuda")
         lora0 = sfl.init_lora(torch.Generator().manual_seed(1))
         g_b = torch.Generator().manual_seed(2)
@@ -1214,30 +1232,45 @@ def main() -> None:
             f"{t_:.3f}s ({t_ / If * 1e3:.1f} ms/local step)" for t_ in hist.round_seconds)
             + f"; wall {wall:.2f}s (host clock, rounds end in a host read of their losses)")
         print(f"[fleet {label}] losses: {' '.join(f'{x:.4f}' for x in hist.losses)}")
-        print(f"[fleet {label}] launches: {got}; per local step expected {per_step} "
-              f"(q8 {nt}(sum ell_k + L - min ell_k), q8 dX {nt}(sum(ell_k - 1) + L - "
-              f"min ell_k), rank reduce twice the q8 forward)")
         if steps != rounds * If or not all(math.isfinite(x) for x in hist.losses):
             fail(f"fleet {label}: losses not finite or wrong count: {hist.losses}")
         if hist.rolled_back_rounds:
             fail(f"fleet {label}: rounds rolled back: {hist.rolled_back_rounds}")
+        if not kern:
+            return sfl, state, got, hist.losses
+        print(f"[fleet {label}] launches: {got}; per local step expected {per_step} "
+              f"(q8 {nt}(sum ell_k + L - min ell_k), q8 dX {nt}(sum(ell_k - 1) + L - "
+              f"min ell_k), rank reduce twice the q8 forward)")
         want = {k: v * steps for k, v in per_step.items()}
         if got != want:
             fail(f"fleet {label}: launched {got}, expected exactly {want}")
-        return sfl, state, got
+        return sfl, state, got, hist.losses
 
     prec_b = PrecisionConfig(grad_bits=8, stochastic_rounding=True, error_feedback=True)
-    _, _, fleet_a = fleet("a", alloc_a, PrecisionConfig())
-    sfl_b, state_b, fleet_b = fleet("b", alloc_b, prec_b)
+    _, _, fleet_a, _ = fleet("a", alloc_a, PrecisionConfig())
+    sfl_b, state_b, fleet_b, loss_b = fleet("b", alloc_b, prec_b)
     if state_b.err_act is None or state_b.err_grad is None:
         fail("fleet b carries no error-feedback state")
+    prec_det = prec_b.replace(stochastic_rounding=False)
+
+    # fleet b's trajectory, a witness and no check: its 4-bit quantizers
+    # carry f32 rounding from step to step, so the 12 losses are compared
+    # with the plain path's (dequantize + matmul) own, with stochastic
+    # rounding on and off
+    traj = {"on": (loss_b, fleet("b, plain path", alloc_b, prec_b, TM.Runtime())[3])}
+    traj["off"] = tuple(fleet(f"b, stochastic rounding off, {w}", alloc_b, prec_det, rt)[3]
+                        for w, rt in (("kernels", None), ("plain path", TM.Runtime())))
+    for sr, (lk_, lp_) in traj.items():
+        print(f"[fleet b] 12-step losses, kernels vs plain path, stochastic rounding {sr}: "
+              f"end {lk_[-1]:.4f} vs {lp_[-1]:.4f}, max |diff| over the steps "
+              f"{max(abs(x - y) for x, y in zip(lk_, lp_)):.3g} (first step "
+              f"{abs(lk_[0] - lp_[0]):.3g})")
 
     # fleet b: one local step from the trained state through the kernels and
     # through the plain path (dequantize + matmul), stochastic rounding off
     rng = np.random.default_rng(6)
     tok = rng.integers(0, tok_e2e.vocab_size, (Kf, bf, Sf)).astype(np.int32)
     batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=-1)}
-    prec_det = prec_b.replace(stochastic_rounding=False)
     outs = []
     for rt in (TM.default_train_runtime(), TM.Runtime()):
         s_ = SflLLM.from_allocation(prob, alloc_b, base8, adamw(lrf),

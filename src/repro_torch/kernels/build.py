@@ -4,8 +4,8 @@
 Each ``csrc/<name>.cu`` holds one kernel family behind a plain C interface
 (no PyTorch headers, so ``nvcc`` takes seconds, not minutes); the
 ``csrc/*.cuh`` headers hold device code that several of them include (the
-3xTF32 LoRA GEMM tile of ``lora_mma.cuh``, the int8-base tile of
-``lora_tile.cuh``, the decode body of ``decode_tile.cuh``).  Each source
+TF32 LoRA GEMM tile of ``lora_mma.cuh``, which the int8-base pair shares,
+and the decode body of ``decode_tile.cuh``).  Each source
 is compiled for Hopper (``sm_90a``) into
 ``<repo>/build/kernels/lib<name>.so`` — a git-ignored directory inside the
 checkout — and rebuilt whenever it or any header is newer than the

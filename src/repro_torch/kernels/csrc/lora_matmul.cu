@@ -286,7 +286,7 @@ __global__ void __launch_bounds__(DNT, 2) decode_pool(
 // ---------------------------------------------------------------------------
 
 template <typename T, typename Adapter>
-struct FwdOp {
+struct FwdOp : MmaDefaults<T> {
   static constexpr bool RQ = false;     // W (K, N) is R[k][n], n-major
   static constexpr bool US = Adapter::SHARED;
   const T* w;
@@ -295,11 +295,7 @@ struct FwdOp {
   __device__ __forceinline__ bool live(int m) const { return ad.live(m); }
   // us[j][q] = A[j][q0 + q] (one adapter for the tile)
   __device__ __forceinline__ void stage_u(T* us, int q0, int Q, int, int tid) const {
-    for (int i = tid; i < MMA_BK * r; i += MMA_NT) {
-      const int j = i / MMA_BK, q = i % MMA_BK;
-      const bool ok = q0 + q < Q;
-      copy_elem(us + i, ok ? ad.a_row(0, j, K, r) + q0 + q : ad.a, ok);
-    }
+    stage_u_rank_major(us, ad.a, K, q0, Q, r, tid);
   }
   __device__ __forceinline__ float u(int m, int j, int k) const {
     return to_f(ad.a_row(m, j, K, r)[k]);
@@ -316,7 +312,7 @@ __global__ void __launch_bounds__(MMA_NT) tile_one(const T* __restrict__ x,
                                                    const T* __restrict__ b, T* __restrict__ y,
                                                    int M, int K, int N, int r, float scale) {
   extern __shared__ __align__(16) unsigned char tsm[];
-  const FwdOp<T, OneAdapter<T>> op{w, OneAdapter<T>{a, b}, K, N, r};
+  const FwdOp<T, OneAdapter<T>> op{{}, w, OneAdapter<T>{a, b}, K, N, r};
   mma_tile<T, BM, BN, VEC>(x, op, y, M, K, N, r, scale, tsm);
 }
 
@@ -328,7 +324,7 @@ __global__ void __launch_bounds__(MMA_NT) tile_pool(
   extern __shared__ __align__(16) unsigned char tsm[];
   __shared__ int slot[BM];
   load_slots(slot, idx, blockIdx.y * BM, BM, M, P);
-  const FwdOp<T, Pool<T>> op{w, Pool<T>{a_pool, b_pool, slot}, K, N, r};
+  const FwdOp<T, Pool<T>> op{{}, w, Pool<T>{a_pool, b_pool, slot}, K, N, r};
   mma_tile<T, BM, BN, VEC>(x, op, y, M, K, N, r, scale, tsm);
 }
 

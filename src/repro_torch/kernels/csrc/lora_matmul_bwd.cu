@@ -50,7 +50,7 @@ namespace {
 // ---------------------------------------------------------------------------
 
 template <typename T>
-struct DxOp {
+struct DxOp : MmaDefaults<T> {
   static constexpr bool RQ = true;      // R[n][k] = W[k][n]: rows of W run along n
   static constexpr bool US = true;      // U = B, one adapter for every row
   const T* w;
@@ -60,11 +60,7 @@ struct DxOp {
   __device__ __forceinline__ bool live(int) const { return true; }
   // us[j][q] = B[n0 + q][j]
   __device__ __forceinline__ void stage_u(T* us, int n0, int N, int, int tid) const {
-    for (int i = tid; i < MMA_BK * r; i += MMA_NT) {
-      const int j = i / MMA_BK, q = i % MMA_BK;
-      const bool ok = n0 + q < N;
-      copy_elem(us + i, ok ? b + (size_t)(n0 + q) * r + j : b, ok);
-    }
+    stage_u_rows(us, b, n0, N, r, tid);
   }
   __device__ __forceinline__ float u(int, int j, int n) const { return to_f(b[(size_t)n * r + j]); }
   __device__ __forceinline__ float v(int, int j, int k) const { return to_f(a[(size_t)j * K + k]); }
@@ -77,7 +73,7 @@ __global__ void __launch_bounds__(MMA_NT) dx_tile(const T* __restrict__ dy,
                                                   const T* __restrict__ b, T* __restrict__ dx,
                                                   int M, int K, int N, int r, float scale) {
   extern __shared__ __align__(16) unsigned char tsm[];
-  mma_tile<T, BM, BN, VEC>(dy, DxOp<T>{w, a, b, K, r}, dx, M, N, K, r, scale, tsm);
+  mma_tile<T, BM, BN, VEC>(dy, DxOp<T>{{}, w, a, b, K, r}, dx, M, N, K, r, scale, tsm);
 }
 
 template <typename T, int BM, int BN, bool VEC>

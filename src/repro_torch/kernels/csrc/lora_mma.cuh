@@ -1,27 +1,32 @@
-// The 3xTF32 tensor-core tile shared by the LoRA GEMMs at prefill and
+// The TF32 tensor-core tile shared by the LoRA GEMMs at prefill and
 // training M, for Hopper (sm_90a): the tile regime of lora_matmul and of
-// its gather (csrc/lora_matmul.cu) and lora_matmul_dx
-// (csrc/lora_matmul_bwd.cu).  Each is
+// its gather (csrc/lora_matmul.cu), lora_matmul_dx
+// (csrc/lora_matmul_bwd.cu), and the int8-base pair lora_matmul_q8 and
+// lora_matmul_q8_dx (csrc/lora_matmul_q8.cu).  Each is
 //
-//   out[m][p] = sum_q L[m][q] R[q][p] + scale * sum_j Z[m][j] V[j][p],
+//   out[m][p] = finish(sum_q L[m][q] c[q] R[q][p], p) + scale * sum_j Z[m][j] V[j][p],
 //   Z[m][j]   = sum_q L[m][q] U[q][j]
 //
-// with L (M, Q) row-major (x for the forward, dY for dX) and an operand
+// with L (M, Q) row-major (x for the forward, dY for dX), c = 1 but for
+// the q8 dX, finish the identity but for the q8 forward, and an operand
 // policy `Op` that says where R, U and V live:
 //
-//   product   Q  P  R[q][p]   stored            U[q][j]        V[j][p]
-//   forward   K  N  W[q][p]   (K, N): p-major   A[j][q]        B[p][j]
-//   dX        N  K  W[p][q]   (K, N): q-major   B[q][j]        A[j][p]
+//   product     Q  P  R[q][p]       stored              U[q][j]  V[j][p]  c[q]  finish
+//   forward     K  N  W[q][p]       (K, N): p-major     A[j][q]  B[p][j]  1     v
+//   dX          N  K  W[p][q]       (K, N): q-major     B[q][j]  A[j][p]  1     v
+//   q8 forward  K  N  W_q[q][p]     int8 (K, N): p-major A[j][q] B[p][j]  1     s[p] v
+//   q8 dX       N  K  W_q[p][q]     int8 (K, N): q-major B[q][j] A[j][p]  s[q]  v
 //
 // (the forward's U and V are the row's adapter's under the gather's Pool).
 //
 // Replaces, with csrc/lora_matmul.cu's decode regime and
 // csrc/lora_matmul_bwd.cu: src/repro/kernels/lora_matmul/kernel.py::
 // lora_matmul_kernel, ::lora_matmul_gather_kernel and
-// ::lora_matmul_dx_kernel at M above the decode regime's threshold.  There
-// the grid's innermost reduction axis ran in order and VMEM scratch
-// carried the (bm, bn) and (bm, r) accumulators; here a K loop inside the
-// block does.
+// ::lora_matmul_dx_kernel at M above the decode regime's threshold, and
+// (csrc/lora_matmul_q8.cu) ::lora_matmul_q8_kernel and
+// ::lora_matmul_q8_dx_kernel.  There the grid's innermost reduction axis
+// ran in order and VMEM scratch carried the (bm, bn) and (bm, r)
+// accumulators; here a K loop inside the block does.
 //
 // What bounds it on the H100: at M = 256-768, K = N = 768 (SFL) and at
 // Mamba2's prefill (M up to 300, K 2560-5120) it is a real GEMM, ~2 M K N
@@ -31,8 +36,10 @@
 // f32 path is held to at K = 768, so each f32 operand v is split into
 // big = cvt.rna.tf32(v) and small = cvt.rna.tf32(v - big) and the tile
 // accumulates small*big + big*small + big*big in f32 (3xTF32): three
-// mma per product, a bound of 3 * 2 M K N / 495 TFLOP/s.  A bf16 operand
-// is exact in TF32 and takes one pass.
+// mma per product, a bound of 3 * 2 M K N / 495 TFLOP/s.  An operand
+// that is exact in TF32 is never split: bf16 (8 significant bits) and
+// int8 (-128..127, at most 8) are taken whole, so bf16 x bf16 takes one
+// pass and f32 x int8 two, small*R + big*R (a bound of 2 * 2 M K N / 495).
 //
 // Design:
 //  * 128 threads (2 x 2 warps) per (BM x BN) output tile, BM = BN = 64 or
@@ -43,16 +50,24 @@
 //  * L and R tiles, 32 deep along q, stream through a ring of NS = 3
 //    stages of padded shared memory with cp.async (16-byte copies, or
 //    element copies where a row pitch is not a multiple of 16 bytes),
-//    zero-filled past the M, Q and P edges; the ring is over 48 KB at
-//    64 x 64 and is opted into with cudaFuncSetAttribute;
+//    zero-filled past the M, Q and P edges; R keeps its own element type
+//    there (an int8 W moves a quarter of an f32 W's bytes) and becomes
+//    f32 at the fragment read, (float)q for int8, exact; the ring is over
+//    48 KB at 64 x 64 in f32 and is opted into with cudaFuncSetAttribute;
 //  * the row padding makes every fragment read conflict-free: L and a
-//    q-major R at a pitch of 36 floats (4 mod 32 banks), a p-major R at
-//    BN + 8 (8 mod 32);
-//  * the rank tile Z (BM x r) stays f32 FFMA and rides the same loop: two
-//    threads per row of the staged L chunk, each half of it, with the U
-//    chunk staged beside L and R when one adapter serves every row (read
-//    from global memory per row under the gather's Pool); the epilogue
-//    adds scale * Z V and writes once;
+//    q-major R at a pitch of 32 elements + 16 bytes (36 floats: 4 mod 32
+//    banks; 48 int8 bytes: the 8 rows a read takes land on words 0, 12,
+//    24, 4, 16, 28, 8, 20), a p-major R at BN + 8 elements (f32, bf16)
+//    or BN + 16 bytes (int8: the 4 rows at BN 64 on words {0,1}, {20,21},
+//    {8,9}, {28,29}), every row on a 16-byte boundary;
+//  * the q8 dX's per-q scale c = s rides the ring beside L and R (32
+//    floats a stage); L's fragment value is multiplied by it, rounded
+//    once in f32, before the big/small split;
+//  * the rank tile Z (BM x r) stays f32 FFMA on the raw L and rides the
+//    same loop: two threads per row of the staged L chunk, each half of
+//    it, with the U chunk staged beside L and R when one adapter serves
+//    every row (read from global memory per row under the gather's Pool);
+//    the epilogue adds scale * Z V and writes once;
 //  * each 32-deep chunk's products go to a zeroed fragment and then into
 //    the f32 accumulator with one rounded add: the tensor core truncates
 //    what it adds, so three passes a step straight onto a growing
@@ -65,9 +80,10 @@
 //    over the cluster's blocks;
 //  * each element's terms are added in one order: within a split q in
 //    32-deep chunks in sequence, in each 8-deep step small*big, big*small,
-//    big*big, then the splits in rank order, whatever BM and BN are, and
-//    no atomics: a row's result depends only on K, N and its own inputs,
-//    and two runs give equal bits;
+//    big*big (the passes that exist), then the splits in rank order, then
+//    finish, whatever BM and BN are, and no atomics: a row's result
+//    depends only on K, N and its own inputs, and two runs give equal
+//    bits;
 //  * any rank 1 <= r <= RMAX = 64.
 // Why mma.sync and not wgmma: TF32 wgmma reads both operands K-major from
 // shared memory, and the forward's W is (K, N), N-major; mma.sync takes
@@ -81,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -89,6 +107,7 @@ constexpr int RMAX = 64;        // largest adapter rank taken
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
@@ -137,7 +156,7 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // One element of T, global -> shared: 4-byte cp.async for f32, a plain
-// load and store for bf16 (cp.async copies 4 bytes at least).
+// load and store for bf16 and int8 (cp.async copies 4 bytes at least).
 template <typename T>
 __device__ __forceinline__ void copy_elem(T* dst, const T* src, bool ok) {
   if constexpr (sizeof(T) == 4) {
@@ -156,29 +175,43 @@ constexpr int MMA_BK = 32;      // q depth of one ring stage
 constexpr int MMA_NS = 3;       // ring stages
 constexpr int RJ = 4;           // ranks of the rank tile summed per pass
 
-template <typename T, int BM, int BN, bool RQ>
-struct MmaLayout {
-  static constexpr int E = 16 / sizeof(T);                    // elements per 16 bytes
-  static constexpr int LP = MMA_BK + E;                       // L / q-major R pitch
-  static constexpr int RP = RQ ? LP : BN + 8;                 // R pitch
-  static constexpr int L_ELEMS = BM * LP;
-  static constexpr int R_ELEMS = RQ ? BN * LP : MMA_BK * (BN + 8);
+// The defaults of an operand policy (see mma_tile): R of L's type, no
+// scale on L, nothing applied after the reduction.  R's element type
+// alone decides whether it is split (f32 only).
+template <typename T>
+struct MmaDefaults {
+  using TR = T;
+  static constexpr bool L_SCALE = false;
+  __device__ __forceinline__ float finish(float v, int) const { return v; }
 };
 
-// Elements of one ring stage: L, R and (when the adapter is shared by the
-// tile's rows) the U chunk, stored rank-major (r x MMA_BK), rounded to
-// whole 16 bytes.
-template <typename T, int BM, int BN, bool RQ, bool US>
+// One ring stage, in elements of L's type T: L, R (R_ELEMS T's worth of
+// its own type), (L_SCALE) the 32 floats of c, then (when the adapter is
+// shared by the tile's rows) the U chunk, stored rank-major (r x MMA_BK);
+// every part starts on a 16-byte boundary.
+template <typename T, typename TR, int BM, int BN, bool RQ, bool LS>
+struct MmaLayout {
+  static constexpr int E = 16 / sizeof(T);                    // L elements per 16 bytes
+  static constexpr int RE = 16 / sizeof(TR);                  // R elements per 16 bytes
+  static constexpr int LP = MMA_BK + E;                       // L pitch
+  static constexpr int RP = RQ ? MMA_BK + RE : BN + (RE > 8 ? RE : 8);   // R pitch
+  static constexpr int L_ELEMS = BM * LP;
+  static constexpr int R_ELEMS = (RQ ? BN : MMA_BK) * RP * sizeof(TR) / sizeof(T);
+  static constexpr int S_ELEMS = LS ? MMA_BK * sizeof(float) / sizeof(T) : 0;
+  static constexpr int U_OFF = L_ELEMS + R_ELEMS + S_ELEMS;
+};
+
+template <typename T, typename TR, int BM, int BN, bool RQ, bool US, bool LS>
 __host__ __device__ constexpr int mma_stage_elems(int r) {
-  using Ly = MmaLayout<T, BM, BN, RQ>;
-  return Ly::L_ELEMS + Ly::R_ELEMS + (US ? (MMA_BK * r + Ly::E - 1) / Ly::E * Ly::E : 0);
+  using Ly = MmaLayout<T, TR, BM, BN, RQ, LS>;
+  return Ly::U_OFF + (US ? (MMA_BK * r + Ly::E - 1) / Ly::E * Ly::E : 0);
 }
 
 // Dynamic shared memory of the tile for rank r: the ring (the partial
 // tile reuses it after the loop), then the split's rank tile and the sum.
-template <typename T, int BM, int BN, bool RQ, bool US>
+template <typename T, int BM, int BN, bool RQ, bool US, typename TR = T, bool LS = false>
 constexpr size_t mma_smem_bytes(int r) {
-  return size_t(MMA_NS) * mma_stage_elems<T, BM, BN, RQ, US>(r) * sizeof(T) +
+  return size_t(MMA_NS) * mma_stage_elems<T, TR, BM, BN, RQ, US, LS>(r) * sizeof(T) +
          2 * size_t(BM) * r * sizeof(float);
 }
 
@@ -194,18 +227,22 @@ __device__ __forceinline__ void for_items(int tid, F&& f) {
 }
 
 // Stage q-chunk q0 of L (rows m0..) and R (columns p0..) into ring slot `st`.
-template <typename T, int BM, int BN, bool VEC, bool RQ>
+template <typename T, typename TR, int BM, int BN, bool VEC, bool RQ>
 __device__ __forceinline__ void mma_stage(T* st, const T* __restrict__ lhs,
-                                          const T* __restrict__ w, int m0, int p0, int q0,
+                                          const TR* __restrict__ w, int m0, int p0, int q0,
                                           int M, int Q, int P, int tid) {
-  using Ly = MmaLayout<T, BM, BN, RQ>;
+  using Ly = MmaLayout<T, TR, BM, BN, RQ, false>;
   T* ls = st;
-  T* rs = st + Ly::L_ELEMS;
-  constexpr int E = VEC ? Ly::E : 1;
-  constexpr int QC = MMA_BK / E;          // copies along q per row
-  auto copy = [&](T* dst, const T* src, bool ok) {
-    if constexpr (VEC) cp_async16(dst, ok ? src : lhs, ok);
-    else copy_elem(dst, ok ? src : lhs, ok);
+  TR* rs = reinterpret_cast<TR*>(st + Ly::L_ELEMS);
+  constexpr int E = VEC ? Ly::E : 1, RE = VEC ? Ly::RE : 1;
+  constexpr int QC = MMA_BK / E;          // L copies along q per row
+  // 16 bytes or one element, zero-filled when !ok (lhs is then named and
+  // not read)
+  auto copy = [&](auto* dst, const auto* src, bool ok) {
+    using E_ = typename std::remove_pointer<decltype(dst)>::type;
+    const E_* from = ok ? src : reinterpret_cast<const E_*>(lhs);
+    if constexpr (VEC) cp_async16(dst, from, ok);
+    else copy_elem(dst, from, ok);
   };
   // L: BM rows of MMA_BK along q
   for_items<BM * QC>(tid, [&](int i) {
@@ -215,20 +252,58 @@ __device__ __forceinline__ void mma_stage(T* st, const T* __restrict__ lhs,
   });
   if constexpr (RQ) {
     // R[q][p] = w[p * Q + q]: BN rows (p) of MMA_BK along q
-    for_items<BN * QC>(tid, [&](int i) {
-      const int p = i / QC, q = (i % QC) * E;
+    constexpr int RC = MMA_BK / RE;
+    for_items<BN * RC>(tid, [&](int i) {
+      const int p = i / RC, q = (i % RC) * RE;
       const int gp = p0 + p, gq = q0 + q;
       copy(rs + p * Ly::RP + q, w + (size_t)gp * Q + gq, gp < P && gq < Q);
     });
   } else {
     // R[q][p] = w[q * P + p]: MMA_BK rows (q) of BN along p
-    constexpr int PC = BN / E;
+    constexpr int PC = BN / RE;
     for_items<MMA_BK * PC>(tid, [&](int i) {
-      const int q = i / PC, p = (i % PC) * E;
+      const int q = i / PC, p = (i % PC) * RE;
       const int gp = p0 + p, gq = q0 + q;
       copy(rs + q * Ly::RP + p, w + (size_t)gq * P + gp, gp < P && gq < Q);
     });
   }
+}
+
+// The U chunk of a shared adapter into us[j][q] (rank-major, r x MMA_BK),
+// zero past Q: from a rank-major U, us[j][q] = u[j * pitch + q0 + q] (the
+// forward's A, (r, K)) ...
+template <typename T>
+__device__ __forceinline__ void stage_u_rank_major(T* us, const T* u, int pitch, int q0,
+                                                   int Q, int r, int tid) {
+  for (int i = tid; i < MMA_BK * r; i += MMA_NT) {
+    const int j = i / MMA_BK, q = i % MMA_BK;
+    const bool ok = q0 + q < Q;
+    copy_elem(us + i, ok ? u + (size_t)j * pitch + q0 + q : u, ok);
+  }
+}
+
+// ... or from rows of r, us[j][q] = u[(q0 + q) * r + j] (the dX's B, (N, r)).
+template <typename T>
+__device__ __forceinline__ void stage_u_rows(T* us, const T* u, int q0, int Q, int r,
+                                             int tid) {
+  for (int i = tid; i < MMA_BK * r; i += MMA_NT) {
+    const int j = i / MMA_BK, q = i % MMA_BK;
+    const bool ok = q0 + q < Q;
+    copy_elem(us + i, ok ? u + (size_t)(q0 + q) * r + j : u, ok);
+  }
+}
+
+// Stage c[q0 .. q0 + MMA_BK) (f32, zero past Q) into `dst`.
+template <bool VEC>
+__device__ __forceinline__ void stage_scale(float* dst, const float* __restrict__ c, int q0,
+                                            int Q, int tid) {
+  constexpr int E = VEC ? 4 : 1;
+  for_items<MMA_BK / E>(tid, [&](int i) {
+    const int q = q0 + i * E;
+    const bool ok = q < Q;
+    if constexpr (VEC) cp_async16(dst + i * E, ok ? c + q : c, ok);
+    else cp_async4(dst + i, ok ? c + q : c, ok);
+  });
 }
 
 // The body: one (BM x BN) tile of out, its q range split over the S
@@ -238,7 +313,12 @@ __device__ __forceinline__ void mma_stage(T* st, const T* __restrict__ lhs,
 // from device memory about once.  Op provides:
 //   static constexpr bool RQ;              R stored q-major (dX) or p-major
 //   static constexpr bool US;              U is shared by all rows: staged
-//   const T* w;                            R's storage
+//   using TR;                              R's element type (T, or int8_t)
+//   static constexpr bool L_SCALE;         L enters as L[m][q] * c[q]
+//   const TR* w;                           R's storage
+//   const float* ls;                       L_SCALE: c, (Q,) f32
+//   float finish(float v, int p);          the split-summed product of column p
+//                                          (MmaDefaults<T>: T, false, v)
 //   bool live(int m);                      block row m has an adapter to read
 //   void stage_u(T* us, int q0, int Q, int r, int tid);   US: U chunk -> us[j][q]
 //   float u(int m, int j, int q);          !US: U[q][j] of block row m
@@ -247,11 +327,17 @@ template <typename T, int BM, int BN, bool VEC, typename Op>
 __device__ __forceinline__ void mma_tile(const T* __restrict__ lhs, const Op& op,
                                          T* __restrict__ out, int M, int Q, int P, int r,
                                          float scale, unsigned char* smem) {
-  using Ly = MmaLayout<T, BM, BN, Op::RQ>;
+  using TR = typename Op::TR;
+  using Ly = MmaLayout<T, TR, BM, BN, Op::RQ, Op::L_SCALE>;
   static_assert(2 * BM <= MMA_NT, "the rank tile takes two threads per row");
+  static_assert(MMA_NS * (Ly::L_ELEMS + Ly::R_ELEMS) * sizeof(T) >= BM * BN * sizeof(float),
+                "the ring holds the partial tile after the loop");
   constexpr int MI = BM / 32, NI = BN / 16;      // m16 and n8 fragments per warp
-  constexpr bool THREE = sizeof(T) == 4;         // 3xTF32 for f32, one pass for bf16
-  const int stage = mma_stage_elems<T, BM, BN, Op::RQ, Op::US>(r);
+  // an f32 operand is split into big + small; bf16 and int8 are exact in
+  // TF32 and taken whole; L * c is f32 whatever L's type
+  constexpr bool L_SPLIT = sizeof(T) == 4 || Op::L_SCALE;
+  constexpr bool R_SPLIT = sizeof(TR) == 4;
+  const int stage = mma_stage_elems<T, TR, BM, BN, Op::RQ, Op::US, Op::L_SCALE>(r);
   T* ring = reinterpret_cast<T*>(smem);
   float* zs = reinterpret_cast<float*>(smem + size_t(MMA_NS) * stage * sizeof(T));
   float* zf = zs + BM * r;                       // [BM][r] each, f32
@@ -280,8 +366,11 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ lhs, const Op& op
 
   auto issue = [&](int kt) {     // stage chunk kt into its ring slot
     T* st = ring + ((kt - kt0) % MMA_NS) * stage;
-    mma_stage<T, BM, BN, VEC, Op::RQ>(st, lhs, op.w, m0, p0, kt * MMA_BK, M, Q, P, tid);
-    if constexpr (Op::US) op.stage_u(st + Ly::L_ELEMS + Ly::R_ELEMS, kt * MMA_BK, Q, r, tid);
+    mma_stage<T, TR, BM, BN, VEC, Op::RQ>(st, lhs, op.w, m0, p0, kt * MMA_BK, M, Q, P, tid);
+    if constexpr (Op::L_SCALE)
+      stage_scale<VEC>(reinterpret_cast<float*>(st + Ly::L_ELEMS + Ly::R_ELEMS), op.ls,
+                       kt * MMA_BK, Q, tid);
+    if constexpr (Op::US) op.stage_u(st + Ly::U_OFF, kt * MMA_BK, Q, r, tid);
   };
 #pragma unroll
   for (int s = 0; s < MMA_NS - 1; ++s) {
@@ -295,7 +384,7 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ lhs, const Op& op
     if (kt + MMA_NS - 1 < kt1) issue(kt + MMA_NS - 1);
     cp_async_commit();
     const T* ls = ring + ((kt - kt0) % MMA_NS) * stage;
-    const T* rs = ls + Ly::L_ELEMS;
+    const TR* rs = reinterpret_cast<const TR*>(ls + Ly::L_ELEMS);
 
     // the chunk's products go to a zeroed fragment first, then into acc
     // with one rounded add: the tensor core truncates what it adds
@@ -312,11 +401,16 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ lhs, const Op& op
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
         const T* l0 = ls + (wm + i * 16 + gid) * Ly::LP + kk + tig;
-        const float v[4] = {to_f(l0[0]), to_f(l0[8 * Ly::LP]), to_f(l0[4]),
-                            to_f(l0[8 * Ly::LP + 4])};
+        float v[4] = {to_f(l0[0]), to_f(l0[8 * Ly::LP]), to_f(l0[4]),
+                      to_f(l0[8 * Ly::LP + 4])};
+        if constexpr (Op::L_SCALE) {   // L[m][q] c[q], rounded once in f32
+          const float* cs = reinterpret_cast<const float*>(ls + Ly::L_ELEMS + Ly::R_ELEMS);
+          const float c0 = cs[kk + tig], c1 = cs[kk + tig + 4];
+          v[0] *= c0, v[1] *= c0, v[2] *= c1, v[3] *= c1;
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          if constexpr (THREE) {
+          if constexpr (L_SPLIT) {
             ab[i][e] = tf32_rna(v[e]);
             as[i][e] = tf32_rna(v[e] - __uint_as_float(ab[i][e]));
           } else {
@@ -337,7 +431,7 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ lhs, const Op& op
         }
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          if constexpr (THREE) {
+          if constexpr (R_SPLIT) {
             bb[j][e] = tf32_rna(v[e]);
             bs[j][e] = tf32_rna(v[e] - __uint_as_float(bb[j][e]));
           } else {
@@ -345,11 +439,13 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ lhs, const Op& op
           }
         }
       }
-      if constexpr (THREE) {
+      if constexpr (L_SPLIT) {
 #pragma unroll
         for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int j = 0; j < NI; ++j) mma_tf32(t[i][j], as[i], bb[j]);
+      }
+      if constexpr (R_SPLIT) {
 #pragma unroll
         for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -376,8 +472,8 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ lhs, const Op& op
       const int q0 = kt * MMA_BK;
       const int qa = h * (MMA_BK / 2);
       const int qb = min(qa + MMA_BK / 2, Q - q0);
-      const T* lrow = ls + m * Ly::LP;
-      const T* us = rs + Ly::R_ELEMS;
+      const T* lrow = ls + m * Ly::LP;     // the raw L: Z has no c in it
+      const T* us = ls + Ly::U_OFF;
       for (int j0 = 0; j0 < r; j0 += RJ) {
         float sj[RJ];
 #pragma unroll
@@ -461,7 +557,7 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ lhs, const Op& op
     for (int q = 1; q < S; ++q) v += cluster.map_shared_rank(part, q)[i];
     float d = 0.f;
     for (int q = 0; q < r; ++q) d += zf[m * r + q] * op.v(m, q, gp);
-    store(dst, v + scale * d);
+    store(dst, op.finish(v, gp) + scale * d);
   }
   cluster.sync();               // keep this block's partials until all have read
 }

@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from .. import backend, build
-from .plan import dx_plan, forward_plan
+from .plan import dx_plan, forward_plan, q8_dx_plan, q8_forward_plan
 from .ref import (acc_dtype, lora_matmul_dx_ref, lora_matmul_gathered_ref,
                   lora_matmul_q8_dx_ref, lora_matmul_q8_ref, lora_matmul_ref,
                   lora_rank_reduce_ref)
@@ -247,7 +247,7 @@ def _check_q8(op: str, dev: torch.device, w_q: torch.Tensor, w_scale: torch.Tens
 
 
 _Q8_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def lora_matmul_q8_kernel(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -270,11 +270,13 @@ def lora_matmul_q8_kernel(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Ten
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
+    plan = q8_forward_plan(M, K, N, x.element_size(), _aligned(x, w_q))
     fn = _bind("lora_matmul_q8", "lora_matmul_q8_fwd_launch", _Q8_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a.data_ptr(),
                  b.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
-                 _DTYPE_CODES[x.dtype], _stream(x.device))
+                 _DTYPE_CODES[x.dtype], plan.row_tile, plan.col_tile, plan.splits,
+                 int(plan.vec), _stream(x.device))
     build.check("lora_matmul_q8", err)
     backend.count_launch("lora_matmul_q8")
     return y
@@ -300,11 +302,13 @@ def lora_matmul_q8_dx_kernel(dy: torch.Tensor, w_q: torch.Tensor, w_scale: torch
     dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
     if M == 0 or K == 0:
         return dx
+    plan = q8_dx_plan(M, K, N, dy.element_size(), _aligned(dy, w_q, w_scale))
     fn = _bind("lora_matmul_q8", "lora_matmul_q8_dx_launch", _Q8_ARGTYPES)
     with torch.cuda.device(dy.device):
         err = fn(dy.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a.data_ptr(),
                  b.data_ptr(), dx.data_ptr(), M, K, N, r, float(scale),
-                 _DTYPE_CODES[dy.dtype], _stream(dy.device))
+                 _DTYPE_CODES[dy.dtype], plan.row_tile, plan.col_tile, plan.splits,
+                 int(plan.vec), _stream(dy.device))
     build.check("lora_matmul_q8", err)
     backend.count_launch("lora_matmul_q8_dx")
     return dx

@@ -1,5 +1,6 @@
 """The launch plans of the forward LoRA matmul (``csrc/lora_matmul.cu``,
-both entries) and of its dX (``csrc/lora_matmul_bwd.cu``).
+both entries), of its dX (``csrc/lora_matmul_bwd.cu``) and of the
+int8-base pair (``csrc/lora_matmul_q8.cu``).
 
 The plan is computed here, in Python, so that the CPU tests can hold its
 rules; the CUDA launchers take it as it is and check only that it names
@@ -14,7 +15,8 @@ the gather entry):
   ``row_tile`` of 8 or 16 rows.  The order in which a row's terms are
   summed follows from (``splits``, ``col_tile``) and K alone, and those
   depend on (K, N) only.
-* **tile** (M > ``DECODE_MAX_M``, and every dX): 3xTF32 ``mma.sync``
+* **tile** (M > ``DECODE_MAX_M``, every dX and the q8 pair at every
+  M): TF32 ``mma.sync``
   tiles on a ``cp.async`` ring, the reduction split over ``splits``
   blocks of a cluster.  A row's terms are summed along the reduction in
   32-deep chunks in order within a split and the splits in rank order,
@@ -27,8 +29,8 @@ single-adapter kernel on that row in the same regime.
 
 ``vec`` picks 16-byte copies where every row pitch the kernel streams is
 a multiple of 16 bytes and every base pointer is 16-byte aligned, and
-element copies (4 bytes in f32) otherwise.  The copy width never changes
-the arithmetic.
+element copies (4 bytes in f32, 1 for an int8 W) otherwise.  The copy
+width never changes the arithmetic.
 """
 from __future__ import annotations
 
@@ -125,3 +127,23 @@ def dx_plan(M: int, K: int, N: int, elem_bytes: int = 4, aligned: bool = True) -
     s = tile_splits(N, K)
     bm, bn = tile_shape(M, K, s)
     return Plan(TILE, bm, bn, s, _vec(elem_bytes, (N,), aligned))
+
+
+def q8_forward_plan(M: int, K: int, N: int, elem_bytes: int = 4,
+                    aligned: bool = True) -> Plan:
+    """The plan of ``lora_matmul_q8`` for x (M, K) of ``elem_bytes``-byte
+    elements over an int8 W_q (K, N): always the tile (no engine serves an
+    int8 base, so there is no decode regime to choose), reducing over K.
+    It streams rows of x (pitch K elements) and of W_q (N bytes)."""
+    s = tile_splits(K, N)
+    bm, bn = tile_shape(M, N, s)
+    return Plan(TILE, bm, bn, s, _vec(elem_bytes, (K,), aligned) and _vec(1, (N,), aligned))
+
+
+def q8_dx_plan(M: int, K: int, N: int, elem_bytes: int = 4, aligned: bool = True) -> Plan:
+    """The plan of ``lora_matmul_q8_dx`` for dY (M, N) over W_q (K, N):
+    the tile over a (M, K) output, reducing over N, streaming rows of dY
+    (pitch N elements) and of W_q (N bytes) and the f32 scale along N."""
+    s = tile_splits(N, K)
+    bm, bn = tile_shape(M, K, s)
+    return Plan(TILE, bm, bn, s, _vec(elem_bytes, (N,), aligned) and _vec(1, (N,), aligned))

@@ -273,7 +273,7 @@ def test_training_step_on_the_card_matches_the_cpu_step(cuda):
 Q8_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4), torch.bfloat16: GRAD_TOL[torch.bfloat16]}
 Q8_SHAPES = [(8, 768, 768, 8), (256, 768, 768, 8), (768, 768, 768, 8), (256, 768, 768, 1),
              (768, 768, 768, 2), (256, 768, 768, 4), (33, 70, 45, 2), (5, 100, 70, 1),
-             (70, 130, 301, 64), (1, 7, 1, 1)]
+             (70, 130, 301, 64), (1, 7, 1, 1), (200, 5120, 2560, 4)]
 
 
 def _q8_inputs(cuda, dtype, M, K, N, r, seed):
@@ -303,6 +303,34 @@ def test_lora_matmul_q8_kernels_match_plain(cuda, dtype, M, K, N, r):
     torch.testing.assert_close(dx.float(),
                                lora_matmul_q8_dx_ref(dy, wq, ws, a, b, 2.0).float(),
                                **Q8_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N,r", [(256, 768, 768, 8), (33, 70, 45, 2)])
+def test_lora_matmul_q8_kernels_take_minus_128(cuda, dtype, M, K, N, r):
+    """-128, which quantize_weight_int8 never makes, is exact in TF32 too:
+    a W_q holding it, on 16-byte copies (768) and element copies (45)."""
+    x, wq, ws, a, b = _q8_inputs(cuda, dtype, M, K, N, r, 3 * M + r)
+    wq[::3, ::5] = -128
+    dy = torch.randn(M, N, generator=torch.Generator().manual_seed(r)).to(cuda, dtype)
+    y = lora_matmul_q8_kernel(x, wq, ws, a, b, 2.0)
+    dx = lora_matmul_q8_dx_kernel(dy, wq, ws, a, b, 2.0)
+    torch.testing.assert_close(y.float(), lora_matmul_q8_ref(x, wq, ws, a, b, 2.0).float(),
+                               **Q8_TOL[dtype])
+    torch.testing.assert_close(dx.float(),
+                               lora_matmul_q8_dx_ref(dy, wq, ws, a, b, 2.0).float(),
+                               **Q8_TOL[dtype])
+
+
+@pytest.mark.parametrize("M", [256, 768])
+def test_q8_kernels_give_equal_bits_on_two_runs(cuda, M):
+    """No atomics and a fixed order: the same inputs give the same bits."""
+    x, wq, ws, a, b = _q8_inputs(cuda, torch.float32, M, 768, 768, 8, M)
+    dy = torch.randn(M, 768, generator=torch.Generator().manual_seed(M)).to(cuda)
+    for fn, lhs in ((lora_matmul_q8_kernel, x), (lora_matmul_q8_dx_kernel, dy)):
+        first, again = fn(lhs, wq, ws, a, b, 2.0), fn(lhs, wq, ws, a, b, 2.0)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again), fn.__name__
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

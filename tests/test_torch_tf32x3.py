@@ -9,6 +9,10 @@ held on the CPU before the card.
   TF32 drops), at the main path's shapes with phase 4's input
   distributions: three passes keep f32 accuracy, one pass does not, and a
   bf16 operand is exact in TF32 (so bf16 takes one pass).
+* The int8-base pair on the same tile: every int8 value is exact in TF32,
+  so only the f32 operand is split and two passes (small*W_q + big*W_q)
+  keep f32 accuracy against f64 dequantize-first, with the scale after
+  the reduction (forward) or folded into dY before the split (dX).
 * The plan (``kernels/lora_matmul/plan.py``): which regime, split and tile
   the CUDA launchers get, and that the wrappers hand it over unchanged.
 """
@@ -21,7 +25,9 @@ import torch
 from repro_torch.kernels.lora_matmul.plan import (DECODE, DECODE_MAX_M, MAX_SPLITS,
                                                   MIN_SPLIT_ROWS, MIN_TILE_SPLIT_ROWS, SMS,
                                                   TILE, decode_split, dx_plan,
-                                                  forward_plan, tile_splits)
+                                                  forward_plan, q8_dx_plan,
+                                                  q8_forward_plan, tile_splits)
+from repro_torch.precision import quantize_weight_int8
 
 ops = importlib.import_module("repro_torch.kernels.lora_matmul.ops")
 
@@ -106,6 +112,66 @@ def test_bf16_is_exact_in_tf32():
 
 
 # ---------------------------------------------------------------------------
+# the int8-base pair: two passes, W_q whole
+# ---------------------------------------------------------------------------
+
+Q8_SHAPES = [(256, 768, 768), (768, 768, 768), (200, 5120, 2560)]   # client, server, ssm_out
+
+
+def q8_inputs(M, K, N, seed=0):
+    """x, W_q, s as phase 4 draws them (W ~ N(0, 1/K), quantized per
+    column) and dY ~ N(0, 1); the f64 dequantize-first products beside."""
+    x, w = inputs(M, K, N, seed)
+    wq, s = quantize_weight_int8(w)
+    dy = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((M, N))
+                          .astype(np.float32))
+    w64 = wq.double() * s.double()
+    return x, wq, s, dy, x.double() @ w64, dy.double() @ w64.T
+
+
+def q8_forward_2x(x, wq, s):
+    """The tile's f32 forward: x split, W_q whole (exact), both passes into
+    one f32 sum, s applied after the reduction."""
+    xb, xs = split3(x)
+    wf = wq.float()
+    return (torch.cat([xs, xb], 1) @ torch.cat([wf, wf], 0)) * s
+
+
+def q8_dx_2x(dy, wq, s):
+    """The tile's f32 dX: dY * s rounded once in f32, then split; W_q
+    whole."""
+    lb, ls = split3(dy * s)
+    wt = wq.float().T
+    return torch.cat([ls, lb], 1) @ torch.cat([wt, wt], 0)
+
+
+def test_every_int8_value_is_exact_in_tf32():
+    v = torch.arange(-128, 128, dtype=torch.float32)
+    big, small = split3(v)
+    assert torch.equal(tf32_rna(v), v) and torch.equal(big, v) and not bool(small.any())
+
+
+@pytest.mark.parametrize("M,K,N", Q8_SHAPES)
+def test_two_pass_q8_keeps_f32_accuracy(M, K, N):
+    x, wq, s, dy, fwd64, dx64 = q8_inputs(M, K, N)
+    wf = wq.float() * s                         # the plain path: dequantize, f32 matmul
+    for got, plain, exact in ((q8_forward_2x(x, wq, s), x @ wf, fwd64),
+                              (q8_dx_2x(dy, wq, s), dy @ wf.T, dx64)):
+        d2 = (got.double() - exact).abs().max().item()
+        d32 = (plain.double() - exact).abs().max().item()
+        assert torch.allclose(got.double(), exact, **TOL)
+        assert d2 <= 4 * d32, (d2, d32)
+
+
+@pytest.mark.parametrize("M,K,N", Q8_SHAPES)
+def test_single_pass_q8_misses_the_f32_tolerance(M, K, N):
+    x, wq, s, dy, fwd64, dx64 = q8_inputs(M, K, N)
+    wf = wq.float()
+    assert not torch.allclose(((tf32_rna(x) @ wf) * s).double(), fwd64, **TOL)
+    assert not torch.allclose((tf32_rna(dy * s) @ wf.T).double(), dx64, **TOL)
+
+
+# ---------------------------------------------------------------------------
 # the plan
 # ---------------------------------------------------------------------------
 
@@ -182,6 +248,29 @@ def test_unaligned_pitches_choose_element_copies(M, K, N, dx):
     assert forward_plan(8, 770, 768).vec             # the decode streams only W's
 
 
+@pytest.mark.parametrize("K,N", KN)
+def test_q8_plans_are_the_tile_with_splits_from_k_and_n_only(K, N):
+    for M in (1, 8, DECODE_MAX_M, DECODE_MAX_M + 1, 200, 256, 768):
+        f, d = q8_forward_plan(M, K, N), q8_dx_plan(M, K, N)
+        assert f.regime == d.regime == TILE
+        assert f.splits == tile_splits(K, N) and d.splits == tile_splits(N, K)
+        assert (f.row_tile, f.col_tile) in ((64, 64), (32, 32))
+        assert (d.row_tile, d.col_tile) in ((64, 64), (32, 32))
+
+
+@pytest.mark.parametrize("K,N,fwd_vec,dx_vec", [
+    (768, 768, True, True),
+    (768, 45, False, False), (768, 301, False, False),      # ragged N: every pitch
+    (7, 768, False, True), (70, 768, False, True),          # ragged K: x's rows only
+    (768, 772, False, False),     # whole 16 bytes in f32 dY, not in int8 W_q rows
+])
+def test_q8_ragged_pitches_choose_element_copies(K, N, fwd_vec, dx_vec):
+    assert q8_forward_plan(256, K, N).vec == fwd_vec
+    assert q8_dx_plan(256, K, N).vec == dx_vec
+    assert not q8_forward_plan(256, K, N, aligned=False).vec
+    assert not q8_dx_plan(256, K, N, aligned=False).vec
+
+
 @pytest.fixture
 def launches(monkeypatch):
     """Run the kernel wrappers on CPU tensors with the C entries replaced
@@ -244,3 +333,17 @@ def test_a_forced_regime_reaches_the_launch(launches):
     ops.lora_matmul_kernel(x, w, a, b, 1.0)
     forced, chosen = launches["lora_matmul_fwd_launch"]
     assert forced[11:15] == (DECODE, 16, 32, 8) and chosen[11] == TILE
+
+
+@pytest.mark.parametrize("M,K,N", [(256, 768, 768), (768, 768, 770), (33, 70, 45)])
+def test_q8_wrappers_pass_their_plan(launches, M, K, N):
+    r = 8
+    wq, ws = torch.zeros(K, N, dtype=torch.int8), torch.ones(N)
+    ops.lora_matmul_q8_kernel(torch.zeros(M, K), wq, ws, torch.zeros(r, K),
+                              torch.zeros(N, r), 2.0)
+    ops.lora_matmul_q8_dx_kernel(torch.zeros(M, N), wq, ws, torch.zeros(r, K),
+                                 torch.zeros(N, r), 2.0)
+    (fwd,), (dx,) = launches["lora_matmul_q8_fwd_launch"], launches["lora_matmul_q8_dx_launch"]
+    for args, p in ((fwd, q8_forward_plan(M, K, N)), (dx, q8_dx_plan(M, K, N))):
+        assert args[6:10] == (M, K, N, r) and args[11] == 0          # f32
+        assert args[12:16] == (p.row_tile, p.col_tile, p.splits, int(p.vec))
