@@ -9,7 +9,8 @@ Phases (each prints its own lines; any failure exits non-zero):
  1. device: name, power limit, TF32 off for the float32 references;
  2. build: all seven CUDA sources from src/repro_torch/kernels/csrc with
     nvcc, in parallel; ptxas's registers, shared memory and spills of each
-    kernel of the three LoRA libraries (the TF32 tile's instantiations);
+    kernel of the three LoRA libraries (the TF32 tile's instantiations and
+    the rank reduce's) and of flash attention;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
     forward LoRA matmul in both its regimes (M <= 16 and above, Mamba2's
@@ -17,8 +18,11 @@ Phases (each prints its own lines; any failure exits non-zero):
     repeated and out-of-range indices, ragged M/N/K, ranks 1 and 64; each
     tenant's rows bit-equal to the single-adapter kernel on them in the
     same regime), paged decode, the dX and rank-reduce backward
-    kernels, the autograd backward of ``lora_matmul`` against autograd of
-    its plain version, the causal flash-attention forward, and the
+    kernels (the reduce at ranks 2-64, N not a multiple of 4 or 8, M not
+    a multiple of its split; one launch a call; two runs bit-equal), the
+    autograd backward of ``lora_matmul`` against autograd of its plain
+    version, the causal flash-attention forward (D 16-128, Sq != Sk, GQA
+    at S 1024, windows across KV tiles; two runs bit-equal), and the
     int8-base forward and dX (``lora_matmul(..., w_scale=)``, also at
     Mamba2's ``ssm_out`` shape) with their autograd backward, and the
     decode family: flash decode over slab
@@ -36,8 +40,11 @@ Phases (each prints its own lines; any failure exits non-zero):
     dequantize-then-SDPA for the int8 pair, as the library calls; the SSD
     scan at S 200 and 512 has no library call; ``lora_matmul`` also at
     Mamba2's projection shapes at M 8 and 200; the 3xTF32 tile's bound
-    counts three TF32 products per f32 product, the q8 pair's two, as the
-    int8 W is exact in TF32); two runs bit-equal for ``lora_matmul`` at
+    counts three TF32 products per f32 product, as does flash attention's,
+    the q8 pair's two, as the int8 W is exact in TF32; the rank reduce at
+    M 768 and 256, r 4 and 8, f32 and bf16 v; a [floor] line, what any
+    launch costs under these events, and a [sweep] of flash attention over
+    S); two runs bit-equal for ``lora_matmul`` at
     M 8 and 768, dX at M 256 and the q8 pair at M 256; a sweep of M with
     each regime forced, at K = N = 768 and at ``ssm_in``;
  5. serving: ServingEngine on full-width GPT-2-S (f32, 8 slots, 512
@@ -241,7 +248,8 @@ def main() -> None:
     print(f"[build] nvcc sm_90a, in parallel: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.1f}s")
-    for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8"):   # the TF32 tile's
+    # the TF32 tile's (and the rank reduce's), and flash attention's
+    for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "flash_attention"):
         for line in build.resource_usage(lib):
             print(f"[ptxas] {lib}: {line}")
 
@@ -298,14 +306,20 @@ def main() -> None:
                       lora_matmul_dx_ref(dy, w, a, b, scale), gt)
             if dn == "float32" and K == 768:
                 err["lora_matmul_dx"] = max(err["lora_matmul_dx"], e)
-        for M, r, N in ((768, 4, 768), (33, 2, 45)):
+        # the main path's shapes, then padded ranks (r 3, 16, 64), N not a
+        # multiple of 4 or 8 (element loads) and M not a multiple of the split
+        for M, r, N in ((768, 4, 768), (256, 4, 768), (768, 8, 768), (33, 2, 45),
+                        (771, 3, 770), (1000, 16, 1030), (300, 64, 99), (129, 8, 13)):
             u = randn(M, r, std=M ** -0.5).to(dev)          # out is O(1)
             v = randn(M, N).to(dev, dt)
+            backend.reset_launch_counts()
             out = lora_rank_reduce_kernel(u, v)
+            if dict(backend.LAUNCH_COUNTS) != {"lora_rank_reduce": 1}:
+                fail(f"lora_rank_reduce counted {dict(backend.LAUNCH_COUNTS)}")
             again = lora_rank_reduce_kernel(u, v)
             torch.cuda.synchronize()
             if not torch.equal(out, again):
-                fail(f"lora_rank_reduce is not deterministic ({dn}, M={M})")
+                fail(f"lora_rank_reduce is not deterministic ({dn}, M={M}, r={r}, N={N})")
             e = close("lora_rank_reduce", f"{dn} M={M} r={r} N={N} (v {dn}, out f32; "
                       "two runs bit-equal)", out, lora_rank_reduce_ref(u, v),
                       dict(atol=1e-4, rtol=1e-4))
@@ -345,17 +359,34 @@ def main() -> None:
 
     def check_attention(dt, dn):
         tol = dict(atol=ATTN_TOL[dn], rtol=ATTN_TOL[dn])
+        # the main path's shapes, then D 80 and 128 (padded to the mma's
+        # k8/n8 with zeros), Sq != Sk both ways, GQA at S 1024, windows across
+        # KV tiles, a ragged D (element copies); two runs bit-equal
         for B, Sq, Sk, H, KH, D, win in ((12, 64, 64, 12, 12, 64, 0),
                                          (1, 1024, 1024, 12, 12, 64, 0),
                                          (1, 40, 72, 2, 1, 16, 0),
-                                         (1, 128, 128, 4, 2, 128, 33)):
+                                         (1, 128, 128, 4, 2, 128, 33),
+                                         (2, 100, 100, 4, 4, 80, 0),
+                                         (1, 200, 130, 2, 1, 128, 0),
+                                         (1, 1024, 1024, 12, 4, 64, 0),
+                                         (2, 300, 300, 4, 2, 64, 100),
+                                         (1, 96, 160, 2, 2, 42, 70),
+                                         # two warp groups: D 128 and 96 (f32: no
+                                         # room to prefetch), 80, a window, Sq < Sk
+                                         (1, 512, 512, 2, 1, 128, 0),
+                                         (1, 600, 600, 2, 2, 64, 300),
+                                         (1, 300, 300, 2, 2, 80, 0),
+                                         (1, 100, 400, 2, 1, 96, 0)):
             q = randn(B, Sq, H, D).to(dev, dt)
             k, v = randn(B, Sk, KH, D).to(dev, dt), randn(B, Sk, KH, D).to(dev, dt)
             o = flash_attention(q, k, v, window=win)
+            again = flash_attention(q, k, v, window=win)
             torch.cuda.synchronize()
+            if not torch.equal(o, again):
+                fail(f"flash_attention is not deterministic ({dn}, Sq={Sq}, D={D})")
             e = close("flash_attention", f"{dn} B={B} Sq={Sq} Sk={Sk} H={H} KH={KH} "
-                      f"D={D} window={win}", o, flash_attention_ref(q, k, v, window=win),
-                      tol)
+                      f"D={D} window={win} (two runs bit-equal)", o,
+                      flash_attention_ref(q, k, v, window=win), tol)
             if dn == "float32" and D == 64:
                 err["flash_attention"] = max(err["flash_attention"], e)
 
@@ -833,17 +864,28 @@ def main() -> None:
               f"s*(dy @ b) @ a) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us (3xTF32, {bby}; "
               f"f32 FFMA bound {bound(nbytes, flops)[0] * 1e3:.2f}us); "
               f"{2 * M * N * K / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-    M, r, N = 768, 4, 768
-    u, v = randn(M, r).to(dev), randn(M, N).to(dev)
-    ms = time_ms(torch, lambda: lora_rank_reduce_kernel(u, v), flush)
-    plain = time_ms(torch, lambda: lora_rank_reduce_ref(u, v), flush)
-    lib = time_ms(torch, lambda: u.T @ v, flush)
-    bms, bby = bound(4 * (M * r + M * N + r * N), 2 * M * r * N)
-    rows[("lora_rank_reduce", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                         bound_ms=bms, bound_by=bby)
-    print(f"[time] lora_rank_reduce f32 M={M} r={r} N={N}: kernel {ms * 1e3:.2f}us "
-          f"plain {plain * 1e3:.2f}us library(u.T @ v) {lib * 1e3:.2f}us bound "
-          f"{bms * 1e3:.2f}us ({bby})")
+    # the rank reduce at the server's rows (M = 768) and a client's (256),
+    # at phase 6's rank 4 and the fleets' rank 8, f32 and bf16 v: one launch
+    for M, r, vdt in ((768, 4, torch.float32), (256, 4, torch.float32),
+                      (768, 8, torch.float32), (768, 4, torch.bfloat16)):
+        N = 768
+        u, v = randn(M, r).to(dev), randn(M, N).to(dev, vdt)
+        ms = time_ms(torch, lambda: lora_rank_reduce_kernel(u, v), flush)
+        plain = time_ms(torch, lambda: lora_rank_reduce_ref(u, v), flush)
+        lib = time_ms(torch, lambda: u.T @ v.float(), flush)
+        nbytes = 4 * (M * r + r * N) + v.element_size() * M * N
+        bms, bby = bound(nbytes, 2 * M * r * N)
+        vn = str(vdt).split(".")[1]
+        key = ("lora_rank_reduce", M) if (r, vdt) == (4, torch.float32) else (
+            "lora_rank_reduce", M, r, vn)
+        rows[key] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=bby)
+        print(f"[time] lora_rank_reduce u f32, v {vn} M={M} r={r} N={N}: kernel "
+              f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(u.T @ v) "
+              f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, {nbytes} B); "
+              f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
+    # flash attention on the 3xTF32 tensor-core tiles: its bound is three
+    # TF32 products per f32 product over 495 TFLOP/s (or the bytes), with
+    # the f32-FFMA bound printed beside it
     for B, S in ((12, 64), (1, 1024)):     # the training batch; one long sequence
         H = KH = 12
         D = 64
@@ -854,13 +896,29 @@ def main() -> None:
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), flush)
         visible = S * (S + 1) // 2                  # causal pairs per head
-        bms, bby = bound(4 * (2 * B * S * H * D + 2 * B * S * KH * D),
-                         4 * B * H * visible * D)
+        nbytes = 4 * (2 * B * S * H * D + 2 * B * S * KH * D)
+        flops = 4 * B * H * visible * D
+        bms, bby = bound_tf32(nbytes, flops, 3)
         rows[("flash_attention", B)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                             bound_ms=bms, bound_by=bby)
         print(f"[time] flash_attention f32 B={B} S={S} H={H} D={D} causal: kernel "
               f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(SDPA is_causal, "
-              f"(B, H, S, D) layout) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby})")
+              f"(B, H, S, D) layout) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us (3xTF32, "
+              f"{bby}; f32 FFMA bound {bound(nbytes, flops)[0] * 1e3:.2f}us); "
+              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    # what any launch costs under time_ms (a 4-float add_), and the
+    # attention kernel's time against the length of its longest KV walk
+    # (S / 64 tiles) and the grid: two warp groups share walks of 4 tiles
+    # and more while the grid has fewer blocks than two per SM (B 1), one
+    # group takes the rest (B 12 at S 256: 576 blocks)
+    x4 = torch.zeros(4, device=dev)
+    floor = time_ms(torch, lambda: x4.add_(1), flush)
+    print(f"[floor] time_ms of one 4-float add_: {floor * 1e3:.2f}us")
+    for B, S in ((1, 64), (1, 128), (1, 192), (1, 256), (12, 256), (1, 512), (1, 1024)):
+        q, k, v = (randn(B, S, 12, 64).to(dev) for _ in range(3))
+        print(f"[sweep] flash_attention f32 B={B} S={S} H=12 D=64 causal ({-(-S // 64)} KV "
+              f"tiles, {12 * B * -(-S // 64)} blocks): kernel "
+              f"{time_ms(torch, lambda: flash_attention(q, k, v), flush) * 1e3:.2f}us")
     # the int8-base kernels at the fleets' training shapes: a client's rows
     # (M = b * S = 256) and the pooled server's (M = 768), r = 8; on the
     # TF32 tile in two passes (the int8 W is exact in TF32): their bound is

@@ -31,15 +31,29 @@
 //    sequential M grid axis.
 //    What bounds it on the H100: reading v once (2.36 MB at M = N = 768
 //    in f32, ~0.7 us); 2 r flops per element of v is far below the ridge.
-//    Design:
-//     * grid (N / 32, S): 32 lanes on neighbouring columns n (coalesced
-//       reads of v), 8 warps splitting the block's M range, each thread
-//       holding r f32 sums in registers; u is staged 64 rows at a time in
-//       shared memory and read as a broadcast;
-//     * the 8 warps' sums are added in shared memory in a fixed order;
-//       with S > 1 splits over M, each split writes its partial (r, N)
-//       and a second kernel adds the S partials in order.  No atomics:
-//       the result is the same bit for bit on every run.
+//    At the training shapes the call is short enough that latency (one
+//    launch, one pass of loads, the reductions) decides its time.
+//    Design (the plan, from kernels/lora_matmul/plan.py::rank_reduce_plan,
+//    comes in as ints):
+//     * the kernel is templated on RP, the smallest power of two >= r
+//       (1 ... 64); u is staged in shared memory zero-padded to RP (cp.async,
+//       in flight with v's first loads), so no per-element rank predicate
+//       remains and a row of u is read as broadcast 16-byte loads;
+//     * each thread owns C neighbouring columns of v read with one load of
+//       C elements (16 bytes: 4 f32 or 8 bf16 columns, fewer at large
+//       ranks: C * RP <= 64 f32 accumulators), element loads where N is
+//       not a multiple of C or v is not 16-byte aligned; 32 lanes take 32 C
+//       neighbouring columns, 8 warps split the block's rows (warp w takes
+//       rows w, w + 8, ...), 16 rows' loads in flight at once, the first
+//       16 requested before u is staged;
+//     * M is split over the S <= 8 blocks of one thread-block cluster;
+//       inside a block the 8 warps' sums are added in shared memory in warp
+//       order, across the cluster the blocks' partials are added through
+//       distributed shared memory in rank order, and the epilogue is
+//       spread over the cluster's blocks, each element of (r, N) written
+//       once: one launch, no workspace, no atomics; the order of every
+//       addition follows from (M, r, N, dtype) alone, so two runs give
+//       equal bits.
 
 #include "lora_mma.cuh"
 
@@ -104,76 +118,187 @@ cudaError_t run_dx_plan(const void* dy, const void* w, const void* a, const void
 // rank reduce
 // ---------------------------------------------------------------------------
 
-constexpr int RR_LANES = 32;    // columns per block
-constexpr int RR_WARPS = 8;     // warps splitting the block's M range
-constexpr int RR_MC = 64;       // u rows staged per step
-constexpr int RR_JC = 8;        // ranks reduced across warps per pass
+constexpr int RR_NT = 256;      // threads per block
+constexpr int RR_WARPS = RR_NT / 32;    // warps splitting the block's rows
+constexpr int RR_U = 16;        // rows a thread loads before it adds them
+constexpr int RR_US = 8192;     // floats of staged u: 8192 / RP rows a pass
 
-template <typename V>
-__global__ void __launch_bounds__(RR_LANES * RR_WARPS) lora_rank_reduce(
-    const float* __restrict__ u, const V* __restrict__ v, float* __restrict__ out,
-    int M, int r, int N, int rows_per_split) {
-  __shared__ float us[RR_MC][RMAX];
-  __shared__ float red[RR_WARPS][RR_JC][RR_LANES];
-
-  const int lane = threadIdx.x % RR_LANES;
-  const int warp = threadIdx.x / RR_LANES;
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x * RR_LANES + lane;
-  const int split = blockIdx.y;
-  const int m_lo = split * rows_per_split;
-  const int m_hi = min(M, m_lo + rows_per_split);
-
-  float acc[RMAX];
+// C elements of v from row `row`, columns n .. n + C - 1, as f32 (zero past N)
+template <typename V, int C, bool VEC>
+__device__ __forceinline__ void load_cols(const V* __restrict__ row, int n, int N,
+                                          float (&x)[C]) {
+  if constexpr (VEC) {                  // N % C == 0: all C columns or none
+    constexpr int W = C * sizeof(V) / 4;        // 32-bit words of one load
+    if (n >= N) {
 #pragma unroll
-  for (int j = 0; j < RMAX; ++j) acc[j] = 0.f;
-
-  for (int c0 = m_lo; c0 < m_hi; c0 += RR_MC) {
-    const int mc = min(RR_MC, m_hi - c0);
-    for (int i = tid; i < mc * r; i += RR_LANES * RR_WARPS)
-      us[i / r][i % r] = u[(size_t)(c0 + i / r) * r + i % r];
-    __syncthreads();
-    if (n < N) {
-      for (int mm = warp; mm < mc; mm += RR_WARPS) {
-        const float vv = to_f(v[(size_t)(c0 + mm) * N + n]);
+      for (int c = 0; c < C; ++c) x[c] = 0.f;
+    } else if constexpr (W == 0) {             // one bf16 column
+      x[0] = to_f(row[n]);
+    } else {
+      uint32_t w[W];
+      if constexpr (W == 4) {
+        const uint4 t = __ldg(reinterpret_cast<const uint4*>(row + n));
+        w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
+      } else if constexpr (W == 2) {
+        const uint2 t = __ldg(reinterpret_cast<const uint2*>(row + n));
+        w[0] = t.x, w[1] = t.y;
+      } else {
+        w[0] = __ldg(reinterpret_cast<const unsigned int*>(row + n));
+      }
 #pragma unroll
-        for (int j = 0; j < RMAX; ++j)
-          if (j < r) acc[j] += us[mm][j] * vv;
+      for (int i = 0; i < W; ++i) {
+        if constexpr (sizeof(V) == 4) x[i] = __uint_as_float(w[i]);
+        else bf16x2_to_f(w[i], x[2 * i], x[2 * i + 1]);
       }
     }
-    __syncthreads();
-  }
-
-  // add the warps' sums in a fixed order (warp 0 first)
-  float* dst = out + (size_t)split * r * N;
+  } else {
 #pragma unroll
-  for (int j0 = 0; j0 < RMAX; j0 += RR_JC) {
-    if (j0 >= r) break;
-#pragma unroll
-    for (int jj = 0; jj < RR_JC; ++jj) red[warp][jj][lane] = acc[j0 + jj];
-    __syncthreads();
-    if (tid < RR_JC * RR_LANES) {
-      const int jj = tid / RR_LANES, l = tid % RR_LANES;
-      const int gn = blockIdx.x * RR_LANES + l;
-      if (j0 + jj < r && gn < N) {
-        float s = 0.f;
-#pragma unroll
-        for (int g = 0; g < RR_WARPS; ++g) s += red[g][jj][l];
-        dst[(size_t)(j0 + jj) * N + gn] = s;
-      }
-    }
-    __syncthreads();
+    for (int c = 0; c < C; ++c) x[c] = n + c < N ? to_f(row[n + c]) : 0.f;
   }
 }
 
-// out (r, N) = sum over s of part (S, r, N), in order s = 0, 1, ...
-__global__ void rank_reduce_splits(const float* __restrict__ part,
-                                   float* __restrict__ out, int S, int rn) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rn) return;
-  float s = 0.f;
-  for (int k = 0; k < S; ++k) s += part[(size_t)k * rn + i];
-  out[i] = s;
+// One launch over a cluster of S blocks along x (the splits of M); blockIdx.y
+// is the column tile of 32 * C columns.
+template <typename V, int RP, int C, bool VEC>
+__global__ void __launch_bounds__(RR_NT) lora_rank_reduce(
+    const float* __restrict__ u, const V* __restrict__ v, float* __restrict__ out,
+    int M, int r, int N) {
+  static_assert(C * RP <= 64, "at most 64 accumulators a thread");
+  constexpr int RC = RR_US / RP;        // u rows staged per pass
+  constexpr int K = C * RP;             // sums per thread
+  extern __shared__ __align__(16) float rsm[];   // u rows, then the warps' sums
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int split = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int col0 = blockIdx.y * 32 * C;
+  const int n = col0 + lane * C;        // this thread's first column
+  const int per = (M + S - 1) / S;      // rows of a split
+  const int lo = min(M, split * per), hi = min(M, lo + per);
+
+  float acc[C][RP];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int j = 0; j < RP; ++j) acc[c][j] = 0.f;
+
+  for (int c0 = lo; c0 < hi; c0 += RC) {
+    const int rows = min(RC, hi - c0);
+    // the warp's first RR_U rows of v are requested before u is staged
+    float x[RR_U][C];
+    auto load = [&](int m0) {
+#pragma unroll
+      for (int k = 0; k < RR_U; ++k) {
+        const int m = m0 + k * RR_WARPS;
+        if (m < rows) load_cols<V, C, VEC>(v + (size_t)(c0 + m) * N, n, N, x[k]);
+      }
+    };
+    load(warp);
+    for (int i = tid; i < rows * RP; i += RR_NT) {     // zero past r
+      const int m = i / RP, j = i % RP;
+      cp_async4(rsm + i, j < r ? u + (size_t)(c0 + m) * r + j : u, j < r);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int m0 = warp; m0 < rows; m0 += RR_WARPS * RR_U) {
+      if (m0 != warp) load(m0);
+#pragma unroll
+      for (int k = 0; k < RR_U; ++k) {
+        const int m = m0 + k * RR_WARPS;
+        if (m >= rows) break;
+        const float* ur = rsm + m * RP;
+        float uj[RP];
+        if constexpr (RP >= 4) {
+#pragma unroll
+          for (int j = 0; j < RP; j += 4) {
+            const float4 t = *reinterpret_cast<const float4*>(ur + j);
+            uj[j] = t.x, uj[j + 1] = t.y, uj[j + 2] = t.z, uj[j + 3] = t.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < RP; ++j) uj[j] = ur[j];
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int j = 0; j < RP; ++j) acc[c][j] += uj[j] * x[k][c];
+      }
+    }
+    __syncthreads();            // the staged rows are consumed
+  }
+
+  // the warps' sums, red[w][k][lane] (k = c * RP + j), added in warp order
+  float* red = rsm;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int j = 0; j < RP; ++j) red[(warp * K + c * RP + j) * 32 + lane] = acc[c][j];
+  __syncthreads();
+  for (int i = tid; i < K * 32; i += RR_NT) {
+    float t = red[i];
+    for (int w = 1; w < RR_WARPS; ++w) t += red[w * K * 32 + i];
+    red[i] = t;
+  }
+  cluster.sync();               // every split's partial is in place
+
+  // epilogue spread over the cluster: the splits added in rank order
+  for (int i = split * RR_NT + tid; i < K * 32; i += S * RR_NT) {
+    const int l = i % 32, k = i / 32;
+    const int c = k / RP, j = k % RP;
+    const int col = col0 + l * C + c;
+    if (j >= r || col >= N) continue;
+    float t = cluster.map_shared_rank(red, 0)[i];
+    for (int q = 1; q < S; ++q) t += cluster.map_shared_rank(red, q)[i];
+    out[(size_t)j * N + col] = t;
+  }
+  cluster.sync();               // keep this block's partial until all have read
+}
+
+// Dynamic shared memory: the staged u (a split's rows, at most RR_US
+// floats), then, reused, the warps' sums.
+template <int RP, int C>
+size_t rank_reduce_bytes(int rows_per_split) {
+  const size_t us = size_t(rows_per_split < RR_US / RP ? rows_per_split : RR_US / RP) * RP;
+  const size_t red = size_t(RR_WARPS) * C * RP * 32;
+  return sizeof(float) * (us > red ? us : red);
+}
+
+template <typename V, int RP, int C>
+cudaError_t run_rank_reduce(const float* u, const V* v, float* out, int M, int r, int N,
+                            int S, bool vec, cudaStream_t st) {
+  const dim3 grid(S, (N + 32 * C - 1) / (32 * C));
+  const size_t bytes = rank_reduce_bytes<RP, C>((M + S - 1) / S);
+  return vec ? cluster_launch<lora_rank_reduce<V, RP, C, true>, RR_NT>(grid, S, bytes, st, u,
+                                                                        v, out, M, r, N)
+             : cluster_launch<lora_rank_reduce<V, RP, C, false>, RR_NT>(grid, S, bytes, st,
+                                                                         u, v, out, M, r, N);
+}
+
+// The instantiated (RP, C) of element type V: C = min(16 / sizeof(V), 64 / RP).
+template <typename V>
+cudaError_t run_rank_reduce_plan(const void* u, const void* v, void* out, int M, int r,
+                                 int N, int rp, int cols, int S, int vec, cudaStream_t st) {
+  // rp: the smallest power of two >= r (the switch takes powers of two)
+  if (S < 1 || S > 8 || (S & (S - 1)) || rp < r || (rp > 1 && rp / 2 >= r))
+    return cudaErrorInvalidValue;
+  constexpr int CV = 16 / sizeof(V);
+  const float* up = static_cast<const float*>(u);
+  const V* vp = static_cast<const V*>(v);
+  float* op = static_cast<float*>(out);
+  switch (rp) {
+#define RR_CASE(R)                                                                       \
+  case R: {                                                                              \
+    constexpr int C = CV < 64 / R ? CV : 64 / R;                                         \
+    if (cols != C) return cudaErrorInvalidValue;                                         \
+    return run_rank_reduce<V, R, C>(up, vp, op, M, r, N, S, vec != 0, st);               \
+  }
+    RR_CASE(1) RR_CASE(2) RR_CASE(4) RR_CASE(8) RR_CASE(16) RR_CASE(32) RR_CASE(64)
+#undef RR_CASE
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -197,44 +322,21 @@ int lora_matmul_dx_launch(const void* dy, const void* w, const void* a, const vo
   return (int)cudaErrorInvalidValue;
 }
 
-// The number of M splits the rank reduce uses for these shapes; the
-// caller sizes the (splits, r, N) f32 workspace from it (none when 1).
-int lora_rank_reduce_splits(int M, int N) {
-  const int col_blocks = (N + RR_LANES - 1) / RR_LANES;
-  int s = (M + 63) / 64;                    // at least 64 rows per split
-  const int want = (264 + col_blocks - 1) / col_blocks;   // ~2 waves
-  if (s > want) s = want;
-  if (s > 32) s = 32;
-  return s < 1 ? 1 : s;
-}
-
-// u (M, r) f32; v (M, N) of v_dtype (0 = float32, 1 = bfloat16);
-// out (r, N) f32; work (splits, r, N) f32 when splits > 1, else unused.
-int lora_rank_reduce_launch(const void* u, const void* v, void* out, void* work,
-                            int M, int r, int N, int v_dtype, void* stream) {
+// u (M, r) f32; v (M, N) of v_dtype (0 = float32, 1 = bfloat16); out
+// (r, N) f32.  rp (the padded rank), cols (columns per thread), splits
+// and vec are plan.py's rank_reduce_plan; a plan that names no
+// instantiated kernel is refused.  Returns the launch's cudaError_t.
+int lora_rank_reduce_launch(const void* u, const void* v, void* out, int M, int r, int N,
+                            int v_dtype, int rp, int cols, int splits, int vec,
+                            void* stream) {
   if (r < 1 || r > RMAX || M < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  const int S = lora_rank_reduce_splits(M, N);
-  if (S > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
-  const int rows = (M + S - 1) / S;
-  const dim3 grid((N + RR_LANES - 1) / RR_LANES, S);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* dst = S > 1 ? static_cast<float*>(work) : static_cast<float*>(out);
-  if (v_dtype == 0) {
-    lora_rank_reduce<float><<<grid, RR_LANES * RR_WARPS, 0, st>>>(
-        static_cast<const float*>(u), static_cast<const float*>(v), dst, M, r, N, rows);
-  } else if (v_dtype == 1) {
-    lora_rank_reduce<__nv_bfloat16><<<grid, RR_LANES * RR_WARPS, 0, st>>>(
-        static_cast<const float*>(u), static_cast<const __nv_bfloat16*>(v), dst, M, r,
-        N, rows);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (S > 1) {
-    const int rn = r * N;
-    rank_reduce_splits<<<(rn + 255) / 256, 256, 0, st>>>(
-        static_cast<const float*>(work), static_cast<float*>(out), S, rn);
-  }
-  return (int)cudaGetLastError();
+  if (v_dtype == 0)
+    return (int)run_rank_reduce_plan<float>(u, v, out, M, r, N, rp, cols, splits, vec, st);
+  if (v_dtype == 1)
+    return (int)run_rank_reduce_plan<__nv_bfloat16>(u, v, out, M, r, N, rp, cols, splits,
+                                                    vec, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* lora_matmul_bwd_error_string(int err) {

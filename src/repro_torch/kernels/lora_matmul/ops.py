@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from .. import backend, build
-from .plan import dx_plan, forward_plan, q8_dx_plan, q8_forward_plan
+from .plan import dx_plan, forward_plan, q8_dx_plan, q8_forward_plan, rank_reduce_plan
 from .ref import (acc_dtype, lora_matmul_dx_ref, lora_matmul_gathered_ref,
                   lora_matmul_q8_dx_ref, lora_matmul_q8_ref, lora_matmul_ref,
                   lora_rank_reduce_ref)
@@ -201,8 +201,8 @@ def lora_matmul_dx_kernel(dy: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 def lora_rank_reduce_kernel(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Launch the rank-reduce kernel: u (M, r) float32, v (M, N) float32
     or bfloat16, both contiguous on one CUDA device.  Returns u^T v as
-    (r, N) float32, summed in a fixed order (no atomics).  Raises on
-    anything else."""
+    (r, N) float32 from one launch (the plan of ``plan.rank_reduce_plan``),
+    summed in a fixed order (no atomics).  Raises on anything else."""
     _check("lora_rank_reduce", u.device, torch.float32, u=u)
     _check("lora_rank_reduce", u.device, None, v=v)
     if v.dtype not in _DTYPE_CODES:
@@ -217,16 +217,14 @@ def lora_rank_reduce_kernel(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if M == 0 or N == 0:
         return torch.zeros((r, N), dtype=torch.float32, device=u.device)
     lib = "lora_matmul_bwd"
-    splits = _bind(lib, "lora_rank_reduce_splits", [ctypes.c_int] * 2)(M, N)
+    plan = rank_reduce_plan(M, r, N, v.dtype, _aligned(v))
     out = torch.empty((r, N), dtype=torch.float32, device=u.device)
-    work = (torch.empty((splits, r, N), dtype=torch.float32, device=u.device)
-            if splits > 1 else None)
     fn = _bind(lib, "lora_rank_reduce_launch",
-               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     with torch.cuda.device(u.device):
-        err = fn(u.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if work is None else work.data_ptr(), M, r, N,
-                 _DTYPE_CODES[v.dtype], _stream(u.device))
+        err = fn(u.data_ptr(), v.data_ptr(), out.data_ptr(), M, r, N,
+                 _DTYPE_CODES[v.dtype], plan.rank_pad, plan.cols, plan.splits,
+                 int(plan.vec), _stream(u.device))
     build.check(lib, err)
     backend.count_launch("lora_rank_reduce")
     return out

@@ -1,6 +1,6 @@
 """The launch plans of the forward LoRA matmul (``csrc/lora_matmul.cu``,
-both entries), of its dX (``csrc/lora_matmul_bwd.cu``) and of the
-int8-base pair (``csrc/lora_matmul_q8.cu``).
+both entries), of its dX and rank reduce (``csrc/lora_matmul_bwd.cu``) and
+of the int8-base pair (``csrc/lora_matmul_q8.cu``).
 
 The plan is computed here, in Python, so that the CPU tests can hold its
 rules; the CUDA launchers take it as it is and check only that it names
@@ -26,6 +26,10 @@ the gather entry):
 So a row's arithmetic depends on the regime, K and N, never on M within a
 regime or on the other rows, and a gathered row is bit-equal to the
 single-adapter kernel on that row in the same regime.
+
+The rank reduce (``rank_reduce_plan``) has one regime: the rank padded
+to a power of two, the columns each thread reads, and M split over the
+blocks of one cluster by M alone.
 
 ``vec`` picks 16-byte copies where every row pitch the kernel streams is
 a multiple of 16 bytes and every base pointer is 16-byte aligned, and
@@ -147,3 +151,35 @@ def q8_dx_plan(M: int, K: int, N: int, elem_bytes: int = 4, aligned: bool = True
     s = tile_splits(N, K)
     bm, bn = tile_shape(M, K, s)
     return Plan(TILE, bm, bn, s, _vec(elem_bytes, (N,), aligned) and _vec(1, (N,), aligned))
+
+
+RR_MAX_ACC = 64             # f32 accumulators a rank-reduce thread holds
+RR_MIN_SPLIT_ROWS = 64      # each rank-reduce split keeps at least this many rows
+
+
+@dataclass(frozen=True)
+class RankReducePlan:
+    rank_pad: int       # RP: the smallest power of two >= r; u is staged padded to it
+    cols: int           # C: neighbouring columns of v a thread reads in one load
+    splits: int         # blocks along M in one cluster
+    vec: bool           # one C-element load (else C element loads)
+
+
+def rank_reduce_plan(M: int, r: int, N: int, v_dtype, aligned: bool = True) -> RankReducePlan:
+    """The plan of ``lora_rank_reduce`` for u (M, r) f32 and v (M, N) of
+    ``v_dtype`` (float32 or bfloat16); ``aligned`` says v starts on a
+    16-byte boundary.  Each thread holds ``cols * rank_pad`` f32 sums, at
+    most ``RR_MAX_ACC``: 16 bytes of columns (4 f32, 8 bf16) at ranks up to
+    16 (bf16: 8), fewer at larger ranks.  M goes to the most splits (a
+    power of two, at most ``MAX_SPLITS``) that keep ``RR_MIN_SPLIT_ROWS``
+    rows each, so the order of every addition depends on (M, r, N, dtype)
+    only."""
+    rp = 1
+    while rp < r:
+        rp *= 2
+    cols = min(16 // v_dtype.itemsize, RR_MAX_ACC // rp)
+    s = 1
+    while s < MAX_SPLITS and M // (2 * s) >= RR_MIN_SPLIT_ROWS:
+        s *= 2
+    return RankReducePlan(rp, cols, s, cols > 1 and aligned and N % cols == 0)
+

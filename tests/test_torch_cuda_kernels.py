@@ -169,12 +169,18 @@ def test_lora_matmul_dx_kernel_matches_plain(cuda, dtype, M, K, N, r):
 
 
 @pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("M,r,N", [(768, 4, 768), (33, 2, 45), (1, 1, 7), (5000, 64, 70)])
+@pytest.mark.parametrize("M,r,N", [(768, 4, 768), (33, 2, 45), (1, 1, 7), (5000, 64, 70),
+                                   # padded ranks, N not a multiple of 4 or 8 (element
+                                   # loads), M not a multiple of the split
+                                   (256, 4, 768), (768, 8, 768), (771, 3, 770),
+                                   (1000, 16, 1030), (300, 64, 99), (129, 8, 13)])
 def test_lora_rank_reduce_kernel_matches_plain_and_is_deterministic(cuda, vdtype, M, r, N):
     g = torch.Generator().manual_seed(M + N)
     u = torch.randn(M, r, generator=g).to(cuda)
     v = torch.randn(M, N, generator=g).to(cuda, vdtype)
+    backend.reset_launch_counts()
     out = lora_rank_reduce_kernel(u, v)
+    assert backend.LAUNCH_COUNTS == {"lora_rank_reduce": 1}
     again = lora_rank_reduce_kernel(u, v)
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and tuple(out.shape) == (r, N)
@@ -217,7 +223,23 @@ def test_autograd_backward_matches_plain_autograd(cuda, dtype, need_w, M, K, N, 
                                                 (1, 40, 72, 2, 1, 16, 0),
                                                 (1, 128, 128, 4, 2, 128, 33),
                                                 (2, 8, 4, 2, 2, 8, 2),
-                                                (1, 1, 7, 1, 1, 1, 0)])
+                                                (1, 1, 7, 1, 1, 1, 0),
+                                                # D 80 and 128 (padded to the mma's
+                                                # k8/n8), Sq != Sk, GQA at S 1024, a
+                                                # window across KV tiles, ragged D
+                                                (2, 100, 100, 4, 4, 80, 0),
+                                                (1, 200, 130, 2, 1, 128, 0),
+                                                (1, 70, 300, 4, 2, 64, 0),
+                                                (1, 1024, 1024, 12, 4, 64, 0),
+                                                (2, 300, 300, 4, 2, 64, 100),
+                                                (1, 96, 160, 2, 2, 42, 70),
+                                                # two warp groups share the walk: D 128
+                                                # and 96 (f32: no room to prefetch),
+                                                # 80, a window, Sq < Sk
+                                                (1, 512, 512, 2, 1, 128, 0),
+                                                (1, 600, 600, 2, 2, 64, 300),
+                                                (1, 300, 300, 2, 2, 80, 0),
+                                                (1, 100, 400, 2, 1, 96, 0)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KH, D, win):
     g = torch.Generator().manual_seed(Sq + Sk + D)
     q = torch.randn(B, Sq, H, D, generator=g).to(cuda, dtype)
@@ -225,8 +247,10 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, KH, D, 
     v = torch.randn(B, Sk, KH, D, generator=g).to(cuda, dtype)
     before = backend.LAUNCH_COUNTS.get("flash_attention", 0)
     o = flash_attention(q, k, v, window=win)
+    again = flash_attention(q, k, v, window=win)
     torch.cuda.synchronize()
-    assert backend.LAUNCH_COUNTS["flash_attention"] == before + 1
+    assert backend.LAUNCH_COUNTS["flash_attention"] == before + 2
+    assert torch.equal(o, again)                        # no atomics: equal bits
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(o.float(), flash_attention_ref(q, k, v, window=win).float(),
                                atol=tol, rtol=tol)

@@ -14,7 +14,8 @@ held on the CPU before the card.
   keep f32 accuracy against f64 dequantize-first, with the scale after
   the reduction (forward) or folded into dY before the split (dX).
 * The plan (``kernels/lora_matmul/plan.py``): which regime, split and tile
-  the CUDA launchers get, and that the wrappers hand it over unchanged.
+  the CUDA launchers get (and the rank reduce's padded rank, columns per
+  thread and splits of M), and that the wrappers hand it over unchanged.
 """
 import importlib
 
@@ -23,10 +24,12 @@ import pytest
 import torch
 
 from repro_torch.kernels.lora_matmul.plan import (DECODE, DECODE_MAX_M, MAX_SPLITS,
-                                                  MIN_SPLIT_ROWS, MIN_TILE_SPLIT_ROWS, SMS,
+                                                  MIN_SPLIT_ROWS, MIN_TILE_SPLIT_ROWS,
+                                                  RR_MAX_ACC, RR_MIN_SPLIT_ROWS, SMS,
                                                   TILE, decode_split, dx_plan,
                                                   forward_plan, q8_dx_plan,
-                                                  q8_forward_plan, tile_splits)
+                                                  q8_forward_plan, rank_reduce_plan,
+                                                  tile_splits)
 from repro_torch.precision import quantize_weight_int8
 
 ops = importlib.import_module("repro_torch.kernels.lora_matmul.ops")
@@ -347,3 +350,82 @@ def test_q8_wrappers_pass_their_plan(launches, M, K, N):
     for args, p in ((fwd, q8_forward_plan(M, K, N)), (dx, q8_dx_plan(M, K, N))):
         assert args[6:10] == (M, K, N, r) and args[11] == 0          # f32
         assert args[12:16] == (p.row_tile, p.col_tile, p.splits, int(p.vec))
+
+
+# ---------------------------------------------------------------------------
+# the rank reduce's plan: one launch over a cluster that splits M
+# ---------------------------------------------------------------------------
+
+RR_SHAPES = [(768, 768), (256, 768), (33, 45), (1, 7), (5000, 70), (771, 770), (129, 13),
+             (300, 99), (64, 1), (1023, 1030)]
+RANKS = [1, 2, 3, 4, 5, 8, 16, 33, 64]
+V_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def split_rows(M, splits):
+    """The rows [lo, hi) each block of the rank reduce's cluster sums, as
+    csrc/lora_matmul_bwd.cu computes them: ceil(M / splits) rows a block,
+    the last block the rest."""
+    per = -(-M // splits)
+    return [(min(M, s * per), min(M, s * per + per)) for s in range(splits)]
+
+
+@pytest.mark.parametrize("M,N", RR_SHAPES)
+def test_rank_reduce_covers_every_row_once(M, N):
+    for r in RANKS:
+        p = rank_reduce_plan(M, r, N, torch.float32)
+        rows = [m for lo, hi in split_rows(M, p.splits) for m in range(lo, hi)]
+        assert rows == list(range(M)), (M, r, p)
+
+
+@pytest.mark.parametrize("dtype", V_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", RANKS)
+def test_rank_reduce_plan_fits_its_limits(dtype, r):
+    for M, N in RR_SHAPES:
+        p = rank_reduce_plan(M, r, N, dtype)
+        assert p.rank_pad >= r and p.rank_pad & (p.rank_pad - 1) == 0
+        assert p.rank_pad == 1 or p.rank_pad // 2 < r             # the smallest such
+        assert p.cols * p.rank_pad <= RR_MAX_ACC
+        assert p.cols * dtype.itemsize <= 16                      # one load of <= 16 bytes
+        assert 1 <= p.splits <= MAX_SPLITS and p.splits & (p.splits - 1) == 0
+        assert p.splits == 1 or -(-M // p.splits) >= RR_MIN_SPLIT_ROWS
+
+
+def test_rank_reduce_plan_depends_only_on_m_r_n_and_dtype():
+    for M, N in RR_SHAPES:
+        for r in RANKS:
+            for dtype in V_DTYPES:
+                assert rank_reduce_plan(M, r, N, dtype) == rank_reduce_plan(M, r, N, dtype)
+        # the split of M depends on M alone: every rank, width and dtype agree
+        splits = {rank_reduce_plan(M, r, n, dt).splits for r in RANKS for n in (N, N + 1)
+                  for dt in V_DTYPES}
+        assert len(splits) == 1
+    # the main path: the server's and a client's rows, at the phase 6 and fleet ranks
+    assert rank_reduce_plan(768, 4, 768, torch.float32).splits == 8
+    assert rank_reduce_plan(256, 8, 768, torch.float32).splits == 4
+    assert rank_reduce_plan(768, 4, 768, torch.float32).cols == 4
+    assert rank_reduce_plan(768, 4, 768, torch.bfloat16).cols == 8
+
+
+@pytest.mark.parametrize("dtype", V_DTYPES, ids=["f32", "bf16"])
+def test_rank_reduce_vec_only_where_pitch_and_pointer_allow(dtype):
+    for M, N in RR_SHAPES:
+        for r in RANKS:
+            p = rank_reduce_plan(M, r, N, dtype)
+            assert p.vec == (p.cols > 1 and N % p.cols == 0)
+            assert not rank_reduce_plan(M, r, N, dtype, aligned=False).vec
+    assert rank_reduce_plan(768, 4, 768, dtype).vec
+    assert not rank_reduce_plan(771, 3, 770, torch.bfloat16).vec     # 770 % 8
+    assert not rank_reduce_plan(771, 3, 771, torch.float32).vec      # 771 % 4
+
+
+@pytest.mark.parametrize("dtype", V_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,r,N", [(768, 4, 768), (256, 8, 768), (771, 3, 770), (300, 64, 99)])
+def test_rank_reduce_wrapper_passes_its_plan(launches, dtype, M, r, N):
+    u, v = torch.zeros(M, r), torch.zeros(M, N, dtype=dtype)
+    ops.lora_rank_reduce_kernel(u, v)
+    (args,) = launches["lora_rank_reduce_launch"]
+    p = rank_reduce_plan(M, r, N, dtype, v.data_ptr() % 16 == 0)
+    assert args[3:7] == (M, r, N, 0 if dtype == torch.float32 else 1)
+    assert args[7:11] == (p.rank_pad, p.cols, p.splits, int(p.vec))
+    assert "lora_rank_reduce_splits" not in launches           # one entry, one launch
