@@ -10,7 +10,8 @@ Phases (each prints its own lines; any failure exits non-zero):
  2. build: all seven CUDA sources from src/repro_torch/kernels/csrc with
     nvcc, in parallel; ptxas's registers, shared memory and spills of each
     kernel of the three LoRA libraries (the TF32 tile's instantiations and
-    the rank reduce's) and of flash attention;
+    the rank reduce's), of flash attention and of the two decode libraries
+    (the f32/bf16 pair's split-K body, the int8 pair's tile body);
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
     forward LoRA matmul in both its regimes (M <= 16 and above, Mamba2's
@@ -28,7 +29,10 @@ Phases (each prints its own lines; any failure exits non-zero):
     decode family: flash decode over slab
     caches (lengths 0 to L + 1, windows, GQA, ragged D) and the int8-KV
     pair (flash_decode_q8 over an int8 slab, paged_decode_q8 over an int8
-    pool); and the SSD scan (y and the final state) against ``ssd_chunked``
+    pool); the f32/bf16 pair's split-K body at the edges of its plan (one
+    slot at 511-513 of 512, capacities 16-2048 for S = 1 to 8, G 4 and 8,
+    D 20-256, pages of 1, 16 and 48, K/V off a 16-byte boundary; one
+    launch a call, two runs bit-equal, dead slots exact zeros); and the SSD scan (y and the final state) against ``ssd_chunked``
     and the per-token oracle, f32, at repro's test shapes and the
     full-width Mamba2-2.7B prefill (80 heads of 64, state 128, chunk 256,
     S 8, 200, 300 and 512), and at the model's decays against the oracle
@@ -43,14 +47,17 @@ Phases (each prints its own lines; any failure exits non-zero):
     counts three TF32 products per f32 product, as does flash attention's,
     the q8 pair's two, as the int8 W is exact in TF32; the rank reduce at
     M 768 and 256, r 4 and 8, f32 and bf16 v; a [floor] line, what any
-    launch costs under these events, and a [sweep] of flash attention over
-    S); two runs bit-equal for ``lora_matmul`` at
+    launch costs under these events, a [sweep] of flash attention over
+    S, and [sweep] decode lines: both f32 decode kernels with every slot at
+    16, 128 and 511 and one slot at 511, at the plan's split); two runs bit-equal for ``lora_matmul`` at
     M 8 and 768, dX at M 256 and the q8 pair at M 256; a sweep of M with
     each regime forced, at K = N = 768 and at ``ssm_in``;
  5. serving: ServingEngine on full-width GPT-2-S (f32, 8 slots, 512
     positions, 16-token pages) drains 16 requests; the launch counters,
     reset just before, must show the kernels carried the path; one decode
-    step's logits are held against the plain path on the card;
+    step's logits are held against the plain path on the card; a digest of
+    the token ids is printed (the naive run and phase 11 print theirs), a
+    line two commits can be compared on;
  6. training: two SFL global rounds of full-width GPT-2-S through
     ``repro_torch.launch.train.run`` (3 clients x 4 x 64 tokens, 6 local
     steps, split 6, AdamW 4e-4, LoRA B != 0); the launch counters, reset
@@ -196,6 +203,13 @@ def bound_tf32(nbytes: float, flops: float, passes: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ids_digest(requests) -> str:
+    """sha256 of the requests' token ids, in order: one line that two runs
+    (or two commits) can be compared on."""
+    import hashlib
+    return hashlib.sha256(json.dumps([r.output for r in requests]).encode()).hexdigest()[:16]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -223,6 +237,7 @@ def main() -> None:
                                                  lora_matmul_q8_ref, lora_matmul_ref,
                                                  lora_rank_reduce_kernel,
                                                  lora_rank_reduce_ref)
+    from repro_torch.kernels.flash_attention.plan import decode_plan
     from repro_torch.kernels.lora_matmul.plan import DECODE, DECODE_MAX_M, TILE
     from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_scan_kernel,
                                               ssd_scan_with_state, ssd_sequential_ref)
@@ -248,8 +263,10 @@ def main() -> None:
     print(f"[build] nvcc sm_90a, in parallel: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.1f}s")
-    # the TF32 tile's (and the rank reduce's), and flash attention's
-    for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "flash_attention"):
+    # the TF32 tile's (and the rank reduce's), flash attention's, and the
+    # decode pair's split-K body beside the int8 pair's tile body
+    for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "flash_attention",
+                "flash_decode", "paged_decode"):
         for line in build.resource_usage(lib):
             print(f"[ptxas] {lib}: {line}")
 
@@ -494,6 +511,78 @@ def main() -> None:
             if dn == "float32" and G == 1:
                 err["paged_decode_q8"] = max(err["paged_decode_q8"], e)
 
+    def two_runs(op, fn):
+        """fn() once, then again: one launch of op's kernel each (counted
+        here) and equal bits."""
+        backend.reset_launch_counts()
+        o, again = fn(), fn()
+        torch.cuda.synchronize()
+        if dict(backend.LAUNCH_COUNTS) != {op: 2}:
+            fail(f"{op}: two calls counted {dict(backend.LAUNCH_COUNTS)}, expected 2 "
+                 f"launches of {op}")
+        if not torch.equal(o, again):
+            fail(f"{op} is not deterministic")
+        return o
+
+    def shifted(t):
+        """t's copy one entry into a buffer: no row 16-byte aligned."""
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    def check_decode_split(dt, dn):
+        """The f32/bf16 pair's split-K body at the edges of its plan: one slot
+        at 511, 512 and 513 of 512 (the naive loop's shape), capacities that
+        take S = 1 to 8 (16 to 2048), G 4 and 8, D 20 and 42 (element
+        loads), 128 and 256 (two 16-byte pieces a lane in f32), page sizes 1,
+        16 and 48, K/V one entry off a 16-byte boundary (bit-equal to the
+        aligned copy); each call one launch, two runs bit-equal, dead slots
+        exact zeros."""
+        tol = dict(atol=PAGED_TOL[dn], rtol=PAGED_TOL[dn])
+        cases = [(1, 12, 1, 64, 512, [n], 0) for n in (511, 512, 513)]
+        cases += [(3, 2, G, 64, L, [0, L, L // 2 + 1], win) for L in (16, 33, 96, 1024, 2048)
+                  for G, win in ((4, 0), (8, 37))]
+        cases += [(4, 2, 2, D, 96, [0, 97, 33, 64], 0) for D in (20, 42, 128, 256)]
+        for B, KH, G, D, L, lengths, win in cases:
+            q, k, v, lens = slab_inputs(B, KH, G, D, L, lengths, dt)
+            qt = q[:, 0].reshape(B, KH, G, D)
+            S = decode_plan(L, B, KH, G, D, dt).splits
+            o = two_runs("flash_decode", lambda: flash_decode(q, k, v, lens, window=win))
+            what = (f"{dn} B={B} KH={KH} G={G} D={D} L={L} window={win} lengths={lengths} "
+                    f"S={S} (one launch a call, two runs bit-equal)")
+            close("flash_decode", what, o, flash_decode_ref(
+                qt, k.transpose(1, 2), v.transpose(1, 2), lens, window=win).reshape(o.shape),
+                tol)
+            if B > 1 and not bool((o[0] == 0).all()):
+                fail(f"flash_decode: a dead slot did not give exact zeros ({what})")
+        for B, KH, G, D, PS, MP in ([(5, 2, G, 64, PS, -(-300 // PS)) for PS in (1, 16, 48)
+                                     for G in (4, 8)]
+                                    + [(4, 2, 2, D, 16, 5) for D in (20, 42, 128, 256)]):
+            lengths = [0, 1, PS + 1, 255, MP * PS][:B] if B == 5 else [0, 1, 17, 80]
+            q, kp, vp, lens, bt = paged_inputs(B, KH, G, D, PS, MP, lengths, dt)
+            qt = q[:, 0].reshape(B, KH, G, D)
+            S = decode_plan(MP * PS, B, KH, G, D, dt).splits
+            o = two_runs("paged_decode", lambda: paged_decode(q, kp, vp, lens, bt))
+            what = (f"{dn} B={B} KH={KH} G={G} D={D} PS={PS} MP={MP} lengths={lengths} S={S} "
+                    "(one launch a call, two runs bit-equal)")
+            close("paged_decode", what, o,
+                  paged_decode_ref(qt, kp, vp, lens, bt).reshape(o.shape), tol)
+            if not bool((o[0] == 0).all()):
+                fail(f"paged_decode: a dead slot did not give exact zeros ({what})")
+        # K/V one entry off a 16-byte boundary: entry loads, the same bits
+        q, k, v, lens = slab_inputs(3, 2, 2, 64, 40, [0, 40, 17], dt)
+        ku, vu = shifted(k), shifted(v)
+        same = [torch.equal(flash_decode(q, ku, vu, lens), flash_decode(q, k, v, lens))]
+        q, kp, vp, lens, bt = paged_inputs(3, 2, 2, 64, 16, 4, [0, 64, 20], dt)
+        ku, vu = shifted(kp), shifted(vp)
+        same.append(torch.equal(paged_decode(q, ku, vu, lens, bt),
+                                paged_decode(q, kp, vp, lens, bt)))
+        print(f"[check] flash_decode, paged_decode {dn}: K/V at {ku.data_ptr() % 16} bytes "
+              f"past a 16-byte boundary (entry loads) bit-equal to the aligned copy: {same} "
+              f"{'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            fail("the decode pair's entry loads differ from its 16-byte loads")
+
     def gather_inputs(M, K, N, r, A, dt):
         return (randn(M, K).to(dev, dt), randn(K, N, std=K ** -0.5).to(dev, dt),
                 randn(A, r, K, std=r ** -0.5).to(dev, dt),
@@ -681,6 +770,7 @@ def main() -> None:
         check_attention(dt, dn)
         check_q8(dt, dn)
         check_decode(dt, dn)
+        check_decode_split(dt, dn)
     check_ssd()                       # f32 in and out: the op casts
 
     # -- 4. times at the serving path's shapes (f32, as the engine serves) --
@@ -816,6 +906,21 @@ def main() -> None:
               f"kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library({lib_name}) "
               f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, {nbytes} B); kernel "
               f"with L2 warm {warm * 1e3:.2f}us")
+    # the f32 pair's split-K body against the length of its walks: all 8
+    # slots at one length (16, 128, 511), then one slot at 511 (the naive
+    # loop's shape), each at the plan's split S
+    for B_, n in ((8, 16), (8, 128), (8, 511), (1, 511)):
+        qs_, ks_, vs_, ls_ = slab_inputs(B_, KH, G, D, L, [n] * B_, torch.float32)
+        qp_, kp_, vp_, lp_, bt_ = paged_inputs(B_, KH, G, D, PS, MP, [n] * B_, torch.float32)
+        S = decode_plan(L, B_, KH, G, D, torch.float32).splits
+        for op, fn in (("flash_decode", lambda: flash_decode(qs_, ks_, vs_, ls_)),
+                       ("paged_decode", lambda: paged_decode(qp_, kp_, vp_, lp_, bt_))):
+            bms, _ = bound(4 * (2 * B_ * KH * G * D + 2 * KH * B_ * n * D) + 4 * B_
+                           + (4 * B_ * -(-n // PS) if op == "paged_decode" else 0),
+                           4 * KH * G * D * B_ * n)
+            print(f"[sweep] decode {op} f32 B={B_} KH={KH} G={G} D={D} capacity {L} "
+                  f"(pages of {PS}) every length {n}: S={S} ({B_ * KH * S} blocks), kernel "
+                  f"{time_ms(torch, fn, flush) * 1e3:.2f}us, bound {bms * 1e3:.2f}us")
     # -- 4b. times at the training path's shapes (f32) -------------------------
     # the forward and dX at M above the decode threshold run the 3xTF32
     # tile: their bound is 3 TF32 products per f32 product over 495 TFLOP/s
@@ -1085,6 +1190,7 @@ def main() -> None:
             fail(f"{k}: {launches.get(k, 0)} launches on the main path, expected {v}")
     print(f"[serve] launch counts match the path: {want} "
           f"(24 lora_matmul per decode step and per chunk, 12 paged_decode per step)")
+    print(f"[serve] token ids digest of the {len(reqs)} requests: {ids_digest(reqs)}")
 
     # one decode step, kernel path vs plain path, on the same state
     B = 8
@@ -1450,6 +1556,7 @@ def main() -> None:
           f"{'ok' if same and naive_launches == want else 'FAIL'}")
     if naive_launches != want or not same:
         fail("the naive loop's launches or token ids are off")
+    print(f"[naive] token ids digest of the {len(nreqs)} requests: {ids_digest(nreqs)}")
 
     # -- 10. the int8-KV ops' own path ----------------------------------------
     # No engine of repro builds an int8 KV; the q8 kernels are reached
@@ -1576,6 +1683,7 @@ def main() -> None:
           f"its tenant's adapter: {same} of {len(mreqs)} {'ok' if same == len(mreqs) else 'FAIL'}")
     if same != len(mreqs):
         fail("multi-tenant token ids differ from the per-tenant single-adapter engines'")
+    print(f"[tenants] token ids digest of the {len(mreqs)} requests: {ids_digest(mreqs)}")
 
     # one prompt under every tenant, with a hot swap between two steps
     shared = [Request(uid=3000 + t, prompt=list(reqs[0].prompt), max_new_tokens=8, tenant=t)

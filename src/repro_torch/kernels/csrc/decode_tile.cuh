@@ -1,39 +1,29 @@
-// The one-token decode body shared by the decode kernels for Hopper
-// (sm_90a): paged_decode and paged_decode_q8 (csrc/paged_decode.cu),
-// flash_decode and flash_decode_q8 (csrc/flash_decode.cu).  Each computes,
-// for slot b and KV head h,
+// The earlier one-token decode body for Hopper (sm_90a), kept for the
+// int8-KV pair until it moves onto csrc/decode_split.cuh's split-K body
+// through an int8 element policy: paged_decode_q8 (csrc/paged_decode.cu)
+// and flash_decode_q8 (csrc/flash_decode.cu).  Each computes, for slot b
+// and KV head h,
 //
 //   out[b, h, g, :] = softmax_j(q[b, h, g, :] . K_j * D^-0.5) V_j
 //
-// over the slot's live positions j in [lo, hi), f32 inside, where
-//   hi = min(length_b, capacity)   (a finished slab slot decodes on with
-//                                   length L + 1: never read past the cache)
-//   lo = max(length_b - window, 0) with a window, else 0.
-// The kernel is written once; two policies say where the rows lie and
-// what they hold:
+// over the slot's live positions j in [lo, hi), f32 inside, with hi, lo
+// and the addressing policies (SlabAddr, PagedAddr) of decode_split.cuh,
+// and one element policy:
 //
-//   Addr   SlabAddr    cache (B, L, KH, D), the model's layout read in
-//                      place: row of position j is KH * D elements after
-//                      row j - 1
-//          PagedAddr   pool (KH, NP, PS, D) through the slot's block-table
-//                      row: position j lives in page row[j / PS], offset
-//                      j % PS
-//   KV     FloatKV<T>  f32 or bf16 entries
-//          Int8KV      int8 entries times the KV head's f32 scale, applied
+//   KV     Int8KV      int8 entries times the KV head's f32 scale, applied
 //                      as the tile is staged (int8 -> f32 * scale, the plain
 //                      version's dequantization); rows are read four bytes
 //                      at a time (one char4) when every row starts on a
 //                      4-byte boundary, byte by byte otherwise
 //
 // What bounds it on the H100: each slot's live K and V are read once,
-// 2 * KH * (hi - lo) * D * bytes per slot (a quarter of the f32 bytes for
-// int8), for ~4 * G * D flops per entry per KV head: memory bound, and at
-// serving batch sizes latency bound (one block per (slot, head) walking
-// its tiles in series).
+// KH * (hi - lo) * D * 2 bytes per slot, for ~4 * G * D flops per entry
+// per KV head: memory bound, and at serving batch sizes latency bound
+// (one block per (slot, head) walking its tiles in series).
 //
-// Design (PR 11's paged_decode kernel, now shared):
+// Design:
 //  * one block of 128 threads per (slot b, KV head h); no split-K across
-//    blocks and no atomics (split-K is later work);
+//    blocks and no atomics;
 //  * the block walks only the 32-position tiles that hold live entries,
 //    from the tile holding lo to the one holding hi - 1, and stages each
 //    tile's K/V rows into shared memory as f32 (neighbouring threads on
@@ -48,86 +38,17 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decode_split.cuh"     // TK, NEG_INF, SlabAddr, PagedAddr; to_f, store
 
 namespace {
 
-constexpr int TK = 32;          // positions per tile
 constexpr int NT = 128;         // threads per block
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// ---------------------------------------------------------------------------
-// addressing: element offset of the first entry of position j's D-row
-// ---------------------------------------------------------------------------
-
-struct SlabRows {
-  size_t base, stride;
-  __device__ __forceinline__ size_t operator()(int j) const {
-    return base + (size_t)j * stride;
-  }
-};
-
-struct SlabAddr {               // cache (B, L, KH, D)
-  int L, KH, D;
-  __device__ __forceinline__ int capacity() const { return L; }
-  __device__ __forceinline__ SlabRows rows(int b, int h) const {
-    return {((size_t)b * L * KH + h) * D, (size_t)KH * D};
-  }
-};
-
-struct PagedRows {
-  const int* row;
-  size_t head;
-  int PS, D;
-  __device__ __forceinline__ size_t operator()(int j) const {
-    return head + ((size_t)row[j / PS] * PS + j % PS) * D;
-  }
-};
-
-struct PagedAddr {              // pool (KH, NP, PS, D), tables (B, MP)
-  const int* block_tables;
-  int NP, PS, MP, D;
-  __device__ __forceinline__ int capacity() const { return MP * PS; }
-  __device__ __forceinline__ PagedRows rows(int b, int h) const {
-    return {block_tables + (size_t)b * MP, (size_t)h * NP * PS * D, PS, D};
-  }
-};
 
 // ---------------------------------------------------------------------------
 // elements: stage one tile's K rows (padded, DP = D + 1 floats apart) and V
 // rows (D apart) into shared memory as f32; entries j outside [jlo, nt)
 // are staged as zeros without being read
 // ---------------------------------------------------------------------------
-
-template <typename T>
-struct FloatKV {
-  const T* k;
-  const T* v;
-  __device__ __forceinline__ FloatKV head(int) const { return *this; }
-  template <typename Rows>
-  __device__ __forceinline__ void stage(float* ks, float* vs, const Rows& rows, int t0,
-                                        int jlo, int nt, int D, int tid) const {
-    const int DP = D + 1;
-    for (int i = tid; i < TK * D; i += NT) {
-      const int j = i / D, d = i % D;
-      float kv = 0.f, vv = 0.f;
-      if (j >= jlo && j < nt) {
-        const size_t off = rows(t0 + j) + d;
-        kv = to_f(k[off]);
-        vv = to_f(v[off]);
-      }
-      ks[j * DP + d] = kv;
-      vs[j * D + d] = vv;
-    }
-  }
-};
 
 struct Int8Head {
   const int8_t* k;

@@ -20,45 +20,59 @@
 // There the grid (B, KH, L/bk) ran the cache-length axis in order with
 // m/l/acc in VMEM scratch, the lengths rode in as a scalar-prefetch
 // operand so dead tiles skipped their matmuls, and the JAX wrapper
-// transposed k/v to (B, KH, L, D) for the BlockSpecs.  Here a loop over
-// the live tiles inside one block per (slot, KV head) takes the grid's
-// place (the body of csrc/decode_tile.cuh with its SlabAddr addressing),
-// and the rows are read where the model wrote them: each D-row is
-// contiguous, KH * D elements from the next position's, so loads stay
-// coalesced and the per-layer, per-step transpose of the whole cache
-// (25.2 MB at 8 slots x 512 positions x 768 wide, f32) is never made.
+// transposed k/v to (B, KH, L, D) for the BlockSpecs.  Here the rows are
+// read where the model wrote them: each D-row is contiguous, KH * D
+// elements from the next position's, so the per-layer, per-step transpose
+// of the whole cache (25.2 MB at 8 slots x 512 positions x 768 wide, f32)
+// is never made.
+//
+// What bounds it: the live K and V are read once, 2 * KH * length * D *
+// bytes per slot (1 byte per entry for int8): memory bound (2.0 us at 8
+// slots x 12 KV heads of 64, lengths 8-255, f32), and at serving batch
+// sizes latency bound, by the launch and the DRAM round trips in series.
+//
+// 1 (f32/bf16) runs the split-K body of csrc/decode_split.cuh with its
+// SlabAddr addressing: a cluster of S blocks per (slot, KV head, head
+// group), each taking an equal share of the slot's live 32-position tiles
+// (S from kernels/flash_attention/plan.py::decode_plan), rows read 16
+// bytes a lane with several rows in flight, online softmax per group of
+// lanes in registers, and the blocks' (m, l, acc) merged in rank order
+// through distributed shared memory: one launch, no workspace.
+// 2 (int8) runs the earlier body of csrc/decode_tile.cuh: one block per
+// (slot, KV head) walking its live tiles in series.
 //
 // Trap: a finished slab slot keeps decoding at position L, writing at
 // L % L = 0 and passing length L + 1; the Pallas grid covered L/bk tiles
-// and clamped by construction.  Here the block reads min(length, L)
+// and clamped by construction.  Here a block reads min(length, L)
 // entries; the window's lower bound still uses the length as given.
-//
-// What bounds it: the live K and V are read once, 2 * KH * length * D *
-// bytes per slot (1 byte per entry for int8): memory bound, and at serving
-// batch sizes latency bound.
 
 #include "decode_tile.cuh"
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  Returns
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); the plan
+// (splits, heads, lanes, vectors, vec) is decode_plan's.  Returns
+// cudaErrorInvalidValue for a plan that names no instantiated kernel, else
 // cudaGetLastError() after the launch (0 = launched).
 int flash_decode_launch(const void* q, const void* k, const void* v, const void* lengths,
                         void* out, int B, int KH, int G, int D, int L, int window,
+                        int splits, int heads, int lanes, int vectors, int vec,
                         float scale, int dtype, void* stream) {
   if (L < 1 || window < 0) return (int)cudaErrorInvalidValue;
   const SlabAddr addr{L, KH, D};
+  const SplitPlan plan{splits, heads, lanes, vectors, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const FloatKV<float> kv{static_cast<const float*>(k), static_cast<const float*>(v)};
-    return (int)launch_decode<float>(q, kv, addr, lengths, out, B, KH, G, D, window, scale,
-                                     s);
+    return (int)launch_decode_split<float>(q, kv, addr, lengths, out, B, KH, G, D, window,
+                                           scale, plan, vec16_rows(k, v, D, 4), s);
   }
   if (dtype == 1) {
     const FloatKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k),
                                     static_cast<const __nv_bfloat16*>(v)};
-    return (int)launch_decode<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D,
-                                             window, scale, s);
+    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D,
+                                                   window, scale, plan,
+                                                   vec16_rows(k, v, D, 2), s);
   }
   return (int)cudaErrorInvalidValue;
 }

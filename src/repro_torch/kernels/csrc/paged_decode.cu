@@ -20,38 +20,55 @@
 //
 // There the lengths and block tables were scalar-prefetched so the
 // BlockSpec index map could name each KV tile's page, and the logical-
-// length grid axis ran in order with m/l/acc in VMEM scratch.  Here the
-// block reads its own length, table row and head scale, and a loop over the
-// live tiles inside the block carries m/l/acc in shared memory: the body
-// of csrc/decode_tile.cuh with its PagedAddr addressing (table entries past
-// the live prefix, page 0, are never read).
+// length grid axis ran in order with m/l/acc in VMEM scratch.  Here a block
+// reads its own length, table row (and, for int8, head scale); table
+// entries past the live prefix, page 0, are never read.
 //
 // What bounds it: the live K and V are read once, 2 * KH * length * D *
-// bytes per slot (1 byte per entry for int8): memory bound, and at serving
-// batch sizes latency bound.
+// bytes per slot (1 byte per entry for int8), plus the live table entries:
+// memory bound (2.0 us at 8 slots x 12 KV heads of 64, lengths 8-255,
+// pages of 16, f32), and at serving batch sizes latency bound, by the
+// launch and the DRAM round trips in series (length, table entry, row).
+//
+// 1 (f32/bf16) runs the split-K body of csrc/decode_split.cuh with its
+// PagedAddr addressing: a cluster of S blocks per (slot, KV head, head
+// group), each taking an equal share of the slot's live 32-position tiles
+// (S from kernels/flash_attention/plan.py::decode_plan), rows read 16
+// bytes a lane with several rows in flight and the next rows' table
+// entries requested before these rows are used, online softmax per group
+// of lanes in registers, and the blocks' (m, l, acc) merged in rank order
+// through distributed shared memory: one launch, no workspace.
+// 2 (int8) runs the earlier body of csrc/decode_tile.cuh: one block per
+// (slot, KV head) walking its live tiles in series, m/l/acc in shared
+// memory.
 
 #include "decode_tile.cuh"
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).  Returns
+// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it); the plan
+// (splits, heads, lanes, vectors, vec) is decode_plan's.  Returns
+// cudaErrorInvalidValue for a plan that names no instantiated kernel, else
 // cudaGetLastError() after the launch (0 = launched).
 int paged_decode_launch(const void* q, const void* kp, const void* vp,
                         const void* lengths, const void* block_tables, void* out,
                         int B, int KH, int G, int D, int NP, int PS, int MP,
+                        int splits, int heads, int lanes, int vectors, int vec,
                         float scale, int dtype, void* stream) {
   if (NP < 1 || PS < 1 || MP < 1) return (int)cudaErrorInvalidValue;
   const PagedAddr addr{static_cast<const int*>(block_tables), NP, PS, MP, D};
+  const SplitPlan plan{splits, heads, lanes, vectors, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const FloatKV<float> kv{static_cast<const float*>(kp), static_cast<const float*>(vp)};
-    return (int)launch_decode<float>(q, kv, addr, lengths, out, B, KH, G, D, 0, scale, s);
+    return (int)launch_decode_split<float>(q, kv, addr, lengths, out, B, KH, G, D, 0, scale,
+                                           plan, vec16_rows(kp, vp, D, 4), s);
   }
   if (dtype == 1) {
     const FloatKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(kp),
                                     static_cast<const __nv_bfloat16*>(vp)};
-    return (int)launch_decode<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D, 0,
-                                             scale, s);
+    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D, 0,
+                                                   scale, plan, vec16_rows(kp, vp, D, 2), s);
   }
   return (int)cudaErrorInvalidValue;
 }

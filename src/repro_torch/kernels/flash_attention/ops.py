@@ -1,6 +1,7 @@
 """Attention kernel entries: layout, device routing, checks and the kernel
 launches.  A CUDA tensor launches ``csrc/paged_decode.cu`` (float and
-int8 pools), ``csrc/flash_decode.cu`` (float and int8 slab caches) or
+int8 pools), ``csrc/flash_decode.cu`` (float and int8 slab caches; the
+float entries with the split of ``plan.py``) or
 ``csrc/flash_attention.cu``; a CPU tensor takes the plain version of
 ``ref.py``.  ``repro``'s ``bk``, ``interpret`` and ``use_kernel``
 arguments are gone: the tiles are fixed and the device alone routes."""
@@ -11,17 +12,19 @@ import ctypes
 import torch
 
 from .. import backend, build
+from .plan import DECODE_MAX_HEAD_DIM, decode_plan
 from .ref import (flash_attention_ref, flash_decode_q8_ref, flash_decode_ref,
                   paged_decode_q8_ref, paged_decode_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# (library, entry) -> argtypes: pointers, then ints, the softmax scale, the
-# dtype code and the stream
+# (library, entry) -> argtypes: pointers, then ints (the f32/bf16 decode
+# entries end theirs with decode_plan's five), the softmax scale, the dtype
+# code and the stream
 _SIGNATURES = {
-    ("paged_decode", "paged_decode_launch"): (6, 7),
+    ("paged_decode", "paged_decode_launch"): (6, 12),
     ("paged_decode", "paged_decode_q8_launch"): (8, 7),
-    ("flash_decode", "flash_decode_launch"): (5, 6),
+    ("flash_decode", "flash_decode_launch"): (5, 11),
     ("flash_decode", "flash_decode_q8_launch"): (7, 6),
     ("flash_attention", "flash_attention_launch"): (4, 8),
 }
@@ -35,6 +38,19 @@ def _entry(lib: str, name: str):
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _split_plan(capacity: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """decode_plan for q (B, KH, G, D) over K/V rows of ``capacity``
+    positions, as the C entry's five ints."""
+    B, KH, G, D = q.shape
+    p = decode_plan(capacity, B, KH, G, D, q.dtype,
+                    aligned=k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+    return p.splits, p.heads, p.lanes, p.vectors, int(p.vec)
 
 
 def _on_card(op: str, **tensors: torch.Tensor) -> torch.device:
@@ -108,22 +124,26 @@ def paged_decode_kernel(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, lengths: torch.Tensor,
                         block_tables: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: q (B, KH, G, D) and the pools
-    (KH, NP, PS, D) of one dtype (float32 or bfloat16), lengths (B,) and
-    block_tables (B, MP) int32, all contiguous on one CUDA device.
-    Returns (B, KH, G, D) in q's dtype.  Raises on anything else."""
+    (KH, NP, PS, D) of one dtype (float32 or bfloat16), D <= 256, lengths
+    (B,) and block_tables (B, MP) int32, all contiguous on one CUDA
+    device; one cluster launch with ``plan.decode_plan``'s split.  Returns
+    (B, KH, G, D) in q's dtype.  Raises on anything else."""
     dev = _on_card("paged_decode", q=q, k_pages=k_pages, v_pages=v_pages,
                    lengths=lengths, block_tables=block_tables)
     _check_kv_dtypes("paged_decode", q, k_pages, v_pages, lengths, int8=False)
     B, KH, G, D, NP, PS, MP = _paged_shapes("paged_decode", q, k_pages, v_pages,
                                             lengths, block_tables)
+    if D > DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"paged_decode: head dim {D} over the kernel's {DECODE_MAX_HEAD_DIM}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    plan = _split_plan(MP * PS, q, k_pages, v_pages)
     with torch.cuda.device(dev):
         err = _entry("paged_decode", "paged_decode_launch")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-            block_tables.data_ptr(), out.data_ptr(), B, KH, G, D, NP, PS, MP,
-            D ** -0.5, _DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+            block_tables.data_ptr(), out.data_ptr(), B, KH, G, D, NP, PS, MP, *plan,
+            D ** -0.5, _DTYPE_CODES[q.dtype], _stream(dev))
     build.check("paged_decode", err)
     backend.count_launch("paged_decode")
     return out
@@ -153,7 +173,7 @@ def paged_decode_q8_kernel(q: torch.Tensor, k_pages: torch.Tensor,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
             block_tables.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             out.data_ptr(), B, KH, G, D, NP, PS, MP, D ** -0.5, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            _stream(dev))
     build.check("paged_decode", err)
     backend.count_launch("paged_decode_q8")
     return out
@@ -215,20 +235,24 @@ def flash_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lengths: torch.Tensor, *, window: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel on the model's cache layout, read in place:
     q (B, KH, G, D), k/v (B, L, KH, D) of q's dtype (float32 or
-    bfloat16), lengths (B,) int32, all contiguous on one CUDA device.  A
+    bfloat16), D <= 256, lengths (B,) int32, all contiguous on one CUDA
+    device; one cluster launch with ``plan.decode_plan``'s split.  A
     length past L reads all L entries.  Returns (B, KH, G, D) in q's
     dtype.  Raises on anything else."""
     dev = _on_card("flash_decode", q=q, k=k, v=v, lengths=lengths)
     _check_kv_dtypes("flash_decode", q, k, v, lengths, int8=False)
     B, KH, G, D, L = _slab_shapes("flash_decode", q, k, v, lengths, window)
+    if D > DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"flash_decode: head dim {D} over the kernel's {DECODE_MAX_HEAD_DIM}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    plan = _split_plan(L, q, k, v)
     with torch.cuda.device(dev):
         err = _entry("flash_decode", "flash_decode_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, KH, G, D, L, int(window), D ** -0.5, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            B, KH, G, D, L, int(window), *plan, D ** -0.5, _DTYPE_CODES[q.dtype],
+            _stream(dev))
     build.check("flash_decode", err)
     backend.count_launch("flash_decode")
     return out
@@ -254,7 +278,7 @@ def flash_decode_q8_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), B, KH, G, D, L,
             int(window), D ** -0.5, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            _stream(dev))
     build.check("flash_decode", err)
     backend.count_launch("flash_decode_q8")
     return out
@@ -345,7 +369,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                              B, Sq, Sk, H, KH, D, max(Sk - Sq, 0), int(window),
                              D ** -0.5, _DTYPE_CODES[q.dtype],
-                             torch.cuda.current_stream(dev).cuda_stream)
+                             _stream(dev))
     build.check("flash_attention", err)
     backend.count_launch("flash_attention")
     return out

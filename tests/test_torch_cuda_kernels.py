@@ -565,6 +565,133 @@ def test_decode_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         flash_decode(q[:, None].reshape(2, 1, 4, 16), kq, vq, lens)    # no scales
 
 
+# -- the split-K body of the f32/bf16 pair (csrc/decode_split.cuh) ----------
+
+def _paged_inputs(cuda, dtype, B, KH, G, D, PS, MP, lengths, seed):
+    g = torch.Generator().manual_seed(seed)
+    NP = B * MP + 1
+    q = torch.randn(B, KH, G, D, generator=g).to(cuda, dtype)
+    kp = torch.randn(KH, NP, PS, D, generator=g).to(cuda, dtype)
+    vp = torch.randn(KH, NP, PS, D, generator=g).to(cuda, dtype)
+    pages = torch.randperm(NP - 1, generator=g) + 1
+    bt = torch.zeros(B, MP, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        npg = -(-n // PS)
+        bt[i, :npg] = pages[i * MP:i * MP + npg].int()
+    return q, kp, vp, torch.tensor(lengths, dtype=torch.int32, device=cuda), bt.to(cuda)
+
+
+def _one_launch_twice(op, fn):
+    """fn() launches op's kernel once a call, and two calls give equal bits."""
+    before = backend.LAUNCH_COUNTS.get(op, 0)
+    o = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS[op] == before + 2
+    assert torch.equal(o, again)
+    return o
+
+
+def _flash_split_case(cuda, dtype, B, KH, G, D, L, lengths, window, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, KH, G, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o = _one_launch_twice("flash_decode",
+                          lambda: flash_decode_kernel(q, k, v, lens, window=window))
+    ref = flash_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2), lens, window=window)
+    torch.testing.assert_close(o.float(), ref.float(), **DECODE_TOL[dtype])
+    return o
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("length", [511, 512, 513])
+def test_flash_decode_one_slot_at_the_capacity(cuda, dtype, length):
+    """The naive loop's shape (one slot, eight splits) at the cache's end."""
+    _flash_split_case(cuda, dtype, 1, 12, 1, 64, 512, [length], 0, length)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("L", [16, 33, 96, 1024, 2048])
+def test_flash_decode_every_split(cuda, dtype, G, L):
+    """Capacities that take S = 1 (one tile) to 8 (many tiles a block), with
+    and without a window; a dead slot gives exact zeros."""
+    for window in (0, 37):
+        o = _flash_split_case(cuda, dtype, 3, 2, G, 64, L, [0, L, L // 2 + 1], window,
+                              L + G + window)
+        assert (o[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [20, 42, 128, 256])
+def test_decode_pair_head_dims(cuda, dtype, D):
+    """Element loads (D 20 in bf16, 42), 16-byte loads, two pieces a lane
+    (f32 D 256), for both kernels."""
+    o = _flash_split_case(cuda, dtype, 4, 2, 2, D, 96, [0, 97, 33, 64], 0, D)
+    assert (o[0] == 0).all()
+    lengths = [0, 1, 17, 80]
+    q, kp, vp, lens, bt = _paged_inputs(cuda, dtype, 4, 2, 2, D, 16, 5, lengths, D)
+    o = _one_launch_twice("paged_decode", lambda: paged_decode_kernel(q, kp, vp, lens, bt))
+    torch.testing.assert_close(o.float(), paged_decode_ref(q, kp, vp, lens, bt).float(),
+                               **DECODE_TOL[dtype])
+    assert (o[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("PS", [1, 16, 48])
+def test_paged_decode_page_sizes(cuda, dtype, G, PS):
+    """Pages of one position (a table entry per row), of 16, and of 48 (not
+    a divisor of the 32-position tile)."""
+    MP = -(-300 // PS)
+    lengths = [0, 1, PS + 1, 255, MP * PS]
+    q, kp, vp, lens, bt = _paged_inputs(cuda, dtype, 5, 2, G, 64, PS, MP, lengths, PS + G)
+    o = _one_launch_twice("paged_decode", lambda: paged_decode_kernel(q, kp, vp, lens, bt))
+    torch.testing.assert_close(o.float(), paged_decode_ref(q, kp, vp, lens, bt).float(),
+                               **DECODE_TOL[dtype])
+    assert (o[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_pair_unaligned_base_takes_element_loads(cuda, dtype):
+    """K and V one entry into their buffers: no row is 16-byte aligned, so
+    the kernels read entry by entry, and give the aligned copy's bits."""
+    B, KH, G, D, L = 3, 2, 2, 64, 40
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:] = t.reshape(-1)
+        out = buf[1:].view(t.shape)
+        assert out.data_ptr() % 16 and out.is_contiguous()
+        return out
+
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(B, KH, G, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
+    lens = torch.tensor([0, 40, 17], dtype=torch.int32, device=cuda)
+    o = flash_decode_kernel(q, shifted(k), shifted(v), lens)
+    torch.testing.assert_close(o, flash_decode_kernel(q, k, v, lens), atol=0, rtol=0)
+    q, kp, vp, lens, bt = _paged_inputs(cuda, dtype, 3, KH, G, D, 16, 4, [0, 64, 20], 4)
+    o = paged_decode_kernel(q, shifted(kp), shifted(vp), lens, bt)
+    torch.testing.assert_close(o, paged_decode_kernel(q, kp, vp, lens, bt), atol=0, rtol=0)
+
+
+def test_decode_pair_refuses_a_head_dim_over_the_cap(cuda):
+    D = 264
+    q = torch.zeros(1, 1, 1, D, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_decode_kernel(q, torch.zeros(1, 4, 1, D, device=cuda),
+                            torch.zeros(1, 4, 1, D, device=cuda), lens)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_decode_kernel(q, torch.zeros(1, 2, 4, D, device=cuda),
+                            torch.zeros(1, 2, 4, D, device=cuda), lens,
+                            torch.ones(1, 1, dtype=torch.int32, device=cuda))
+
+
 def test_slab_and_naive_engines_on_the_card_match_the_cpu_engine(cuda):
     cfg = get_arch("gpt2-s").reduced(num_layers=2, d_model=64, vocab=128)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
