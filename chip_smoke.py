@@ -10,8 +10,9 @@ Phases (each prints its own lines; any failure exits non-zero):
  2. build: all seven CUDA sources from src/repro_torch/kernels/csrc with
     nvcc, in parallel; ptxas's registers, shared memory and spills of each
     kernel of the three LoRA libraries (the TF32 tile's instantiations and
-    the rank reduce's), of flash attention and of the two decode libraries
-    (the f32/bf16 pair's split-K body, the int8 pair's tile body);
+    the rank reduce's), of flash attention, of the two decode libraries
+    (the f32/bf16 pair's split-K body, the int8 pair's tile body) and of
+    the SSD scan;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
     forward LoRA matmul in both its regimes (M <= 16 and above, Mamba2's
@@ -36,13 +37,18 @@ Phases (each prints its own lines; any failure exits non-zero):
     and the per-token oracle, f32, at repro's test shapes and the
     full-width Mamba2-2.7B prefill (80 heads of 64, state 128, chunk 256,
     S 8, 200, 300 and 512), and at the model's decays against the oracle
-    in f64, no further from it than twice ``ssd_chunked``'s distance;
+    in f64, no further from it than twice ``ssd_chunked``'s distance; the
+    scan's edges at chunk 256 (S 1 to 1024, nh 1, 7 and 80, hd 8, 80 and
+    64, N 3 to 256), each one launch with two runs bit-equal, and operands
+    off a 16-byte boundary bit-equal to the aligned call;
  4. times: each kernel, its plain version and one library call, CUDA
     events, median of 60 launches with L2 flushed between launches, beside
     the least time the card could take for the same work (the decode
     family at the engine's shape: masked SDPA over the slab view, and
     dequantize-then-SDPA for the int8 pair, as the library calls; the SSD
-    scan at S 200 and 512 has no library call; ``lora_matmul`` also at
+    scan at S 200 and 512 has no library call, its bound is 3xTF32 with the
+    f32 FFMA one beside, the plain ``ssd_chunked``'s min and max beside its
+    median, and a [sweep] over S 8, 64 and 1024; ``lora_matmul`` also at
     Mamba2's projection shapes at M 8 and 200; the 3xTF32 tile's bound
     counts three TF32 products per f32 product, as does flash attention's,
     the q8 pair's two, as the int8 W is exact in TF32; the rank reduce at
@@ -111,7 +117,7 @@ Phases (each prints its own lines; any failure exits non-zero):
     (logits, every layer's state) against the plain path run in f64: no
     more than 3x as far from it as the plain f32 path; one decode step is
     held end to end, and ``generate()`` gives the engine's ids for two
-    requests.
+    requests; a digest of the engine's token ids is printed.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -149,12 +155,12 @@ def smi_line() -> str:
     return out[0]
 
 
-def time_ms(torch, fn, flush, iters=60, warmup=5):
+def time_ms(torch, fn, flush, iters=60, warmup=5, spread=False):
     """Median CUDA-event time of one call; ``flush`` runs before each one,
     outside the events, so every launch finds L2 cold.  A ~1 ms device
     sleep ahead of the start event lets the host queue the whole call
     before the device reaches it, so the events time the device work and
-    not the host's launch overhead."""
+    not the host's launch overhead.  ``spread``: (median, min, max)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -169,6 +175,8 @@ def time_ms(torch, fn, flush, iters=60, warmup=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    if spread:
+        return statistics.median(times), min(times), max(times)
     return statistics.median(times)
 
 
@@ -263,10 +271,11 @@ def main() -> None:
     print(f"[build] nvcc sm_90a, in parallel: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.1f}s")
-    # the TF32 tile's (and the rank reduce's), flash attention's, and the
-    # decode pair's split-K body beside the int8 pair's tile body
+    # the TF32 tile's (and the rank reduce's), flash attention's, the
+    # decode pair's split-K body beside the int8 pair's tile body, and the
+    # SSD scan's
     for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "flash_attention",
-                "flash_decode", "paged_decode"):
+                "flash_decode", "paged_decode", "ssd_scan"):
         for line in build.resource_usage(lib):
             print(f"[ptxas] {lib}: {line}")
 
@@ -692,6 +701,53 @@ def main() -> None:
                 close("ssd_scan", what + ": h_last vs the per-token oracle", h, hs, tol)
             if nh == 80:
                 err["ssd_scan"] = max(err["ssd_scan"], e)
+        # the kernel's edges at chunk 256: S 1 to 1024 (four chunks), nh 1, 7
+        # and 80, hd 8, 80 (a ragged column tile) and 64, N 3 (element
+        # copies), 4, 16, 128 and 256; one launch a call, two runs bit-equal
+        for B, S, nh, hd, N in ((1, 1, 1, 8, 4), (1, 7, 7, 8, 16), (1, 64, 80, 64, 128),
+                                (1, 65, 7, 80, 128), (1, 256, 1, 64, 256),
+                                (1, 257, 80, 64, 128), (1, 1024, 7, 80, 16),
+                                (2, 1024, 1, 64, 128), (1, 1024, 80, 64, 128),
+                                (1, 200, 80, 80, 256), (2, 65, 80, 8, 4), (1, 100, 7, 64, 3)):
+            ins = ssd_inputs(B, S, nh, hd, N)
+            backend.reset_launch_counts()
+            y, h = ssd_scan_with_state(*ins, chunk=256)
+            torch.cuda.synchronize()
+            one = dict(backend.LAUNCH_COUNTS) == {"ssd_scan": 1}
+            y2, h2 = ssd_scan_with_state(*ins, chunk=256)
+            same = torch.equal(y, y2) and torch.equal(h, h2)
+            what = f"f32 B={B} S={S} nh={nh} hd={hd} N={N} chunk=256"
+            print(f"[check] ssd_scan {what}: one launch {one}, two runs bit-equal {same} "
+                  f"{'ok' if one and same else 'FAIL'}")
+            if not (one and same):
+                fail(f"ssd_scan is not one launch with equal bits ({what})")
+            yr, hr = ssd_chunked(*ins, chunk=256)
+            close("ssd_scan", what + ": y vs ssd_chunked", y, yr, tol)
+            close("ssd_scan", what + ": h_last vs ssd_chunked", h, hr, tol)
+            if S <= 256:
+                ys, hs = ssd_sequential_ref(*ins)
+                close("ssd_scan", what + ": y vs the per-token oracle", y, ys, tol)
+                close("ssd_scan", what + ": h_last vs the per-token oracle", h, hs, tol)
+        # xdt, Bm and Cm one float off a 16-byte boundary (element copies):
+        # the aligned call's bits
+        for B, S, nh, hd, N in ((1, 200, 80, 64, 128), (1, 65, 7, 80, 16)):
+            xh, Bm, Cm, dts, A = ssd_inputs(B, S, nh, hd, N)
+            xdt = (xh * dts[..., None]).permute(0, 2, 1, 3).contiguous()
+            g = (dts * A).permute(0, 2, 1).contiguous()
+
+            def off(t):
+                buf = torch.empty(t.numel() + 1, device=dev)
+                buf[1:] = t.reshape(-1)
+                return buf[1:].view(t.shape)
+
+            y, h = ssd_scan_kernel(xdt, g, Bm, Cm, chunk=256)
+            yo, ho = ssd_scan_kernel(off(xdt), g, off(Bm), off(Cm), chunk=256)
+            torch.cuda.synchronize()
+            same = torch.equal(y, yo) and torch.equal(h, ho)
+            print(f"[check] ssd_scan f32 B={B} S={S} nh={nh} hd={hd} N={N}: operands off a "
+                  f"16-byte boundary bit-equal to aligned {same} {'ok' if same else 'FAIL'}")
+            if not same:
+                fail("ssd_scan's element copies change its bits")
         # the model's decays (A = -linspace(1, 16), as init_mamba draws it, g
         # = A dt down to ~-70, cum in the thousands inside a chunk) at the
         # full-width prefill of a ragged 300-token prompt: the kernel and
@@ -1105,17 +1161,15 @@ def main() -> None:
                   f"takes {pick} (T = {DECODE_MAX_M})")
     # the SSD scan at the full-width prefill: the kernel alone on its
     # pre-scaled operands, the op (pre-scaling, kernel, layout) and the
-    # plain ssd_chunked; no single PyTorch call computes the scan
+    # plain ssd_chunked (its median, min and max over the 60 calls); no
+    # single PyTorch call computes the scan.  Bound: 3xTF32 (three TF32
+    # products per f32 product), the f32 FFMA bound beside; [sweep] over S
     B, nh, hd, N, chunk = 1, 80, 64, 128, 256
-    for S in (200, 512):
+    for S in (200, 512, 8, 64, 1024):
         xh, Bm, Cm, dts, A = ssd_inputs(B, S, nh, hd, N)
         Q = min(chunk, S)
         xdt = (xh * dts[..., None]).permute(0, 2, 1, 3).contiguous()
         g = (dts * A).permute(0, 2, 1).contiguous()
-        ms = time_ms(torch, lambda: ssd_scan_kernel(xdt, g, Bm, Cm, chunk=Q), flush)
-        op = time_ms(torch, lambda: ssd_scan_with_state(xh, Bm, Cm, dts, A, chunk=chunk),
-                     flush)
-        plain = time_ms(torch, lambda: ssd_chunked(xh, Bm, Cm, dts, A, chunk=chunk), flush)
         # the work these inputs need, per chunk of q tokens: the causal half
         # of C B^T once per batch (B and C are shared by the heads); per head
         # the causal half of the masked product, the state update, and C h
@@ -1129,13 +1183,25 @@ def main() -> None:
             if c0:
                 flops += B * nh * 2 * q * N * hd
         nbytes = 4 * (2 * B * nh * S * hd + B * nh * S + 2 * B * S * N + B * nh * hd * N)
-        bms, bby = bound(nbytes, flops)
+        bms, bby = bound_tf32(nbytes, flops, 3)
+        ms = time_ms(torch, lambda: ssd_scan_kernel(xdt, g, Bm, Cm, chunk=Q), flush)
+        if S not in (200, 512):
+            print(f"[sweep] ssd_scan f32 B={B} S={S} nh={nh} hd={hd} N={N} chunk={chunk}: "
+                  f"kernel {ms * 1e3:.2f}us, bound {bms * 1e3:.2f}us (3xTF32, {bby}; f32 FFMA "
+                  f"{bound(nbytes, flops)[0] * 1e3:.2f}us)")
+            continue
+        op = time_ms(torch, lambda: ssd_scan_with_state(xh, Bm, Cm, dts, A, chunk=chunk),
+                     flush)
+        plain, plain_min, plain_max = time_ms(
+            torch, lambda: ssd_chunked(xh, Bm, Cm, dts, A, chunk=chunk), flush, spread=True)
         rows[("ssd_scan", S)] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms,
                                      bound_by=bby)
         print(f"[time] ssd_scan f32 B={B} S={S} nh={nh} hd={hd} N={N} chunk={chunk}: kernel "
               f"{ms * 1e3:.2f}us (op with pre-scaling {op * 1e3:.2f}us) plain ssd_chunked "
-              f"{plain * 1e3:.2f}us library none; bound {bms * 1e3:.2f}us ({bby}, {flops} "
-              f"flop, {nbytes} B); {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+              f"{plain * 1e3:.2f}us (min {plain_min * 1e3:.2f}, max {plain_max * 1e3:.2f}) "
+              f"library none; bound {bms * 1e3:.2f}us (3xTF32, {bby}, {flops} flop, "
+              f"{nbytes} B; f32 FFMA bound {bound(nbytes, flops)[0] * 1e3:.2f}us); "
+              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     del flush_buf
 
     # -- 5. serving on full-width GPT-2-S ------------------------------------
@@ -1891,6 +1957,7 @@ def phase_mamba(torch, np, dev, reqs):
           f"ms total ({st['prefill_s'] / max(st['prefills'], 1) * 1e3:.2f} ms/prefill); "
           f"peak device memory {peak:.2f} GiB")
     print(f"[mamba] launches during the run: {launches}")
+    print(f"[mamba] token ids digest of the {len(sreqs)} requests: {ids_digest(sreqs)}")
     if not all(r_.done and len(r_.output) == 32 for r_ in sreqs):
         fail("Mamba2 engine: not every request finished with 32 tokens")
     want = {"ssd_scan": L * st["prefills"],

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..lora_matmul.plan import MAX_SPLITS, SMS
+from ..limits import MAX_CLUSTER as MAX_SPLITS, SMS
 
 TILE = 32               # positions of a tile, the unit a block's share is cut in
 MAX_HEADS = 8           # query heads one block serves

@@ -40,9 +40,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from ..limits import MAX_CLUSTER as MAX_SPLITS, SMS     # MAX_SPLITS: blocks along K
+
 DECODE_MAX_M = 16       # T: the largest M served by the decode regime
-SMS = 132               # streaming multiprocessors of an H100 SXM
-MAX_SPLITS = 8          # blocks along K in one cluster (the portable limit)
 MIN_SPLIT_ROWS = 64     # each decode split keeps at least this many rows of K
 MIN_TILE_SPLIT_ROWS = 128   # each tile split: 4 chunks of 32 through its ring
 DECODE_COL_TILES = (128, 64, 32)

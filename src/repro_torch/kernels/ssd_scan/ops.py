@@ -10,15 +10,16 @@ import torch
 import torch.nn.functional as F
 
 from .. import backend, build
+from .plan import ssd_plan, vec_loads
 from .ref import ssd_chunked, ssd_sequential_ref
 
-SSD_MAX_STATE = 256                # NMAX in csrc/ssd_scan.cu
+SSD_MAX_STATE = 256                # SSD_NMAX in csrc/ssd_scan.cu
 
 
 def _entry():
     fn = build.load("ssd_scan").ssd_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -26,9 +27,12 @@ def _entry():
 def ssd_scan_kernel(xdt: torch.Tensor, g: torch.Tensor, Bm: torch.Tensor,
                     Cm: torch.Tensor, *, chunk: int):
     """Launch the CUDA kernel on the kernel layout: xdt (B, nh, S, hd) =
-    x * dt, g (B, nh, S) = A * dt, Bm/Cm (B, S, N); float32, contiguous, on
-    one CUDA device; S a multiple of Q = min(chunk, S); N <= 256.  Returns
-    (y (B, nh, S, hd), h_last (B, nh, hd, N)), float32.  Raises on
+    x * dt, g (B, nh, S) = A * dt <= 0 (the kernel's mask factors
+    exp(cum_t - cum_a) exp(cum_a - cum_s) at an anchor row a stay <= 1 only
+    while the prefix sums of g do not rise), Bm/Cm (B, S, N); float32,
+    contiguous, on one CUDA device; S a multiple of Q = min(chunk, S); N <=
+    256.  One cluster launch with ``plan.ssd_plan``'s cluster.
+    Returns (y (B, nh, S, hd), h_last (B, nh, hd, N)), float32.  Raises on
     anything else."""
     operands = (("xdt", xdt), ("g", g), ("Bm", Bm), ("Cm", Cm))
     for name, t in operands:
@@ -61,9 +65,12 @@ def ssd_scan_kernel(xdt: torch.Tensor, g: torch.Tensor, Bm: torch.Tensor,
     if xdt.numel() == 0:
         return y, h_last.zero_()
     with torch.cuda.device(dev):
+        plan = ssd_plan(B, nh, S, hd, N, Q,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+        vec = vec_loads(N, hd, xdt.data_ptr(), Bm.data_ptr(), Cm.data_ptr())
         err = _entry()(xdt.data_ptr(), g.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                       y.data_ptr(), h_last.data_ptr(), B, nh, S, hd, N, Q,
-                       torch.cuda.current_stream(dev).cuda_stream)
+                       y.data_ptr(), h_last.data_ptr(), B, nh, S, hd, N, Q, plan.cluster,
+                       int(vec), torch.cuda.current_stream(dev).cuda_stream)
     build.check("ssd_scan", err)
     backend.count_launch("ssd_scan")
     return y, h_last

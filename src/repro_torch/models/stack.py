@@ -85,7 +85,10 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
     pools with per-slot adapter selection (multi-tenant serving; see
     ``layers.dense``).  A Mamba2 block runs modes "train", "prefill"
     (its cache is the {"ssm", "conv"} state) and slab "decode"; paged
-    modes raise, as in ``repro``.  Returns (x, cache)."""
+    modes raise, as in ``repro``.  An MoE block raises
+    ``NotImplementedError``: MoE is not ported.  Returns (x, cache)."""
+    if pat.mlp == "moe":
+        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported")
     mixer_lora = None if lora is None else lora.get("mixer")
     h = apply_norm(cfg, x, p["norm1"])
     if pat.mixer == "mamba":

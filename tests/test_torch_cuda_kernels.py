@@ -951,6 +951,56 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, nh, hd, N, Q):
         torch.testing.assert_close(h, hs, **tol)
 
 
+# the redesigned kernel's edges at chunk 256 (B, S, nh, hd, N): S 1, 7, 64,
+# 65, 256, 257 and 1024 (four chunks), nh 1, 7 and 80 (7 and 80 not
+# multiples of the cluster with some column tiles), hd 8, 80 (a ragged
+# column tile) and 64, N 3 (element copies), 4, 16, 128 and 256
+SSD_EDGE_SHAPES = [(1, 1, 1, 8, 4), (1, 7, 7, 8, 16), (1, 64, 80, 64, 128),
+                   (1, 65, 7, 80, 128), (1, 256, 1, 64, 256), (1, 257, 80, 64, 128),
+                   (1, 1024, 7, 80, 16), (2, 1024, 1, 64, 128), (1, 200, 80, 80, 256),
+                   (2, 65, 80, 8, 4), (1, 100, 7, 64, 3)]
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N", SSD_EDGE_SHAPES)
+def test_ssd_scan_kernel_edges_one_launch_and_equal_bits(cuda, B, S, nh, hd, N):
+    ins = _ssd_inputs(B, S, nh, hd, N, cuda, seed=S + nh)
+    backend.reset_launch_counts()
+    y, h = ssd_scan_with_state(*ins, chunk=256)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS == {"ssd_scan": 1}
+    y2, h2 = ssd_scan_with_state(*ins, chunk=256)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    tol = dict(atol=1e-4, rtol=1e-3)
+    yr, hr = ssd_chunked(*ins, chunk=256)
+    torch.testing.assert_close(y, yr, **tol)
+    torch.testing.assert_close(h, hr, **tol)
+    if S <= 256:
+        ys, hs = ssd_sequential_ref(*ins)
+        torch.testing.assert_close(y, ys, **tol)
+        torch.testing.assert_close(h, hs, **tol)
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N", [(1, 200, 80, 64, 128), (1, 65, 7, 80, 16)])
+def test_ssd_scan_kernel_off_a_16_byte_boundary_gives_the_aligned_bits(cuda, B, S, nh, hd, N):
+    """xdt, Bm and Cm one float off a 16-byte boundary take element copies;
+    the copy width never changes the arithmetic."""
+    xh, Bm, Cm, dt, A = _ssd_inputs(B, S, nh, hd, N, cuda, seed=1)
+    xdt = (xh * dt[..., None]).permute(0, 2, 1, 3).contiguous()
+    g = (dt * A).permute(0, 2, 1).contiguous()
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    xo, Bo, Co = off(xdt), off(Bm), off(Cm)
+    assert xo.data_ptr() % 16 and Bo.data_ptr() % 16 and xo.is_contiguous()
+    y, h = ssd_scan_kernel(xdt, g, Bm, Cm, chunk=256)
+    yo, ho = ssd_scan_kernel(xo, g, Bo, Co, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yo) and torch.equal(h, ho)
+
+
 def test_ssd_scan_refuses_autograd_and_bad_operands_on_the_card(cuda):
     xh, Bm, Cm, dt, A = _ssd_inputs(1, 40, 2, 8, 8, cuda)
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -198,3 +198,55 @@ def test_layers_match_repro(name):
         got = tl.apply_mlp(cfg, t(x[..., 0, :]), interop.tree_map(t, p),
                            interop.tree_map(t, lora), 2.0, dense_impl="fused")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# MoE is not ported: both entries refuse it (llama4-scout-17b-a16e, reduced)
+# ---------------------------------------------------------------------------
+
+def _llama4_cfgs(mlp=None):
+    """repro's llama4-scout-17b-a16e at 2 layers, d 128, vocab 256, and the
+    port's config of the same fields (``mlp`` overrides the pattern's)."""
+    import dataclasses
+    from repro.configs.base import LayerPattern as JLayerPattern
+    from repro_torch.configs import ArchConfig, LayerPattern
+    jcfg = j_get_arch("llama4-scout-17b-a16e").reduced(num_layers=2, d_model=128, vocab=256)
+    if mlp is not None:
+        jcfg = jcfg.replace(pattern=tuple(JLayerPattern(p.mixer, mlp) for p in jcfg.pattern))
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ArchConfig)
+          if f.name != "pattern"}
+    tcfg = ArchConfig(**kw, pattern=tuple(LayerPattern(p.mixer, p.mlp) for p in jcfg.pattern))
+    return jcfg, tcfg
+
+
+def test_params_from_numpy_refuses_repros_moe_params():
+    jcfg, _ = _llama4_cfgs()
+    assert jcfg.pattern[0].mlp == "moe"
+    params = _np_tree(JM.init_params(jcfg, jax.random.key(0), jnp.float32))
+    with pytest.raises(NotImplementedError, match="MoE blocks are not ported"):
+        interop.params_from_numpy(params, device="cpu")
+
+
+def test_apply_block_refuses_an_moe_pattern():
+    """repro's MoE leaves, split per layer as interop does, reach
+    apply_block: it refuses before it touches the MLP."""
+    jcfg, tcfg = _llama4_cfgs()
+    params = _np_tree(JM.init_params(jcfg, jax.random.key(0), jnp.float32))
+    layer = jax.tree.map(torch.from_numpy, interop.split_layers(params["layers"])[0])
+    x = torch.zeros(1, 4, tcfg.d_model)
+    with pytest.raises(NotImplementedError, match="llama4-scout-17b-a16e-smoke: MoE"):
+        TM.stack.apply_block(tcfg, tcfg.pattern[0], layer, x, lora=None, lora_scale=1.0,
+                             rt=TM.Runtime(), mode="train",
+                             positions=torch.arange(4, dtype=torch.int32))
+
+
+def test_a_dense_config_still_imports_and_runs():
+    """The same reduced config with a dense MLP imports and gives repro's
+    logits."""
+    jcfg, tcfg = _llama4_cfgs(mlp="dense")
+    params = _np_tree(JM.init_params(jcfg, jax.random.key(1), jnp.float32))
+    tp = interop.params_from_numpy(params, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 9)).astype(np.int32)
+    jl, _ = JM.forward(jcfg, params, jnp.asarray(tokens))
+    tl, _ = TM.forward(tcfg, tp, torch.from_numpy(tokens).long())
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
