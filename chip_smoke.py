@@ -11,8 +11,8 @@ Phases (each prints its own lines; any failure exits non-zero):
     nvcc, in parallel; ptxas's registers, shared memory and spills of each
     kernel of the three LoRA libraries (the TF32 tile's instantiations and
     the rank reduce's), of flash attention, of the two decode libraries
-    (the f32/bf16 pair's split-K body, the int8 pair's tile body) and of
-    the SSD scan;
+    (the split-K body under its float and int8 element policies: no int8
+    instantiation may spill) and of the SSD scan;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
     forward LoRA matmul in both its regimes (M <= 16 and above, Mamba2's
@@ -30,10 +30,10 @@ Phases (each prints its own lines; any failure exits non-zero):
     decode family: flash decode over slab
     caches (lengths 0 to L + 1, windows, GQA, ragged D) and the int8-KV
     pair (flash_decode_q8 over an int8 slab, paged_decode_q8 over an int8
-    pool); the f32/bf16 pair's split-K body at the edges of its plan (one
-    slot at 511-513 of 512, capacities 16-2048 for S = 1 to 8, G 4 and 8,
-    D 20-256, pages of 1, 16 and 48, K/V off a 16-byte boundary; one
-    launch a call, two runs bit-equal, dead slots exact zeros); and the SSD scan (y and the final state) against ``ssd_chunked``
+    pool); both pairs' split-K body at the edges of its plan (one slot at
+    511-513 of 512, capacities 16-2048 for S = 1 to 8, G 4 and 8, D
+    20-256, pages of 1, 16 and 48, K/V off a 16-byte boundary; one launch
+    a call, two runs bit-equal, dead slots exact zeros); and the SSD scan (y and the final state) against ``ssd_chunked``
     and the per-token oracle, f32, at repro's test shapes and the
     full-width Mamba2-2.7B prefill (80 heads of 64, state 128, chunk 256,
     S 8, 200, 300 and 512), and at the model's decays against the oracle
@@ -54,8 +54,9 @@ Phases (each prints its own lines; any failure exits non-zero):
     the q8 pair's two, as the int8 W is exact in TF32; the rank reduce at
     M 768 and 256, r 4 and 8, f32 and bf16 v; a [floor] line, what any
     launch costs under these events, a [sweep] of flash attention over
-    S, and [sweep] decode lines: both f32 decode kernels with every slot at
-    16, 128 and 511 and one slot at 511, at the plan's split); two runs bit-equal for ``lora_matmul`` at
+    S, and [sweep] decode lines: the four decode kernels, f32 q, with every
+    slot at 16, 128 and 511 and one slot at 511, at the plan's split); two
+    runs bit-equal for ``lora_matmul`` at
     M 8 and 768, dX at M 256 and the q8 pair at M 256; a sweep of M with
     each regime forced, at K = N = 768 and at ``ssm_in``;
  5. serving: ServingEngine on full-width GPT-2-S (f32, 8 slots, 512
@@ -272,12 +273,18 @@ def main() -> None:
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.1f}s")
     # the TF32 tile's (and the rank reduce's), flash attention's, the
-    # decode pair's split-K body beside the int8 pair's tile body, and the
-    # SSD scan's
+    # decode body's under its float and int8 policies, and the SSD scan's
     for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "flash_attention",
                 "flash_decode", "paged_decode", "ssd_scan"):
         for line in build.resource_usage(lib):
             print(f"[ptxas] {lib}: {line}")
+    int8 = [ln for lib in ("flash_decode", "paged_decode") for ln in build.resource_usage(lib)
+            if "Int8KV" in ln]
+    spilled = [ln for ln in int8 if not ln.endswith("spill stores/loads 0/0 B")]
+    print(f"[check] decode body: {len(int8)} Int8KV instantiations, {len(spilled)} spilling "
+          f"{'ok' if int8 and not spilled else 'FAIL'}")
+    if not int8 or spilled:
+        fail(f"the int8 decode instantiations spill or are missing: {spilled}")
 
     # -- 3. kernel vs plain, on the card ----------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -539,14 +546,22 @@ def main() -> None:
         buf[1:] = t.reshape(-1)
         return buf[1:].view(t.shape)
 
+    def q8_slab(k, v):
+        return quantize_kv_int8(k, head_axis=2) + quantize_kv_int8(v, head_axis=2)
+
+    def q8_pool(kp, vp):
+        return quantize_kv_int8(kp, head_axis=0) + quantize_kv_int8(vp, head_axis=0)
+
     def check_decode_split(dt, dn):
-        """The f32/bf16 pair's split-K body at the edges of its plan: one slot
+        """Both decode pairs' split-K body at the edges of its plan: one slot
         at 511, 512 and 513 of 512 (the naive loop's shape), capacities that
         take S = 1 to 8 (16 to 2048), G 4 and 8, D 20 and 42 (element
         loads), 128 and 256 (two 16-byte pieces a lane in f32), page sizes 1,
         16 and 48, K/V one entry off a 16-byte boundary (bit-equal to the
         aligned copy); each call one launch, two runs bit-equal, dead slots
-        exact zeros."""
+        exact zeros.  The int8 pair runs each case on K/V quantized per KV
+        head, at its own plan (K/V entries int8), against its plain q8
+        version."""
         tol = dict(atol=PAGED_TOL[dn], rtol=PAGED_TOL[dn])
         cases = [(1, 12, 1, 64, 512, [n], 0) for n in (511, 512, 513)]
         cases += [(3, 2, G, 64, L, [0, L, L // 2 + 1], win) for L in (16, 33, 96, 1024, 2048)
@@ -555,42 +570,62 @@ def main() -> None:
         for B, KH, G, D, L, lengths, win in cases:
             q, k, v, lens = slab_inputs(B, KH, G, D, L, lengths, dt)
             qt = q[:, 0].reshape(B, KH, G, D)
-            S = decode_plan(L, B, KH, G, D, dt).splits
-            o = two_runs("flash_decode", lambda: flash_decode(q, k, v, lens, window=win))
-            what = (f"{dn} B={B} KH={KH} G={G} D={D} L={L} window={win} lengths={lengths} "
-                    f"S={S} (one launch a call, two runs bit-equal)")
-            close("flash_decode", what, o, flash_decode_ref(
-                qt, k.transpose(1, 2), v.transpose(1, 2), lens, window=win).reshape(o.shape),
-                tol)
-            if B > 1 and not bool((o[0] == 0).all()):
-                fail(f"flash_decode: a dead slot did not give exact zeros ({what})")
+            kq, ks, vq, vs = q8_slab(k, v)
+            for op, fn, ref, kvd in (
+                    ("flash_decode", lambda: flash_decode(q, k, v, lens, window=win),
+                     lambda: flash_decode_ref(qt, k.transpose(1, 2), v.transpose(1, 2), lens,
+                                              window=win), dt),
+                    ("flash_decode_q8",
+                     lambda: flash_decode(q, kq, vq, lens, window=win, k_scale=ks, v_scale=vs),
+                     lambda: flash_decode_q8_ref(qt, kq.transpose(1, 2), vq.transpose(1, 2),
+                                                 ks, vs, lens, window=win), torch.int8)):
+                S = decode_plan(L, B, KH, G, D, kvd).splits
+                o = two_runs(op, fn)
+                what = (f"{dn} B={B} KH={KH} G={G} D={D} L={L} window={win} "
+                        f"lengths={lengths} S={S} (one launch a call, two runs bit-equal)")
+                close(op, what, o, ref().reshape(o.shape), tol)
+                if B > 1 and not bool((o[0] == 0).all()):
+                    fail(f"{op}: a dead slot did not give exact zeros ({what})")
         for B, KH, G, D, PS, MP in ([(5, 2, G, 64, PS, -(-300 // PS)) for PS in (1, 16, 48)
                                      for G in (4, 8)]
                                     + [(4, 2, 2, D, 16, 5) for D in (20, 42, 128, 256)]):
             lengths = [0, 1, PS + 1, 255, MP * PS][:B] if B == 5 else [0, 1, 17, 80]
             q, kp, vp, lens, bt = paged_inputs(B, KH, G, D, PS, MP, lengths, dt)
             qt = q[:, 0].reshape(B, KH, G, D)
-            S = decode_plan(MP * PS, B, KH, G, D, dt).splits
-            o = two_runs("paged_decode", lambda: paged_decode(q, kp, vp, lens, bt))
-            what = (f"{dn} B={B} KH={KH} G={G} D={D} PS={PS} MP={MP} lengths={lengths} S={S} "
-                    "(one launch a call, two runs bit-equal)")
-            close("paged_decode", what, o,
-                  paged_decode_ref(qt, kp, vp, lens, bt).reshape(o.shape), tol)
-            if not bool((o[0] == 0).all()):
-                fail(f"paged_decode: a dead slot did not give exact zeros ({what})")
+            kq, ks, vq, vs = q8_pool(kp, vp)
+            for op, fn, ref, kvd in (
+                    ("paged_decode", lambda: paged_decode(q, kp, vp, lens, bt),
+                     lambda: paged_decode_ref(qt, kp, vp, lens, bt), dt),
+                    ("paged_decode_q8",
+                     lambda: paged_decode(q, kq, vq, lens, bt, k_scale=ks, v_scale=vs),
+                     lambda: paged_decode_q8_ref(qt, kq, vq, ks, vs, lens, bt), torch.int8)):
+                S = decode_plan(MP * PS, B, KH, G, D, kvd).splits
+                o = two_runs(op, fn)
+                what = (f"{dn} B={B} KH={KH} G={G} D={D} PS={PS} MP={MP} lengths={lengths} "
+                        f"S={S} (one launch a call, two runs bit-equal)")
+                close(op, what, o, ref().reshape(o.shape), tol)
+                if not bool((o[0] == 0).all()):
+                    fail(f"{op}: a dead slot did not give exact zeros ({what})")
         # K/V one entry off a 16-byte boundary: entry loads, the same bits
         q, k, v, lens = slab_inputs(3, 2, 2, 64, 40, [0, 40, 17], dt)
-        ku, vu = shifted(k), shifted(v)
-        same = [torch.equal(flash_decode(q, ku, vu, lens), flash_decode(q, k, v, lens))]
+        kq, ks, vq, vs = q8_slab(k, v)
+        same = [torch.equal(flash_decode(q, shifted(k), shifted(v), lens),
+                            flash_decode(q, k, v, lens)),
+                torch.equal(flash_decode(q, shifted(kq), shifted(vq), lens, k_scale=ks,
+                                         v_scale=vs),
+                            flash_decode(q, kq, vq, lens, k_scale=ks, v_scale=vs))]
         q, kp, vp, lens, bt = paged_inputs(3, 2, 2, 64, 16, 4, [0, 64, 20], dt)
-        ku, vu = shifted(kp), shifted(vp)
-        same.append(torch.equal(paged_decode(q, ku, vu, lens, bt),
-                                paged_decode(q, kp, vp, lens, bt)))
-        print(f"[check] flash_decode, paged_decode {dn}: K/V at {ku.data_ptr() % 16} bytes "
-              f"past a 16-byte boundary (entry loads) bit-equal to the aligned copy: {same} "
-              f"{'ok' if all(same) else 'FAIL'}")
+        kq, ks, vq, vs = q8_pool(kp, vp)
+        same += [torch.equal(paged_decode(q, shifted(kp), shifted(vp), lens, bt),
+                             paged_decode(q, kp, vp, lens, bt)),
+                 torch.equal(paged_decode(q, shifted(kq), shifted(vq), lens, bt, k_scale=ks,
+                                          v_scale=vs),
+                             paged_decode(q, kq, vq, lens, bt, k_scale=ks, v_scale=vs))]
+        print(f"[check] flash_decode, flash_decode_q8, paged_decode, paged_decode_q8 {dn}: "
+              f"K/V one entry past a 16-byte boundary (entry loads) bit-equal to the "
+              f"aligned copy: {same} {'ok' if all(same) else 'FAIL'}")
         if not all(same):
-            fail("the decode pair's entry loads differ from its 16-byte loads")
+            fail("the decode body's entry loads differ from its 16-byte loads")
 
     def gather_inputs(M, K, N, r, A, dt):
         return (randn(M, K).to(dev, dt), randn(K, N, std=K ** -0.5).to(dev, dt),
@@ -962,19 +997,27 @@ def main() -> None:
               f"kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library({lib_name}) "
               f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, {nbytes} B); kernel "
               f"with L2 warm {warm * 1e3:.2f}us")
-    # the f32 pair's split-K body against the length of its walks: all 8
-    # slots at one length (16, 128, 511), then one slot at 511 (the naive
-    # loop's shape), each at the plan's split S
+    # the split-K body against the length of its walks, f32 q over f32 and
+    # int8 K/V: all 8 slots at one length (16, 128, 511), then one slot at
+    # 511 (the naive loop's shape), each at the plan's split S
     for B_, n in ((8, 16), (8, 128), (8, 511), (1, 511)):
         qs_, ks_, vs_, ls_ = slab_inputs(B_, KH, G, D, L, [n] * B_, torch.float32)
         qp_, kp_, vp_, lp_, bt_ = paged_inputs(B_, KH, G, D, PS, MP, [n] * B_, torch.float32)
-        S = decode_plan(L, B_, KH, G, D, torch.float32).splits
-        for op, fn in (("flash_decode", lambda: flash_decode(qs_, ks_, vs_, ls_)),
-                       ("paged_decode", lambda: paged_decode(qp_, kp_, vp_, lp_, bt_))):
-            bms, _ = bound(4 * (2 * B_ * KH * G * D + 2 * KH * B_ * n * D) + 4 * B_
-                           + (4 * B_ * -(-n // PS) if op == "paged_decode" else 0),
+        s8 = q8_slab(ks_, vs_)
+        p8 = q8_pool(kp_, vp_)
+        for op, fn, nb in (
+                ("flash_decode", lambda: flash_decode(qs_, ks_, vs_, ls_), 4),
+                ("paged_decode", lambda: paged_decode(qp_, kp_, vp_, lp_, bt_), 4),
+                ("flash_decode_q8", lambda: flash_decode(qs_, s8[0], s8[2], ls_, k_scale=s8[1],
+                                                         v_scale=s8[3]), 1),
+                ("paged_decode_q8", lambda: paged_decode(qp_, p8[0], p8[2], lp_, bt_,
+                                                         k_scale=p8[1], v_scale=p8[3]), 1)):
+            S = decode_plan(L, B_, KH, G, D, torch.float32 if nb == 4 else torch.int8).splits
+            bms, _ = bound(4 * 2 * B_ * KH * G * D + nb * 2 * KH * B_ * n * D + 4 * B_
+                           + (4 * B_ * -(-n // PS) if op.startswith("paged") else 0)
+                           + (2 * 4 * KH if nb == 1 else 0),
                            4 * KH * G * D * B_ * n)
-            print(f"[sweep] decode {op} f32 B={B_} KH={KH} G={G} D={D} capacity {L} "
+            print(f"[sweep] decode {op} f32 q B={B_} KH={KH} G={G} D={D} capacity {L} "
                   f"(pages of {PS}) every length {n}: S={S} ({B_ * KH * S} blocks), kernel "
                   f"{time_ms(torch, fn, flush) * 1e3:.2f}us, bound {bms * 1e3:.2f}us")
     # -- 4b. times at the training path's shapes (f32) -------------------------

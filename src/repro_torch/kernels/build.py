@@ -5,7 +5,7 @@ Each ``csrc/<name>.cu`` holds one kernel family behind a plain C interface
 (no PyTorch headers, so ``nvcc`` takes seconds, not minutes); the
 ``csrc/*.cuh`` headers hold device code that several of them include (the
 TF32 LoRA GEMM tile of ``lora_mma.cuh``, which the int8-base pair shares,
-and the decode body of ``decode_tile.cuh``).  Each source
+and the split-K decode body of ``decode_split.cuh``).  Each source
 is compiled for Hopper (``sm_90a``) into
 ``<repo>/build/kernels/lib<name>.so`` — a git-ignored directory inside the
 checkout — and rebuilt whenever it or any header is newer than the

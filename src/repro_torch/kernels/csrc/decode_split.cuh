@@ -1,6 +1,7 @@
-// The one-token decode body for Hopper (sm_90a) of flash_decode
-// (csrc/flash_decode.cu) and paged_decode (csrc/paged_decode.cu), f32 and
-// bf16 entries.  Each computes, for slot b and KV head h,
+// The one-token decode body for Hopper (sm_90a) of flash_decode and
+// flash_decode_q8 (csrc/flash_decode.cu) and of paged_decode and
+// paged_decode_q8 (csrc/paged_decode.cu).  Each computes, for slot b and KV
+// head h,
 //
 //   out[b, h, g, :] = softmax_j(q[b, h, g, :] . K_j * D^-0.5) V_j
 //
@@ -17,18 +18,20 @@
 //          PagedAddr   pool (KH, NP, PS, D) through the slot's block-table
 //                      row: position j lives in page row[j / PS], offset
 //                      j % PS
-//   KV     FloatKV<T>  f32 or bf16 entries (an int8 policy with its scales
-//                      is the same interface: 16 entries a piece)
-//
-// (csrc/decode_tile.cuh keeps the earlier body, one block per (slot, KV
-// head) walking its tiles in series, for the int8 pair, on the same
-// addressing policies.)
+//   KV     FloatKV<T>  f32 or bf16 entries in q's dtype: 4 or 8 a 16-byte
+//                      piece
+//          Int8KV      int8 entries with f32 (KH,) per-KV-head scales, q
+//                      f32 or bf16: 16 a piece, each unpacked as int8 ->
+//                      f32 * scale (the plain version's dequantization,
+//                      without the quarter-rate I2F) before its dot; the
+//                      head's two scales are loaded with the slot's length
 //
 // What bounds it on the H100: each slot's live K and V are read once,
 // 2 * KH * (hi - lo) * D * bytes per slot, for ~4 * G * D flops per entry
 // per KV head: memory bound (2 us at the serving shape, 8 slots x 12 KV
-// heads of 64 x lengths 8-255, f32), and at serving batch sizes latency
-// bound: the whole call is a few DRAM round trips and one launch.
+// heads of 64 x lengths 8-255, f32; 0.5 us in int8), and at serving batch
+// sizes latency bound: the whole call is a few DRAM round trips and one
+// launch.
 //
 // Design:
 //  * split-K over a thread-block cluster: one cluster of S blocks (S in
@@ -42,10 +45,13 @@
 //    row's 16-byte pieces rounded up to a power of two, at most 32; f32
 //    rows of more than 512 bytes take two pieces a lane), so a warp reads
 //    32 / lanes rows per instruction; each lane issues the loads of U rows
-//    of K and of V (U = 8, 4 or 2 by its register budget) before it uses
-//    the first.  Where D * bytes is not a multiple of 16 or a base is not
-//    16-byte aligned (plan.vec false) a piece is read entry by entry,
-//    zero past D.  Paged rows resolve their page through the slot's table
+//    of K and of V (U = 8, 4 or 2 by its register budget, at most the
+//    policy's MAX_ROWS) before it uses the first.  Int8 rows take 4 lanes
+//    at D 64, so a block has 32 streams of rows; at U 2 a batch is 64 rows,
+//    as the f32 pair's is, and a short slot does not unpack and multiply
+//    the dead rows of a 256-row batch.  Where D * bytes is not a multiple
+//    of 16 or a base is not 16-byte aligned (plan.vec false) a piece is
+//    read entry by entry, zero past D.  Paged rows resolve their page through the slot's table
 //    row, and the next batch's table entries are requested before this
 //    batch is used; entries past the live prefix (page 0) are never read;
 //  * warp-level online softmax, no block barrier in the position loop: q
@@ -62,9 +68,13 @@
 //    live entry gives exact zeros (acc 0, l 0), the dead-slot contract of
 //    the Pallas kernels; a block with no live tile joins the barrier with
 //    m = -1e30, l = 0, acc = 0;
-//  * G query heads go in groups of GT (a power of two, at most 8); a G
-//    that GT does not divide leaves the last group's extra heads at q = 0,
-//    computed and not written.  D up to 256 (DECODE_MAX_HEAD_DIM in
+//  * G query heads go in groups of GT (a power of two, at most the
+//    policy's MAX_GT); a G that GT does not divide leaves the last group's
+//    extra heads at q = 0, computed and not written.  q and acc take
+//    2 * GT * NC * EPV registers a lane: FloatKV allows GT 8 (at most 64
+//    floats each), Int8KV GT 1 (16 each), since its 16-entry pieces also
+//    unpack to 16 floats of K and of V (at GT 2 ptxas spilled).  D up to
+//    256 (DECODE_MAX_HEAD_DIM in
 //    kernels/flash_attention/plan.py).
 
 #pragma once
@@ -82,19 +92,17 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // addressing: element offset of the first entry of position j's D-row.  The
-// split body asks for a row's key first (its page: one load for a paged
-// slot, nothing for a slab) and its offset from the key after, so that the
-// keys of the next rows are in flight while these rows are used; the tile
-// body of decode_tile.cuh takes the offset in one call.
+// body asks for a row's key first (its page: one load for a paged slot,
+// nothing for a slab) and its offset from the key after, so that the keys
+// of the next rows are in flight while these rows are used.
 // ---------------------------------------------------------------------------
 
 struct SlabRows {
   size_t base, stride;
-  __device__ __forceinline__ size_t operator()(int j) const {
+  __device__ __forceinline__ int key(int j) const { return j; }
+  __device__ __forceinline__ size_t at(int, int j) const {
     return base + (size_t)j * stride;
   }
-  __device__ __forceinline__ int key(int j) const { return j; }
-  __device__ __forceinline__ size_t at(int, int j) const { return (*this)(j); }
 };
 
 struct SlabAddr {               // cache (B, L, KH, D)
@@ -109,9 +117,6 @@ struct PagedRows {
   const int* row;
   size_t head;
   int PS, D;
-  __device__ __forceinline__ size_t operator()(int j) const {
-    return head + ((size_t)row[j / PS] * PS + j % PS) * D;
-  }
   __device__ __forceinline__ int key(int j) const { return row[j / PS]; }
   __device__ __forceinline__ size_t at(int page, int j) const {
     return head + ((size_t)page * PS + j % PS) * D;
@@ -129,12 +134,19 @@ struct PagedAddr {              // pool (KH, NP, PS, D), tables (B, MP)
 
 // ---------------------------------------------------------------------------
 // elements: a 16-byte piece of a K and a V row, kept raw in registers from
-// its load to its use, then EPV f32 entries
+// its load to its use, then EPV f32 entries.  A policy's head(h) is what
+// the body reads KV head h through (load, k_f, v_f); MAX_GT bounds the
+// query heads a block serves (the register rule above), MAX_ROWS the rows
+// a lane has in flight, and MIN_BLOCKS is the kernel's launch-bound hint
+// of blocks an SM (0: none).
 // ---------------------------------------------------------------------------
 
 template <typename T>
 struct FloatKV {                // f32 or bf16 entries
   static constexpr int EPV = 16 / sizeof(T);
+  static constexpr int MAX_GT = 8;
+  static constexpr int MAX_ROWS = 8;
+  static constexpr int MIN_BLOCKS = 0;
   const T* k;
   const T* v;
   __device__ __forceinline__ FloatKV head(int) const { return *this; }
@@ -183,6 +195,76 @@ struct FloatKV {                // f32 or bf16 entries
   __device__ __forceinline__ void v_f(const uint4& r, float (&x)[EPV]) const { unpack(r, x); }
 };
 
+struct Int8KVHead {             // KV head h of Int8KV, with its two scales
+  static constexpr int EPV = 16;
+  const int8_t* k;
+  const int8_t* v;
+  float ks, vs;
+
+  // n >= 1 entries from p, byte by byte, zero past n
+  static __device__ __forceinline__ uint4 elems(const int8_t* p, int n) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t x = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * i + e < n) x |= (uint32_t)(uint8_t)p[4 * i + e] << (8 * e);
+      w[i] = x;
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+
+  // the piece of entries [d0, d0 + 16) of the rows at element offset off
+  // (d0 < D): one 16-byte load each where VEC, else byte by byte
+  template <bool VEC>
+  __device__ __forceinline__ void load(uint4& kr, uint4& vr, size_t off, int d0,
+                                       int D) const {
+    if constexpr (VEC) {
+      kr = __ldg(reinterpret_cast<const uint4*>(k + off));
+      vr = __ldg(reinterpret_cast<const uint4*>(v + off));
+    } else {
+      kr = elems(k + off, D - d0);
+      vr = elems(v + off, D - d0);
+    }
+  }
+
+  // 16 int8 entries (byte e of word i is entry 4 i + e) to f32, times sc.
+  // No I2F (a quarter-rate conversion): the byte plus 128 goes into the low
+  // mantissa bits of 2^23 (one PRMT), and 2^23 + 128 comes off exactly, so
+  // the one rounding is the multiply's, as in the plain version.
+  static __device__ __forceinline__ void unpack(const uint4& r, float sc,
+                                                float (&x)[EPV]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[4 * i + e] =
+            (__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7540 + e)) - 8388736.f) * sc;
+    }
+  }
+  __device__ __forceinline__ void k_f(const uint4& r, float (&x)[EPV]) const { unpack(r, ks, x); }
+  __device__ __forceinline__ void v_f(const uint4& r, float (&x)[EPV]) const { unpack(r, vs, x); }
+};
+
+struct Int8KV {                 // int8 entries, f32 (KH,) scales on the device
+  static constexpr int EPV = Int8KVHead::EPV;
+  static constexpr int MAX_GT = 1;
+  static constexpr int MAX_ROWS = 2;
+  // without the hint ptxas squeezes the paged element-load kernel's
+  // registers until it spills
+  static constexpr int MIN_BLOCKS = 2;
+  const int8_t* k;
+  const int8_t* v;
+  const float* k_scale;
+  const float* v_scale;
+  __device__ __forceinline__ Int8KVHead head(int h) const {
+    return {k, v, __ldg(k_scale + h), __ldg(v_scale + h)};
+  }
+};
+
 // Every row starts on a 16-byte boundary iff D * bytes is a multiple of 16
 // and both bases are (row offsets are multiples of D in either layout).
 inline bool vec16_rows(const void* k, const void* v, int D, int bytes) {
@@ -191,9 +273,11 @@ inline bool vec16_rows(const void* k, const void* v, int D, int bytes) {
 }
 
 // rows of K and V each lane has in flight: fewer where q and acc take more
-// registers (GT heads x NC pieces x EPV entries each)
-__host__ __device__ constexpr int rows_in_flight(int GT, int NC, int EPV) {
-  return GT * NC * EPV <= 16 ? 8 : GT * NC * EPV <= 32 ? 4 : 2;
+// registers (GT heads x NC pieces x EPV entries each), and at most the
+// policy's MAX_ROWS
+__host__ __device__ constexpr int rows_in_flight(int GT, int NC, int EPV, int max_rows) {
+  const int u = GT * NC * EPV <= 16 ? 8 : GT * NC * EPV <= 32 ? 4 : 2;
+  return u < max_rows ? u : max_rows;
 }
 
 // ---------------------------------------------------------------------------
@@ -202,12 +286,12 @@ __host__ __device__ constexpr int rows_in_flight(int GT, int NC, int EPV) {
 // ---------------------------------------------------------------------------
 
 template <typename T, typename KV, typename Addr, int GT, int NC, bool VEC>
-__global__ void __launch_bounds__(SPLIT_NT) decode_split(
+__global__ void __launch_bounds__(SPLIT_NT, KV::MIN_BLOCKS) decode_split(
     const T* __restrict__ q, const KV kv, const Addr addr,
     const int* __restrict__ lengths, T* __restrict__ out, int KH, int G, int D,
     int window, float scale, int lanes) {
   constexpr int EPV = KV::EPV;
-  constexpr int U = rows_in_flight(GT, NC, EPV);
+  constexpr int U = rows_in_flight(GT, NC, EPV, KV::MAX_ROWS);
   constexpr int PW = 2;         // m, l ahead of acc in a partial's record
   extern __shared__ __align__(16) float spl[];
   const int rec = PW + D;                        // one head's record: m, l, acc[D]
@@ -228,6 +312,7 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_split(
   const int stream = warp * (32 / lanes) + sub;
 
   const int len = lengths[b];
+  const auto kvh = kv.head(h);  // int8: the head's scales, loaded beside the length
   float qr[GT][NC][EPV];
   const T* qb = q + (size_t)bh * G * D;
 #pragma unroll
@@ -249,7 +334,6 @@ __global__ void __launch_bounds__(SPLIT_NT) decode_split(
   const int p1 = min(hi, (t_lo + (rank + 1) * per) * TK);
 
   const auto rows = addr.rows(b, h);
-  const auto kvh = kv.head(h);
   float m[GT], l[GT], acc[GT][NC][EPV];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
@@ -463,7 +547,8 @@ cudaError_t run_split(const void* q, const KV& kv, const Addr& addr, const void*
 }
 
 // Launch the instantiated kernel the plan names on stream st; `aligned` says
-// every K and V row starts on a 16-byte boundary (vec16_rows).  Returns
+// every K and V row starts on a 16-byte boundary (vec16_rows).  The checks
+// follow the KV policy's entries (EPV, MAX_GT), not q's dtype T.  Returns
 // cudaErrorInvalidValue for a plan that names none, else the launch's error
 // (0 = launched).
 template <typename T, typename KV, typename Addr>
@@ -474,9 +559,9 @@ cudaError_t launch_decode_split(const void* q, const KV& kv, const Addr& addr,
   constexpr int EPV = KV::EPV;
   const int S = p.splits, GT = p.heads, lanes = p.lanes, NC = p.vectors;
   if (B < 1 || KH < 1 || G < 1 || D < 1 || window < 0) return cudaErrorInvalidValue;
-  if (S < 1 || S > MAX_SPLITS || (S & (S - 1)) || GT < 1 || GT > 8 || (GT & (GT - 1)) ||
-      lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) || (NC != 1 && NC != 2) ||
-      (NC == 2 && (lanes != 32 || sizeof(T) != 4)) || lanes * NC * EPV < D ||
+  if (S < 1 || S > MAX_SPLITS || (S & (S - 1)) || GT < 1 || GT > KV::MAX_GT ||
+      (GT & (GT - 1)) || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) ||
+      (NC != 1 && NC != 2) || (NC == 2 && (lanes != 32 || EPV != 4)) || lanes * NC * EPV < D ||
       (p.vec && (!aligned || D % EPV)))
     return cudaErrorInvalidValue;
   const long long units = (long long)B * KH * ((G + GT - 1) / GT);
@@ -486,7 +571,7 @@ cudaError_t launch_decode_split(const void* q, const KV& kv, const Addr& addr,
   return run_split<T, KV, Addr, gt, nc>(q, kv, addr, lengths, out, n, KH, G, D, window, \
                                         scale, p, st)
   if (NC == 2) {
-    if constexpr (sizeof(T) == 4) {
+    if constexpr (EPV == 4) {
       switch (GT) {
         case 1: DECODE_SPLIT_RUN(1, 2);
         case 2: DECODE_SPLIT_RUN(2, 2);
@@ -496,12 +581,13 @@ cudaError_t launch_decode_split(const void* q, const KV& kv, const Addr& addr,
     }
     return cudaErrorInvalidValue;
   }
-  switch (GT) {
-    case 1: DECODE_SPLIT_RUN(1, 1);
-    case 2: DECODE_SPLIT_RUN(2, 1);
-    case 4: DECODE_SPLIT_RUN(4, 1);
-    default: DECODE_SPLIT_RUN(8, 1);
+  if (GT == 1) DECODE_SPLIT_RUN(1, 1);
+  if constexpr (KV::MAX_GT == 8) {
+    if (GT == 2) DECODE_SPLIT_RUN(2, 1);
+    if (GT == 4) DECODE_SPLIT_RUN(4, 1);
+    DECODE_SPLIT_RUN(8, 1);
   }
+  return cudaErrorInvalidValue;
 #undef DECODE_SPLIT_RUN
 }
 

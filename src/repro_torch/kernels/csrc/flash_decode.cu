@@ -13,7 +13,7 @@
 //    flash_decode_kernel (Pallas, TPU).
 // 2. flash_decode_q8: int8 k/v with f32 (KH,) per-KV-head scales
 //    (precision.quantize_kv_int8 with head_axis=2), dequantized as each
-//    tile is staged; q f32 or bf16.
+//    16-entry piece is unpacked; q f32 or bf16.
 //    Replaces: src/repro/kernels/flash_attention/decode.py::
 //    flash_decode_q8_kernel (Pallas, TPU).
 //
@@ -31,22 +31,21 @@
 // slots x 12 KV heads of 64, lengths 8-255, f32), and at serving batch
 // sizes latency bound, by the launch and the DRAM round trips in series.
 //
-// 1 (f32/bf16) runs the split-K body of csrc/decode_split.cuh with its
-// SlabAddr addressing: a cluster of S blocks per (slot, KV head, head
-// group), each taking an equal share of the slot's live 32-position tiles
-// (S from kernels/flash_attention/plan.py::decode_plan), rows read 16
-// bytes a lane with several rows in flight, online softmax per group of
-// lanes in registers, and the blocks' (m, l, acc) merged in rank order
-// through distributed shared memory: one launch, no workspace.
-// 2 (int8) runs the earlier body of csrc/decode_tile.cuh: one block per
-// (slot, KV head) walking its live tiles in series.
+// Both run the split-K body of csrc/decode_split.cuh with its SlabAddr
+// addressing, 1 through the FloatKV<T> element policy and 2 through
+// Int8KV: a cluster of S blocks per (slot, KV head, head group), each
+// taking an equal share of the slot's live 32-position tiles (S from
+// kernels/flash_attention/plan.py::decode_plan over the K/V entries), rows
+// read 16 bytes a lane with several rows in flight, online softmax per
+// group of lanes in registers, and the blocks' (m, l, acc) merged in rank
+// order through distributed shared memory: one launch, no workspace.
 //
 // Trap: a finished slab slot keeps decoding at position L, writing at
 // L % L = 0 and passing length L + 1; the Pallas grid covered L/bk tiles
 // and clamped by construction.  Here a block reads min(length, L)
 // entries; the window's lower bound still uses the length as given.
 
-#include "decode_tile.cuh"
+#include "decode_split.cuh"
 
 extern "C" {
 
@@ -77,23 +76,26 @@ int flash_decode_launch(const void* q, const void* k, const void* v, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// int8 k/v, f32 (KH,) scales on the device; dtype is q's and out's.
+// int8 k/v, f32 (KH,) scales on the device; dtype is q's and out's; the
+// plan is decode_plan's over int8 entries.
 int flash_decode_q8_launch(const void* q, const void* k, const void* v,
                            const void* lengths, const void* k_scale, const void* v_scale,
                            void* out, int B, int KH, int G, int D, int L, int window,
+                           int splits, int heads, int lanes, int vectors, int vec,
                            float scale, int dtype, void* stream) {
   if (L < 1 || window < 0) return (int)cudaErrorInvalidValue;
   const SlabAddr addr{L, KH, D};
+  const SplitPlan plan{splits, heads, lanes, vectors, vec};
   const Int8KV kv{static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
-                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-                  char4_rows(k, v, D)};
+                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)};
+  const bool aligned = vec16_rows(k, v, D, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_decode<float>(q, kv, addr, lengths, out, B, KH, G, D, window, scale,
-                                     s);
+    return (int)launch_decode_split<float>(q, kv, addr, lengths, out, B, KH, G, D, window,
+                                           scale, plan, aligned, s);
   if (dtype == 1)
-    return (int)launch_decode<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D,
-                                             window, scale, s);
+    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D,
+                                                   window, scale, plan, aligned, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,8 +11,8 @@
 //    Replaces: src/repro/kernels/flash_attention/paged_decode.py::
 //    paged_decode_kernel (Pallas, TPU).
 // 2. paged_decode_q8: int8 pools with f32 (KH,) per-KV-head scales
-//    (precision.quantize_kv_int8, head_axis=0), dequantized as each tile is
-//    staged into shared memory; q f32 or bf16.
+//    (precision.quantize_kv_int8, head_axis=0), dequantized as each
+//    16-entry piece is unpacked; q f32 or bf16.
 //    Replaces: src/repro/kernels/flash_attention/paged_decode.py::
 //    paged_decode_q8_kernel (Pallas, TPU), which took the two scales as
 //    scalar-prefetch operands beside the lengths and tables and
@@ -30,19 +30,17 @@
 // pages of 16, f32), and at serving batch sizes latency bound, by the
 // launch and the DRAM round trips in series (length, table entry, row).
 //
-// 1 (f32/bf16) runs the split-K body of csrc/decode_split.cuh with its
-// PagedAddr addressing: a cluster of S blocks per (slot, KV head, head
-// group), each taking an equal share of the slot's live 32-position tiles
-// (S from kernels/flash_attention/plan.py::decode_plan), rows read 16
-// bytes a lane with several rows in flight and the next rows' table
-// entries requested before these rows are used, online softmax per group
-// of lanes in registers, and the blocks' (m, l, acc) merged in rank order
-// through distributed shared memory: one launch, no workspace.
-// 2 (int8) runs the earlier body of csrc/decode_tile.cuh: one block per
-// (slot, KV head) walking its live tiles in series, m/l/acc in shared
-// memory.
+// Both run the split-K body of csrc/decode_split.cuh with its PagedAddr
+// addressing, 1 through the FloatKV<T> element policy and 2 through
+// Int8KV: a cluster of S blocks per (slot, KV head, head group), each
+// taking an equal share of the slot's live 32-position tiles (S from
+// kernels/flash_attention/plan.py::decode_plan over the pool's entries),
+// rows read 16 bytes a lane with several rows in flight and the next rows'
+// table entries requested before these rows are used, online softmax per
+// group of lanes in registers, and the blocks' (m, l, acc) merged in rank
+// order through distributed shared memory: one launch, no workspace.
 
-#include "decode_tile.cuh"
+#include "decode_split.cuh"
 
 extern "C" {
 
@@ -73,23 +71,27 @@ int paged_decode_launch(const void* q, const void* kp, const void* vp,
   return (int)cudaErrorInvalidValue;
 }
 
-// int8 pools, f32 (KH,) scales on the device; dtype is q's and out's.
+// int8 pools, f32 (KH,) scales on the device; dtype is q's and out's; the
+// plan is decode_plan's over int8 entries.
 int paged_decode_q8_launch(const void* q, const void* kp, const void* vp,
                            const void* lengths, const void* block_tables,
                            const void* k_scale, const void* v_scale, void* out,
                            int B, int KH, int G, int D, int NP, int PS, int MP,
+                           int splits, int heads, int lanes, int vectors, int vec,
                            float scale, int dtype, void* stream) {
   if (NP < 1 || PS < 1 || MP < 1) return (int)cudaErrorInvalidValue;
   const PagedAddr addr{static_cast<const int*>(block_tables), NP, PS, MP, D};
+  const SplitPlan plan{splits, heads, lanes, vectors, vec};
   const Int8KV kv{static_cast<const int8_t*>(kp), static_cast<const int8_t*>(vp),
-                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-                  char4_rows(kp, vp, D)};
+                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)};
+  const bool aligned = vec16_rows(kp, vp, D, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_decode<float>(q, kv, addr, lengths, out, B, KH, G, D, 0, scale, s);
+    return (int)launch_decode_split<float>(q, kv, addr, lengths, out, B, KH, G, D, 0, scale,
+                                           plan, aligned, s);
   if (dtype == 1)
-    return (int)launch_decode<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D, 0,
-                                             scale, s);
+    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D, 0,
+                                                   scale, plan, aligned, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,7 @@
 """Attention kernel entries: layout, device routing, checks and the kernel
 launches.  A CUDA tensor launches ``csrc/paged_decode.cu`` (float and
-int8 pools), ``csrc/flash_decode.cu`` (float and int8 slab caches; the
-float entries with the split of ``plan.py``) or
+int8 pools), ``csrc/flash_decode.cu`` (float and int8 slab caches; all
+four decode entries with the split of ``plan.py``) or
 ``csrc/flash_attention.cu``; a CPU tensor takes the plain version of
 ``ref.py``.  ``repro``'s ``bk``, ``interpret`` and ``use_kernel``
 arguments are gone: the tiles are fixed and the device alone routes."""
@@ -18,14 +18,14 @@ from .ref import (flash_attention_ref, flash_decode_q8_ref, flash_decode_ref,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# (library, entry) -> argtypes: pointers, then ints (the f32/bf16 decode
-# entries end theirs with decode_plan's five), the softmax scale, the dtype
-# code and the stream
+# (library, entry) -> argtypes: pointers, then ints (the decode entries end
+# theirs with decode_plan's five), the softmax scale, the dtype code and the
+# stream
 _SIGNATURES = {
     ("paged_decode", "paged_decode_launch"): (6, 12),
-    ("paged_decode", "paged_decode_q8_launch"): (8, 7),
+    ("paged_decode", "paged_decode_q8_launch"): (8, 12),
     ("flash_decode", "flash_decode_launch"): (5, 11),
-    ("flash_decode", "flash_decode_q8_launch"): (7, 6),
+    ("flash_decode", "flash_decode_q8_launch"): (7, 11),
     ("flash_attention", "flash_attention_launch"): (4, 8),
 }
 
@@ -46,9 +46,9 @@ def _stream(dev: torch.device) -> int:
 
 def _split_plan(capacity: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """decode_plan for q (B, KH, G, D) over K/V rows of ``capacity``
-    positions, as the C entry's five ints."""
+    positions and K's entries, as the C entry's five ints."""
     B, KH, G, D = q.shape
-    p = decode_plan(capacity, B, KH, G, D, q.dtype,
+    p = decode_plan(capacity, B, KH, G, D, k.dtype,
                     aligned=k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     return p.splits, p.heads, p.lanes, p.vectors, int(p.vec)
 
@@ -154,9 +154,10 @@ def paged_decode_q8_kernel(q: torch.Tensor, k_pages: torch.Tensor,
                            block_tables: torch.Tensor, k_scale: torch.Tensor,
                            v_scale: torch.Tensor) -> torch.Tensor:
     """Launch the int8-pool CUDA kernel: q (B, KH, G, D) float32 or
-    bfloat16, int8 pools (KH, NP, PS, D), float32 (KH,) scales, lengths
-    (B,) and block_tables (B, MP) int32, all contiguous on one CUDA
-    device.  Returns (B, KH, G, D) in q's dtype.  Raises on anything
+    bfloat16, int8 pools (KH, NP, PS, D), D <= 256, float32 (KH,) scales,
+    lengths (B,) and block_tables (B, MP) int32, all contiguous on one
+    CUDA device; one cluster launch with ``plan.decode_plan``'s split over
+    int8 entries.  Returns (B, KH, G, D) in q's dtype.  Raises on anything
     else."""
     dev = _on_card("paged_decode_q8", q=q, k_pages=k_pages, v_pages=v_pages,
                    lengths=lengths, block_tables=block_tables, k_scale=k_scale,
@@ -165,15 +166,19 @@ def paged_decode_q8_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     B, KH, G, D, NP, PS, MP = _paged_shapes("paged_decode_q8", q, k_pages, v_pages,
                                             lengths, block_tables)
     _check_scales("paged_decode_q8", k_scale, v_scale, KH)
+    if D > DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"paged_decode_q8: head dim {D} over the kernel's "
+                         f"{DECODE_MAX_HEAD_DIM}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    plan = _split_plan(MP * PS, q, k_pages, v_pages)
     with torch.cuda.device(dev):
         err = _entry("paged_decode", "paged_decode_q8_launch")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
             block_tables.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            out.data_ptr(), B, KH, G, D, NP, PS, MP, D ** -0.5, _DTYPE_CODES[q.dtype],
-            _stream(dev))
+            out.data_ptr(), B, KH, G, D, NP, PS, MP, *plan, D ** -0.5,
+            _DTYPE_CODES[q.dtype], _stream(dev))
     build.check("paged_decode", err)
     backend.count_launch("paged_decode_q8")
     return out
@@ -262,23 +267,28 @@ def flash_decode_q8_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor, k_scale: torch.Tensor,
                            v_scale: torch.Tensor, *, window: int = 0) -> torch.Tensor:
     """Launch the int8-KV CUDA kernel: q (B, KH, G, D) float32 or
-    bfloat16, int8 k/v (B, L, KH, D) read in place, float32 (KH,) scales,
-    lengths (B,) int32, all contiguous on one CUDA device.  Returns
-    (B, KH, G, D) in q's dtype.  Raises on anything else."""
+    bfloat16, int8 k/v (B, L, KH, D) read in place, D <= 256, float32
+    (KH,) scales, lengths (B,) int32, all contiguous on one CUDA device;
+    one cluster launch with ``plan.decode_plan``'s split over int8
+    entries.  Returns (B, KH, G, D) in q's dtype.  Raises on anything
+    else."""
     dev = _on_card("flash_decode_q8", q=q, k=k, v=v, lengths=lengths, k_scale=k_scale,
                    v_scale=v_scale)
     _check_kv_dtypes("flash_decode_q8", q, k, v, lengths, int8=True)
     B, KH, G, D, L = _slab_shapes("flash_decode_q8", q, k, v, lengths, window)
     _check_scales("flash_decode_q8", k_scale, v_scale, KH)
+    if D > DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"flash_decode_q8: head dim {D} over the kernel's "
+                         f"{DECODE_MAX_HEAD_DIM}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    plan = _split_plan(L, q, k, v)
     with torch.cuda.device(dev):
         err = _entry("flash_decode", "flash_decode_q8_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), B, KH, G, D, L,
-            int(window), D ** -0.5, _DTYPE_CODES[q.dtype],
-            _stream(dev))
+            int(window), *plan, D ** -0.5, _DTYPE_CODES[q.dtype], _stream(dev))
     build.check("flash_decode", err)
     backend.count_launch("flash_decode_q8")
     return out

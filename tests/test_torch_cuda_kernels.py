@@ -518,8 +518,9 @@ def test_paged_decode_q8_kernel_matches_plain(cuda, dtype, B, KH, G, D, PS, MP):
 
 
 def test_q8_decode_reads_unaligned_rows_byte_by_byte(cuda):
-    """D % 4 == 0 but the int8 cache starts one byte into its buffer: no
-    row is 4-byte aligned, so the kernel takes the byte path."""
+    """D % 16 == 0 but the int8 cache starts one byte into its buffer: no
+    row is 16-byte aligned, so the kernel takes the byte path, and gives
+    the aligned copy's bits."""
     B, KH, G, D, L = 3, 2, 2, 64, 40
     q, k, v, lens = _slab_inputs(cuda, torch.float32, B, KH, G, D, L, 5)
     kq, ks = quantize_kv_int8(k, head_axis=2)
@@ -565,7 +566,11 @@ def test_decode_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         flash_decode(q[:, None].reshape(2, 1, 4, 16), kq, vq, lens)    # no scales
 
 
-# -- the split-K body of the f32/bf16 pair (csrc/decode_split.cuh) ----------
+# -- the split-K body (csrc/decode_split.cuh): the f32/bf16 pair and, through
+# the Int8KV policy, the int8 pair (kv "int8": K/V quantized per KV head)
+
+KV_KINDS = ["float", "int8"]
+
 
 def _paged_inputs(cuda, dtype, B, KH, G, D, PS, MP, lengths, seed):
     g = torch.Generator().manual_seed(seed)
@@ -592,104 +597,151 @@ def _one_launch_twice(op, fn):
     return o
 
 
-def _flash_split_case(cuda, dtype, B, KH, G, D, L, lengths, window, seed):
+def _slab_call(kv, q, k, v, lens, window=0):
+    """(op, kernel call, plain version) over float K/V or their int8 copy."""
+    if kv == "float":
+        return ("flash_decode", lambda: flash_decode_kernel(q, k, v, lens, window=window),
+                lambda: flash_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2), lens,
+                                         window=window))
+    (kq, ks), (vq, vs) = quantize_kv_int8(k, head_axis=2), quantize_kv_int8(v, head_axis=2)
+    return ("flash_decode_q8",
+            lambda: flash_decode_q8_kernel(q, kq, vq, lens, ks, vs, window=window),
+            lambda: flash_decode_q8_ref(q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs,
+                                        lens, window=window))
+
+
+def _paged_call(kv, q, kp, vp, lens, bt):
+    if kv == "float":
+        return ("paged_decode", lambda: paged_decode_kernel(q, kp, vp, lens, bt),
+                lambda: paged_decode_ref(q, kp, vp, lens, bt))
+    (kq, ks), (vq, vs) = quantize_kv_int8(kp, head_axis=0), quantize_kv_int8(vp, head_axis=0)
+    return ("paged_decode_q8", lambda: paged_decode_q8_kernel(q, kq, vq, lens, bt, ks, vs),
+            lambda: paged_decode_q8_ref(q, kq, vq, ks, vs, lens, bt))
+
+
+def _flash_split_case(cuda, dtype, B, KH, G, D, L, lengths, window, seed, kv="float"):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, KH, G, D, generator=g).to(cuda, dtype)
     k = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
     v = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    o = _one_launch_twice("flash_decode",
-                          lambda: flash_decode_kernel(q, k, v, lens, window=window))
-    ref = flash_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2), lens, window=window)
-    torch.testing.assert_close(o.float(), ref.float(), **DECODE_TOL[dtype])
+    op, kern, ref = _slab_call(kv, q, k, v, lens, window)
+    o = _one_launch_twice(op, kern)
+    torch.testing.assert_close(o.float(), ref().float(), **DECODE_TOL[dtype])
     return o
 
 
+def _paged_split_case(cuda, dtype, B, KH, G, D, PS, MP, lengths, seed, kv):
+    q, kp, vp, lens, bt = _paged_inputs(cuda, dtype, B, KH, G, D, PS, MP, lengths, seed)
+    op, kern, ref = _paged_call(kv, q, kp, vp, lens, bt)
+    o = _one_launch_twice(op, kern)
+    torch.testing.assert_close(o.float(), ref().float(), **DECODE_TOL[dtype])
+    assert (o[0] == 0).all()
+    return o
+
+
+@pytest.mark.parametrize("kv", KV_KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("length", [511, 512, 513])
-def test_flash_decode_one_slot_at_the_capacity(cuda, dtype, length):
+def test_flash_decode_one_slot_at_the_capacity(cuda, dtype, length, kv):
     """The naive loop's shape (one slot, eight splits) at the cache's end."""
-    _flash_split_case(cuda, dtype, 1, 12, 1, 64, 512, [length], 0, length)
+    _flash_split_case(cuda, dtype, 1, 12, 1, 64, 512, [length], 0, length, kv)
 
 
+@pytest.mark.parametrize("kv", KV_KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("G", [4, 8])
 @pytest.mark.parametrize("L", [16, 33, 96, 1024, 2048])
-def test_flash_decode_every_split(cuda, dtype, G, L):
+def test_flash_decode_every_split(cuda, dtype, G, L, kv):
     """Capacities that take S = 1 (one tile) to 8 (many tiles a block), with
     and without a window; a dead slot gives exact zeros."""
     for window in (0, 37):
         o = _flash_split_case(cuda, dtype, 3, 2, G, 64, L, [0, L, L // 2 + 1], window,
-                              L + G + window)
+                              L + G + window, kv)
         assert (o[0] == 0).all()
 
 
+@pytest.mark.parametrize("kv", KV_KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", [20, 42, 128, 256])
-def test_decode_pair_head_dims(cuda, dtype, D):
-    """Element loads (D 20 in bf16, 42), 16-byte loads, two pieces a lane
-    (f32 D 256), for both kernels."""
-    o = _flash_split_case(cuda, dtype, 4, 2, 2, D, 96, [0, 97, 33, 64], 0, D)
+def test_decode_pair_head_dims(cuda, dtype, D, kv):
+    """Element loads (D 20 in bf16 and int8, 42), 16-byte loads, two pieces
+    a lane (f32 D 256), for both kernels."""
+    o = _flash_split_case(cuda, dtype, 4, 2, 2, D, 96, [0, 97, 33, 64], 0, D, kv)
     assert (o[0] == 0).all()
-    lengths = [0, 1, 17, 80]
-    q, kp, vp, lens, bt = _paged_inputs(cuda, dtype, 4, 2, 2, D, 16, 5, lengths, D)
-    o = _one_launch_twice("paged_decode", lambda: paged_decode_kernel(q, kp, vp, lens, bt))
-    torch.testing.assert_close(o.float(), paged_decode_ref(q, kp, vp, lens, bt).float(),
-                               **DECODE_TOL[dtype])
-    assert (o[0] == 0).all()
+    _paged_split_case(cuda, dtype, 4, 2, 2, D, 16, 5, [0, 1, 17, 80], D, kv)
 
 
+@pytest.mark.parametrize("kv", KV_KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("G", [4, 8])
 @pytest.mark.parametrize("PS", [1, 16, 48])
-def test_paged_decode_page_sizes(cuda, dtype, G, PS):
+def test_paged_decode_page_sizes(cuda, dtype, G, PS, kv):
     """Pages of one position (a table entry per row), of 16, and of 48 (not
     a divisor of the 32-position tile)."""
     MP = -(-300 // PS)
-    lengths = [0, 1, PS + 1, 255, MP * PS]
-    q, kp, vp, lens, bt = _paged_inputs(cuda, dtype, 5, 2, G, 64, PS, MP, lengths, PS + G)
-    o = _one_launch_twice("paged_decode", lambda: paged_decode_kernel(q, kp, vp, lens, bt))
-    torch.testing.assert_close(o.float(), paged_decode_ref(q, kp, vp, lens, bt).float(),
-                               **DECODE_TOL[dtype])
-    assert (o[0] == 0).all()
+    _paged_split_case(cuda, dtype, 5, 2, G, 64, PS, MP, [0, 1, PS + 1, 255, MP * PS], PS + G,
+                      kv)
 
 
+@pytest.mark.parametrize("kv", KV_KINDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_decode_pair_unaligned_base_takes_element_loads(cuda, dtype):
+def test_decode_pair_unaligned_base_takes_element_loads(cuda, dtype, kv):
     """K and V one entry into their buffers: no row is 16-byte aligned, so
     the kernels read entry by entry, and give the aligned copy's bits."""
     B, KH, G, D, L = 3, 2, 2, 64, 40
 
     def shifted(t):
-        buf = torch.zeros(t.numel() + 1, dtype=dtype, device=cuda)
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=cuda)
         buf[1:] = t.reshape(-1)
         out = buf[1:].view(t.shape)
         assert out.data_ptr() % 16 and out.is_contiguous()
         return out
 
+    def q8(t, axis):
+        return quantize_kv_int8(t, head_axis=axis) if kv == "int8" else (t, None)
+
     g = torch.Generator().manual_seed(3)
     q = torch.randn(B, KH, G, D, generator=g).to(cuda, dtype)
-    k = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
-    v = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
+    (k, ks), (v, vs) = [q8(torch.randn(B, L, KH, D, generator=g).to(cuda, dtype), 2)
+                        for _ in range(2)]
     lens = torch.tensor([0, 40, 17], dtype=torch.int32, device=cuda)
-    o = flash_decode_kernel(q, shifted(k), shifted(v), lens)
-    torch.testing.assert_close(o, flash_decode_kernel(q, k, v, lens), atol=0, rtol=0)
+    if kv == "int8":
+        o = flash_decode_q8_kernel(q, shifted(k), shifted(v), lens, ks, vs)
+        want = flash_decode_q8_kernel(q, k, v, lens, ks, vs)
+    else:
+        o, want = flash_decode_kernel(q, shifted(k), shifted(v), lens), \
+            flash_decode_kernel(q, k, v, lens)
+    torch.testing.assert_close(o, want, atol=0, rtol=0)
     q, kp, vp, lens, bt = _paged_inputs(cuda, dtype, 3, KH, G, D, 16, 4, [0, 64, 20], 4)
-    o = paged_decode_kernel(q, shifted(kp), shifted(vp), lens, bt)
-    torch.testing.assert_close(o, paged_decode_kernel(q, kp, vp, lens, bt), atol=0, rtol=0)
+    (kp, ks), (vp, vs) = q8(kp, 0), q8(vp, 0)
+    if kv == "int8":
+        o = paged_decode_q8_kernel(q, shifted(kp), shifted(vp), lens, bt, ks, vs)
+        want = paged_decode_q8_kernel(q, kp, vp, lens, bt, ks, vs)
+    else:
+        o, want = paged_decode_kernel(q, shifted(kp), shifted(vp), lens, bt), \
+            paged_decode_kernel(q, kp, vp, lens, bt)
+    torch.testing.assert_close(o, want, atol=0, rtol=0)
 
 
 def test_decode_pair_refuses_a_head_dim_over_the_cap(cuda):
     D = 264
     q = torch.zeros(1, 1, 1, D, device=cuda)
     lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    bt = torch.ones(1, 1, dtype=torch.int32, device=cuda)
+    s = torch.ones(1, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_decode_kernel(q, torch.zeros(1, 4, 1, D, device=cuda),
                             torch.zeros(1, 4, 1, D, device=cuda), lens)
     with pytest.raises(ValueError, match="head dim"):
         paged_decode_kernel(q, torch.zeros(1, 2, 4, D, device=cuda),
-                            torch.zeros(1, 2, 4, D, device=cuda), lens,
-                            torch.ones(1, 1, dtype=torch.int32, device=cuda))
+                            torch.zeros(1, 2, 4, D, device=cuda), lens, bt)
+    k8 = torch.zeros(1, 4, 1, D, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_decode_q8_kernel(q, k8, k8, lens, s, s)
+    p8 = torch.zeros(1, 2, 4, D, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_decode_q8_kernel(q, p8, p8, lens, bt, s, s)
 
 
 def test_slab_and_naive_engines_on_the_card_match_the_cpu_engine(cuda):

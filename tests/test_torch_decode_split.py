@@ -9,9 +9,11 @@ contiguous share of the slot's live 32-position tiles, clipped to
 32 / lanes) take rows ``base + u * streams + stream`` in batches of U
 rows, each stream with its own online softmax; the streams of a warp merge
 by xor butterfly, the warps in warp order, the cluster's blocks in rank
-order.  It is held against the plain versions (1e-6, f32), against
-``repro``'s interpret-mode Pallas kernels at one small shape (1e-5), and
-for exact zeros on dead slots."""
+order.  Over int8 K/V (the Int8KV policy) a row is its int8 entries times
+the KV head's f32 scale, 16 entries a 16-byte piece.  It is held against
+the plain versions (1e-6, f32 q; the q8 pair's too), against ``repro``'s
+interpret-mode Pallas kernels at one small shape (1e-5, float and int8
+K/V), and for exact zeros on dead slots."""
 import numpy as np
 import pytest
 
@@ -24,11 +26,14 @@ import jax.numpy as jnp                                     # noqa: E402
 from repro.kernels.flash_attention import flash_decode as j_flash_decode  # noqa: E402
 from repro.kernels.flash_attention import paged_decode as j_paged_decode  # noqa: E402
 
-from repro_torch.kernels.flash_attention import (flash_decode_ref,  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_decode_q8_ref,  # noqa: E402
+                                                 flash_decode_ref, paged_decode_q8_ref,
                                                  paged_decode_ref)
 from repro_torch.kernels.flash_attention.plan import (DECODE_MAX_HEAD_DIM,  # noqa: E402
+                                                      INT8_MAX_HEADS, MAX_HEADS,
                                                       MAX_SPLITS, SMS, TILE,
                                                       decode_plan)
+from repro_torch.precision import quantize_kv_int8          # noqa: E402
 
 ops = importlib.import_module("repro_torch.kernels.flash_attention.ops")
 
@@ -54,9 +59,12 @@ def block_share(lo, hi, S, rank):
     return max(lo, (t_lo + rank * per) * TILE), min(hi, (t_lo + (rank + 1) * per) * TILE)
 
 
-def rows_in_flight(GT, NC, EPV):
+def rows_in_flight(GT, NC, EPV, max_rows):
     n = GT * NC * EPV
-    return 8 if n <= 16 else 4 if n <= 32 else 2
+    return min(8 if n <= 16 else 4 if n <= 32 else 2, max_rows)
+
+
+MAX_ROWS = {4: 8, 2: 8, 1: 2}   # the policies' MAX_ROWS by entry width: FloatKV, Int8KV
 
 
 def stream_rows(p0, p1, streams, U):
@@ -72,12 +80,15 @@ def _merge(m, l, acc, m2, l2, acc2):
     return mm, l * a + l2 * b, acc * a[..., None] + acc2 * b[..., None]
 
 
-def emulate(q, rows, lengths, capacity, plan, window=0):
+def emulate(q, rows, lengths, capacity, plan, window=0, entry_bytes=4):
     """The kernel's arithmetic in f32 torch.  q (B, KH, G, D); rows(b, j)
-    gives the K and V rows (KH, *j.shape, D) of slot b at positions j."""
+    gives the K and V rows (KH, *j.shape, D) of slot b at positions j as
+    f32, as the element policy unpacks them; ``entry_bytes`` is the width
+    of a K/V entry (4 f32, 2 bf16, 1 int8), which sets the entries of a
+    16-byte piece and so the rows in flight."""
     B, KH, G, D = q.shape
     S, GT, lanes, NC = plan.splits, plan.heads, plan.lanes, plan.vectors
-    U = rows_in_flight(GT, NC, 16 // q.element_size())
+    U = rows_in_flight(GT, NC, 16 // entry_bytes, MAX_ROWS[entry_bytes])
     rpw = 32 // lanes
     streams = NW * rpw
     out = torch.zeros(B, KH, G, D)
@@ -146,6 +157,24 @@ def paged_rows(kp, vp, bt):
                          vp[:, bt[b, j // PS].long(), j % PS])
 
 
+def _dequantized(x, scale):
+    """Int8KV's unpacking: (KH, ..., D) int8 rows -> f32 * the head's scale."""
+    return x.float() * scale.reshape(-1, *[1] * (x.dim() - 1))
+
+
+def slab_rows_q8(kq, vq, ks, vs):
+    """Int8 (B, L, KH, D) caches with (KH,) scales -> rows(b, j), dequantized."""
+    return lambda b, j: (_dequantized(kq[b, j].movedim(-2, 0), ks),
+                         _dequantized(vq[b, j].movedim(-2, 0), vs))
+
+
+def paged_rows_q8(kq, vq, ks, vs, bt):
+    """Int8 pools with (KH,) scales -> rows(b, j) through the tables, dequantized."""
+    PS = kq.shape[2]
+    return lambda b, j: (_dequantized(kq[:, bt[b, j // PS].long(), j % PS], ks),
+                         _dequantized(vq[:, bt[b, j // PS].long(), j % PS], vs))
+
+
 def _slab(B, KH, G, D, L, seed):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
@@ -171,9 +200,11 @@ def _paged(B, KH, G, D, PS, MP, lengths, seed):
 # ---------------------------------------------------------------------------
 
 DTYPES = [torch.float32, torch.bfloat16]
+KV_DTYPES = [torch.float32, torch.bfloat16, torch.int8]      # the plan's kv_dtype
+KV_IDS = ["f32", "bf16", "int8"]
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", KV_DTYPES, ids=KV_IDS)
 @pytest.mark.parametrize("capacity", [1, 16, 33, 96, 512, 1024, 2048])
 def test_splits_are_powers_of_two_up_to_eight(dtype, capacity):
     for B, KH, G, D in ((8, 12, 1, 64), (1, 12, 1, 64), (4, 2, 4, 128), (64, 16, 1, 64),
@@ -196,9 +227,12 @@ def test_every_split_is_taken_at_the_main_paths_shapes():
     assert decode_plan(16, 8, 12, 1, 64, f32).splits == 1      # one tile
     assert decode_plan(33, 1, 2, 4, 64, f32).splits == 2       # two tiles
     assert decode_plan(512, 16, 12, 1, 64, f32).splits == 2    # 192 units
+    # int8 K/V: phase 10's shapes take the same splits
+    assert decode_plan(512, 8, 12, 1, 64, torch.int8).splits == 4
+    assert decode_plan(512, 1, 12, 1, 64, torch.int8).splits == 8
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", KV_DTYPES, ids=KV_IDS)
 def test_plan_depends_only_on_its_arguments(dtype):
     args = [(c, B, KH, G, D) for c in (16, 512, 2048) for B in (1, 8) for KH in (1, 12)
             for G in (1, 3, 8, 12) for D in (1, 20, 64, 256)]
@@ -213,7 +247,7 @@ def test_plan_depends_only_on_its_arguments(dtype):
             decode_plan(1, 1, 1, a[3], 64, dtype))
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", KV_DTYPES, ids=KV_IDS)
 def test_a_row_is_covered_by_its_lanes(dtype):
     per = 16 // dtype.itemsize
     for D in range(1, DECODE_MAX_HEAD_DIM + 1):
@@ -222,9 +256,51 @@ def test_a_row_is_covered_by_its_lanes(dtype):
         assert span >= D and (p.lanes == 1 or span // 2 < D)    # the least power of two
         assert p.lanes in (1, 2, 4, 8, 16, 32) and p.vectors in (1, 2)
         assert p.vectors == 1 or (dtype == torch.float32 and D > 128 and p.lanes == 32)
+    if dtype == torch.int8:                 # 16 entries a piece: at most 16 lanes
+        assert decode_plan(512, 8, 12, 1, 64, dtype).lanes == 4      # GPT-2-S: 8 rows a warp
+        assert decode_plan(512, 8, 12, 1, 256, dtype).lanes == 16
+
+
+@pytest.mark.parametrize("dtype", KV_DTYPES, ids=KV_IDS)
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 12])
+def test_q_and_acc_registers_stay_in_the_budget(dtype, G):
+    """heads x vectors x entries a piece: <= 64 over float K/V (GT up to
+    8), <= 16 over int8 K/V (GT 1), for every D."""
+    per = 16 // dtype.itemsize
+    budget = 16 if dtype == torch.int8 else 64
+    for D in range(1, DECODE_MAX_HEAD_DIM + 1):
+        p = decode_plan(512, 2, 2, G, D, dtype)
+        assert p.heads * p.vectors * per <= budget, (G, D, p)
+    cap = INT8_MAX_HEADS if dtype == torch.int8 else MAX_HEADS
+    assert decode_plan(512, 2, 2, G, 64, dtype).heads == min(cap, 1 << (G - 1).bit_length())
+
+
+def _float_plan_before(capacity, B, KH, G, D, dtype, aligned=True):
+    """The f32/bf16 plan as it was before int8 K/V took the split body."""
+    per = 16 // dtype.itemsize
+    pieces = 1 << (-(-D // per) - 1).bit_length()
+    lanes = min(pieces, 32)
+    heads = min(8, 1 << (G - 1).bit_length())
+    groups = -(-G // heads)
+    s = 1
+    while s < 8 and 2 * s <= -(-capacity // TILE) and B * KH * groups * s < 2 * SMS:
+        s *= 2
+    return (s, heads, groups, lanes, pieces // lanes, aligned and D % per == 0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_the_float_plans_are_unchanged(dtype):
+    for c in (1, 16, 33, 512, 2048):
+        for B, KH in ((1, 12), (8, 12), (64, 16)):
+            for G in (1, 3, 8, 12):
+                for D in (1, 20, 42, 64, 128, 200, 256):
+                    for aligned in (True, False):
+                        p = decode_plan(c, B, KH, G, D, dtype, aligned=aligned)
+                        assert (p.splits, p.heads, p.groups, p.lanes, p.vectors, p.vec) == \
+                            _float_plan_before(c, B, KH, G, D, dtype, aligned)
+
+
+@pytest.mark.parametrize("dtype", KV_DTYPES, ids=KV_IDS)
 def test_vector_loads_only_where_d_dtype_and_pointers_allow(dtype):
     per = 16 // dtype.itemsize
     for D in range(1, DECODE_MAX_HEAD_DIM + 1):
@@ -233,6 +309,8 @@ def test_vector_loads_only_where_d_dtype_and_pointers_allow(dtype):
     assert decode_plan(512, 8, 12, 1, 42, torch.float32).vec is False     # 168 B rows
     assert decode_plan(512, 8, 12, 1, 20, torch.float32).vec is True      # 80 B rows
     assert decode_plan(512, 8, 12, 1, 20, torch.bfloat16).vec is False    # 40 B rows
+    assert decode_plan(512, 8, 12, 1, 64, torch.int8).vec is True         # 64 B rows
+    assert decode_plan(512, 8, 12, 1, 40, torch.int8).vec is False        # 40 B rows
 
 
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 8, 12, 16])
@@ -243,10 +321,11 @@ def test_query_heads_go_in_groups_of_a_power_of_two(G):
 
 
 def test_the_plan_refuses_a_head_dim_over_the_cap():
-    decode_plan(512, 1, 1, 1, DECODE_MAX_HEAD_DIM, torch.float32)
-    for D in (0, DECODE_MAX_HEAD_DIM + 1):
-        with pytest.raises(ValueError, match="head dim"):
-            decode_plan(512, 1, 1, 1, D, torch.float32)
+    for dtype in KV_DTYPES:
+        decode_plan(512, 1, 1, 1, DECODE_MAX_HEAD_DIM, dtype)
+        for D in (0, DECODE_MAX_HEAD_DIM + 1):
+            with pytest.raises(ValueError, match="head dim"):
+                decode_plan(512, 1, 1, 1, D, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +340,7 @@ def test_shares_cover_each_live_position_once(capacity, window):
     for length in range(capacity + 2):
         lo, hi = live_range(length, capacity, window)
         for S in (1, 2, 4, 8):
-            for streams, U in ((8, 8), (4, 8), (128, 2)):
+            for streams, U in ((8, 8), (4, 8), (128, 2), (32, 2)):
                 read = []
                 for rank in range(S):
                     p0, p1 = block_share(lo, hi, S, rank)
@@ -318,6 +397,48 @@ def test_emulation_matches_paged_decode_ref(KH, G, D, PS, MP):
     assert (got[0] == 0).all()
 
 
+def _quantized(k, v, head_axis):
+    kq, ks = quantize_kv_int8(k, head_axis=head_axis)
+    vq, vs = quantize_kv_int8(v, head_axis=head_axis)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("B,KH,G,D,L,window", [
+    (4, 12, 1, 64, 512, 0),     # GPT-2-S's heads, the serving capacity
+    (3, 12, 1, 64, 512, 100),   # a window
+    (3, 2, 4, 64, 96, 0),       # G 4: four head groups of 1
+    (2, 1, 12, 16, 70, 0),      # twelve head groups of 1
+    (3, 1, 4, 42, 2048, 0),     # eight splits of many tiles, a ragged D
+], ids=["gpt2s", "window", "g4", "g12", "long"])
+def test_int8_emulation_matches_flash_decode_q8_ref(B, KH, G, D, L, window):
+    q, k, v = _slab(B, KH, G, D, L, seed=B + L + 1)
+    kq, vq, ks, vs = _quantized(k, v, 2)
+    lens = torch.tensor([0, L + 1, 255, L, 33][:B], dtype=torch.int32)
+    plan = decode_plan(L, B, KH, G, D, torch.int8)
+    assert plan.heads <= INT8_MAX_HEADS
+    got = emulate(q, slab_rows_q8(kq, vq, ks, vs), lens, L, plan, window, entry_bytes=1)
+    want = flash_decode_q8_ref(q, kq.transpose(1, 2), vq.transpose(1, 2), ks, vs, lens,
+                               window=window)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    assert (got[0] == 0).all()                  # the dead slot: exact zeros
+
+
+@pytest.mark.parametrize("KH,G,D,PS,MP", [(12, 1, 64, 16, 32), (2, 4, 64, 16, 8),
+                                          (2, 4, 32, 1, 96), (1, 8, 64, 48, 11)],
+                         ids=["gpt2s", "g4", "ps1", "ps48"])
+def test_int8_emulation_matches_paged_decode_q8_ref(KH, G, D, PS, MP):
+    lengths = [0, 1, PS, PS + 1, MP * PS - 1, MP * PS]
+    B = len(lengths)
+    q, kp, vp, bt = _paged(B, KH, G, D, PS, MP, lengths, seed=PS + G + 1)
+    kq, vq, ks, vs = _quantized(kp, vp, 0)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    plan = decode_plan(MP * PS, B, KH, G, D, torch.int8)
+    got = emulate(q, paged_rows_q8(kq, vq, ks, vs, bt), lens, MP * PS, plan, entry_bytes=1)
+    torch.testing.assert_close(got, paged_decode_q8_ref(q, kq, vq, ks, vs, lens, bt),
+                               atol=1e-6, rtol=1e-6)
+    assert (got[0] == 0).all()
+
+
 @pytest.mark.parametrize("S", [1, 2, 4, 8])
 def test_every_split_gives_the_same_answer(S):
     """The split changes the order of the merge, not the result."""
@@ -367,6 +488,43 @@ def test_emulation_matches_repro_interpret_kernels():
                                atol=1e-5, rtol=1e-5)
 
 
+def _j(*ts):
+    return [jnp.asarray(t.numpy()) for t in ts]
+
+
+@pytest.mark.parametrize("window", [0, 24], ids=["full", "window"])
+def test_int8_emulation_matches_repro_interpret_kernels(window):
+    """The Int8KV emulation against repro's q8 Pallas kernels in interpret
+    mode, as tests/test_torch_flash_decode.py runs them."""
+    B, H, KH, L, D = 3, 8, 2, 64, 32
+    q, k, v = _slab(B, KH, H // KH, D, L, seed=17)
+    kq, vq, ks, vs = _quantized(k, v, 2)
+    lengths = np.array([0, 40, L], np.int32)
+    plan = decode_plan(L, B, KH, H // KH, D, torch.int8)
+    got = emulate(q, slab_rows_q8(kq, vq, ks, vs), torch.from_numpy(lengths), L, plan,
+                  window, entry_bytes=1)
+    jo = j_flash_decode(*_j(q.reshape(B, H, D), kq, vq), jnp.asarray(lengths),
+                        window=window, k_scale=jnp.asarray(ks.numpy()),
+                        v_scale=jnp.asarray(vs.numpy()), bk=32, interpret=True)
+    np.testing.assert_allclose(got.reshape(B, H, D).numpy(), np.asarray(jo),
+                               atol=1e-5, rtol=1e-5)
+    assert (got[0] == 0).all()
+
+    PS, MP = 8, 4
+    plens = [0, 9, MP * PS]
+    q, kp, vp, bt = _paged(B, KH, H // KH, D, PS, MP, plens, seed=18)
+    kq, vq, ks, vs = _quantized(kp, vp, 0)
+    plan = decode_plan(MP * PS, B, KH, H // KH, D, torch.int8)
+    got = emulate(q, paged_rows_q8(kq, vq, ks, vs, bt), torch.tensor(plens, dtype=torch.int32),
+                  MP * PS, plan, entry_bytes=1)
+    jo = j_paged_decode(*_j(q.reshape(B, 1, H, D), kq, vq),
+                        jnp.asarray(np.array(plens, np.int32)), jnp.asarray(bt.numpy()),
+                        k_scale=jnp.asarray(ks.numpy()), v_scale=jnp.asarray(vs.numpy()),
+                        bk=8, interpret=True)
+    np.testing.assert_allclose(got.reshape(B, 1, H, D).numpy(), np.asarray(jo),
+                               atol=1e-5, rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers hand the plan to the C entries
 # ---------------------------------------------------------------------------
@@ -409,17 +567,44 @@ def _plan_args(p):
     return (p.splits, p.heads, p.lanes, p.vectors, int(p.vec))
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+# (q dtype, K/V dtype): the float pair, then the int8 pair under each q
+WRAPPED = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+           (torch.float32, torch.int8), (torch.bfloat16, torch.int8)]
+WRAPPED_IDS = ["f32", "bf16", "q8-f32", "q8-bf16"]
+
+
+def _flash_call(q, k, v, lens, **kw):
+    """The slab wrapper for K/V's dtype; returns its C entry's name and the
+    index of the first plan int in its arguments."""
+    if k.dtype == torch.int8:
+        s = torch.ones(k.shape[2])
+        ops.flash_decode_q8_kernel(q, k, v, lens, s, s, **kw)
+        return "flash_decode_q8_launch", 13
+    ops.flash_decode_kernel(q, k, v, lens, **kw)
+    return "flash_decode_launch", 11
+
+
+def _paged_call(q, kp, vp, lens, bt):
+    if kp.dtype == torch.int8:
+        s = torch.ones(kp.shape[0])
+        ops.paged_decode_q8_kernel(q, kp, vp, lens, bt, s, s)
+        return "paged_decode_q8_launch", 15
+    ops.paged_decode_kernel(q, kp, vp, lens, bt)
+    return "paged_decode_launch", 13
+
+
+@pytest.mark.parametrize("dtype", WRAPPED, ids=WRAPPED_IDS)
 @pytest.mark.parametrize("B,KH,G,D,L", [(8, 12, 1, 64, 512), (1, 12, 1, 64, 512),
                                         (3, 2, 3, 42, 33), (2, 1, 8, 256, 2048)])
 def test_flash_decode_wrapper_passes_its_plan(launches, dtype, B, KH, G, D, L):
-    q = torch.zeros(B, KH, G, D, dtype=dtype)
-    k = torch.zeros(B, L, KH, D, dtype=dtype)
-    ops.flash_decode_kernel(q, k, k.clone(), torch.zeros(B, dtype=torch.int32), window=5)
-    (args,) = launches["flash_decode_launch"]
-    assert args[5:11] == (B, KH, G, D, L, 5)
-    assert args[11:16] == _plan_args(decode_plan(L, B, KH, G, D, dtype))
-    assert args[17] == (0 if dtype == torch.float32 else 1)
+    qd, kd = dtype
+    q = torch.zeros(B, KH, G, D, dtype=qd)
+    k = torch.zeros(B, L, KH, D, dtype=kd)
+    name, at = _flash_call(q, k, k.clone(), torch.zeros(B, dtype=torch.int32), window=5)
+    (args,) = launches[name]
+    assert args[at - 6:at] == (B, KH, G, D, L, 5)
+    assert args[at:at + 5] == _plan_args(decode_plan(L, B, KH, G, D, kd))
+    assert args[at + 6] == (0 if qd == torch.float32 else 1)
 
 
 @pytest.mark.parametrize("PS,MP", [(16, 32), (1, 100), (48, 3)])
@@ -434,39 +619,50 @@ def test_paged_decode_wrapper_passes_its_plan(launches, PS, MP):
     assert args[13:18] == _plan_args(decode_plan(MP * PS, B, KH, G, D, torch.float32))
 
 
-def test_an_unaligned_base_takes_element_loads(launches):
+@pytest.mark.parametrize("qd", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("PS,MP,G", [(16, 32, 1), (1, 100, 4), (48, 3, 8)])
+def test_paged_decode_q8_wrapper_passes_its_plan(launches, qd, PS, MP, G):
+    B, KH, D = 4, 2, 64
+    q = torch.zeros(B, KH, G, D, dtype=qd)
+    pool = torch.zeros(KH, B * MP + 1, PS, D, dtype=torch.int8)
+    name, at = _paged_call(q, pool, pool.clone(), torch.zeros(B, dtype=torch.int32),
+                           torch.zeros(B, MP, dtype=torch.int32))
+    (args,) = launches[name]
+    assert name == "paged_decode_q8_launch"
+    assert args[8:15] == (B, KH, G, D, B * MP + 1, PS, MP)
+    plan = decode_plan(MP * PS, B, KH, G, D, torch.int8)
+    assert args[15:20] == _plan_args(plan) and plan.heads == min(G, INT8_MAX_HEADS)
+    assert args[21] == (0 if qd == torch.float32 else 1)
+
+
+@pytest.mark.parametrize("kv", [torch.float32, torch.int8], ids=["float", "int8"])
+def test_an_unaligned_base_takes_element_loads(launches, kv):
     B, KH, G, D, L = 2, 2, 1, 64, 40
     q = torch.zeros(B, KH, G, D)
-    buf = torch.zeros(B * L * KH * D + 1)
+    buf = torch.zeros(B * L * KH * D + 1, dtype=kv)
     k = buf[1:].view(B, L, KH, D)
     assert k.data_ptr() % 16 and k.is_contiguous()
     lens = torch.zeros(B, dtype=torch.int32)
-    ops.flash_decode_kernel(q, k, k, lens)
-    ops.flash_decode_kernel(q, k.clone(), k.clone(), lens)
-    unaligned, aligned = launches["flash_decode_launch"]
-    assert unaligned[15] == 0 and aligned[15] == 1
-    assert unaligned[11:15] == aligned[11:15]
+    name, at = _flash_call(q, k, k, lens)
+    _flash_call(q, k.clone(), k.clone(), lens)
+    pool = buf[1:].view(KH, B * L // 16, 16, D)
+    bt = torch.zeros(B, 2, dtype=torch.int32)
+    pname, pat = _paged_call(q, pool, pool, lens, bt)
+    _paged_call(q, pool.clone(), pool.clone(), lens, bt)
+    for n, i in ((name, at), (pname, pat)):
+        unaligned, aligned = launches[n]
+        assert unaligned[i + 4] == 0 and aligned[i + 4] == 1
+        assert unaligned[i:i + 4] == aligned[i:i + 4]
 
 
-def test_the_wrappers_raise_over_the_head_dim_cap(launches):
+@pytest.mark.parametrize("kv", [torch.float32, torch.int8], ids=["float", "int8"])
+def test_the_wrappers_raise_over_the_head_dim_cap(launches, kv):
     D = DECODE_MAX_HEAD_DIM + 8
     q = torch.zeros(1, 1, 1, D)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_decode_kernel(q, torch.zeros(1, 4, 1, D), torch.zeros(1, 4, 1, D),
-                                torch.zeros(1, dtype=torch.int32))
+        _flash_call(q, torch.zeros(1, 4, 1, D, dtype=kv), torch.zeros(1, 4, 1, D, dtype=kv),
+                    torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="head dim"):
-        ops.paged_decode_kernel(q, torch.zeros(1, 2, 4, D), torch.zeros(1, 2, 4, D),
-                                torch.zeros(1, dtype=torch.int32),
-                                torch.zeros(1, 1, dtype=torch.int32))
+        _paged_call(q, torch.zeros(1, 2, 4, D, dtype=kv), torch.zeros(1, 2, 4, D, dtype=kv),
+                    torch.zeros(1, dtype=torch.int32), torch.zeros(1, 1, dtype=torch.int32))
     assert not launches
-
-
-def test_the_int8_entries_keep_their_arguments(launches):
-    """The int8 pair stays on the earlier body: no plan in its arguments."""
-    B, KH, G, D, L = 2, 2, 1, 64, 40
-    q = torch.zeros(B, KH, G, D)
-    kq = torch.zeros(B, L, KH, D, dtype=torch.int8)
-    s = torch.ones(KH)
-    ops.flash_decode_q8_kernel(q, kq, kq, torch.zeros(B, dtype=torch.int32), s, s)
-    (args,) = launches["flash_decode_q8_launch"]
-    assert args[7:13] == (B, KH, G, D, L, 0) and len(args) == 7 + 6 + 3
