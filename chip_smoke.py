@@ -118,7 +118,37 @@ Phases (each prints its own lines; any failure exits non-zero):
     (logits, every layer's state) against the plain path run in f64: no
     more than 3x as far from it as the plain f32 path; one decode step is
     held end to end, and ``generate()`` gives the engine's ids for two
-    requests; a digest of the engine's token ids is printed.
+    requests; a digest of the engine's token ids is printed;
+13. a time-varying wireless SFL episode on full-width GPT-2-S (f32 base,
+    random weights from seed 0): phase 8's 50 MHz edge problem, its
+    allocator's fleet built with ``SflLLM.from_allocation(dynamic=True)``
+    (the capacity envelope: every valid split, ranks up to 8) at fleet b's
+    precision (8-bit gradients, stochastic rounding, error feedback), 3
+    clients x 4 x 64 tokens, 6 local steps, AdamW 4e-4, 4 rounds under
+    ``WirelessDynamics`` (8 dB AR(1) fading, rho 0.5, deadline 1.2 x the
+    slowest client, drift re-allocation at 0.15, outages at 10 dB with 4
+    HARQ attempts), started from phase 8's hand-set fleet b (splits
+    2/4/6, ranks 2/4/8, bits 4/8/16); client 0 in certain outage in round
+    1 through ``outage_override`` and a re-allocation forced in round 2
+    through ``drift_threshold``, which hands the fleet to the allocator
+    and moves its splits and ranks.  First the kernels at the episode's
+    shapes against their plain versions (forward, dX and rank reduce at
+    r 8 for a client's 256 rows and the server's 768, the forward at a
+    decode step's 8); launch counters reset before each round must equal
+    what the round's splits and participation imply (a dropped client runs
+    its forward, not its backward); round 1 (client 0 dropped) is run
+    again on its inputs through the plain path (``Runtime()``) and held to
+    the kernels' at phase 6's tolerance, the dropped client's adapter and
+    moments unchanged bit for bit; the episode killed after round 2 and
+    resumed from its episode file by a fresh trainer must end bit-equal to
+    the uninterrupted run (adapters, optimizer and error-feedback state,
+    histories, the dynamics cursor); the adapter is handed off as
+    ``{lora_server, lora_client0}``, joined at client 0's split, written as
+    a stack and read through ``launch.serve.restore_lora``
+    (``--lora-checkpoint``), and phase 5's 16 requests served from it must
+    give the in-memory adapter's token ids, with 24 ``lora_matmul`` per
+    decode step and per prefill chunk and 12 ``paged_decode`` per step; a
+    digest of the ids is printed.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -1854,9 +1884,12 @@ def main() -> None:
         fail("a mixed-tenant decode step through the kernels disagrees with the plain path")
 
     mamba_launches = phase_mamba(torch, np, dev, reqs)
+    dyn_train, dyn_serve, dyn_err = phase_dynamic(torch, np, dev, reqs)
+    for k, v in dyn_err.items():
+        err[k] = max(err[k], v)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
-            mt_launches, mamba_launches)
+            mt_launches, mamba_launches, dyn_train, dyn_serve)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -2106,6 +2139,348 @@ def phase_mamba(torch, np, dev, reqs):
         fail("Mamba2 generate() ids differ from the slab engine's")
     print(f"[mamba] phase 12 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
     return launches
+
+
+def phase_dynamic(torch, np, dev, reqs):
+    """Phase 13: a time-varying wireless SFL episode on full-width GPT-2-S,
+    killed and resumed, and its adapter served from a checkpoint.  Returns
+    the launch counts of the episode's rounds and of the served run, and
+    the largest error of each kernel checked at the episode's shapes."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from repro_torch import models as TM
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.configs import DEFAULT_SYSTEM, get_arch
+    from repro_torch.core import Problem, SflLLM, sample_clients
+    from repro_torch.core.lora import concat_tree, split_tree
+    from repro_torch.core.resource import bcd_minimize_delay_per_client
+    from repro_torch.data import WordTokenizer, e2e_splits, iid_partition, sfl_batches
+    from repro_torch.interop import lora_from_numpy, lora_to_numpy
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.lora_matmul import (lora_matmul, lora_matmul_dx_kernel,
+                                                 lora_matmul_dx_ref, lora_matmul_ref,
+                                                 lora_rank_reduce_kernel, lora_rank_reduce_ref)
+    from repro_torch.launch.engine import SflRound, Trainer, WirelessDynamics
+    from repro_torch.launch.serve import restore_lora
+    from repro_torch.optim import adamw
+    from repro_torch.precision import PrecisionConfig
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("gpt2-s")
+    L, P, nt, D = cfg.num_layers, len(cfg.pattern), len(cfg.lora_targets), cfg.d_model
+    Kd, bd, Sd, Id, lrd, rounds, kill = 3, 4, 64, 6, 4e-4, 4, 2
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cuda")
+    # phase 8's 50 MHz edge problem, its allocator, and a trainer whose
+    # capacity envelope holds the whole search space, at fleet b's precision
+    edge = dataclasses.replace(DEFAULT_SYSTEM, num_clients=Kd, total_bandwidth_hz=50e6,
+                               f_server_hz=1.0e9, f_client_hz_range=(0.3e9, 3.0e9))
+    prob = Problem(cfg=cfg, sys_cfg=edge, envs=tuple(sample_clients(edge, 0)), seq_len=Sd,
+                   batch=bd, local_steps=Id, bits_candidates=(4, 8, 16))
+    alloc, _ = bcd_minimize_delay_per_client(prob)
+    # the episode starts from phase 8's hand-set fleet b on the allocator's
+    # subchannels and powers; the re-allocation forced in round 2 hands it
+    # to the allocator, which moves its splits and ranks
+    start = dataclasses.replace(alloc, ell_k=np.array([2, 4, 6]), rank_k=np.array([2, 4, 8]),
+                                bits_k=np.array([4, 8, 16]))
+    prec = PrecisionConfig(grad_bits=8, stochastic_rounding=True, error_feedback=True)
+    train_ex, _, _ = e2e_splits(4000, 400, 400, seed=0)
+    tok = WordTokenizer.from_corpus([e.text for e in train_ex])
+    parts = [np.array(train_ex, dtype=object)[idx]
+             for idx in iid_partition(len(train_ex), Kd, 0)]
+    counts = [len(p_) for p_ in parts]
+    knobs = dict(fade_std_db=8.0, fade_rho=0.5, deadline_factor=1.2, drift_threshold=0.15,
+                 outage_snr_db=10.0, max_harq=4, rng=0)
+
+    def trainer_sfl(rt):
+        return SflLLM.from_allocation(prob, alloc, params, adamw(lrd), dynamic=True,
+                                      rt=rt.replace(precision=prec), device="cuda")
+
+    # -- the kernels at the episode's shapes, against their plain versions:
+    # r = the envelope's r_max (every adapter is padded to it), a client's
+    # b x S rows, the server's pool of K x b x S, and the served engine's
+    # decode step of 8 slots (the forward only: its decode regime)
+    r8 = max(prob.rank_candidates)
+    scale8 = cfg.lora_alpha / r8
+    gen = torch.Generator().manual_seed(13)
+    errs = {}
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen) * std).to(dev)
+
+    def held(op, what, got, want, tol):
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        good = (torch.allclose(got.float(), want.float(), **tol)
+                and bool(torch.isfinite(got).all()))
+        print(f"[check] {op} {what}: max_abs_err={e:.3g} atol={tol['atol']} "
+              f"rtol={tol['rtol']} {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"{op} disagrees with its plain version ({what}, phase 13)")
+        errs[op] = max(errs.get(op, 0.0), e)
+
+    for M in (bd * Sd, Kd * bd * Sd, 8):
+        x, w = rn(M, D), rn(D, D, std=D ** -0.5)
+        a, b = rn(r8, D, std=r8 ** -0.5), rn(D, r8, std=0.02)
+        what = f"float32 M={M} K=N={D} r={r8}"
+        held("lora_matmul", what, lora_matmul(x, w, a, b, scale=scale8),
+             lora_matmul_ref(x, w, a, b, scale8), dict(atol=TOL["float32"], rtol=TOL["float32"]))
+        if M == 8:
+            continue
+        dy, b = rn(M, D), rn(D, r8, std=D ** -0.5)
+        a = rn(r8, D, std=D ** -0.5)
+        held("lora_matmul_dx", what, lora_matmul_dx_kernel(dy, w, a, b, scale8),
+             lora_matmul_dx_ref(dy, w, a, b, scale8), GRAD_TOL["float32"])
+        u, v = rn(M, r8, std=M ** -0.5), rn(M, D)
+        held("lora_rank_reduce", f"float32 M={M} r={r8} N={D}", lora_rank_reduce_kernel(u, v),
+             lora_rank_reduce_ref(u, v), dict(atol=1e-4, rtol=1e-4))
+
+    def schedule(wd, r):
+        """The knobs that force this phase's coverage, set for round r (a
+        pure function of r, so a resumed run sets the same ones): client 0
+        in certain outage in round 1 (outage_override = [1, 0, 0]: a hard
+        outage, and E[m] = max_harq on its links); a re-allocation forced
+        in round 2 (drift_threshold = -1: any delay exceeds 0 x ref)."""
+        wd.outage_override = np.array([1.0, 0.0, 0.0]) if r == 1 else None
+        wd.drift_threshold = -1.0 if r == 2 else knobs["drift_threshold"]
+
+    def copied(st):
+        return dataclasses.replace(st, **{f.name: tree_map(lambda v: v.clone(),
+                                                           getattr(st, f.name))
+                                          for f in dataclasses.fields(st)})
+
+    class Kept(SflRound):
+        """SflRound that keeps round `at`'s inputs and outputs."""
+
+        def __init__(self, sfl, counts, at):
+            super().__init__(sfl, counts)
+            self.at, self.calls, self.kept = at, 0, None
+
+        def run_round(self, state, round_batches, dynamics=None):
+            keep = self.calls == self.at
+            self.calls += 1
+            before = copied(state) if keep else None
+            state, metrics = super().run_round(state, round_batches, dynamics=dynamics)
+            if keep:
+                self.kept = (before, round_batches, dynamics, copied(state),
+                             metrics["loss"].clone(), metrics["participation"].clone())
+            return state, metrics
+
+    def episode(path, upto, start_round=0, log=None, keep_at=None):
+        sfl = trainer_sfl(TM.default_train_runtime())
+        lora0 = sfl.init_lora(torch.Generator().manual_seed(1))
+        g_b = torch.Generator().manual_seed(2)
+        for layer in lora0:      # B != 0: both adapter factors get gradients
+            for ad in layer["mixer"].values():
+                ad["b"].copy_(torch.randn(ad["b"].shape, generator=g_b) * 0.02)
+        wd = WirelessDynamics(prob, start, sfl, **knobs)
+
+        def callback(e, state, hist):
+            torch.cuda.synchronize()
+            if log is not None:
+                log.append(dict(round=e, launches=dict(backend.LAUNCH_COUNTS),
+                                part=list(hist.participation[-1]),
+                                realloc=e in hist.realloc_rounds,
+                                ell=[int(x) for x in wd.alloc.ell_k],
+                                rank=[int(x) for x in wd.alloc.rank_k],
+                                bits=None if wd.alloc.bits_k is None
+                                else [int(x) for x in wd.alloc.bits_k],
+                                modeled=hist.modeled_seconds, secs=hist.round_seconds[-1]))
+            schedule(wd, e + 1)
+            backend.reset_launch_counts()    # just before the next round
+
+        algo = SflRound(sfl, counts) if keep_at is None else Kept(sfl, counts, keep_at)
+        trainer = Trainer(algo, local_steps=Id, dynamics=wd, callback=callback,
+                          episode_path=path, episode_every=1)
+        data = sfl_batches(tok, parts, bd, Sd, 0)
+        schedule(wd, start_round)        # the knobs of the first round this run plays
+        backend.reset_launch_counts()        # just before the main path
+        torch.cuda.synchronize()
+        state, hist = trainer.fit(sfl.init_state(lora0), data, global_rounds=upto,
+                                  resume=start_round > 0)
+        torch.cuda.synchronize()
+        return sfl, wd, state, hist, algo
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    log = []
+    t0 = time.perf_counter()
+    sfl, wd, st_a, h_a, kept = episode(os.path.join(tmp, "a.ckpt"), rounds, log=log, keep_at=1)
+    wall = time.perf_counter() - t0
+    print(f"[dynamic] GPT-2-S full width, f32 base; the allocator's fleet ell_k="
+          f"{alloc.ell_k.tolist()} r_k={alloc.rank_k.tolist()} bits_k={alloc.bits_k.tolist()} "
+          f"built with from_allocation(dynamic=True): envelope reps [{sfl.rep_min}, "
+          f"{sfl.rep_max}], r_max {sfl.r_max}; precision grad_bits={prec.grad_bits} "
+          f"stochastic_rounding={prec.stochastic_rounding} error_feedback="
+          f"{prec.error_feedback}; the episode starts from ell_k={start.ell_k.tolist()} "
+          f"r_k={start.rank_k.tolist()} bits_k={start.bits_k.tolist()}; K={Kd} x b={bd} x "
+          f"S={Sd}, I={Id}, AdamW {lrd}, {rounds} rounds; WirelessDynamics {knobs}; "
+          f"deadline {wd.deadline_s:.6f}s; wall {wall:.2f}s")
+    train_launches, problems, before = {}, [], 0.0
+    for row in log:
+        ells, live = row["ell"], [k for k in range(Kd) if row["part"][k]]
+        server = L - min(ells)
+        want = {"lora_matmul": nt * (sum(ells) + server) * Id,
+                "lora_rank_reduce": 2 * nt * (sum(ells[k] for k in live) + server) * Id,
+                "lora_matmul_dx": nt * (sum(ells[k] - 1 for k in live) + server) * Id}
+        want = {k: v for k, v in want.items() if v}
+        got = row["launches"]
+        for k, v in got.items():
+            train_launches[k] = train_launches.get(k, 0) + v
+        ok = got == want
+        if not ok:
+            problems.append(row["round"])
+        print(f"[dynamic] round {row['round']}: participation {row['part']}, re-allocated "
+              f"{row['realloc']}, (ell_k, r_k, bits_k) = ({row['ell']}, {row['rank']}, "
+              f"{row['bits']}); modeled {row['modeled'] - before:.6f}s; measured "
+              f"{row['secs']:.3f}s/round (host clock); launches {got}, expected {want} "
+              f"{'ok' if ok else 'FAIL'}")
+        before = row["modeled"]
+    print(f"[dynamic] losses: {' '.join(f'{x:.4f}' for x in h_a.losses)}")
+    print(f"[dynamic] per round expected: lora_matmul {nt}(sum ell_k + L - min ell_k), rank "
+          f"reduce {2 * nt}(sum over the round's participants of ell_k + L - min ell_k), dX "
+          f"{nt}(sum over participants of (ell_k - 1) + L - min ell_k), x I={Id}: every "
+          f"client runs its forward (its upload feeds the quantizer), a dropped one no "
+          f"backward")
+    if problems:
+        fail(f"dynamic episode: launch counts differ from the splits in rounds {problems}")
+    dropped = [(r, k) for r, p_ in enumerate(h_a.participation) for k in range(Kd) if not p_[k]]
+    config = [(row["ell"], row["rank"]) for row in log]
+    moved = [r for r in h_a.realloc_rounds if r > 0 and config[r] != config[r - 1]]
+    if not dropped or not moved or all(c == config[0] for c in config):
+        fail(f"dynamic episode: dropped client-rounds {dropped}, re-allocations "
+             f"{h_a.realloc_rounds}, of which moved (ell_k, r_k) {moved}: the phase needs "
+             f"a dropped client-round and a re-allocation that moves the splits or ranks")
+    if not all(math.isfinite(x) for x in h_a.losses) or h_a.rolled_back_rounds:
+        fail(f"dynamic episode: losses {h_a.losses}, rolled back {h_a.rolled_back_rounds}")
+    print(f"[dynamic] coverage: dropped client-rounds {dropped} (round 1: outage_override "
+          f"= [1, 0, 0], a hard outage of client 0; any other: the deadline or a drawn "
+          f"outage), re-allocations in rounds {h_a.realloc_rounds} (round 2: drift_threshold "
+          f"= -1 for that round; any other: the channel's drift over 0.15), of which "
+          f"{moved} moved (ell_k, r_k): {config[0]} -> {config[-1]}")
+
+    # round 1 (client 0 dropped) again on its inputs: its first local step
+    # and the partial FedAvg through the kernels and through the plain path
+    # (Runtime()), held at phase 6's tolerance for one local step; the whole
+    # round (6 steps) is printed beside it as a witness, no check: over 6
+    # steps the 4- and 8-bit quantizers and AdamW carry f32 rounding further
+    st_in, rb1, dyn1, st_k6, loss_k6, part_k = kept.kept
+    sfl_p = trainer_sfl(TM.Runtime())
+    rb1_one = {k: v[:1] for k, v in rb1.items()}
+    outs = []
+    for s_ in (sfl, sfl_p):
+        backend.reset_launch_counts()
+        st_, m_ = s_.train_round(st_in, rb1_one, counts, dynamics=dyn1)
+        torch.cuda.synchronize()
+        outs.append((st_, m_, dict(backend.LAUNCH_COUNTS)))
+    (st_k, m_k, k_launches), (st_p, m_p, plain_launches) = outs
+
+    def adapter_err(x_st, y_st):
+        return max((x - y).abs().max().item() for side in ("lora_client", "lora_server")
+                   for x, y in zip(tree_leaves(getattr(x_st, side)),
+                                   tree_leaves(getattr(y_st, side))))
+    e_ad = adapter_err(st_k, st_p)
+    e_loss = (m_k["loss"] - m_p["loss"]).abs().max().item()
+    ad_tol = lrd * 1e-2
+    frozen = all(torch.equal(x[0], y[0]) for side in ("lora_client", "opt_client")
+                 for st in (st_k, st_p, st_k6)
+                 for x, y in zip(tree_leaves(getattr(st, side)), tree_leaves(getattr(st_in, side)))
+                 if x.dim() > 0)
+    good = (part_k.tolist() == m_k["participation"].tolist() == m_p["participation"].tolist()
+            == [0.0, 1.0, 1.0] and e_loss <= 1e-4 * max(1.0, m_p["loss"].abs().max().item())
+            and e_ad <= ad_tol and frozen and not plain_launches
+            and k_launches.get("lora_matmul", 0) > 0)
+    print(f"[dynamic] round 1 (participation {part_k.tolist()}) on its inputs, its first local "
+          f"step and the partial FedAvg: kernels (launches {k_launches}) vs plain path "
+          f"(Runtime(), launches {plain_launches}): loss {m_k['loss'].item():.6f} vs "
+          f"{m_p['loss'].item():.6f}, max_abs_err={e_loss:.3g} (tol 1e-4 rel), adapters "
+          f"max_abs_err={e_ad:.3g} (tol lr*1e-2 = {ad_tol:.1g}); client 0's adapter and "
+          f"moments unchanged bit for bit on both paths and in the episode's round: "
+          f"{frozen} {'ok' if good else 'FAIL'}")
+    if not good:
+        fail("dynamic round 1 through the kernels disagrees with the plain path")
+    st_p6, m_p6 = sfl_p.train_round(st_in, rb1, counts, dynamics=dyn1)
+    torch.cuda.synchronize()
+    print(f"[dynamic] round 1 whole ({Id} local steps), the episode's kernels vs the plain "
+          f"path, a witness: losses max |diff| {(loss_k6 - m_p6['loss']).abs().max().item():.3g}, "
+          f"adapters max |diff| {adapter_err(st_k6, st_p6):.3g}")
+
+    # kill after `kill` rounds, resume with a fresh trainer and dynamics
+    path_b = os.path.join(tmp, "b.ckpt")
+    episode(path_b, kill)
+    _, wd_b, st_b, h_b, _ = episode(path_b, rounds, start_round=kill)
+    if (st_a.err_act is None or st_a.err_grad is None
+            or not (st_a.err_act.abs().max() > 0 and st_a.err_grad.abs().max() > 0)):
+        fail("dynamic episode: the error-feedback state is missing or zero")
+    diff = [f for f in ("lora_client", "lora_server", "opt_client", "opt_server", "err_act",
+                        "err_grad", "step")
+            if not all(torch.equal(x, y) for x, y in zip(tree_leaves(getattr(st_a, f)),
+                                                         tree_leaves(getattr(st_b, f))))]
+    diff += [f for f in ("participation", "realloc_rounds", "modeled_delays", "losses")
+             if getattr(h_a, f) != getattr(h_b, f)]
+    if wd_b.cursor() != wd.cursor():
+        diff.append("dynamics cursor")
+    print(f"[dynamic] killed after round {kill}, resumed to round {rounds} with a fresh "
+          f"trainer and dynamics: adapters, optimizer state, error feedback (non-zero, "
+          f"restored from the episode file), participation, re-allocations, modeled delays, "
+          f"losses and cursor bit-equal to the uninterrupted run: "
+          f"{'ok' if not diff else 'FAIL ' + str(diff)}")
+    if diff:
+        fail(f"resumed episode differs from the uninterrupted one in {diff}")
+
+    # the hand-off: {"lora_server", "lora_client0"} (examples/train_sfl_e2e.py's
+    # schema), restored and joined at client 0's split into the served stack,
+    # written as a whole stack and served through launch.serve's restore path
+    c0 = tree_map(lambda v: v[0], st_a.lora_client)
+    handoff = os.path.join(tmp, "handoff.ckpt")
+    save_pytree(handoff, {"lora_server": lora_to_numpy(st_a.lora_server, P),
+                          "lora_client0": lora_to_numpy(c0, P)})
+    got = restore_pytree(handoff, {"lora_server": lora_to_numpy(st_a.lora_server, P),
+                                   "lora_client0": lora_to_numpy(c0, P)})
+    rep0 = int(wd.alloc.ell_k[0]) // P
+    served = concat_tree(split_tree(lora_from_numpy(got["lora_client0"], dev), rep0, P)[0],
+                         split_tree(lora_from_numpy(got["lora_server"], dev),
+                                    rep0 - sfl.rep_min, P)[1])
+    in_memory = concat_tree(split_tree(c0, rep0, P)[0],
+                            split_tree(st_a.lora_server, rep0 - sfl.rep_min, P)[1])
+    stack_path = os.path.join(tmp, "served.ckpt")
+    save_pytree(stack_path, lora_to_numpy(served, P))
+    cfg_s = cfg.replace(lora_rank=sfl.r_max)     # the scale alpha / r_max it trained at
+    restored = restore_lora(cfg_s, stack_path,
+                            TM.init_lora_stack(cfg_s, torch.Generator().manual_seed(9), None,
+                                               torch.float32, "cuda"))
+    if len(restored) != L or not all(torch.equal(x, y) for x, y in
+                                     zip(tree_leaves(restored), tree_leaves(in_memory))):
+        fail("the restored served stack differs from the in-memory one")
+    outs = []
+    for lora in (restored, in_memory):
+        eng = ServingEngine(cfg_s, params, lora=lora, max_slots=8, max_len=512, page_size=16,
+                            device="cuda")
+        sreqs = [Request(uid=r_.uid, prompt=list(r_.prompt), max_new_tokens=32) for r_ in reqs]
+        for r_ in sreqs:
+            eng.submit(r_)
+        backend.reset_launch_counts()        # just before the main path
+        eng.run()
+        torch.cuda.synchronize()
+        outs.append((sreqs, dict(backend.LAUNCH_COUNTS), dict(eng.stats)))
+    (sr, serve_launches, stt), (sm, _, _) = outs
+    want = {"lora_matmul": 2 * L * (stt["decode_steps"] + stt["prefill_chunks"]),
+            "paged_decode": L * stt["decode_steps"]}
+    same = sum(a.output == b.output for a, b in zip(sr, sm))
+    good = (serve_launches == want and same == len(sr)
+            and all(r_.done and len(r_.output) == 32 for r_ in sr))
+    print(f"[dynamic] hand-off: {{lora_server, lora_client0}} saved, restored, joined at "
+          f"client 0's split (ell {int(wd.alloc.ell_k[0])}) into a {L}-layer r={sfl.r_max} "
+          f"stack, written with save_pytree and read by launch.serve.restore_lora; phase 5's "
+          f"{len(sr)} requests through the paged engine: ids equal to the in-memory "
+          f"adapter's for {same} of {len(sr)}; launches {serve_launches}, expected {want}; "
+          f"token ids digest {ids_digest(sr)} {'ok' if good else 'FAIL'}")
+    if not good:
+        fail("serving the restored adapter: ids or launch counts are wrong")
+    print(f"[dynamic] phase 13 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
+    return train_launches, serve_launches, errs
 
 
 if __name__ == "__main__":

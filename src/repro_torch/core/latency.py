@@ -1,9 +1,10 @@
 """Training-delay model — paper Section V-A, eqs. (8)–(17).
 
 The port's copy of ``repro.core.latency``: the host-side (numpy) report
-functions the resource allocator sweeps.  ``repro``'s traced (jnp) twin
-``client_round_seconds`` belongs to the dynamic rounds, which are not
-ported yet; ``client_round_seconds_host`` stays.
+functions the resource allocator sweeps.  ``repro``'s traced (jnp)
+``client_round_seconds`` has no copy: the port's dynamic rounds evaluate
+the deadline mask on the host with ``client_round_seconds_host``, its f32
+twin as XLA compiles it, which gives the same mask bit for bit.
 """
 from __future__ import annotations
 
@@ -95,16 +96,34 @@ def workload_tables(cfg: ArchConfig, seq_len: int) -> Dict[str, np.ndarray]:
     }
 
 
+def _fma_f32(a, b, c) -> np.ndarray:
+    """float32 a*b + c rounded once, as a fused multiply-add rounds it: the
+    product is exact in float64, the sum is taken to float64 by round to
+    odd (TwoSum's error picks the odd neighbour), which then rounds to the
+    correctly rounded float32."""
+    a, b, c = (np.asarray(v, np.float64) for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((e != 0) & even, np.nextafter(s, np.where(e > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
 def client_round_seconds_host(tables: Dict[str, np.ndarray], ell_k, rank_k,
                               f_hz, kappa, rates_main, rates_fed,
                               batch: int, local_steps: int,
                               retx_main=None, retx_fed=None,
                               act_bits=None) -> np.ndarray:
-    """Numpy twin of ``repro.core.latency.client_round_seconds`` — same tables, same
-    formula, and the SAME float32 arithmetic (term order included), so a
-    host-side dropout prediction agrees bit for bit with the traced
-    in-graph mask even when a client's T_k lands within rounding distance
-    of the deadline.  Edit the two twins together."""
+    """Numpy twin of ``repro.core.latency.client_round_seconds`` as XLA's
+    CPU backend compiles it, bit for bit: the same tables, formula, float32
+    arithmetic and term order, with the two multiply-adds that backend
+    contracts into fused multiply-adds (the FP term plus the upload's last
+    factor, E[m] else act_bits / 16; I x (...) plus the federated upload)
+    each rounded once.  ``repro``'s in-graph deadline mask is the compiled
+    value; ``repro``'s own numpy twin rounds those sums twice and lies an
+    ulp from it for some inputs.  Edit the twins together."""
     f32 = np.float32
     ell = np.asarray(ell_k, int)
     rank = np.asarray(rank_k, f32)
@@ -116,16 +135,20 @@ def client_round_seconds_host(tables: Dict[str, np.ndarray], ell_k, rank_k,
         / np.asarray(f_hz, f32)
     t_up = f32(batch) * gamma * f32(8.0) / np.maximum(
         np.asarray(rates_main, f32), f32(1e-9))
+    factors = []
     if act_bits is not None:
-        t_up = t_up * (np.asarray(act_bits, f32) * f32(1.0 / 16.0))
+        factors.append(np.asarray(act_bits, f32) * f32(1.0 / 16.0))
     if retx_main is not None:
-        t_up = t_up * np.asarray(retx_main, f32)
+        factors.append(np.asarray(retx_main, f32))
+    for fac in factors[:-1]:
+        t_up = t_up * fac
+    t_fwd = _fma_f32(t_up, factors[-1], t_fp) if factors else t_fp + t_up
     t_bp = f32(2.0) * t_fp
     t_fed = dtheta * f32(8.0) / np.maximum(
         np.asarray(rates_fed, f32), f32(1e-9))
     if retx_fed is not None:
         t_fed = t_fed * np.asarray(retx_fed, f32)
-    return f32(local_steps) * (t_fp + t_up + t_bp) + t_fed
+    return _fma_f32(f32(local_steps), t_fwd + t_bp, t_fed)
 
 
 # ---------------------------------------------------------------------------

@@ -36,9 +36,24 @@ downloaded gradient are fake-quantized outside the client graph — the
 straight-through estimator — with optional stochastic rounding and error
 feedback (``SflState.err_act``/``err_grad``).
 
+Dynamic wireless rounds (``RoundDynamics``, ``train_round(dynamics=)``):
+a (K,) participation mask — explicit, from a round deadline on the
+modeled per-client delay (``core.latency.client_round_seconds_host``),
+or both multiplied — and, inside a capacity envelope (``ell_range``,
+``rank_max``, or ``from_allocation(dynamic=True)``), a per-round
+re-allocation of every client's (ell_k, r_k, bits_k) from
+:meth:`SflLLM.allocation_dynamics`.  A dropped client still runs its
+forward (its upload feeds the quantizer's error feedback, as in
+``repro``) but its labels leave the pooled loss, its backward is skipped,
+its adapter and optimizer moments freeze and it misses the broadcast;
+an empty round freezes the server too.  Every masking op is exact under
+full participation, so an all-ones mask gives the static round bit for
+bit.
+
 Client adapter leaves carry a leading K axis, ``(K, ...)``, as in
-``repro``'s ``SflState``; adapter trees are per-layer lists.  The dynamic
-(``RoundDynamics``, capacity envelope), mesh and robust paths are not
+``repro``'s ``SflState``; adapter trees are per-layer lists.  The mesh
+path, the deprecated ``act_quant`` shim and the fault and robust fields
+of ``RoundDynamics`` (``poison``, ``robust``, ``byzantine``) are not
 ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
@@ -55,17 +70,18 @@ from ..interop import tree_to
 from ..kernels.backend import resolve_device
 from ..models import stack as stack_mod
 from ..models.layers import apply_norm, embed, unembed
-from ..models.model import cross_entropy, init_lora_stack, loss_fn
+from ..models.model import IGNORE_ID, cross_entropy, init_lora_stack, loss_fn
 from ..models.stack import Runtime, default_train_runtime
 from ..optim import Optimizer, apply_updates
 from ..precision import fake_quant, round_key
 from ..tree import tree_leaves, tree_map, tree_unflatten
-from .aggregation import broadcast_het, broadcast_stacked, fedavg_partial, tree_all_finite
+from .aggregation import broadcast_het, fedavg_partial, tree_all_finite
+from .latency import client_round_seconds_host, workload_tables
 from .lora import client_slot_masks
-from .split import layers_to_reps
+from .split import layers_to_reps, valid_splits
 
-_NOT_PORTED = ("SflLLM: {} belong(s) to the dynamic, mesh or robust paths of "
-               "repro's SflLLM, which are not ported yet (ROADMAP.md, Open items)")
+_NOT_PORTED = ("SflLLM: {} belong(s) to the mesh path of repro's SflLLM or its "
+               "deprecated act_quant shim, which are not ported yet (ROADMAP.md, Open items)")
 
 
 @dataclass
@@ -80,6 +96,61 @@ class SflState:
     # activation upload / gradient download, re-injected next step
     err_act: Any = None       # (K, b, S, d) f32 or None
     err_grad: Any = None      # (K, b, S, d) f32 or None
+
+
+@dataclass
+class RoundDynamics:
+    """Per-round inputs of a dynamic wireless round (``repro``'s fields).
+
+    Participation: ``participation`` (K,) 0/1, used as given, and/or
+    ``deadline_s``, a scalar deadline on each client's modeled delay
+    T_k = I(T_k^F + T_k^s + T_k^B) + T_k^f from the channel state
+    ``rates_main``/``rates_fed`` (K,) bps and ``f_hz``/``kappa`` (K,), with
+    the uploads inflated by the expected HARQ transmission counts
+    ``retx_main``/``retx_fed`` (K,).  Both given: the masks multiply.
+
+    Per-round allocation (:meth:`SflLLM.allocation_dynamics`, inside the
+    trainer's capacity envelope): ``ell``/``rank`` (K,) for the delay
+    model, ``rep_hi`` (K,) split boundaries in repeats, ``slot_masks``
+    (per-layer masks as ``core.lora.client_slot_masks`` builds them),
+    ``scales`` (K,) alpha / r_k and ``act_bits`` (K,) boundary bit-widths.
+
+    ``poison``, ``robust`` and ``byzantine`` (fault injection and robust
+    aggregation) are not ported: giving one raises."""
+
+    participation: Optional[torch.Tensor] = None
+    rates_main: Optional[torch.Tensor] = None
+    rates_fed: Optional[torch.Tensor] = None
+    f_hz: Optional[torch.Tensor] = None
+    kappa: Optional[torch.Tensor] = None
+    deadline_s: Optional[torch.Tensor] = None
+    ell: Optional[torch.Tensor] = None
+    rank: Optional[torch.Tensor] = None
+    rep_hi: Optional[torch.Tensor] = None
+    slot_masks: Optional[Any] = None
+    scales: Optional[torch.Tensor] = None
+    retx_main: Optional[torch.Tensor] = None
+    retx_fed: Optional[torch.Tensor] = None
+    poison: Optional[torch.Tensor] = None
+    robust: Optional[Any] = None
+    byzantine: Optional[Any] = None
+    act_bits: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        refused = [f for f in ("poison", "robust", "byzantine") if getattr(self, f) is not None]
+        if refused:
+            raise NotImplementedError(
+                f"RoundDynamics: {refused} belong(s) to fault injection and robust "
+                "aggregation, which are not ported yet (ROADMAP.md, Open items, item 6)")
+
+
+def _host(v, dtype) -> Optional[np.ndarray]:
+    """A tensor, sequence or scalar -> numpy of ``dtype`` (None stays None)."""
+    if v is None:
+        return None
+    if torch.is_tensor(v):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype)
 
 
 def _leaf(v: torch.Tensor) -> torch.Tensor:
@@ -124,9 +195,11 @@ class SflLLM:
     def __init__(self, cfg, params: dict, ell_c: Union[int, Sequence[int]],
                  train_cfg, optimizer: Optimizer, rt: Optional[Runtime] = None,
                  device="cuda", *, act_bits: Union[int, Sequence[int], None] = None,
-                 ranks: Optional[Sequence[int]] = None, **unported):
-        # repro's capacity envelope (ell_range, rank_max), mesh and the
-        # deprecated act_quant shim: refused unless left at their defaults
+                 ranks: Optional[Sequence[int]] = None,
+                 ell_range: Optional[Sequence[int]] = None,
+                 rank_max: Optional[int] = None, **unported):
+        # repro's mesh and the deprecated act_quant shim: refused unless
+        # left at their defaults
         refused = sorted(k for k, v in unported.items() if v is not None and v is not False)
         if refused:
             raise NotImplementedError(_NOT_PORTED.format(refused))
@@ -144,9 +217,29 @@ class SflLLM:
         self.rep_min, self.rep_max = min(self.rep_k), max(self.rep_k)
         self.rank_k = None if ranks is None else _per_client(ranks, K, "ranks")
         self.r_max = max(self.rank_k) if self.rank_k else cfg.lora_rank
-        self.hetero_split = len(set(self.rep_k)) > 1
-        self.hetero = self.hetero_split or (self.rank_k is not None
-                                            and len(set(self.rank_k)) > 1)
+
+        # ---- capacity envelope (per-round re-allocation) ----------------
+        # widen the frozen-weight partition and the adapter rank padding so
+        # allocation_dynamics() can move every client's (ell_k, r_k)
+        # anywhere inside [ell_range] x [1, rank_max]
+        self.dynamic_capacity = ell_range is not None or rank_max is not None
+        if ell_range is not None:
+            lo, hi = int(min(ell_range)), int(max(ell_range))
+            if not 1 <= lo <= hi <= cfg.num_layers:
+                raise ValueError(f"ell_range {ell_range} outside [1, {cfg.num_layers}]")
+            self.rep_min = min(self.rep_min, layers_to_reps(cfg, lo))
+            self.rep_max = max(self.rep_max, layers_to_reps(cfg, hi))
+        if rank_max is not None:
+            if self.rank_k is None:
+                self.rank_k = (cfg.lora_rank,) * K
+            self.r_max = max(self.r_max, int(rank_max))
+        # gates whenever a client's boundary may sit inside the window the
+        # server holds (a mixed fleet or a widened envelope); masks
+        # whenever ranks differ or the adapters are padded past every r_k
+        self.hetero_split = len(set(self.rep_k)) > 1 or self.rep_min != self.rep_max
+        pad_rank = self.rank_k is not None and self.r_max > max(self.rank_k)
+        self.hetero = (self.hetero_split or pad_rank
+                       or (self.rank_k is not None and len(set(self.rank_k)) > 1))
         # scalar view for homogeneous callers and reports
         self.ell_c = max(self.ell_k)
 
@@ -186,14 +279,25 @@ class SflLLM:
         self._server_scale = (cfg.lora_alpha / self.r_max
                               if self.rank_k is not None and self.r_max != cfg.lora_rank
                               else None)
+        self._mask_tmpl = None
+        self._tables = {}
         self._client_masks = None
         if self.hetero:
-            tmpl = init_lora_stack(cfg, torch.Generator().manual_seed(0), rank=self.r_max,
-                                   device="cpu")[:self.rep_max * P]
-            masks = client_slot_masks(tmpl, self.rank_k or (self.r_max,) * K,
-                                      self.rep_k if self.hetero_split else None,
-                                      pattern_len=P)
-            self._client_masks = None if masks is None else tree_to(masks, self.device)
+            self._client_masks = self._build_client_masks(
+                self.rank_k or (self.r_max,) * K, self.rep_k if self.hetero_split else None)
+
+    def _build_client_masks(self, ranks, reps, force: bool = False):
+        """Slot masks of a per-client (rank, repeat) configuration against
+        the capacity envelope: a template at r_max cut to [:rep_max] layers
+        through ``core.lora.client_slot_masks`` — the one construction of
+        both the static masks and the per-round ones of
+        :meth:`allocation_dynamics`, as in ``repro``."""
+        P = len(self.cfg.pattern)
+        if self._mask_tmpl is None:
+            self._mask_tmpl = init_lora_stack(self.cfg, torch.Generator().manual_seed(0),
+                                              rank=self.r_max, device="cpu")[:self.rep_max * P]
+        masks = client_slot_masks(self._mask_tmpl, ranks, reps, force=force, pattern_len=P)
+        return None if masks is None else tree_to(masks, self.device)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -203,10 +307,17 @@ class SflLLM:
         ``prob`` a ``core.resource.Problem``, ``alloc`` an ``Allocation``
         (one global pair) or a ``HeteroAllocation`` (per-client ``ell_k``,
         ``rank_k`` and ``bits_k`` from ``bcd_minimize_delay_per_client``).
-        Other keywords (``rt``, ``device``, ...) go to the constructor."""
-        if dynamic:
-            raise NotImplementedError(_NOT_PORTED.format("from_allocation(dynamic=True)"))
+        ``dynamic=True`` sizes the capacity envelope to the whole search
+        space of ``prob``, so per-round re-allocation can move each
+        client's (ell_k, r_k).  Other keywords (``rt``, ``device``, ...) go
+        to the constructor."""
         K = len(prob.envs)
+        if dynamic:
+            # the envelope covers prob's whole search space: every valid
+            # split x every candidate rank
+            splits = valid_splits(prob.cfg)
+            kw.setdefault("ell_range", (min(splits), max(splits)))
+            kw.setdefault("rank_max", max(prob.rank_candidates))
         if train_cfg is None:
             train_cfg = TrainConfig(num_clients=K, batch_size=prob.batch,
                                     local_steps=prob.local_steps)
@@ -283,71 +394,120 @@ class SflLLM:
         logits = unembed(self.cfg, self.server_base["embed"], x)
         return cross_entropy(logits, labels.reshape(K * b, -1))
 
-    def _client_args(self, k: int) -> dict:
-        """Client k's boundary and adapter scale for ``_client_forward``."""
-        return {"rep_hi": self.rep_k[k] if self.hetero_split else None,
-                "lora_scale": None if self._scale_k is None else self._scale_k[k]}
+    def _client_args(self, k: int, dyn: Optional[dict] = None) -> dict:
+        """Client k's boundary and adapter scale for ``_client_forward``:
+        this round's re-allocation when ``dyn`` carries one, else the
+        trainer's own."""
+        if dyn is not None and dyn.get("rep_hi") is not None:
+            rep_hi = dyn["rep_hi"][k]
+        else:
+            rep_hi = self.rep_k[k] if self.hetero_split else None
+        if dyn is not None and dyn.get("scales") is not None:
+            scale = dyn["scales"][k]
+        else:
+            scale = None if self._scale_k is None else self._scale_k[k]
+        return {"rep_hi": rep_hi, "lora_scale": scale}
 
-    def _rep_lo(self, ks: Sequence[int], b: int):
+    def _rep_lo(self, ks: Sequence[int], b: int, reps: Optional[Sequence[int]] = None):
         """Per-sample server entry depths of the pooled rows of clients
-        ``ks`` (b rows each), or None for a uniform split."""
-        if not self.hetero_split:
-            return None
-        return [self.rep_k[k] - self.rep_min for k in ks for _ in range(b)]
+        ``ks`` (b rows each), from ``reps`` (this round's boundaries) or the
+        trainer's own; None for a uniform split."""
+        if reps is None:
+            if not self.hetero_split:
+                return None
+            reps = self.rep_k
+        return [reps[k] - self.rep_min for k in ks for _ in range(b)]
 
     def _to_device(self, batches: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return _batch_to(batches, self.device)
 
     # ------------------------------------------------------------------
-    def _step_impl(self, state: SflState, batches: Dict[str, torch.Tensor]):
+    def _step_impl(self, state: SflState, batches: Dict[str, torch.Tensor],
+                   dyn: Optional[dict] = None, part: Optional[torch.Tensor] = None):
         """One fine-tuning step (steps a-f of Section IV-A).
-        batches: tokens (K, b, S), labels (K, b, S) on the device."""
+        batches: tokens (K, b, S), labels (K, b, S) on the device.  ``dyn``
+        (``rep_hi``/``slot_masks``/``scales``/``act_bits``, host values
+        where per client) overrides the trainer's per-client configuration
+        for this round; ``part`` is the round's (K,) 0/1 participation
+        mask on the host (None = everyone).  Every masking op is exact
+        under full participation."""
         tokens, labels = batches["tokens"], batches["labels"]
         K = self.tc.num_clients
+        live = [k for k in range(K) if part is None or float(part[k]) > 0]
+        if part is not None:
+            # a dropped client never uploads: its tokens leave the pooled
+            # loss (numerator and denominator), so the server trains on the
+            # survivors' pool and the cotangent of its activations is 0
+            keep = part.to(labels.device).reshape(-1, 1, 1) > 0
+            labels = labels.masked_fill(~keep, IGNORE_ID)
+        dyn = dyn or {}
+        masks = (dyn["slot_masks"] if dyn.get("slot_masks") is not None
+                 else self._client_masks)
+        act_bits = dyn["act_bits"] if dyn.get("act_bits") is not None else self._act_bits
         new_err_act, new_err_grad = state.err_act, state.err_grad
         gen_a = gen_g = None
         if self.precision.stochastic_rounding and (
-                self._act_bits is not None or self._grad_bits is not None):
+                act_bits is not None or self._grad_bits is not None):
             step = int(state.step)
             gen_a = round_key(self.precision.rng_seed, step, 0, self.device)
             gen_g = round_key(self.precision.rng_seed, step, 1, self.device)
         with torch.enable_grad():
-            # (a) client-side FP, one client at a time, each its own adapter
+            # (a) client-side FP, one client at a time, each its own adapter.
+            # A dropped client runs too: its upload still passes the
+            # quantizer below, whose error feedback covers every client
             lc = [tree_map(lambda v, k=k: _leaf(v[k]), state.lora_client)
                   for k in range(K)]
-            acts_k = [self._client_forward(lc[k], tokens[k], **self._client_args(k))
+            acts_k = [self._client_forward(lc[k], tokens[k], **self._client_args(k, dyn))
                       for k in range(K)]
             # (b) upload: the server gets a leaf cut from the client graphs,
             # quantized outside them (the straight-through estimator)
             acts = torch.stack([a.detach() for a in acts_k])
-            if self._act_bits is not None:
-                acts, new_err_act = fake_quant(acts, self._act_bits, gen=gen_a,
-                                               err=state.err_act)
+            if act_bits is not None:
+                acts, new_err_act = fake_quant(acts, act_bits, gen=gen_a, err=state.err_act)
             acts.requires_grad_()
             # (c, d) server FP + BP on the pooled activations
             ls = tree_map(_leaf, state.lora_server)
-            loss = self._server_loss(ls, acts, labels, self._rep_lo(range(K),
-                                                                    tokens.shape[1]))
+            loss = self._server_loss(ls, acts, labels,
+                                     self._rep_lo(range(K), tokens.shape[1], dyn.get("rep_hi")))
             ls_leaves = tree_leaves(ls)
             grads = torch.autograd.grad(loss, ls_leaves + [acts], allow_unused=True)
             g_server = tree_unflatten(
                 ls, [g if g is not None else torch.zeros_like(v)
                      for g, v in zip(grads[:-1], ls_leaves)])
             g_acts = grads[-1]
-            # (e) download dL/ds_k, quantized like the upload; (f) client BP
+            # (e) download dL/ds_k, quantized like the upload; (f) client BP,
+            # for the clients that take part (a dropped one's update is
+            # discarded below)
             if self._grad_bits is not None:
                 g_acts, new_err_grad = fake_quant(g_acts, self._grad_bits, gen=gen_g,
                                                   err=state.err_grad)
-            if any(a.requires_grad for a in acts_k):
-                torch.autograd.backward(acts_k, grad_tensors=list(g_acts.unbind(0)))
+            back = [k for k in live if acts_k[k].requires_grad]
+            if back:
+                torch.autograd.backward([acts_k[k] for k in back],
+                                        grad_tensors=[g_acts[k] for k in back])
+        # the port has no MoE (refused), so there is no client aux loss and
+        # no aux cotangent to mask
         g_client = tree_map(lambda *vs: torch.stack([_grad_or_zero(v) for v in vs]),
                             lc[0], *lc[1:])
         with torch.no_grad():
             upd_s, opt_s = self.opt.update(g_server, state.opt_server, state.lora_server)
             upd_c, opt_c = self.opt.update(g_client, state.opt_client, state.lora_client)
-            if self._client_masks is not None:
+            if masks is not None:
                 # dead slots of the padded adapters stay exactly zero
-                upd_c = tree_map(lambda u, m: u * m.to(u.dtype), upd_c, self._client_masks)
+                upd_c = tree_map(lambda u, m: u * m.to(u.dtype), upd_c, masks)
+            if part is not None:
+                # a dropped client's adapter AND optimizer moments freeze for
+                # the round (zero gradients alone would still decay Adam's)
+                pd = part.to(self.device)
+                pcol = lambda v: pd.reshape((-1,) + (1,) * (v.dim() - 1))  # noqa: E731
+                upd_c = tree_map(lambda u: u * pcol(u).to(u.dtype), upd_c)
+                opt_c = tree_map(lambda n, o: n if n.dim() == 0
+                                 else torch.where(pcol(n) > 0, n, o), opt_c, state.opt_client)
+                if not live:
+                    # an empty round freezes the server as well: nobody
+                    # uploaded, nothing trained
+                    upd_s = tree_map(torch.zeros_like, upd_s)
+                    opt_s = state.opt_server
             new = SflState(lora_client=apply_updates(state.lora_client, upd_c),
                            lora_server=apply_updates(state.lora_server, upd_s),
                            opt_client=opt_c, opt_server=opt_s, step=state.step + 1,
@@ -355,15 +515,19 @@ class SflLLM:
         loss = loss.detach()
         return new, {"loss": loss, "total": loss}
 
-    def _ensure_err_state(self, state: SflState, b: int, S: int) -> SflState:
+    def _ensure_err_state(self, state: SflState, b: int, S: int, *,
+                          armed_act: Optional[bool] = None) -> SflState:
         """Attach zero error-feedback accumulators when the config asks for
-        them and the state has none yet; a no-op otherwise."""
+        them and the state has none yet; a no-op otherwise.  ``armed_act``:
+        the upload is quantized this round (default: the trainer's bits)."""
         if not self.precision.error_feedback:
             return state
+        if armed_act is None:
+            armed_act = self._act_bits is not None
         shape = (self.tc.num_clients, b, S, self.cfg.d_model)
         zeros = lambda: torch.zeros(shape, dtype=torch.float32, device=self.device)  # noqa: E731
         ea, eg = state.err_act, state.err_grad
-        if self._act_bits is not None and ea is None:
+        if armed_act and ea is None:
             ea = zeros()
         if self._grad_bits is not None and eg is None:
             eg = zeros()
@@ -378,47 +542,144 @@ class SflLLM:
         return self._step_impl(state, batches)
 
     # ------------------------------------------------------------------
-    def _aggregate(self, state: SflState, weights) -> SflState:
-        """Federated-server round (eq. 7): weighted average over the client
-        axis with every client participating — slot-wise over each slot's
-        owners for a heterogeneous fleet — then broadcast, dead slots
-        re-zeroed."""
+    def _aggregate(self, state: SflState, weights, part: Optional[torch.Tensor] = None,
+                   masks: Any = None) -> SflState:
+        """Federated-server round (eq. 7) under optional partial
+        participation: the global adapter is the survivors' weighted
+        average (``fedavg_partial``; slot-wise over each slot's owners for
+        a heterogeneous fleet), broadcast with dead slots re-zeroed.  A
+        dropped client missed the whole round, broadcast included, and
+        keeps its adapter bit for bit; if every client dropped, every
+        client keeps its state.  ``masks``: this round's slot masks (None
+        = the trainer's)."""
         K = self.tc.num_clients
+        masks = self._client_masks if masks is None else masks
         global_c = fedavg_partial(state.lora_client, weights,
-                                  torch.ones(K, dtype=torch.float32), self._client_masks)
-        return dataclasses.replace(
-            state, lora_client=broadcast_het(global_c, K, self._client_masks))
+                                  torch.ones(K, dtype=torch.float32) if part is None else part,
+                                  masks)
+        lc_k = broadcast_het(global_c, K, masks)
+        if part is not None:
+            pd = part.to(self.device)
+            lc_k = tree_map(lambda n, o: torch.where(
+                pd.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o), lc_k, state.lora_client)
+        return dataclasses.replace(state, lora_client=lc_k)
 
     def aggregate(self, state: SflState, sample_counts) -> SflState:
         """FedAvg client adapters + broadcast (eq. 7)."""
         return self._aggregate(state, torch.tensor(list(sample_counts),
                                                    dtype=torch.float32))
 
+    def _participation_for(self, dyn: RoundDynamics, batches) -> Optional[torch.Tensor]:
+        """The round's (K,) f32 mask on the host, or None (everyone).  An
+        explicit ``participation`` and a ``deadline_s`` multiply (a client
+        must meet the deadline and not be in outage); either alone is used
+        as it is.  The deadline mask is ``T_k <= float32(deadline_s)`` with
+        T_k from ``client_round_seconds_host``, the f32 twin of
+        ``repro``'s traced delay model as XLA compiles it, so the two
+        packages drop the same clients even at T_k one ulp from the
+        deadline."""
+        K = self.tc.num_clients
+        explicit = (None if dyn.participation is None
+                    else torch.from_numpy(_host(dyn.participation, np.float32).reshape(K)))
+        if dyn.deadline_s is None:
+            return explicit
+        if dyn.rates_main is None or dyn.rates_fed is None or dyn.f_hz is None \
+                or dyn.kappa is None:
+            raise ValueError("deadline dropout needs rates_main, rates_fed, f_hz and "
+                             "kappa in RoundDynamics")
+        I, _, b, S = batches["tokens"].shape
+        if S not in self._tables:
+            self._tables[S] = workload_tables(self.cfg, S)
+        ell = dyn.ell if dyn.ell is not None else self.ell_k
+        rank = dyn.rank if dyn.rank is not None else (self.rank_k or (self.cfg.lora_rank,) * K)
+        bits = dyn.act_bits if dyn.act_bits is not None else self._act_bits
+        t_k = client_round_seconds_host(
+            self._tables[S], _host(ell, np.int64), _host(rank, np.float32),
+            _host(dyn.f_hz, np.float32), _host(dyn.kappa, np.float32),
+            _host(dyn.rates_main, np.float32), _host(dyn.rates_fed, np.float32),
+            int(b), int(I), retx_main=_host(dyn.retx_main, np.float32),
+            retx_fed=_host(dyn.retx_fed, np.float32), act_bits=_host(bits, np.float32))
+        part = torch.from_numpy(
+            (t_k <= np.float32(_host(dyn.deadline_s, np.float32))).astype(np.float32))
+        return part if explicit is None else part * explicit
+
     def train_round(self, state: SflState, round_batches, sample_counts,
-                    dynamics=None):
+                    dynamics: Optional[RoundDynamics] = None):
         """One global round: the I local steps, FedAvg and broadcast.
-        round_batches: tokens/labels (I, K, b, S).  Returns (state, metrics)
-        with metrics["loss"] and ["total"] of shape (I,), ["participation"]
-        (K,) and ["rolled_back"].  If any floating leaf of the new state is
-        not finite, the whole round rolls back: the old state is returned
+        round_batches: tokens/labels (I, K, b, S).  ``dynamics``: this
+        round's :class:`RoundDynamics` (participation / deadline dropout,
+        re-allocation).  Returns (state, metrics) with metrics["loss"] and
+        ["total"] of shape (I,), ["participation"] (K,), the resolved mask,
+        and ["rolled_back"].  If any floating leaf of the new state is not
+        finite, the whole round rolls back: the old state is returned
         unchanged (as ``repro``'s ``tree_all_finite`` gate does)."""
-        if dynamics is not None:
-            raise NotImplementedError(_NOT_PORTED.format("RoundDynamics"))
+        K = self.tc.num_clients
         batches = self._to_device(round_batches)
         weights = torch.tensor(list(sample_counts), dtype=torch.float32)
-        state = self._ensure_err_state(state, *batches["tokens"].shape[-2:])
+        dyn = RoundDynamics() if dynamics is None else dynamics
+        part = self._participation_for(dyn, batches)
+        cfg_dyn = None
+        if (dyn.rep_hi is not None or dyn.slot_masks is not None
+                or dyn.scales is not None or dyn.act_bits is not None):
+            # per-client values on the host, tensors on the device
+            cfg_dyn = {
+                "rep_hi": None if dyn.rep_hi is None else _host(dyn.rep_hi, int).tolist(),
+                "slot_masks": (None if dyn.slot_masks is None
+                               else tree_to(dyn.slot_masks, self.device)),
+                "scales": None if dyn.scales is None else _host(dyn.scales, np.float32).tolist(),
+                "act_bits": (None if dyn.act_bits is None else torch.as_tensor(
+                    dyn.act_bits, dtype=torch.float32).to(self.device))}
+        state = self._ensure_err_state(
+            state, *batches["tokens"].shape[-2:],
+            armed_act=self._act_bits is not None or dyn.act_bits is not None)
         new, losses = state, []
         for i in range(batches["tokens"].shape[0]):
-            new, m = self._step_impl(new, {k: v[i] for k, v in batches.items()})
+            new, m = self._step_impl(new, {k: v[i] for k, v in batches.items()}, cfg_dyn, part)
             losses.append(m["loss"])
-        new = self._aggregate(new, weights)
+        new = self._aggregate(new, weights, part,
+                              None if cfg_dyn is None else cfg_dyn["slot_masks"])
         finite = bool(tree_all_finite([new.lora_client, new.lora_server, new.opt_client,
                                        new.opt_server, new.err_act, new.err_grad]))
         loss = torch.stack(losses)
         metrics = {"loss": loss, "total": loss,
-                   "participation": torch.ones(self.tc.num_clients),
+                   "participation": torch.ones(K) if part is None else part,
                    "rolled_back": torch.tensor(not finite)}
         return (new if finite else state), metrics
+
+    def allocation_dynamics(self, ell_k, rank_k, bits_k=None) -> Dict[str, Any]:
+        """A per-client allocation decision as :class:`RoundDynamics`
+        keywords (``ell``, ``rank``, ``rep_hi``, ``slot_masks``, ``scales``,
+        and ``act_bits`` when ``bits_k`` is given) against this trainer's
+        capacity envelope; raises ``ValueError`` when a split or rank falls
+        outside it (build with ``from_allocation(dynamic=True)``)."""
+        K = self.tc.num_clients
+        ells = tuple(int(e) for e in np.asarray(ell_k).reshape(-1))
+        ranks = tuple(int(r) for r in np.asarray(rank_k).reshape(-1))
+        if len(ells) != K or len(ranks) != K:
+            raise ValueError(f"{len(ells)} splits / {len(ranks)} ranks for {K} clients")
+        reps = tuple(layers_to_reps(self.cfg, e) for e in ells)
+        if max(reps) > self.rep_max or min(reps) < self.rep_min:
+            raise ValueError(
+                f"split points {ells} leave the capacity envelope reps [{self.rep_min}, "
+                f"{self.rep_max}]; build the trainer with ell_range "
+                "(from_allocation(dynamic=True))")
+        if max(ranks) > self.r_max:
+            raise ValueError(f"rank {max(ranks)} > capacity r_max {self.r_max}; "
+                             "build with rank_max")
+        out = dict(ell=torch.tensor(ells, dtype=torch.int32),
+                   rank=torch.tensor(ranks, dtype=torch.float32),
+                   rep_hi=torch.tensor(reps, dtype=torch.int32),
+                   slot_masks=self._build_client_masks(ranks, reps, force=True),
+                   scales=torch.tensor([self.cfg.lora_alpha / r for r in ranks],
+                                       dtype=torch.float32))
+        if bits_k is not None:
+            bits = tuple(int(x) for x in np.asarray(bits_k).reshape(-1))
+            if len(bits) != K:
+                raise ValueError(f"{len(bits)} bit-widths for {K} clients")
+            if any(x not in (4, 8, 16) for x in bits):
+                raise ValueError(f"bits_k must be 4, 8 or 16, got {bits}")
+            out["act_bits"] = torch.tensor(bits, dtype=torch.float32)
+        return out
 
     def train(self, state: SflState, data_iter, *, global_rounds: int,
               sample_counts, log_every: int = 0, callback=None):

@@ -6,7 +6,13 @@ otherwise), the naive per-slot loop with ``--naive``; ``--adapters N``
 serves N tenants' adapters from one paged engine through an
 ``AdapterRegistry`` of ``--adapter-pool`` slots.  Mamba2 always takes the
 slab engine (its recurrent state is not paged), so the engine refuses
-``--adapters`` for it, as ``repro``'s does:
+``--adapters`` for it, as ``repro``'s does.  ``--lora-checkpoint PATH``
+serves a saved adapter (``restore_lora``) in place of the seeded one:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-s --reduced \
+      --device cpu --checkpoint "$TMPDIR/ck.msgpack"
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
+      --device cpu --lora-checkpoint "$TMPDIR/ck.msgpack"
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
@@ -32,6 +38,8 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--rank", type=int, default=4)
+    ap.add_argument("--lora-checkpoint", default="",
+                    help="serve this saved adapter (restore_lora) at rank --rank")
     ap.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
     ap.add_argument("--naive", action="store_true",
                     help="per-slot decode loop with host-side sampling (baseline)")
@@ -86,6 +94,9 @@ def main(argv=None) -> None:
     else:
         lora = init_lora_stack(cfg, torch.Generator().manual_seed(args.seed + 1),
                                args.rank, dtype, args.device)
+        if args.lora_checkpoint:
+            lora = restore_lora(cfg, args.lora_checkpoint, lora)
+            print("loaded adapter from", args.lora_checkpoint)
     sc = (SampleConfig(greedy=True) if args.temperature == 0.0
           else SampleConfig(temperature=args.temperature))
     paged = False if (args.slab or args.naive) else None     # None = auto
@@ -158,6 +169,38 @@ def main(argv=None) -> None:
           f"({st['prefill_s'] / max(prefills, 1) * 1e3:.2f} ms/call) (host clock)")
     if prof is not None:
         _report(prof, wall)
+
+
+def restore_lora(cfg, path: str, template):
+    """The served adapter stack saved at ``path``, in ``template``'s place
+    (the port's per-layer stack; dtype and device follow the template).
+
+    The file is ``repro``'s format, holding the whole stack (what
+    ``repro.launch.serve --lora-checkpoint`` reads) or ``launch.train
+    --checkpoint``'s ``{"lora_client" (K, ...), "lora_server"}``, served
+    with client 0's adapter below the split and the server's above it, as
+    ``examples/serve_lora.py`` joins a trainer's hand-off.  Client and
+    server parts that do not tile the stack (a heterogeneous fleet's
+    overlap) raise ``ValueError``: the file does not say where client 0
+    splits."""
+    from ..checkpoint import restore_pytree
+    from ..core.lora import concat_tree
+    from ..interop import lora_from_numpy, lora_to_numpy
+    from ..tree import tree_leaves, tree_map
+
+    leaf = tree_leaves(template)[0]
+    stack = lora_to_numpy(template, len(cfg.pattern))
+    try:
+        return lora_from_numpy(restore_pytree(path, stack), leaf.device, leaf.dtype)
+    except KeyError:
+        tree = restore_pytree(path, {"lora_client": stack, "lora_server": stack})
+    parts = [lora_from_numpy(tree_map(lambda v: v[0], tree["lora_client"]), leaf.device,
+                             leaf.dtype),
+             lora_from_numpy(tree["lora_server"], leaf.device, leaf.dtype)]
+    if len(parts[0]) + len(parts[1]) != len(template):
+        raise ValueError(f"{path!r}: {len(parts[0])} client and {len(parts[1])} server layers "
+                         f"do not tile the {len(template)}-layer stack")
+    return concat_tree(*parts)
 
 
 def tenant_adapter(cfg, seed: int, rank: int):

@@ -6,10 +6,13 @@ allocator picking the split point (``--split`` overrides it), and the
 engine reporting the modeled wireless wall clock of every round.  It runs
 on the card by default; every LoRA-adapted projection then goes through
 the CUDA forward and backward kernels of ``kernels.lora_matmul``.
+``--checkpoint PATH`` saves the adapters at the end (``repro``'s file
+format: the K clients' stacked adapters and the server's), which
+``launch.serve --lora-checkpoint`` serves.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-s --split 6
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-s --reduced \
-      --device cpu --steps 12 --local-steps 6
+      --device cpu --steps 12 --local-steps 6 [--checkpoint "$TMPDIR/ck.msgpack"]
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--rank", type=int, default=4)
     ap.add_argument("--split", type=int, default=0, help="0 = allocator picks")
     ap.add_argument("--local-steps", type=int, default=6)
+    ap.add_argument("--checkpoint", default="",
+                    help="save the adapters here at the end (repro's msgpack format)")
     ap.add_argument("--log-every", type=int, default=1, help="rounds")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
@@ -98,7 +103,7 @@ def run(args: argparse.Namespace, *, params=None, lora=None):
         args.seq, args.batch, args.local_steps, rounds)
     trainer = Trainer(SflRound(sfl, [len(p) for p in parts]),
                       local_steps=args.local_steps, log_every=args.log_every,
-                      round_latency=report)
+                      round_latency=report, checkpoint_path=args.checkpoint)
     state, history = trainer.fit(state, data, global_rounds=rounds)
     return state, history, sfl
 
@@ -115,6 +120,8 @@ def main(argv=None) -> None:
     if hist.modeled_seconds:
         msg += f"; modeled wireless wall clock {hist.modeled_seconds:.1f}s"
     print(msg)
+    if args.checkpoint:
+        print("saved", args.checkpoint)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ from repro.core.lora import client_slot_masks as j_masks    # noqa: E402
 from repro.core.resource import HeteroAllocation as JHA     # noqa: E402
 from repro.core.resource import Problem as JProblem         # noqa: E402
 from repro.core.sfl import SflLLM as JSflLLM                # noqa: E402
+from repro.configs import TrainConfig as JTrainConfig       # noqa: E402
 from repro.optim import adamw as j_adamw                    # noqa: E402
 from repro.precision import PrecisionConfig as JPC          # noqa: E402
 from repro.precision import quantize_params_int8 as j_q8    # noqa: E402
@@ -449,11 +450,38 @@ def test_from_allocation_bookkeeping_matches_repro(kind):
 
 
 def test_from_allocation_refuses_the_dynamic_envelope():
-    _, tcfg = _cfgs()
+    """The name is kept from when the port refused ``dynamic=True``; the
+    envelope is ported now, and this holds it against repro's: the
+    partition ``rep_min``/``rep_max``, the padded rank ``r_max``, the
+    heterogeneity flags, the scales and the slot masks (exact)."""
+    jcfg, tcfg = _cfgs()
+    jprob, jal = _problem(JHA, JProblem, jcfg, J_SYS, j_sample)
     tprob, tal = _problem(THA, TProblem, tcfg, T_SYS, t_sample)
-    params = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SflLLM.from_allocation(tprob, tal, params, t_adamw(LR), dynamic=True, device="cpu")
+    params = _np(JM.init_params(jcfg, jax.random.key(0)))
+    js = JSflLLM.from_allocation(jprob, jal, params, j_adamw(LR), donate=False, dynamic=True)
+    ts = SflLLM.from_allocation(tprob, tal, interop.params_from_numpy(params, "cpu"),
+                                t_adamw(LR), dynamic=True, device="cpu")
+    assert ts.dynamic_capacity and js.dynamic_capacity
+    assert (ts.rep_min, ts.rep_max, ts.r_max) == (js.rep_min, js.rep_max, js.r_max)
+    assert (ts.rep_min, ts.rep_max, ts.r_max) == (1, 3, 4)   # splits 1-3, ranks <= 4
+    assert (ts.hetero, ts.hetero_split) == (js.hetero, js.hetero_split) == (True, True)
+    assert ts.ell_k == js.ell_k and ts.rank_k == js.rank_k
+    assert ts._scale_k == js._scale_k and ts._server_scale == js._server_scale
+    want = interop.split_layers(_np(js._client_masks), axis=1)
+    assert len(ts._client_masks) == len(want) == 3
+    for a, b in zip(tree_leaves(ts._client_masks), tree_leaves(tree_map(torch.from_numpy, want))):
+        assert torch.equal(a, b)
+    # a widened split envelope alone makes a uniform fleet gate, and a
+    # rank envelope above every r_k makes it mask (pad_rank)
+    tc = TTrainConfig(num_clients=K, batch_size=B, local_steps=I)
+    tparams = interop.params_from_numpy(params, "cpu")
+    for kw in (dict(ell_range=(1, 3)), dict(rank_max=8)):
+        jt = JSflLLM(jcfg, params, 2, JTrainConfig(num_clients=K, batch_size=B, local_steps=I),
+                     j_adamw(LR), donate=False, **kw)
+        tt = SflLLM(tcfg, tparams, 2, tc, t_adamw(LR), device="cpu", **kw)
+        assert (tt.hetero, tt.hetero_split, tt.rep_min, tt.rep_max, tt.r_max, tt.rank_k) == \
+            (jt.hetero, jt.hetero_split, jt.rep_min, jt.rep_max, jt.r_max, jt.rank_k), kw
+        assert tt.hetero
 
 
 @pytest.fixture(scope="module")

@@ -1,13 +1,15 @@
 """The port stands alone: no file under src/repro_torch/, and not
 chip_smoke.py, imports jax, jaxlib or the JAX package ``repro``
-(``repro_torch`` itself is of course allowed)."""
+(``repro_torch`` itself is of course allowed), nor msgpack, which the
+machine with the card does not have (the port's checkpoints carry their
+own codec)."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -30,6 +32,8 @@ def test_rule_tells_repro_from_repro_torch():
     assert _forbidden("repro") and _forbidden("repro.models.layers")
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")
     assert not _forbidden("repro_torch") and not _forbidden("repro_torch.kernels")
+    assert _forbidden("msgpack") and _forbidden("msgpack.fallback")
+    assert not _forbidden("repro_torch.checkpoint") and not _forbidden("msgspec")
 
 
 def test_files_exist():

@@ -434,27 +434,32 @@ def test_sfl_train_matches_repro(capsys):
 
 
 def test_sfl_refuses_what_is_not_ported():
-    """The capacity envelope, the mesh, the act_quant shim, dynamic
-    allocation and RoundDynamics are not ported: each raises, naming the
-    roadmap (per-client splits, ranks and act_bits are ported)."""
-    from repro_torch.core.resource import Allocation
+    """The mesh and the act_quant shim are not ported, nor are the fault
+    and robust fields of RoundDynamics (poison, robust, byzantine) and
+    WirelessDynamics' defense: each raises, naming the roadmap.  (The
+    capacity envelope, dynamic allocation and RoundDynamics are ported.)"""
+    from repro_torch.core.resource import Allocation, HeteroAllocation
+    from repro_torch.core.sfl import RoundDynamics
+    from repro_torch.launch.engine import WirelessDynamics
     _, tcfg = _cfgs(layers=2)
     tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     tc = TTrainConfig(num_clients=2, batch_size=1, local_steps=1)
-    for kw in (dict(ell_range=(1, 1)), dict(rank_max=8), dict(mesh=object()),
-               dict(act_quant=True)):
+    for kw in (dict(mesh=object()), dict(act_quant=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", **kw)
+    for field in ("poison", "robust", "byzantine"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            RoundDynamics(**{field: torch.zeros(())})
+    sfl = SflLLM(tcfg, tp, (1, 1), tc, t_sgd(0.1), device="cpu", ranks=(2, 4), act_bits=8,
+                 ell_range=(1, 1), rank_max=8)
+    assert sfl.r_max == 8 and sfl.hetero
     prob = argparse.Namespace(cfg=tcfg, envs=(None, None), batch=1, local_steps=1)
     alloc = Allocation(np.zeros(2, int), np.zeros(2, int), np.ones(2), np.ones(2), 1, 4)
+    assert SflLLM.from_allocation(prob, alloc, tp, t_sgd(0.1), device="cpu").ell_k == (1, 1)
+    hal = HeteroAllocation(np.zeros(2, int), np.zeros(2, int), np.ones(2), np.ones(2), 1, 4,
+                           ell_k=np.array([1, 1]), rank_k=np.array([2, 4]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SflLLM.from_allocation(prob, alloc, tp, t_sgd(0.1), dynamic=True, device="cpu")
-    sfl = SflLLM(tcfg, tp, (1, 1), tc, t_sgd(0.1), device="cpu", ranks=(2, 4), act_bits=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sfl.train_round(sfl.init_state(sfl.init_lora(torch.Generator().manual_seed(1))),
-                        {"tokens": np.zeros((1, 2, 1, 4), np.int32),
-                         "labels": np.zeros((1, 2, 1, 4), np.int32)}, [1.0, 1.0],
-                        dynamics=object())
+        WirelessDynamics(prob, hal, sfl, defense=object())
 
 
 def test_sfl_on_cuda_raises_without_a_card():
