@@ -148,7 +148,44 @@ Phases (each prints its own lines; any failure exits non-zero):
     (``--lora-checkpoint``), and phase 5's 16 requests served from it must
     give the in-memory adapter's token ids, with 24 ``lora_matmul`` per
     decode step and per prefill chunk and 12 ``paged_decode`` per step; a
-    digest of the ids is printed.
+    digest of the ids is printed;
+14. fault injection and recovery on full-width GPT-2-S: (a) phase 5's
+    engine (f32, 8 slots, 512 positions, 16-token pages, its weights)
+    drains phase 5's 16 requests under ``ServingFaults``: slots 0 and 1
+    crashed at steps 6 and 14 (``benchmarks/bench_faults.py``'s
+    schedule), ``deadline_steps=10`` on every third request and one NaN
+    poke at step 20 on the first live request without a deadline; every
+    other request must give phase 5's ids (prefix recompute through the
+    prefill chunks, its own sampling stream), the poked one its
+    ``error`` and a prefix of phase 5's ids; ``preemptions``,
+    ``deadline_preemptions`` (each after exactly 10 decode steps of a
+    residency), ``quarantined``, ``recomputed_tokens`` and the prefill
+    chunks must equal what the observed schedule implies, the pages must
+    all come home, and the launch counters, reset just before, must show
+    24 ``lora_matmul`` per decode step and per chunk (recompute chunks
+    included) and 12 ``paged_decode`` per step; a digest of the ids is
+    printed; then priority preemption (2 slots x 256 positions over 16
+    pages: a priority-5 request evicts the priority-0 hog, whose ids equal
+    its solo run's), backpressure (every free page held: 3 steps admit
+    and launch nothing; released, 4 requests give phase 5's first 8 ids)
+    and one resync of a desynced page mirror.  (b) Phase 8's 50 MHz edge
+    problem, its allocator's fleet through ``from_allocation(dynamic=True)``
+    on full-width GPT-2-S f32, 3 clients x 4 x 64 tokens of one shared
+    batch (FedAvg weights 1:2:2), 6 local steps, AdamW 4e-4, 6 rounds
+    under ``WirelessDynamics(defense=DefenseConfig(clip=0.01, trim=1,
+    quarantine_rounds=2))`` with ``TrainingFaults``: client 0
+    ``sign_flip`` + ``scale_blowup(20)``, ``poison_round`` before round
+    3; client 0 must be quarantined at least once and no other client
+    ever, sit out (participation 0) while quarantined, round 3 must roll
+    back bit for bit, and the launch counters, reset before each round,
+    must follow its participation; round 1's ``corrupt_updates`` (four
+    modes and the episode's) and ``robust_aggregate`` (off, clip, clip +
+    trim, clip + median, and the episode's) run again on the CPU from
+    host copies within 1e-6 of the card (no kernel computes them); the
+    episode killed after round 3, mid-quarantine, and resumed with a
+    fresh trainer must end bit-equal to the uninterrupted run (state,
+    histories, tracker, cursor).  Per-round ``update_norm``, ``cos_dist``
+    and quarantine rows are printed.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -1887,9 +1924,10 @@ def main() -> None:
     dyn_train, dyn_serve, dyn_err = phase_dynamic(torch, np, dev, reqs)
     for k, v in dyn_err.items():
         err[k] = max(err[k], v)
+    fault_serve, fault_train = phase_faults(torch, np, dev, reqs, eng.params, eng.lora)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
-            mt_launches, mamba_launches, dyn_train, dyn_serve)
+            mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -2481,6 +2519,410 @@ def phase_dynamic(torch, np, dev, reqs):
         fail("serving the restored adapter: ids or launch counts are wrong")
     print(f"[dynamic] phase 13 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
     return train_launches, serve_launches, errs
+
+
+def phase_faults(torch, np, dev, reqs, params, lora):
+    """Phase 14: fault injection and recovery on full-width GPT-2-S.  (a)
+    phase 5's engine drains phase 5's requests under slot crashes,
+    residency deadlines and a NaN poke, then priority preemption,
+    backpressure and a resync; (b) a defended wireless episode under a
+    Byzantine client and a poisoned round, killed mid-quarantine and
+    resumed.  Returns the launch counts of (a) and of (b)."""
+    import dataclasses
+    import os
+    import tempfile
+    import warnings
+
+    from repro_torch.configs import DEFAULT_SYSTEM, get_arch
+    from repro_torch.core import Problem, SflLLM, sample_clients
+    from repro_torch.core import sfl as sfl_mod
+    from repro_torch.core.aggregation import RobustAggConfig, robust_aggregate
+    from repro_torch.core.defense import ByzantineOps, DefenseConfig, corrupt_updates
+    from repro_torch.core.resource import bcd_minimize_delay_per_client
+    from repro_torch.data import WordTokenizer, e2e_splits, iid_partition, sfl_batches
+    from repro_torch.faults import ServingFaults, TrainingFaults
+    from repro_torch.kernels import backend
+    from repro_torch.launch.engine import SflRound, Trainer, WirelessDynamics
+    from repro_torch.optim import adamw
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("gpt2-s")
+    L, nt = cfg.num_layers, len(cfg.lora_targets)
+    want_of = {r_.uid: r_.output for r_ in reqs}      # phase 5's ids
+    serve_launches = {}
+
+    def add(into, counts):
+        for k, v in counts.items():
+            into[k] = into.get(k, 0) + v
+
+    def engine(**kw):
+        kw = {"max_slots": 8, "max_len": 512, **kw}
+        return ServingEngine(cfg, params, lora=lora, page_size=16, device="cuda", **kw)
+
+    def path_counts(eng, what):
+        """The main path's launches since the last reset, against what the
+        engine's steps and chunks imply."""
+        torch.cuda.synchronize()
+        got, st = dict(backend.LAUNCH_COUNTS), eng.stats
+        want = {"lora_matmul": 2 * L * (st["decode_steps"] + st["prefill_chunks"]),
+                "paged_decode": L * st["decode_steps"]}
+        want = {k: v for k, v in want.items() if v}
+        if got != want:
+            fail(f"{what}: launches {got}, expected {want} (phase 14)")
+        add(serve_launches, got)
+        return got
+
+    # -- (a) serving chaos: bench_faults' crash schedule, a residency
+    # deadline on every third request, one NaN poke -------------------------
+    CRASH_AT, POKE_STEP, DEADLINE = {6: 0, 14: 1}, 20, 10
+    eng = engine()
+    sf = ServingFaults(eng)
+    creqs = [Request(uid=r_.uid, prompt=list(r_.prompt), max_new_tokens=32,
+                     deadline_steps=DEADLINE if r_.uid % 3 == 0 else None) for r_ in reqs]
+    for r_ in creqs:
+        eng.submit(r_)
+    events, crashes, poked = [], {}, None     # (step, uid, crash?, prefix, gained)
+    start_len = {r_.uid: 0 for r_ in creqs}
+    backend.reset_launch_counts()        # just before the main path
+    torch.cuda.synchronize()
+    t0, steps = time.perf_counter(), 0
+    while eng.queue or any(s is not None for s in eng.slots):
+        if steps in CRASH_AT and eng.slots[CRASH_AT[steps]] is not None:
+            sf.crash_slot(CRASH_AT[steps])
+            crashes[steps] = eng.slots[CRASH_AT[steps]].uid
+        if steps == POKE_STEP:
+            # the first live slot with no deadline: a poke is not a victim
+            s = next(s for s, r_ in enumerate(eng.slots)
+                     if r_ is not None and r_.deadline_steps is None)
+            sf.poke_nan(s)
+            poked = eng.slots[s].uid
+        before = {r_.uid: r_.preempted for r_ in creqs}
+        eng.step()
+        for r_ in creqs:
+            if r_.preempted > before[r_.uid]:
+                events.append((steps, r_.uid, crashes.get(steps) == r_.uid,
+                               len(r_.prompt) + len(r_.output),
+                               len(r_.output) - start_len[r_.uid]))
+                start_len[r_.uid] = len(r_.output)
+        steps += 1
+        if steps > 2000:
+            fail("serving chaos did not drain (phase 14)")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    chaos_launches = path_counts(eng, "serving chaos")
+    n_crash = sum(1 for e in events if e[2])
+    deadline_ev = [e for e in events if not e[2]]
+    want_stats = {"preemptions": len(events), "deadline_preemptions": len(deadline_ev),
+                  "quarantined": 1, "recomputed_tokens": sum(e[3] for e in events)}
+    got_stats = {k: st[k] for k in want_stats}
+    chunks = (sum(-(-len(r_.prompt) // 16) for r_ in creqs)
+              + sum(-(-e[3] // 16) for e in events))
+    bad_ids = [r_.uid for r_ in creqs if r_.uid != poked
+               and (r_.output != want_of[r_.uid] or r_.error is not None or not r_.done)]
+    pr = next(r_ for r_ in creqs if r_.uid == poked)
+    good = (not bad_ids and got_stats == want_stats and n_crash == len(crashes) == 2
+            and all(creqs[e[1]].deadline_steps == DEADLINE and e[4] == DEADLINE + 1
+                    for e in deadline_ev)
+            and pr.error == "non-finite logits" and pr.done
+            and pr.output == want_of[poked][:len(pr.output)] and len(pr.output) < 32
+            and st["prefill_chunks"] == chunks
+            and eng.check_consistency(resync=False) and eng.pages_in_use() == 0)
+    print(f"[faults] serving chaos on phase 5's engine (GPT-2-S f32, 8 slots x 512, pages of "
+          f"16) and requests: crashes at steps {crashes} (step: uid), deadline_steps="
+          f"{DEADLINE} on uids {[r_.uid for r_ in creqs if r_.deadline_steps]}, NaN poke at "
+          f"step {POKE_STEP} on uid {poked}; {steps} steps, {wall:.3f}s (host clock)")
+    print(f"[faults] preemption events (step, uid, crash, prefix recomputed, tokens gained in "
+          f"the residency): {events}")
+    print(f"[faults] stats {got_stats}, implied by the schedule {want_stats}; prefill chunks "
+          f"{st['prefill_chunks']} (prompts and recomputed prefixes imply {chunks}), "
+          f"{st['prefill_s'] / max(st['prefill_chunks'], 1) * 1e3:.2f} ms/chunk; decode "
+          f"steps {st['decode_steps']}, {st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.2f} "
+          f"ms/step (host clock); launches {chaos_launches} (24 lora_matmul per decode step "
+          f"and per chunk, 12 paged_decode per step)")
+    print(f"[faults] ids equal to phase 5's for {len(creqs) - 1 - len(bad_ids)} of "
+          f"{len(creqs) - 1} unpoked requests; poked uid {poked}: error {pr.error!r}, "
+          f"{len(pr.output)} tokens delivered, a prefix of phase 5's; token ids digest "
+          f"{ids_digest(creqs)} {'ok' if good else 'FAIL'}")
+    if not good:
+        fail(f"serving chaos: ids differ for {bad_ids}, or stats {got_stats} != {want_stats}, "
+             f"or the poked request or the page accounting is wrong (phase 14)")
+
+    # priority preemption: 2 slots x 256 positions over 16 pages, which hold
+    # the hog's 15 and 1 more, so a higher-priority request evicts it; the
+    # hog's ids equal a solo run's
+    long_r = max(reqs, key=lambda r_: len(r_.prompt))
+    short_r = min(reqs, key=lambda r_: len(r_.prompt))
+    hog_pages = -(-(len(long_r.prompt) + 32) // 16)
+    solo = Request(uid=long_r.uid, prompt=list(long_r.prompt), max_new_tokens=32)
+    e0 = engine(max_slots=2, max_len=256)
+    e0.submit(solo)
+    backend.reset_launch_counts()
+    e0.run()
+    path_counts(e0, "solo run")
+    ep = engine(max_slots=2, max_len=256, num_pages=hog_pages + 2, preempt=True)
+    hog = Request(uid=long_r.uid, prompt=list(long_r.prompt), max_new_tokens=32, priority=0)
+    vip = Request(uid=short_r.uid, prompt=list(short_r.prompt), max_new_tokens=32, priority=5)
+    backend.reset_launch_counts()
+    ep.submit(hog)
+    ep.step()
+    ep.step()
+    ep.submit(vip)
+    ep.run()
+    path_counts(ep, "priority preemption")
+    good = (hog.done and vip.done and hog.preempted >= 1 and ep.stats["preemptions"] >= 1
+            and hog.output == solo.output and vip.output == want_of[vip.uid]
+            and ep.check_consistency(resync=False) and ep.pages_in_use() == 0)
+    print(f"[faults] priority preemption: {ep.num_pages - 1} pages, hog uid {hog.uid} "
+          f"({hog_pages} pages, priority 0) evicted {hog.preempted}x by uid {vip.uid} "
+          f"(priority 5); hog's ids equal its solo run: {hog.output == solo.output} (and "
+          f"phase 5's: {hog.output == want_of[hog.uid]}); the vip's equal phase 5's: "
+          f"{vip.output == want_of[vip.uid]} {'ok' if good else 'FAIL'}")
+    if not good:
+        fail("priority preemption: the evicted request's ids differ from its solo run")
+
+    # backpressure: every free page held, nothing admitted; released, all finish
+    eb = engine()
+    fb = ServingFaults(eb)
+    breqs = [Request(uid=r_.uid, prompt=list(r_.prompt), max_new_tokens=8) for r_ in reqs[:4]]
+    held = fb.exhaust_pages()
+    for r_ in breqs:
+        eb.submit(r_)
+    backend.reset_launch_counts()
+    for _ in range(3):
+        eb.step()
+    stalled = (all(s is None for s in eb.slots) and len(eb.queue) == 4
+               and not backend.LAUNCH_COUNTS)
+    fb.release_pages()
+    eb.run()
+    path_counts(eb, "backpressure")
+    good = (stalled and all(r_.done and r_.output == want_of[r_.uid][:8] for r_ in breqs)
+            and eb.check_consistency(resync=False) and eb.pages_in_use() == 0)
+    print(f"[faults] backpressure: {held} pages held, 3 steps admitted nothing and launched "
+          f"nothing: {stalled}; released, 4 requests x 8 tokens equal phase 5's first 8 "
+          f"{'ok' if good else 'FAIL'}")
+    if not good:
+        fail("backpressure: admission while the pages were held, or wrong ids after")
+
+    # resync: a desynced mirror is caught and repaired once
+    er = engine()
+    ServingFaults(er).desync_mirror(2)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        flagged = not er.check_consistency()
+    rr = Request(uid=reqs[0].uid, prompt=list(reqs[0].prompt), max_new_tokens=4)
+    er.submit(rr)
+    backend.reset_launch_counts()
+    er.run()
+    path_counts(er, "resync")
+    good = (flagged and len(caught) == 1 and er.stats["resyncs"] == 1
+            and er.check_consistency(resync=False) and rr.output == want_of[rr.uid][:4])
+    print(f"[faults] resync: desync_mirror(2) flagged {flagged}, {len(caught)} warning, "
+          f"resyncs {er.stats['resyncs']}, then consistent and serving "
+          f"{'ok' if good else 'FAIL'}")
+    if not good:
+        fail("resync: the desynced mirror was not repaired exactly once")
+
+    # -- (b) training under attack ----------------------------------------------
+    Kd, bd, Sd, Id, lrd, rounds, kill, poison_at = 3, 4, 64, 6, 4e-4, 6, 3, 3
+    edge = dataclasses.replace(DEFAULT_SYSTEM, num_clients=Kd, total_bandwidth_hz=50e6,
+                               f_server_hz=1.0e9, f_client_hz_range=(0.3e9, 3.0e9))
+    prob = Problem(cfg=cfg, sys_cfg=edge, envs=tuple(sample_clients(edge, 0)), seq_len=Sd,
+                   batch=bd, local_steps=Id, bits_candidates=(4, 8, 16))
+    alloc, _ = bcd_minimize_delay_per_client(prob)
+    defense = DefenseConfig(clip=0.01, trim=1, quarantine_rounds=2)
+    train_ex, _, _ = e2e_splits(4000, 400, 400, seed=0)
+    tok = WordTokenizer.from_corpus([e.text for e in train_ex])
+    parts = [np.array(train_ex, dtype=object)[idx]
+             for idx in iid_partition(len(train_ex), Kd, 0)]
+    first = next(sfl_batches(tok, parts, bd, Sd, 0))
+    # every client the same batch (repro's _shared_data): benign updates
+    # correlate, so the cosine score separates the attacker.  FedAvg
+    # weights 1:2:2, the attacker's the smallest: every upload is clipped
+    # to the same norm, and with equal weights a benign client's
+    # leave-one-out peer mean would be the attacker's upload and a benign
+    # one cancelling to rounding, whose direction no threshold can hold
+    batch = {k: np.broadcast_to(v[:1], v.shape).copy() for k, v in first.items()}
+    counts = [1.0, 2.0, 2.0]
+
+    def copied(st_):
+        return dataclasses.replace(st_, **{f.name: tree_map(lambda v: v.clone(),
+                                                            getattr(st_, f.name))
+                                           for f in dataclasses.fields(st_)})
+
+    def episode(path, upto, start_round=0, log=None, kept=None):
+        sfl = SflLLM.from_allocation(prob, alloc, params, adamw(lrd), dynamic=True,
+                                     device="cuda")
+        lora0 = sfl.init_lora(torch.Generator().manual_seed(1))
+        g_b = torch.Generator().manual_seed(2)
+        for layer in lora0:      # B != 0: both adapter factors get gradients
+            for ad in layer["mixer"].values():
+                ad["b"].copy_(torch.randn(ad["b"].shape, generator=g_b) * 0.02)
+        wd = WirelessDynamics(prob, alloc, sfl, rng=0, deadline_s=1e9, defense=defense)
+        tf = TrainingFaults(wd)
+        tf.arm_byzantine(seed=0)     # the hooks are transient: re-armed on resume
+        tf.sign_flip([0])
+        tf.scale_blowup([0], 20.0)
+
+        def callback(e, state, hist):
+            torch.cuda.synchronize()
+            if log is not None:
+                log.append(dict(round=e, launches=dict(backend.LAUNCH_COUNTS),
+                                part=list(hist.participation[-1])))
+            if kept is not None:
+                kept[e] = copied(state)
+            if e + 1 == poison_at:
+                tf.poison_round()
+            backend.reset_launch_counts()    # just before the next round
+
+        trainer = Trainer(SflRound(sfl, counts), local_steps=Id, dynamics=wd,
+                          callback=callback, episode_path=path, episode_every=1)
+        if start_round == poison_at:
+            tf.poison_round()
+        backend.reset_launch_counts()        # just before the main path
+        torch.cuda.synchronize()
+        state, hist = trainer.fit(sfl.init_state(lora0), iter(lambda: batch, None),
+                                  global_rounds=upto, resume=start_round > 0)
+        torch.cuda.synchronize()
+        return sfl, wd, state, hist
+
+    # capture round 1's corruption and aggregation on the card, to run them
+    # again on the CPU from host copies
+    capture, orig = {}, (sfl_mod.corrupt_updates, sfl_mod.robust_aggregate)
+    calls = {"n": 0}
+
+    def corrupt_spy(stacked, ref, ops):
+        out = orig[0](stacked, ref, ops)
+        if calls["n"] == 1:
+            capture["corrupt"] = (stacked, ref, ops, out)
+        return out
+
+    def robust_spy(stacked, ref, weights, part, masks, rcfg):
+        out = orig[1](stacked, ref, weights, part, masks, rcfg)
+        if calls["n"] == 1:
+            capture["robust"] = (stacked, ref, weights, part, masks, rcfg, out)
+        calls["n"] += 1
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    log, kept = [], {}
+    sfl_mod.corrupt_updates, sfl_mod.robust_aggregate = corrupt_spy, robust_spy
+    try:
+        t0 = time.perf_counter()
+        sfl, wd, st_a, h_a = episode(os.path.join(tmp, "a.ckpt"), rounds, log=log, kept=kept)
+        wall = time.perf_counter() - t0
+    finally:
+        sfl_mod.corrupt_updates, sfl_mod.robust_aggregate = orig
+    ells = [int(x) for x in alloc.ell_k]
+    server = L - min(ells)
+    print(f"[faults] GPT-2-S full width f32, the allocator's fleet ell_k={ells} r_k="
+          f"{alloc.rank_k.tolist()} bits_k={alloc.bits_k.tolist()} through from_allocation("
+          f"dynamic=True); K={Kd} x b={bd} x S={Sd}, I={Id}, AdamW {lrd}, every client the "
+          f"same batch, FedAvg weights {counts}; WirelessDynamics(defense={defense}); client 0 sign_flip + "
+          f"scale_blowup(20), poison_round before round {poison_at}; {rounds} rounds, "
+          f"wall {wall:.2f}s")
+    train_launches, problems = {}, []
+    for row, sc, q, secs in zip(log, h_a.anomaly_scores, h_a.quarantined, h_a.round_seconds):
+        live = [k for k in range(Kd) if row["part"][k]]
+        want = {"lora_matmul": nt * (sum(ells) + server) * Id,
+                "lora_rank_reduce": 2 * nt * (sum(ells[k] for k in live) + server) * Id,
+                "lora_matmul_dx": nt * (sum(ells[k] - 1 for k in live) + server) * Id}
+        want = {k: v for k, v in want.items() if v}
+        add(train_launches, row["launches"])
+        ok = row["launches"] == want
+        if not ok:
+            problems.append(row["round"])
+        print(f"[faults] round {row['round']}: update_norm "
+              f"{[float(f'{x:.6g}') for x in sc['update_norm']]} cos_dist "
+              f"{[float(f'{x:.6g}') for x in sc['cos_dist']]} quarantined {q} participation "
+              f"{row['part']} rolled back {row['round'] in h_a.rolled_back_rounds}; "
+              f"{secs:.3f}s (host clock); launches {row['launches']}, expected {want} {'ok' if ok else 'FAIL'}")
+    q = np.asarray(h_a.quarantined)
+    p_ = np.asarray(h_a.participation)
+    norms = np.asarray([s_["update_norm"] for s_ in h_a.anomaly_scores])
+    good = (not problems and q.shape == (rounds, Kd) and q[:, 0].sum() >= 1
+            and q[:, 1:].sum() == 0 and (p_[q[:, 0] == 1, 0] == 0).all()
+            and h_a.rolled_back_rounds == [poison_at]
+            and (norms[:, 1:] > defense.clip).all()
+            and all(math.isfinite(x) for x in h_a.losses))
+    same = [f.name for f in dataclasses.fields(kept[poison_at])
+            if not all(torch.equal(x, y) for x, y in
+                       zip(tree_leaves(getattr(kept[poison_at], f.name)),
+                           tree_leaves(getattr(kept[poison_at - 1], f.name))))]
+    print(f"[faults] quarantined client-rounds {[(r, 0) for r in np.nonzero(q[:, 0])[0].tolist()]}"
+          f", benign ever quarantined {int(q[:, 1:].sum())}, tracker {wd.tracker.state()}; "
+          f"rolled back {h_a.rolled_back_rounds}, state after round {poison_at} bit-equal to "
+          f"before it: {not same} {'ok' if good and not same else 'FAIL'}")
+    if problems or not good or same:
+        fail(f"training under attack: launch counts differ in rounds {problems}, or the "
+             f"quarantine {q.tolist()}, the rollback {h_a.rolled_back_rounds} or the state "
+             f"fields {same} are wrong (phase 14)")
+
+    # round 1's corruption and aggregation again on the CPU, from host copies
+    cpu = lambda t_: tree_map(lambda v: v.detach().cpu(), t_)        # noqa: E731
+
+    def dist(a, b):
+        return max((x.cpu().float() - y.float()).abs().max().item()
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    stacked, ref, ops, out = capture["corrupt"]
+    K_ = len(ops.sign)
+    modes = {"sign_flip": dict(sign=[1.0] + [0.0] * (K_ - 1)),
+             "scale_blowup": dict(scale=[20.0] + [1.0] * (K_ - 1)),
+             "gaussian_noise": dict(noise_std=[0.01] + [0.0] * (K_ - 1)),
+             "replay_stale": dict(replay=[1.0] + [0.0] * (K_ - 1))}
+    errs, worst = {}, 0.0
+    errs["episode's ops"] = dist(out, corrupt_updates(cpu(stacked), cpu(ref), ops))
+    for name, kw in modes.items():
+        o = ByzantineOps.benign(K_, seed=3, round_idx=1)
+        o = dataclasses.replace(o, **{k: np.asarray(v, np.float32) for k, v in kw.items()})
+        errs[name] = dist(corrupt_updates(stacked, ref, o),
+                          corrupt_updates(cpu(stacked), cpu(ref), o))
+    cstacked, cref, weights, part, masks, rcfg, (agg, scores) = capture["robust"]
+    configs = {"episode's": rcfg, "off": RobustAggConfig.off(),
+               "clip": RobustAggConfig.make(clip=defense.clip),
+               "clip+trim 1": RobustAggConfig.make(clip=defense.clip, trim=1),
+               "clip+median": RobustAggConfig.make(clip=defense.clip, median=True)}
+    for name, rc in configs.items():
+        g_agg, g_sc = ((agg, scores) if name == "episode's" else
+                       robust_aggregate(cstacked, cref, weights, part, masks, rc))
+        c_agg, c_sc = robust_aggregate(cpu(cstacked), cpu(cref), weights, part, cpu(masks), rc)
+        errs[f"aggregate {name}"] = max(dist(g_agg, c_agg),
+                                        dist([g_sc["update_norm"]], [c_sc["update_norm"]]),
+                                        dist([g_sc["cos_dist"]], [c_sc["cos_dist"]]))
+    worst = max(errs.values())
+    print(f"[faults] round 1 again on the CPU from host copies, max |card - CPU| (tol 1e-6): "
+          f"corrupt_updates {{{', '.join(f'{k}: {v:.3g}' for k, v in errs.items() if not k.startswith('aggregate'))}}}; "
+          f"robust_aggregate (aggregate, update_norm, cos_dist) "
+          f"{{{', '.join(f'{k[10:]}: {v:.3g}' for k, v in errs.items() if k.startswith('aggregate'))}}} "
+          f"{'ok' if worst <= 1e-6 else 'FAIL'}")
+    if worst > 1e-6:
+        fail(f"robust_aggregate/corrupt_updates on the card differ from the CPU: {errs}")
+
+    # kill during the quarantine, resume with a fresh trainer and dynamics
+    path_b = os.path.join(tmp, "b.ckpt")
+    episode(path_b, kill)
+    _, wd_b, st_b, h_b = episode(path_b, rounds, start_round=kill)
+    diff = [f.name for f in dataclasses.fields(st_a)
+            if not all(torch.equal(x, y) for x, y in zip(tree_leaves(getattr(st_a, f.name)),
+                                                         tree_leaves(getattr(st_b, f.name))))]
+    diff += [f for f in ("losses", "participation", "quarantined", "anomaly_scores",
+                         "rolled_back_rounds") if getattr(h_a, f) != getattr(h_b, f)]
+    if wd_b.tracker.state() != wd.tracker.state():
+        diff.append("tracker")
+    if wd_b.cursor() != wd.cursor():
+        diff.append("dynamics cursor")
+    print(f"[faults] killed after round {kill} (client 0 quarantined: "
+          f"{bool(q[kill - 1, 0])}), resumed to round {rounds} with a fresh trainer, "
+          f"dynamics and re-armed attacker: adapters, optimizer state, losses, "
+          f"participation, quarantine and score histories, tracker and cursor bit-equal to "
+          f"the uninterrupted run: {'ok' if not diff else 'FAIL ' + str(diff)}")
+    if diff or not q[kill - 1, 0]:
+        fail(f"resume under quarantine differs from the uninterrupted run in {diff}, or the "
+             f"kill was not during the quarantine (phase 14)")
+    print(f"[faults] phase 14 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
+    return serve_launches, train_launches
 
 
 if __name__ == "__main__":

@@ -50,15 +50,25 @@ an empty round freezes the server too.  Every masking op is exact under
 full participation, so an all-ones mask gives the static round bit for
 bit.
 
+Faults and defenses (``RoundDynamics.byzantine``/``robust``/``poison``):
+between the local steps and FedAvg the uploads may be corrupted
+(``core.defense.corrupt_updates``; the optimizer moments stay the
+client's own), FedAvg may be swapped for the robust aggregator with
+per-client anomaly scores (``core.aggregation.robust_aggregate``, against
+the round's starting adapters), and ``poison > 0`` NaNs the aggregated
+server adapter.  Any non-finite leaf of the new state rolls the whole
+round back to its input state, bit for bit.  Benign operands and a
+disarmed aggregator give the plain round bit for bit.
+
 Client adapter leaves carry a leading K axis, ``(K, ...)``, as in
 ``repro``'s ``SflState``; adapter trees are per-layer lists.  The mesh
-path, the deprecated ``act_quant`` shim and the fault and robust fields
-of ``RoundDynamics`` (``poison``, ``robust``, ``byzantine``) are not
-ported yet (``ROADMAP.md``).
+path is not ported (``ROADMAP.md``); the deprecated ``act_quant=True``
+warns and maps to 8-bit uploads, as in ``repro``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Union
 
@@ -75,13 +85,25 @@ from ..models.stack import Runtime, default_train_runtime
 from ..optim import Optimizer, apply_updates
 from ..precision import fake_quant, round_key
 from ..tree import tree_leaves, tree_map, tree_unflatten
-from .aggregation import broadcast_het, fedavg_partial, tree_all_finite
+from .aggregation import broadcast_het, fedavg_partial, robust_aggregate, tree_all_finite
+from .defense import corrupt_updates
 from .latency import client_round_seconds_host, workload_tables
 from .lora import client_slot_masks
 from .split import layers_to_reps, valid_splits
 
-_NOT_PORTED = ("SflLLM: {} belong(s) to the mesh path of repro's SflLLM or its "
-               "deprecated act_quant shim, which are not ported yet (ROADMAP.md, Open items)")
+_NOT_PORTED = ("SflLLM: {} belong(s) to the mesh path of repro's SflLLM, which is not "
+               "ported (ROADMAP.md, Open items, item 10)")
+
+
+def quantize_activations(s: torch.Tensor) -> torch.Tensor:
+    """int8 per-token symmetric fake quantization of split-layer
+    activations (``repro``'s standalone reference; the trainer quantizes
+    through ``precision.fake_quant``).  Straight-through: the forward sees
+    the dequantized value, the backward is the identity.  The scale floor
+    1e-8 keeps an all-zero row finite."""
+    scale = (s.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    deq = torch.round(s / scale) * scale
+    return s + (deq - s).detach()
 
 
 @dataclass
@@ -115,8 +137,11 @@ class RoundDynamics:
     (per-layer masks as ``core.lora.client_slot_masks`` builds them),
     ``scales`` (K,) alpha / r_k and ``act_bits`` (K,) boundary bit-widths.
 
-    ``poison``, ``robust`` and ``byzantine`` (fault injection and robust
-    aggregation) are not ported: giving one raises."""
+    Faults and defenses: ``byzantine`` (``core.defense.ByzantineOps``)
+    corrupts the uploads before aggregation, ``robust``
+    (``core.aggregation.RobustAggConfig``) replaces FedAvg by the robust
+    aggregator and adds ``metrics["anomaly_scores"]``, ``poison`` > 0 NaNs
+    the aggregated server adapter (the round then rolls back)."""
 
     participation: Optional[torch.Tensor] = None
     rates_main: Optional[torch.Tensor] = None
@@ -135,13 +160,6 @@ class RoundDynamics:
     robust: Optional[Any] = None
     byzantine: Optional[Any] = None
     act_bits: Optional[torch.Tensor] = None
-
-    def __post_init__(self):
-        refused = [f for f in ("poison", "robust", "byzantine") if getattr(self, f) is not None]
-        if refused:
-            raise NotImplementedError(
-                f"RoundDynamics: {refused} belong(s) to fault injection and robust "
-                "aggregation, which are not ported yet (ROADMAP.md, Open items, item 6)")
 
 
 def _host(v, dtype) -> Optional[np.ndarray]:
@@ -197,9 +215,8 @@ class SflLLM:
                  device="cuda", *, act_bits: Union[int, Sequence[int], None] = None,
                  ranks: Optional[Sequence[int]] = None,
                  ell_range: Optional[Sequence[int]] = None,
-                 rank_max: Optional[int] = None, **unported):
-        # repro's mesh and the deprecated act_quant shim: refused unless
-        # left at their defaults
+                 rank_max: Optional[int] = None, act_quant: bool = False, **unported):
+        # repro's mesh: refused unless left at its default
         refused = sorted(k for k, v in unported.items() if v is not None and v is not False)
         if refused:
             raise NotImplementedError(_NOT_PORTED.format(refused))
@@ -249,6 +266,14 @@ class SflLLM:
         # act_bits.  An explicit all-16 stays armed: fake_quant's exact
         # disarm returns the input bit for bit.
         self.precision = self.rt.precision
+        self.act_quant = bool(act_quant)
+        if act_quant:
+            warnings.warn(
+                "SflLLM(act_quant=True) is deprecated; use "
+                "Runtime(precision=PrecisionConfig(act_bits=8)) or the "
+                "act_bits kwarg instead", DeprecationWarning, stacklevel=2)
+            if act_bits is None and self.precision.act_bits >= 16:
+                act_bits = 8
         if act_bits is None:
             act_bits = self.precision.act_bits if self.precision.act_bits < 16 else None
         bits_k = None if act_bits is None else _per_client(act_bits, K, "act_bits")
@@ -543,7 +568,7 @@ class SflLLM:
 
     # ------------------------------------------------------------------
     def _aggregate(self, state: SflState, weights, part: Optional[torch.Tensor] = None,
-                   masks: Any = None) -> SflState:
+                   masks: Any = None, robust=None, ref: Any = None):
         """Federated-server round (eq. 7) under optional partial
         participation: the global adapter is the survivors' weighted
         average (``fedavg_partial``; slot-wise over each slot's owners for
@@ -551,23 +576,30 @@ class SflLLM:
         dropped client missed the whole round, broadcast included, and
         keeps its adapter bit for bit; if every client dropped, every
         client keeps its state.  ``masks``: this round's slot masks (None
-        = the trainer's)."""
+        = the trainer's).  ``robust`` (a ``RobustAggConfig``) swaps the
+        average for ``robust_aggregate`` and scores each client's update
+        against ``ref``, the round's starting adapters.  Returns (state,
+        scores or None)."""
         K = self.tc.num_clients
         masks = self._client_masks if masks is None else masks
-        global_c = fedavg_partial(state.lora_client, weights,
-                                  torch.ones(K, dtype=torch.float32) if part is None else part,
-                                  masks)
+        part_w = torch.ones(K, dtype=torch.float32) if part is None else part
+        scores = None
+        if robust is not None:
+            global_c, scores = robust_aggregate(state.lora_client, ref, weights, part_w,
+                                                masks, robust)
+        else:
+            global_c = fedavg_partial(state.lora_client, weights, part_w, masks)
         lc_k = broadcast_het(global_c, K, masks)
         if part is not None:
             pd = part.to(self.device)
             lc_k = tree_map(lambda n, o: torch.where(
                 pd.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o), lc_k, state.lora_client)
-        return dataclasses.replace(state, lora_client=lc_k)
+        return dataclasses.replace(state, lora_client=lc_k), scores
 
     def aggregate(self, state: SflState, sample_counts) -> SflState:
         """FedAvg client adapters + broadcast (eq. 7)."""
         return self._aggregate(state, torch.tensor(list(sample_counts),
-                                                   dtype=torch.float32))
+                                                   dtype=torch.float32))[0]
 
     def _participation_for(self, dyn: RoundDynamics, batches) -> Optional[torch.Tensor]:
         """The round's (K,) f32 mask on the host, or None (everyone).  An
@@ -608,11 +640,14 @@ class SflLLM:
         """One global round: the I local steps, FedAvg and broadcast.
         round_batches: tokens/labels (I, K, b, S).  ``dynamics``: this
         round's :class:`RoundDynamics` (participation / deadline dropout,
-        re-allocation).  Returns (state, metrics) with metrics["loss"] and
-        ["total"] of shape (I,), ["participation"] (K,), the resolved mask,
-        and ["rolled_back"].  If any floating leaf of the new state is not
-        finite, the whole round rolls back: the old state is returned
-        unchanged (as ``repro``'s ``tree_all_finite`` gate does)."""
+        re-allocation, corrupted uploads, robust aggregation, poison).
+        Returns (state, metrics) with metrics["loss"] and ["total"] of
+        shape (I,), ["participation"] (K,), the resolved mask,
+        ["rolled_back"] and, with ``robust``, ["anomaly_scores"]
+        ({"update_norm", "cos_dist"}, (K,) each).  If any floating leaf of
+        the new state is not finite, the whole round rolls back: the old
+        state is returned unchanged (as ``repro``'s ``tree_all_finite``
+        gate does)."""
         K = self.tc.num_clients
         batches = self._to_device(round_batches)
         weights = torch.tensor(list(sample_counts), dtype=torch.float32)
@@ -632,18 +667,32 @@ class SflLLM:
         state = self._ensure_err_state(
             state, *batches["tokens"].shape[-2:],
             armed_act=self._act_bits is not None or dyn.act_bits is not None)
+        # the round's starting (post-broadcast) adapters: the local steps
+        # build new tensors, so this stays the pre-round upload reference
+        ref = state.lora_client
         new, losses = state, []
         for i in range(batches["tokens"].shape[0]):
             new, m = self._step_impl(new, {k: v[i] for k, v in batches.items()}, cfg_dyn, part)
             losses.append(m["loss"])
-        new = self._aggregate(new, weights, part,
-                              None if cfg_dyn is None else cfg_dyn["slot_masks"])
+        if dyn.byzantine is not None:
+            # the corrupted radio payload; the optimizer moments stay the
+            # client's own
+            new = dataclasses.replace(new, lora_client=corrupt_updates(new.lora_client, ref,
+                                                                       dyn.byzantine))
+        new, scores = self._aggregate(new, weights, part,
+                                      None if cfg_dyn is None else cfg_dyn["slot_masks"],
+                                      dyn.robust, ref)
+        if dyn.poison is not None and float(dyn.poison) > 0:
+            new = dataclasses.replace(new, lora_server=tree_map(
+                lambda v: torch.full_like(v, float("nan")), new.lora_server))
         finite = bool(tree_all_finite([new.lora_client, new.lora_server, new.opt_client,
                                        new.opt_server, new.err_act, new.err_grad]))
         loss = torch.stack(losses)
         metrics = {"loss": loss, "total": loss,
                    "participation": torch.ones(K) if part is None else part,
                    "rolled_back": torch.tensor(not finite)}
+        if scores is not None:
+            metrics["anomaly_scores"] = scores
         return (new if finite else state), metrics
 
     def allocation_dynamics(self, ell_k, rank_k, bits_k=None) -> Dict[str, Any]:

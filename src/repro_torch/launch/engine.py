@@ -10,8 +10,10 @@ measured wall clock so a run reports both "what the hardware did" and
 "what the paper's network would take" (``allocation_round_latency``
 turns an allocator decision into that clock).  ``WirelessDynamics``
 makes the episode time-varying: block fading, deadline dropout, outages
-with HARQ, and drift-triggered re-allocation, each round's numbers
-entering ``SflLLM.train_round`` as a ``core.sfl.RoundDynamics``.
+with HARQ, drift-triggered re-allocation, and the trust boundary's
+defense (robust aggregation with a reputation quarantine) and fault hooks
+(poison, Byzantine uploads), each round's numbers entering
+``SflLLM.train_round`` as a ``core.sfl.RoundDynamics``.
 
 Trainers plug in through adapters exposing
 ``run_round(state, round_batches) -> (state, metrics)`` where
@@ -35,9 +37,6 @@ from ..core.latency import client_round_seconds_host
 from ..data.pipeline import stack_rounds
 from ..interop import (lora_from_numpy, lora_to_numpy, sfl_state_from_numpy,
                        sfl_state_to_numpy, to_numpy, to_tensor)
-
-_ITEM6 = ("{} belong(s) to fault injection and robust aggregation, which are not "
-          "ported yet (ROADMAP.md, Open items, item 6)")
 
 
 class SflRound:
@@ -166,11 +165,21 @@ class WirelessDynamics:
     = static allocation), ``max_sweeps``, ``rng`` (fading),
     ``outage_snr_db``, ``max_harq``, ``outage_rng``.
 
-    Not ported (``ROADMAP.md``, Open items, item 6): ``defense`` (robust
-    aggregation and quarantine) raises, and so does a round with the fault
-    hooks ``poison_next`` or ``byzantine_ops`` set.  The cursor keeps
-    ``repro``'s keys (``"defense"`` is None) so cursors cross between the
-    packages.
+    Byzantine robustness (``defense``, a ``core.defense.DefenseConfig``):
+    every round runs ``robust_aggregate`` and returns per-client anomaly
+    scores; a ``ReputationTracker`` EWMAs them (``observe_scores``, called
+    by ``Trainer.fit``) and quarantines a client flagged again and again
+    for Q rounds by zeroing its participation, multiplied with the
+    deadline and outage masks.  Disarmed knobs (clip inf, trim 0, no
+    median) give the defense-free rounds bit for bit.
+
+    Fault hooks (``faults.TrainingFaults`` drives them): ``poison_next``
+    (None, or a bool: True NaNs the next round's aggregated server adapter
+    and disarms itself after that round) and ``byzantine_ops`` (None, or
+    a host dict of per-client corruption operands plus a seed, which
+    becomes the round's ``core.defense.ByzantineOps`` with the round
+    index).  The cursor has ``repro``'s keys, the tracker's state under
+    ``"defense"``, so cursors cross between the packages.
     """
 
     def __init__(self, prob, alloc, sfl, *, fade_std_db: float = 4.0,
@@ -180,8 +189,6 @@ class WirelessDynamics:
                  max_sweeps: int = 2, rng=0,
                  outage_snr_db: Optional[float] = None, max_harq: int = 4,
                  outage_rng=0, defense=None):
-        if defense is not None:
-            raise NotImplementedError("WirelessDynamics: " + _ITEM6.format("defense="))
         from ..core.channel import FadingProcess
         from ..core.latency import workload_tables
         from ..core.resource import as_hetero, total_delay
@@ -200,10 +207,15 @@ class WirelessDynamics:
         self.max_harq = int(max_harq)
         self.outage_rng = (np.random.default_rng(outage_rng)
                            if isinstance(outage_rng, int) else outage_rng)
-        self.outage_override = None     # host-side per-round p override
-        self.poison_next = None         # fault hooks: not ported
-        self.byzantine_ops = None
-        self._round_idx = 0
+        self.outage_override = None     # faults: per-round p override
+        self.poison_next: Optional[bool] = None   # faults: NaN poke
+        self.byzantine_ops = None       # faults: corruption operands
+        self._round_idx = 0             # the corruption noise's round index
+        self.defense = defense
+        self.tracker = None
+        if defense is not None:
+            from ..core.defense import ReputationTracker
+            self.tracker = ReputationTracker(len(prob.envs), defense)
         if drift_threshold is not None:
             # fail fast: a re-allocation may pick any (ell, rank) of prob's
             # search space, so the trainer's envelope must hold all of it
@@ -254,9 +266,6 @@ class WirelessDynamics:
         from ..core.resource import bcd_minimize_delay_per_client
         from ..core.sfl import RoundDynamics
 
-        if self.poison_next is not None or self.byzantine_ops is not None:
-            raise NotImplementedError("WirelessDynamics: "
-                                      + _ITEM6.format("poison_next / byzantine_ops"))
         envs_r = self.fading.step()
         # with_envs keeps the channel-independent workload caches warm
         prob_r = self.prob.with_envs(envs_r)
@@ -305,18 +314,37 @@ class WirelessDynamics:
             survival = (~hard).astype(np.float32)
             info["hard_outages"] = hard.astype(int).tolist()
 
+        # the reputation tracker's quarantine mask multiplies with the other
+        # dropout sources
+        qmask = None
+        if self.tracker is not None:
+            qmask = self.tracker.mask().astype(np.float32)
+            info["quarantined"] = (1 - qmask).astype(int).tolist()
+
         # the round's mask, computed once here and handed to the trainer as
         # its explicit participation, so the history records the mask the
         # round applied (the f32 compare of SflLLM's deadline mask)
-        gated = self.deadline_s is not None or survival is not None
+        gated = self.deadline_s is not None or survival is not None or qmask is not None
         part = np.ones(len(envs_r), np.float32)
         if self.deadline_s is not None:
             t_k = self._client_seconds(envs_r, retx_m, retx_f)
             part = (t_k <= np.float32(self.deadline_s)).astype(np.float32)
         if survival is not None:
             part = part * survival      # straggler AND outage
+        if qmask is not None:
+            part = part * qmask         # AND not quarantined
         info["participation"] = part.astype(int).tolist()
         info["round_seconds"] = self._round_seconds(envs_r, rates_m, rates_f, part)
+
+        # the poison hook fires once per arm, then disarms itself
+        poison = None
+        if self.poison_next is not None:
+            poison = torch.tensor(1.0 if self.poison_next else 0.0)
+            self.poison_next = False
+        byz = None
+        if self.byzantine_ops is not None:
+            from ..core.defense import byzantine_ops_arrays
+            byz = byzantine_ops_arrays(self.byzantine_ops, self._round_idx)
         self._round_idx += 1
 
         f32 = lambda v: None if v is None else torch.as_tensor(  # noqa: E731
@@ -326,8 +354,18 @@ class WirelessDynamics:
             f_hz=f32([e.f_hz for e in envs_r]), kappa=f32([e.kappa for e in envs_r]),
             retx_main=f32(retx_m), retx_fed=f32(retx_f),
             participation=f32(part) if gated else None,
+            poison=poison, byzantine=byz,
+            robust=None if self.defense is None else self.defense.robust_config(),
             **self._cfg_arrays)
         return dyn, info
+
+    def observe_scores(self, scores: Dict[str, Any], participation) -> None:
+        """Feed one round's anomaly scores to the reputation tracker (a
+        no-op without a defense).  ``participation`` is the round's applied
+        (K,) mask: non-participants never update their reputation."""
+        if self.tracker is None:
+            return
+        self.tracker.observe(scores["update_norm"], scores["cos_dist"], participation)
 
     def _round_seconds(self, envs, rates_m, rates_f, part) -> float:
         """Modeled wall clock of this round: the survivors' eq. 16-17 terms
@@ -350,9 +388,11 @@ class WirelessDynamics:
     def cursor(self) -> dict:
         """JSON-able snapshot of the episode's host state: the RNG cursors,
         the current (possibly re-allocated) allocation, the drift reference
-        delay and the (possibly re-based) deadline — ``repro``'s keys.
-        Restoring it makes the resumed rounds bit-identical to an
-        uninterrupted run; ``outage_override`` is transient and not kept."""
+        delay, the (possibly re-based) deadline, the round index and the
+        reputation tracker's ledger — ``repro``'s keys.  Restoring it makes
+        the resumed rounds bit-identical to an uninterrupted run; the fault
+        hooks (``outage_override``, ``poison_next``, ``byzantine_ops``) are
+        transient and not kept."""
         a = self.alloc
         return {
             "fading": self.fading.get_state(),
@@ -360,7 +400,7 @@ class WirelessDynamics:
             "ref_delay": float(self.ref_delay),
             "deadline_s": None if self.deadline_s is None else float(self.deadline_s),
             "round_idx": int(self._round_idx),
-            "defense": None,
+            "defense": None if self.tracker is None else self.tracker.state(),
             "alloc": {
                 "assign_main": np.asarray(a.assign_main).tolist(),
                 "assign_fed": np.asarray(a.assign_fed).tolist(),
@@ -378,14 +418,13 @@ class WirelessDynamics:
 
     def restore_cursor(self, c: dict) -> None:
         from ..core.resource import HeteroAllocation
-        if c.get("defense") is not None:
-            raise NotImplementedError("WirelessDynamics: the cursor's defense state "
-                                      + _ITEM6.format("(quarantine resume)"))
         self.fading.set_state(c["fading"])
         self.outage_rng.bit_generator.state = c["outage_rng"]
         self.ref_delay = float(c["ref_delay"])
         self.deadline_s = None if c["deadline_s"] is None else float(c["deadline_s"])
         self._round_idx = int(c.get("round_idx", 0))
+        if self.tracker is not None and c.get("defense") is not None:
+            self.tracker.load_state(c["defense"])
         a = c["alloc"]
         self.alloc = HeteroAllocation(
             assign_main=np.asarray(a["assign_main"], int),
@@ -415,8 +454,8 @@ class TrainHistory:
     realloc_rounds: List[int] = field(default_factory=list)
     modeled_delays: List[float] = field(default_factory=list)  # total T per round
     rolled_back_rounds: List[int] = field(default_factory=list)  # divergence
-    # repro's robust-aggregation history: empty here (not ported), kept so
-    # episode files carry the same fields
+    # robust aggregation: per-round {"update_norm", "cos_dist"} host lists
+    # and the quarantine mask
     anomaly_scores: List[Dict[str, List[float]]] = field(default_factory=list)
     quarantined: List[List[int]] = field(default_factory=list)
     round_seconds: List[float] = field(default_factory=list)  # measured, per round
@@ -505,6 +544,16 @@ class Trainer:
             rb = metrics.get("rolled_back") if isinstance(metrics, dict) else None
             if rb is not None and bool(rb):
                 history.rolled_back_rounds.append(e)
+            scores = metrics.get("anomaly_scores") if isinstance(metrics, dict) else None
+            if scores is not None:
+                s_host = {k: np.asarray(torch.as_tensor(v).cpu(), np.float64).tolist()
+                          for k, v in scores.items()}
+                history.anomaly_scores.append(s_host)
+                if info is not None:
+                    # this round's scores shape the next round's quarantine
+                    self.dynamics.observe_scores(s_host, info["participation"])
+            if info is not None and "quarantined" in info:
+                history.quarantined.append(info["quarantined"])
             if info is not None:
                 history.modeled_seconds += info["round_seconds"]
                 history.participation.append(info["participation"])

@@ -7,7 +7,11 @@ serves N tenants' adapters from one paged engine through an
 ``AdapterRegistry`` of ``--adapter-pool`` slots.  Mamba2 always takes the
 slab engine (its recurrent state is not paged), so the engine refuses
 ``--adapters`` for it, as ``repro``'s does.  ``--lora-checkpoint PATH``
-serves a saved adapter (``restore_lora``) in place of the seeded one:
+serves a saved adapter (``restore_lora``) in place of the seeded one.
+``--deadline-steps N`` caps each request's decode steps per residency
+(preempted and recomputed past it) and ``--preempt`` lets the paged
+engine evict a lower-priority request under page pressure; greedy ids are
+the same with and without them:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-s --reduced \
       --device cpu --checkpoint "$TMPDIR/ck.msgpack"
@@ -17,6 +21,8 @@ serves a saved adapter (``restore_lora``) in place of the seeded one:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
       --device cpu --requests 8 --slots 4 --gen 8 [--slab | --naive]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
+      --device cpu --requests 8 --slots 4 --gen 8 --preempt --deadline-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-s --reduced \
       --device cpu --adapters 5 --adapter-pool 4 --tenant-trace zipf --tenant-quota 1
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --reduced \
@@ -48,6 +54,13 @@ def main(argv=None) -> None:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV page pool size (0 = slab-equivalent capacity)")
+    ap.add_argument("--deadline-steps", type=int, default=0,
+                    help="per-request decode-step residency budget; a request over it "
+                         "is preempted and requeued for prefix recompute (0 = none; "
+                         "paged engine only)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="under page pressure, evict the lowest-priority resident "
+                         "instead of queueing new work (paged engine only)")
     ap.add_argument("--adapters", type=int, default=0,
                     help="serve N distinct tenant adapters from ONE engine "
                          "(multi-tenant; paged engine only; 0 = single shared adapter)")
@@ -104,8 +117,11 @@ def main(argv=None) -> None:
                         tenant_quota=args.tenant_quota, max_slots=args.slots,
                         max_len=args.max_len, sc=sc, seed=args.seed,
                         fused=not args.naive, paged=paged, page_size=args.page_size,
-                        num_pages=args.num_pages or None,
+                        num_pages=args.num_pages or None, preempt=args.preempt,
                         device=args.device, dtype=dtype)
+    if (args.deadline_steps or args.preempt) and not eng.paged:
+        raise SystemExit("--deadline-steps/--preempt need the paged engine "
+                         "(drop --slab/--naive)")
 
     rng = np.random.default_rng(args.seed)
 
@@ -119,7 +135,8 @@ def main(argv=None) -> None:
     reqs = [Request(uid=i,
                     prompt=rng.integers(5, cfg.vocab_size,
                                         rng.integers(4, args.prompt_len + 1)).tolist(),
-                    max_new_tokens=args.gen, tenant=tenant_of(i))
+                    max_new_tokens=args.gen, deadline_steps=args.deadline_steps or None,
+                    tenant=tenant_of(i))
             for i in range(args.requests)]
     if eng.device.type == "cuda":
         from ..kernels import build
@@ -152,6 +169,11 @@ def main(argv=None) -> None:
           f"({total / wall:.1f} tok/s) on {dev} with {args.slots} slots, "
           f"{steps} engine steps, {eng.prefill_compiles()} prefill compiles "
           f"({mode} engine, {args.dtype})")
+    if eng.paged and (args.deadline_steps or args.preempt):
+        print(f"fault stats: {eng.stats['preemptions']} preemptions "
+              f"({eng.stats['deadline_preemptions']} deadline), "
+              f"{eng.stats['recomputed_tokens']} tokens recomputed, "
+              f"{eng.stats['quarantined']} quarantined")
     if registry is not None:
         tt = eng.stats["tenant_tokens"]
         dist = " ".join(f"t{t}:{tt[t]}" for t in sorted(tt))

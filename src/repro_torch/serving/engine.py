@@ -46,8 +46,27 @@ slot's adapter by its pool index (``adapter_idx=self._aslot``: the gather
 kernel on the card).  Sampling streams carry the tenant, and
 ``tenant_quota`` caps a tenant's live slots.
 
-Not ported yet (see ROADMAP.md): preemption and residency deadlines, and
-the NaN quarantine.
+FAILURE HANDLING (paged engine only; the slab and naive paths are left as
+they are, as in ``repro``): the decode step also takes per-slot eviction
+flags, a per-slot residency deadline and a NaN-injection mask —
+
+* preemption: under page pressure (``preempt=True``) the host flags a
+  live victim of strictly lower priority than the stalled queue head; a
+  victim (or a slot past its ``deadline_steps``) frees its pages in the
+  step, before the page allocation, still runs through the batched decode
+  against its zeroed block-table row (its KV write lands in the null
+  page), is not sampled, and requeues for a chunked prefill of its prompt
+  plus its delivered tokens, which resumes its own sampling stream — with
+  greedy sampling the finished output equals an unpreempted run's;
+* NaN/inf sentinel: a slot whose logits are not finite (a blow-up, or an
+  injected poke) is quarantined — its pages freed, ``Request.error`` set
+  — and the sampler sees zeros in its row, never the NaNs;
+* ``check_consistency()`` audits the host reservation mirror against the
+  pager when the engine drains and resyncs it (``stats["resyncs"]``).
+
+All-false fault masks leave every token id as it was, and the step's
+next tokens, done, victim and quarantine flags come back in one host
+read.  ``faults.ServingFaults`` drives these hooks.
 """
 from __future__ import annotations
 
@@ -57,6 +76,7 @@ import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..interop import tree_to
@@ -83,10 +103,14 @@ class Request:
     prompt: List[int]
     max_new_tokens: int = 32
     eos_id: int = -1
+    priority: int = 0              # preemption: lower loses its slot first
+    deadline_steps: Optional[int] = None   # max decode steps per residency
     tenant: int = 0                # adapter owner (multi-tenant serving)
     # filled by the engine
     output: List[int] = field(default_factory=list)
     done: bool = False
+    preempted: int = 0             # times evicted and requeued
+    error: Optional[str] = None    # quarantine reason (non-finite logits)
 
 
 def bucket_len(n: int, max_len: int) -> int:
@@ -116,8 +140,9 @@ class ServingEngine:
     ``adapters`` (an ``AdapterRegistry`` on the engine's device) serves
     many tenants' adapters instead of ``lora``; it needs the paged engine
     and ``pool_size >= max_slots``.  ``tenant_quota`` caps each tenant's
-    live slots (0 = no cap; only with ``adapters``).
-    ``device="cuda"`` without a card raises."""
+    live slots (0 = no cap; only with ``adapters``).  ``preempt=True``
+    (paged) lets a stalled higher-priority request evict a lower-priority
+    one.  ``device="cuda"`` without a card raises."""
 
     def __init__(self, cfg, params, *, lora=None, rt: Optional[Runtime] = None,
                  max_slots: int = 4, max_len: int = 256,
@@ -125,7 +150,7 @@ class ServingEngine:
                  fused: bool = True, prefill_buckets: bool = True,
                  paged: Optional[bool] = None, page_size: int = 16,
                  num_pages: Optional[int] = None, device="cuda", dtype=torch.float32,
-                 adapters=None, tenant_quota: int = 0):
+                 adapters=None, tenant_quota: int = 0, preempt: bool = False):
         attn_only = all(p.mixer == "attention" for p in cfg.pattern)
         paged_ok = fused and attn_only and not cfg.attn_window
         if paged is None:
@@ -184,6 +209,16 @@ class ServingEngine:
         # the port seeds each stream on the host from Request.tenant)
         self._aslot = torch.zeros(B, **i32)
         self._tenant = torch.zeros(B, **i32)
+        # failure handling (paged): per-slot decode-step age against the
+        # request's residency deadline (-1: none), and host-set eviction,
+        # requeue-behind-the-head and NaN-injection flags, cleared each step
+        self.preempt = preempt
+        self._age = torch.zeros(B, **i32)
+        self._deadline = torch.full((B,), -1, **i32)
+        self._no_flags = torch.zeros(B, dtype=torch.bool, device=dev)
+        self._evict_req = np.zeros(B, bool)
+        self._evict_behind = np.zeros(B, bool)
+        self._nan_poke = np.zeros(B, bool)
         self.reset_stats()
         if paged:
             self.page_size = page_size
@@ -212,10 +247,14 @@ class ServingEngine:
         """Zero the counters.  Times are host-clock seconds around work that
         ends in a host read of its result (so the device work is inside the
         interval); ``tenant_tokens`` counts delivered tokens per tenant and
-        ``adapter_swaps`` the registry's adapter loads (multi-tenant)."""
+        ``adapter_swaps`` the registry's adapter loads (multi-tenant);
+        ``preemptions`` (``deadline_preemptions`` of them by a residency
+        deadline), ``quarantined``, ``recomputed_tokens`` (prefix tokens
+        prefilled again) and ``resyncs`` count the failure handling."""
         self.stats = {"decode_steps": 0, "prefill_chunks": 0, "prefills": 0,
                       "decode_s": 0.0, "prefill_s": 0.0, "tenant_tokens": {},
-                      "adapter_swaps": 0}
+                      "adapter_swaps": 0, "preemptions": 0, "deadline_preemptions": 0,
+                      "quarantined": 0, "recomputed_tokens": 0, "resyncs": 0}
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -247,8 +286,9 @@ class ServingEngine:
         """Audit the host reservation mirror against the on-device free
         list: free + reserved must equal the pool, and the allocator can
         never have handed out more pages than were reserved.  On drift
-        warn and rebuild the mirror from the live slots.  Returns True
-        when the mirror was consistent (always, for the slab engine)."""
+        warn, rebuild the mirror from the live slots and count a resync.
+        Returns True when the mirror was consistent (always, for the slab
+        engine)."""
         if not self.paged:
             return True
         used = self.pages_in_use()
@@ -262,6 +302,7 @@ class ServingEngine:
             self._reserved = [self._worst_pages(r) if r is not None else 0
                               for r in self.slots]
             self._free_host = self.num_pages - 1 - sum(self._reserved)
+            self.stats["resyncs"] += 1
         return ok
 
     def _worst_pages(self, req: Request) -> int:
@@ -287,7 +328,8 @@ class ServingEngine:
         self._reserved[s] = 0
 
     def _claim(self, s: int, req: Request, tok: int, P: int) -> None:
-        """Slot ``s`` decodes ``req`` from position P after token ``tok``."""
+        """Slot ``s`` decodes ``req`` from position P after token ``tok``
+        (its ``len(req.output)``-th token)."""
         self.slots[s] = req
         if not self.fused:
             self._np_last[s], self._np_pos[s] = tok, P
@@ -295,22 +337,31 @@ class ServingEngine:
         self._last[s] = tok
         self._positions[s] = P
         self._live[s] = True
-        self._ngen[s] = 1
+        self._ngen[s] = len(req.output)
         self._maxnew[s] = req.max_new_tokens
         self._eos[s] = req.eos_id
+        if self.paged:
+            self._age[s] = 0
+            self._deadline[s] = -1 if req.deadline_steps is None else int(req.deadline_steps)
 
     # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
     def _admit_one_paged(self, s: int, req: Request) -> bool:
-        """Stream ``req``'s prompt through the chunk step (one page per
-        chunk), sample token 0 and claim slot ``s``.  The caller has
-        reserved ``_worst_pages(req)``.  Under multi-tenant serving the
-        request's adapter is acquired first (the live slots' tenants
-        pinned) and every chunk runs with it sliced out of the pool.
-        Returns False when the request finished on this first token (pages
-        released, slot stays free)."""
-        P, PS, dev = len(req.prompt), self.page_size, self.device
+        """Stream ``req``'s prefix through the chunk step (one page per
+        chunk), sample its next token and claim slot ``s``.  The caller
+        has reserved ``_worst_pages(req)``.  The prefix is the prompt plus
+        the tokens already delivered: a preempted request prefills all it
+        had (its delivered tokens are kept, never sampled again) and
+        samples token ``len(req.output)`` from its own stream.  Under
+        multi-tenant serving the request's adapter is acquired first (the
+        live slots' tenants pinned) and every chunk runs with it sliced
+        out of the pool.  Returns False when the request finished on this
+        token (pages released, slot stays free)."""
+        prefix = list(req.prompt) + list(req.output)
+        P, PS, dev = len(prefix), self.page_size, self.device
+        if req.preempted:
+            self.stats["recomputed_tokens"] += P
         t0 = time.perf_counter()
         lora, aslot = self.lora, None
         if self.adapters is not None:
@@ -324,7 +375,7 @@ class ServingEngine:
         logits = None
         for start in range(0, P, PS):
             m = min(PS, P - start)
-            chunk = req.prompt[start:start + m] + [0] * (PS - m)
+            chunk = prefix[start:start + m] + [0] * (PS - m)
             tokens = torch.tensor([chunk], dtype=torch.int32, device=dev)
             self._pager, newp, _ = paging.alloc_pages(self._pager, one)
             self._bt[s, start // PS] = newp[0]
@@ -404,6 +455,20 @@ class ServingEngine:
         self._claim(s, req, tok, P)
         return True
 
+    def _request_preempt(self, head: Request) -> None:
+        """Page pressure: flag a live victim of strictly lower priority
+        than the stalled queue head (strictness prevents same-priority
+        livelock) for eviction in the next step.  Ties: the victim holding
+        the most pages, then the lowest slot.  The victim requeues behind
+        the head it yields to, or the two would evict each other forever."""
+        cand = [s for s, r in enumerate(self.slots)
+                if r is not None and r.priority < head.priority and not self._evict_req[s]]
+        if not cand:
+            return
+        victim = min(cand, key=lambda s: (self.slots[s].priority, -self._reserved[s], s))
+        self._evict_req[victim] = True
+        self._evict_behind[victim] = True
+
     def _admissible_index(self) -> int:
         """Index of the first queued request whose tenant is under
         ``tenant_quota`` live slots (-1 if none): one chatty tenant's
@@ -435,7 +500,11 @@ class ServingEngine:
                     continue
                 worst = self._worst_pages(self.queue[0])
                 if worst > self._free_host:
-                    return          # FIFO backpressure: wait for pages
+                    # FIFO backpressure: wait for pages; with preempt=True
+                    # also evict a lower-priority slot so they free sooner
+                    if self.preempt:
+                        self._request_preempt(self.queue[0])
+                    return
                 self._free_host -= worst
                 self._reserved[s] = worst
                 if self._admit_one_paged(s, self.queue.popleft()):
@@ -460,13 +529,29 @@ class ServingEngine:
     def _streams(self):
         return [None if r is None else self._stream(r) for r in self.slots]
 
-    def _decode_paged(self):
-        """Page alloc + decode + sample + bookkeeping + page free for all
-        slots, as tensor code.  Returns (next tokens, done) on device."""
+    def _flags(self, host: np.ndarray) -> torch.Tensor:
+        """A host flag vector on the device; all false (the usual case)
+        reuses a device tensor, so a fault-free step copies nothing."""
+        if not host.any():
+            return self._no_flags
+        return torch.from_numpy(host.copy()).to(self.device)
+
+    def _decode_paged(self, evict: np.ndarray, poke: np.ndarray):
+        """Preempt + page alloc + decode + NaN sentinel + sample +
+        bookkeeping + page free for all slots, as tensor code, in
+        ``repro``'s order.  Returns (next tokens, done, victim, bad) on
+        device."""
         PS, MP = self.page_size, self.max_pages
         live, positions = self._live, self._positions
-        # a live slot about to write at a page boundary needs a fresh page
-        need = live & (positions % PS == 0)
+        # a slot the host flagged, or past its residency deadline, gives
+        # its pages back first; it still decodes (against the null page)
+        # but is neither sampled nor advanced
+        victim = live & (self._flags(evict)
+                         | ((self._deadline >= 0) & (self._age >= self._deadline)))
+        self._pager, self._bt = paging.free_pages(self._pager, self._bt, victim)
+        ok = live & ~victim
+        # a slot about to write at a page boundary needs a fresh page
+        need = ok & (positions % PS == 0)
         self._pager, newp, _ = paging.alloc_pages(self._pager, need)
         page_idx = torch.clamp(positions // PS, max=MP - 1).long()
         cur = self._bt[self._bidx, page_idx]
@@ -476,10 +561,19 @@ class ServingEngine:
             self.cfg, self.params, self._last[:, None], self.caches, self._bt,
             positions, lora=self.adapters.pool if mt else self.lora, rt=self.rt,
             adapter_idx=self._aslot if mt else None)
-        nxt = sample_logits_per_key(logits, self._streams(), self.sc, self.seed)
-        nxt, done = self._finish(nxt, live, positions)
-        self._pager, self._bt = paging.free_pages(self._pager, self._bt, done)
-        return nxt, done
+        # the NaN/inf sentinel: a non-finite row quarantines its slot, and
+        # the sampler sees zeros there, never NaN
+        if poke.any():
+            logits = logits.masked_fill(self._flags(poke)[:, None], float("nan"))
+        finite = torch.isfinite(logits).all(dim=-1)
+        bad = ok & ~finite
+        ok = ok & finite
+        safe = torch.where(finite[:, None], logits, torch.zeros_like(logits))
+        nxt = sample_logits_per_key(safe, self._streams(), self.sc, self.seed)
+        nxt, done = self._finish(nxt, ok, positions)
+        self._pager, self._bt = paging.free_pages(self._pager, self._bt, done | bad)
+        self._age = torch.where(self._live, self._age + 1, torch.zeros_like(self._age))
+        return nxt, done, victim, bad
 
     def _decode_slab(self):
         """Decode every slot at its own position over the slab caches
@@ -532,12 +626,44 @@ class ServingEngine:
             self.stats["decode_s"] += time.perf_counter() - t0
             self.stats["decode_steps"] += 1
             return len(live)
-        nxt, done = self._decode_paged() if self.paged else self._decode_slab()
-        nxt_h, done_h = nxt.tolist(), done.tolist()      # the step's one host read
+        if self.paged:
+            evict, behind = self._evict_req.copy(), self._evict_behind.copy()
+            out = self._decode_paged(evict, self._nan_poke.copy())
+            self._evict_req[:] = False
+            self._evict_behind[:] = False
+            self._nan_poke[:] = False
+        else:
+            out = self._decode_slab()
+        # the step's one host read: next tokens and flags in one transfer
+        host = torch.stack([t.to(torch.int32) for t in out]).tolist()
+        nxt_h, done_h = host[0], host[1]
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1
+        front: List[Request] = []
         for s in live:
             req = self.slots[s]
+            if self.paged and host[2][s]:
+                # preempted: its pages went back this step; it requeues for
+                # a prefill of its prefix (delivered tokens kept)
+                req.preempted += 1
+                self.slots[s] = None
+                self._release(s)
+                self.stats["preemptions"] += 1
+                if not evict[s]:
+                    self.stats["deadline_preemptions"] += 1
+                if behind[s] and self.queue:
+                    self.queue.insert(1, req)   # behind the head it yielded to
+                else:
+                    front.append(req)
+                continue
+            if self.paged and host[3][s]:
+                # quarantined: non-finite logits fail the request
+                req.error = "non-finite logits"
+                req.done = True
+                self.slots[s] = None
+                self._release(s)
+                self.stats["quarantined"] += 1
+                continue
             req.output.append(nxt_h[s])
             self._note_token(req)
             if done_h[s]:
@@ -546,6 +672,8 @@ class ServingEngine:
                 if self.paged:
                     # pages went back on the device this same step
                     self._release(s)
+        for req in reversed(front):      # oldest work back to the front
+            self.queue.appendleft(req)
         return len(live)
 
     def run(self, max_steps: int = 10_000) -> None:

@@ -6,6 +6,7 @@ centralized baseline through ``Trainer``, the allocator and delay model,
 the data pipeline, and the ``launch.train`` CLI end to end.  Tolerances: f32 1e-5 per function,
 1e-4 where a whole model sits in between."""
 import argparse
+import dataclasses
 
 import numpy as np
 import pytest
@@ -434,22 +435,28 @@ def test_sfl_train_matches_repro(capsys):
 
 
 def test_sfl_refuses_what_is_not_ported():
-    """The mesh and the act_quant shim are not ported, nor are the fault
-    and robust fields of RoundDynamics (poison, robust, byzantine) and
-    WirelessDynamics' defense: each raises, naming the roadmap.  (The
-    capacity envelope, dynamic allocation and RoundDynamics are ported.)"""
+    """The mesh is not ported: it raises, naming the roadmap.  Everything
+    else this test once refused is ported now and must be accepted: the
+    deprecated act_quant shim (it warns), the fault and robust fields of
+    RoundDynamics (poison, robust, byzantine) and WirelessDynamics'
+    defense, as are the capacity envelope and dynamic allocation."""
+    from repro_torch.configs import DEFAULT_SYSTEM
+    from repro_torch.core import Problem, bcd_minimize_delay_per_client, sample_clients
+    from repro_torch.core.defense import ByzantineOps, DefenseConfig
     from repro_torch.core.resource import Allocation, HeteroAllocation
     from repro_torch.core.sfl import RoundDynamics
     from repro_torch.launch.engine import WirelessDynamics
     _, tcfg = _cfgs(layers=2)
     tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     tc = TTrainConfig(num_clients=2, batch_size=1, local_steps=1)
-    for kw in (dict(mesh=object()), dict(act_quant=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", **kw)
-    for field in ("poison", "robust", "byzantine"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RoundDynamics(**{field: torch.zeros(())})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", mesh=object())
+    with pytest.warns(DeprecationWarning, match="act_quant"):
+        assert SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu",
+                      act_quant=True).act_bits_k == (8, 8)
+    dyn = RoundDynamics(poison=torch.zeros(()), robust=tagg.RobustAggConfig.make(trim=1),
+                        byzantine=ByzantineOps.benign(2))
+    assert dyn.robust.armed and not dyn.byzantine.armed().any()
     sfl = SflLLM(tcfg, tp, (1, 1), tc, t_sgd(0.1), device="cpu", ranks=(2, 4), act_bits=8,
                  ell_range=(1, 1), rank_max=8)
     assert sfl.r_max == 8 and sfl.hetero
@@ -458,8 +465,58 @@ def test_sfl_refuses_what_is_not_ported():
     assert SflLLM.from_allocation(prob, alloc, tp, t_sgd(0.1), device="cpu").ell_k == (1, 1)
     hal = HeteroAllocation(np.zeros(2, int), np.zeros(2, int), np.ones(2), np.ones(2), 1, 4,
                            ell_k=np.array([1, 1]), rank_k=np.array([2, 4]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WirelessDynamics(prob, hal, sfl, defense=object())
+    assert SflLLM.from_allocation(prob, hal, tp, t_sgd(0.1), device="cpu").rank_k == (2, 4)
+    sys2 = dataclasses.replace(DEFAULT_SYSTEM, num_clients=2)
+    real = Problem(cfg=tcfg, sys_cfg=sys2, envs=tuple(sample_clients(sys2, 0)), seq_len=8,
+                   batch=1, local_steps=1, rank_candidates=(1, 2))
+    ral, _ = bcd_minimize_delay_per_client(real)
+    wd = WirelessDynamics(real, ral, SflLLM.from_allocation(real, ral, tp, t_sgd(0.1),
+                                                            device="cpu"),
+                          deadline_s=1e9, defense=DefenseConfig())
+    assert wd.tracker is not None and wd.cursor()["defense"]["total_quarantines"] == 0
+    dyn, info = wd.round_dynamics()
+    assert info["quarantined"] == [0, 0] and dyn.robust is not None
+
+
+def test_quantize_activations_matches_repro():
+    """The standalone per-token int8 quantizer (repro's legacy helper):
+    values equal repro's, the all-zero row stays finite, and the backward
+    is the identity (straight-through)."""
+    from repro.core.sfl import quantize_activations as j_quant
+    from repro_torch.core.sfl import quantize_activations
+    rng = np.random.default_rng(3)
+    s = (rng.normal(size=(2, 5, 16)) * rng.uniform(0.1, 10, (2, 5, 1))).astype(np.float32)
+    s[1, 2] = 0.0
+    got = quantize_activations(torch.from_numpy(s))
+    want = np.asarray(j_quant(jnp.asarray(s)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+    assert torch.isfinite(got).all() and not got[1, 2].any()
+    levels = got / (torch.from_numpy(np.abs(s)).amax(-1, keepdim=True) / 127).clamp_min(1e-8)
+    assert torch.allclose(levels, levels.round(), atol=1e-3)
+    x = torch.from_numpy(s).requires_grad_()
+    quantize_activations(x).sum().backward()
+    assert torch.equal(x.grad, torch.ones_like(x))
+
+
+def test_act_quant_shim_equals_act_bits_8():
+    """SflLLM(act_quant=True) warns and trains exactly as act_bits=8, as
+    repro's shim does; an explicit act_bits wins over it."""
+    _, tcfg = _cfgs(layers=2)
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    tc = TTrainConfig(num_clients=2, batch_size=1, local_steps=1)
+    with pytest.warns(DeprecationWarning):
+        shim = SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", act_quant=True)
+    with pytest.warns(DeprecationWarning):
+        assert SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", act_quant=True,
+                      act_bits=4).act_bits_k == (4, 4)
+    plain = SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", act_bits=8)
+    lora = TM.init_lora_stack(tcfg, torch.Generator().manual_seed(1), device="cpu")
+    tokens = np.random.default_rng(0).integers(0, tcfg.vocab_size, (1, 2, 1, 8))
+    rb = {"tokens": tokens, "labels": tokens.copy()}
+    outs = [s_.train_round(s_.init_state(lora), rb, [1.0, 1.0]) for s_ in (shim, plain)]
+    assert torch.equal(outs[0][1]["loss"], outs[1][1]["loss"])
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(outs[0][0].lora_server),
+                                                 tree_leaves(outs[1][0].lora_server)))
 
 
 def test_sfl_on_cuda_raises_without_a_card():
