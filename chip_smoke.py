@@ -186,6 +186,28 @@ Phases (each prints its own lines; any failure exits non-zero):
     fresh trainer must end bit-equal to the uninterrupted run (state,
     histories, tracker, cursor).  Per-round ``update_norm``, ``cos_dist``
     and quarantine rows are printed.
+15. the dense RoPE family and the MoE FFN at full width and full depth
+    (f32, weights drawn on the card from seeded CUDA generators, rank-4
+    q/v adapters with B != 0; each model freed before the next is built):
+    (a) yi-9b (48 layers, d 4096, 32 heads over 4 KV heads of 128) through
+    the paged engine on phase 5's 16 requests, (b) olmoe-1b-7b (16 layers,
+    d 2048, 64 experts of 1024, top-8) through the paged and the slab
+    engines and one SFL round through ``launch.train.run`` (3 clients x 4 x
+    64 tokens, 6 local steps, split 8, AdamW 4e-4; the server's aux loss
+    per step, finite and > 0), (c) minicpm-2b (40 layers,
+    d 2304, 36 heads of 64, tied vocabulary of 122753) through the same
+    round at split 20, (d) deepseek-7b (30 layers, d 4096, 32 KV heads of
+    128) through the slab engine.  Each model's kernels are held against
+    their plain versions at its shapes first (``lora_matmul`` at M 8 and
+    16 with N 4096 and 512, dX and the rank reduce at M 256 and 768, the
+    decode pair at 8 slots x 512 with G 8 / D 128, 16 and 32 KV heads of
+    128); the launch counters, reset before each engine run and each
+    round, must equal what the steps imply; one decode step of each engine
+    and one local step after each round are held against the plain path;
+    tok/s, ms per decode step and per prefill chunk or prefill, s per
+    round, peak memory and a digest of the ids are printed, and yi-9b's q
+    and v projections at M 8 and its paged decode are timed beside their
+    plain versions, a library call and the bound.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -1925,9 +1947,15 @@ def main() -> None:
     for k, v in dyn_err.items():
         err[k] = max(err[k], v)
     fault_serve, fault_train = phase_faults(torch, np, dev, reqs, eng.params, eng.lora)
+    # phase 15 builds models of 11-35 GB: GPT-2-S's engines go first
+    del eng, slab, naive, mt, params, lora, caches, cc, outs
+    arch_launches, arch_err = phase_archs(torch, np, dev, reqs, flush)
+    for k, v in arch_err.items():
+        err[k] = max(err[k], v)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
-            mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train)
+            mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train,
+            arch_launches)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -2112,7 +2140,7 @@ def phase_mamba(torch, np, dev, reqs):
     for i, (pat, p_) in enumerate(zip(cfg.layer_kinds, eng.params["layers"])):
         outs = [apply_block(cfg, pat, p_, x, lora=eng.lora[i], lora_scale=scale, rt=rt,
                             mode="prefill") for rt in (kern_rt, plain_rt)]
-        (xk, ck), (xp, cp) = outs
+        (xk, ck, _), (xp, cp, _) = outs
         worst["block output"] = max(worst["block output"], rel(xk - x, xp - x))
         for n in ("ssm", "conv"):
             worst[n] = max(worst[n], rel(ck[n], cp[n]))
@@ -2923,6 +2951,418 @@ def phase_faults(torch, np, dev, reqs, params, lora):
              f"kill was not during the quarantine (phase 14)")
     print(f"[faults] phase 14 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
     return serve_launches, train_launches
+
+
+def phase_archs(torch, np, dev, reqs, flush):
+    """Phase 15: the dense RoPE family and the MoE FFN at full width and full
+    depth, from seed weights drawn on the card, rank-4 LoRA on q and v with
+    B != 0, f32: (a) yi-9b through the paged engine, (b) olmoe-1b-7b through
+    the paged and the slab engines and one SFL round, (c) minicpm-2b's SFL
+    round (tied embeddings across the split), (d) deepseek-7b through the
+    slab engine.  Each model is freed before the next is built.  Returns
+    (the main paths' launch counts, the largest kernel-vs-plain error of
+    each kernel at this phase's shapes)."""
+    import torch.nn.functional as F
+
+    from repro_torch import models as TM
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import (flash_decode_kernel, flash_decode_ref,
+                                                     paged_decode_kernel, paged_decode_ref)
+    from repro_torch.kernels.lora_matmul import (lora_matmul_dx_kernel, lora_matmul_dx_ref,
+                                                 lora_matmul_kernel, lora_matmul_ref,
+                                                 lora_rank_reduce_kernel,
+                                                 lora_rank_reduce_ref)
+    from repro_torch.launch import engine as engine_mod
+    from repro_torch.launch.train import build_argparser, run
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(15)
+    runs, err = [], {}
+    lengths = [8, 40, 77, 120, 160, 200, 232, 255]      # phase 4's serving-like spread
+    scale = 8.0 / 4                                     # lora_alpha / rank
+
+    def note(op, e):
+        err[op] = max(err.get(op, 0.0), e)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen) * std).to(dev)
+
+    def check_lora(tag, M, K, N, backward=False, r=4):
+        """The forward at (M, K, N), and with ``backward`` dX and the rank
+        reduce at the same M, against their plain versions (f32 atol = rtol
+        1e-4)."""
+        x, w = randn(M, K), randn(K, N, std=K ** -0.5)
+        a, b = randn(r, K, std=r ** -0.5), randn(N, r, std=0.02)
+        pairs = [("lora_matmul", lora_matmul_kernel(x, w, a, b, scale),
+                  lora_matmul_ref(x, w, a, b, scale))]
+        if backward:
+            dy, u = randn(M, N), randn(M, r)
+            pairs += [("lora_matmul_dx", lora_matmul_dx_kernel(dy, w, a, b, scale),
+                       lora_matmul_dx_ref(dy, w, a, b, scale)),
+                      ("lora_rank_reduce", lora_rank_reduce_kernel(u, dy),
+                       lora_rank_reduce_ref(u, dy))]
+        torch.cuda.synchronize()
+        for op, got, want in pairs:
+            e = (got - want).abs().max().item()
+            atol = 1e-4 * (M ** 0.5 if op == "lora_rank_reduce" else 1.0)
+            ok = torch.allclose(got, want, atol=atol, rtol=1e-4)
+            print(f"[{tag}] {op} f32 M={M} K={K} N={N} r={r}: max_abs_err={e:.3g} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{op} at ({M}, {K}, {N}) disagrees with its plain version")
+            note(op, e)
+
+    def decode_inputs(KH, G, D, PS=16, MP=32):
+        B, NP = len(lengths), len(lengths) * MP + 1
+        q = randn(B, KH, G, D)
+        kp, vp = randn(KH, NP, PS, D), randn(KH, NP, PS, D)
+        pages = torch.randperm(NP - 1, generator=gen) + 1
+        bt = torch.zeros(B, MP, dtype=torch.int32)
+        for b_, n in enumerate(lengths):
+            npg = -(-n // PS)
+            bt[b_, :npg] = pages[b_ * MP:b_ * MP + npg].int()
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        return q, kp, vp, lens, bt.to(dev)
+
+    def check_decode(tag, KH, G, D, paged=True, slab=True):
+        """The decode kernels at the engines' shape, 8 slots x 512 positions,
+        against their plain versions (f32 atol = rtol 1e-5)."""
+        q, kp, vp, lens, bt = decode_inputs(KH, G, D)
+        k, v = randn(8, 512, KH, D), randn(8, 512, KH, D)
+        pairs = []
+        if paged:
+            pairs.append(("paged_decode", paged_decode_kernel(q, kp, vp, lens, bt),
+                          paged_decode_ref(q, kp, vp, lens, bt)))
+        if slab:
+            pairs.append(("flash_decode", flash_decode_kernel(q, k, v, lens),
+                          flash_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2), lens)))
+        torch.cuda.synchronize()
+        for op, got, want in pairs:
+            e = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+            print(f"[{tag}] {op} f32 8 slots x 512, KH={KH} G={G} D={D}: "
+                  f"max_abs_err={e:.3g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{op} at KH {KH}, G {G}, D {D} disagrees with its plain version")
+            note(op, e)
+
+    def build(tag, name, seed):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_arch(name)
+        t0 = time.perf_counter()
+        params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                                torch.float32, "cuda")
+        lora = TM.init_lora_stack(cfg, torch.Generator(device=dev).manual_seed(seed + 1),
+                                  None, torch.float32, "cuda")
+        g_b = torch.Generator(device=dev).manual_seed(seed + 2)
+        for layer in lora:           # B != 0, or the rank path would be a no-op
+            for ad in layer["mixer"].values():
+                ad["b"].normal_(0, 0.02, generator=g_b)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in tree_leaves(params))
+        if n_par != TM.num_params(cfg):
+            fail(f"{name}: {n_par} parameters built, num_params says "
+                 f"{TM.num_params(cfg)}")
+        moe = (f", {cfg.num_experts} experts of {cfg.d_ff} top-{cfg.experts_per_token} "
+               f"({TM.num_active_params(cfg)} active a token)" if cfg.num_experts
+               else f", d_ff {cfg.d_ff}")
+        print(f"[{tag}] {name} full width: {cfg.num_layers} layers d={cfg.d_model}, "
+              f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of {cfg.head_dim}"
+              f"{moe}, vocab {cfg.vocab_size}{', tied' if cfg.tie_embeddings else ''}, "
+              f"f32: {n_par} parameters ({n_par * 4 / 1e9:.2f} GB) drawn on the card in "
+              f"{time.perf_counter() - t0:.2f}s; LoRA r={cfg.lora_rank} on "
+              f"{cfg.lora_targets} with B != 0")
+        return cfg, params, lora
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def serve(tag, cfg, params, lora, paged):
+        """Phase 5's 16 requests through one engine; the launch counters,
+        reset just before, must equal what the engine's steps imply."""
+        L = cfg.num_layers
+        eng = ServingEngine(cfg, params, lora=lora, max_slots=8, max_len=512, page_size=16,
+                            paged=paged, device="cuda")
+        if eng.paged != paged:
+            fail(f"{cfg.name}: ServingEngine(paged={paged}) built the other engine")
+        eng.submit(Request(uid=1000, prompt=[1, 2, 3, 4, 5], max_new_tokens=4))
+        eng.run()                            # first-call set-up, not measured
+        eng.reset_stats()
+        sreqs = [Request(uid=r_.uid, prompt=list(r_.prompt), max_new_tokens=32)
+                 for r_ in reqs]
+        for r_ in sreqs:
+            eng.submit(r_)
+        backend.reset_launch_counts()        # just before the main path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(backend.LAUNCH_COUNTS)
+        st = eng.stats
+        n_tok = sum(len(r_.output) for r_ in sreqs)
+        pre = st["prefill_chunks"] if paged else st["prefills"]
+        what = "prefill chunks" if paged else "prefills"
+        print(f"[{tag}] {cfg.name} {'paged' if paged else 'slab'} engine, 8 slots x 512 "
+              f"positions: phase 5's {len(sreqs)} requests, {n_tok} tokens in {wall:.3f}s = "
+              f"{n_tok / wall:.1f} tok/s; {st['decode_steps']} decode steps, mean "
+              f"{st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.2f} ms/step; {pre} "
+              f"{what}, {st['prefill_s'] / max(pre, 1) * 1e3:.2f} ms each (host clock); "
+              f"peak device memory {peak():.2f} GiB")
+        print(f"[{tag}] launches during the run: {launches}")
+        print(f"[{tag}] token ids digest of the {len(sreqs)} requests: {ids_digest(sreqs)}")
+        if not all(r_.done and len(r_.output) == 32 for r_ in sreqs):
+            fail(f"{cfg.name}: not every request finished with 32 tokens")
+        attn = "paged_decode" if paged else "flash_decode"
+        want = {"lora_matmul": 2 * L * (st["decode_steps"] + pre),
+                attn: L * st["decode_steps"]}
+        if launches != want:
+            fail(f"{cfg.name} {'paged' if paged else 'slab'} engine launched {launches}, "
+                 f"expected exactly {want}")
+        if paged and (not eng.check_consistency(resync=False) or eng.pages_in_use() != 0):
+            fail(f"{cfg.name}: page accounting inconsistent after drain")
+        runs.append(launches)
+        return eng
+
+    def decode_check(tag, cfg, eng, paged):
+        """One decode step, kernel path vs plain path (``Runtime()``), on
+        one random state: logits within 1e-3 of the plain logits' largest
+        entry, and each layer's cache within 1e-4 of the largest K or V
+        entry the plain step wrote there (each at least 1), since random
+        weights at full depth grow the residual stream and with it the deep
+        layers' K and V."""
+        B, L, KH, D = 8, 512, cfg.num_kv_heads, cfg.head_dim
+        g_kv = torch.Generator(device=dev).manual_seed(3)
+        pos = torch.tensor(lengths, dtype=torch.int32)
+        tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen).to(dev)
+        if paged:
+            caches = TM.init_paged_cache(cfg, B * 32 + 1, 16, torch.float32, "cuda")
+            bt = torch.zeros(B, 32, dtype=torch.int32)
+            pages = torch.randperm(B * 32, generator=gen) + 1
+            for b_, n in enumerate(lengths):
+                bt[b_, :n // 16 + 1] = pages[b_ * 32:b_ * 32 + n // 16 + 1].int()
+        else:
+            caches = TM.init_cache(cfg, B, L, torch.float32, "cuda")
+        for c in caches:
+            c["k"].normal_(generator=g_kv)
+            c["v"].normal_(generator=g_kv)
+            if not paged:
+                c["pos"].copy_(torch.where(torch.arange(L)[None] < pos[:, None],
+                                           torch.arange(L, dtype=torch.int32)[None], -1))
+        outs = []
+        for rt in (TM.default_serve_runtime(), TM.Runtime()):
+            cc = [{k: v.clone() for k, v in c.items()} for c in caches]
+            if paged:
+                logits, cc = TM.paged_decode_step(cfg, eng.params, tok, cc, bt.to(dev),
+                                                  pos.to(dev), lora=eng.lora, rt=rt)
+            else:
+                logits, cc = TM.decode_step(cfg, eng.params, tok, cc, pos.to(dev),
+                                            lora=eng.lora, rt=rt)
+            torch.cuda.synchronize()
+            outs.append((logits, cc))
+        del caches
+        (lk, ck), (lp, cp) = outs
+        top = lp.abs().max().item()
+        e_log = (lk - lp).abs().max().item()
+        rows = torch.arange(B)
+        if paged:                        # (KH, B, D): each slot's page and offset
+            at = lambda t: t[:, bt[rows, pos // 16].long().to(dev), (pos % 16).long().to(dev)]
+        else:                            # (B, KH, D) at each slot's position
+            at = lambda t: t[rows.to(dev), pos.long().to(dev)]
+        kv_top = [max(at(b[n]).abs().max().item() for n in "kv") for b in cp]
+        e_kv = [max((a[n] - b[n]).abs().max().item() for n in "kv") / max(1.0, t_)
+                for a, b, t_ in zip(ck, cp, kv_top)]
+        good = (tuple(lk.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(lk).all())
+                and e_log <= 1e-3 * max(1.0, top) and max(e_kv) <= 1e-4)
+        print(f"[{tag}] {'paged_decode_step' if paged else 'decode_step'} logits kernel vs "
+              f"plain path: max_abs_err={e_log:.3g} of largest |logit| {top:.3g} (tol "
+              f"1e-3 x max(1, that)); caches: worst layer's max_abs_err over the largest "
+              f"entry the step wrote there {max(e_kv):.3g} (tol 1e-4; written |K|, |V| "
+              f"up to {max(kv_top):.3g}) "
+              f"{'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"{cfg.name}: a decode step through the kernels disagrees with the plain path")
+
+    def train(tag, cfg, params, lora, split):
+        """One homogeneous SFL round through ``launch.train.run`` (3 clients x
+        4 x 64 tokens of the synthetic E2E corpus, I = 6, AdamW 4e-4); the
+        launch counters, reset just before, must equal the per-step counts
+        of the split; the server's aux loss is read from each round's
+        metrics; then one local step from the trained state through the
+        kernels and through the plain path, at phase 6's tolerance."""
+        targs = build_argparser().parse_args(
+            ["--arch", cfg.name, "--clients", "3", "--batch", "4", "--seq", "64",
+             "--local-steps", "6", "--steps", "6", "--split", str(split), "--lr", "4e-4",
+             "--device", "cuda", "--seed", "0", "--log-every", "1"])
+        seen = []
+        plain_run_round = engine_mod.SflRound.run_round
+
+        def run_round(self, *a, **kw):
+            out = plain_run_round(self, *a, **kw)
+            seen.append(out[1])
+            return out
+
+        engine_mod.SflRound.run_round = run_round
+        try:
+            backend.reset_launch_counts()    # just before the main path
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, hist, sfl = run(targs, params=params, lora=lora)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            engine_mod.SflRound.run_round = plain_run_round
+        launches = dict(backend.LAUNCH_COUNTS)
+        Kc, L, ell = targs.clients, cfg.num_layers, sfl.ell_c
+        steps = len(hist.losses)
+        per_step = {"lora_matmul": 2 * (Kc * ell + L - ell),
+                    "lora_rank_reduce": 4 * (Kc * ell + L - ell),
+                    "lora_matmul_dx": 2 * (Kc * (ell - 1) + L - ell)}
+        aux = [a for m in seen for a in m["aux"].tolist()]
+        print(f"[{tag}] SFL round of {cfg.name}: K={Kc} x b={targs.batch} x S={targs.seq}, "
+              f"I={targs.local_steps}, split {ell} of {L}, AdamW lr={targs.lr}: wall "
+              f"{wall:.2f}s incl. data and allocator; per round "
+              + ", ".join(f"{t:.3f}s" for t in hist.round_seconds)
+              + f" (host clock); peak device memory {peak():.2f} GiB")
+        print(f"[{tag}] losses: {' '.join(f'{x:.4f}' for x in hist.losses)}")
+        print(f"[{tag}] server aux per step: {' '.join(f'{x:.4f}' for x in aux)} "
+              f"(aux_coef {sfl.aux_coef})")
+        print(f"[{tag}] launches during the run: {launches}; per local step expected "
+              f"{per_step}")
+        if steps != 6 or not all(math.isfinite(x) for x in hist.losses):
+            fail(f"{cfg.name}: training losses not finite or wrong count: {hist.losses}")
+        if hist.rolled_back_rounds:
+            fail(f"{cfg.name}: rounds rolled back: {hist.rolled_back_rounds}")
+        if len(aux) != steps or not all(math.isfinite(x) for x in aux):
+            fail(f"{cfg.name}: aux losses missing or not finite: {aux}")
+        if cfg.num_experts and not min(aux) > 0:
+            fail(f"{cfg.name}: an MoE model's aux must be > 0: {aux}")
+        for k, v in per_step.items():
+            if launches.get(k, 0) != v * steps or v == 0:
+                fail(f"{cfg.name} {k}: {launches.get(k, 0)} launches in {steps} local "
+                     f"steps, expected {v * steps}")
+        if set(launches) != set(per_step):
+            fail(f"{cfg.name}: unexpected kernels on the training path: {launches}")
+        runs.append(launches)
+
+        rng = np.random.default_rng(5)
+        tok = rng.integers(0, cfg.vocab_size, (Kc, targs.batch, targs.seq)).astype(np.int32)
+        batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=-1)}
+        outs = []
+        for rt in (TM.default_train_runtime(), TM.Runtime()):
+            sfl.rt = rt
+            st_, m = sfl.local_step(state, batch)
+            torch.cuda.synchronize()
+            outs.append((float(m["loss"]), st_))
+        (lk, sk), (lp, sp) = outs
+        e_ad = max((a_ - b_).abs().max().item() for side in ("lora_client", "lora_server")
+                   for a_, b_ in zip(tree_leaves(getattr(sk, side)),
+                                     tree_leaves(getattr(sp, side))))
+        ad_tol = targs.lr * 1e-2
+        good = abs(lk - lp) <= 1e-4 * max(1.0, abs(lp)) and e_ad <= ad_tol
+        print(f"[{tag}] local_step kernels vs plain path (Runtime()): loss {lk:.6f} vs "
+              f"{lp:.6f} (tol 1e-4 rel), adapters max_abs_err={e_ad:.3g} (tol lr*1e-2 = "
+              f"{ad_tol:.1g}) {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"{cfg.name}: a local step through the kernels disagrees with the plain path")
+
+    def time_rows(tag):
+        """yi-9b's q and v projections at decode M 8, and its paged decode
+        (G 8, D 128) at phase 4's lengths: kernel, plain version, one library
+        call and the bound, as phase 4 times GPT-2-S's."""
+        for N in (4096, 512):
+            M, K, r = 8, 4096, 4
+            x, w = randn(M, K), randn(K, N, std=K ** -0.5)
+            a, b = randn(r, K, std=r ** -0.5), randn(N, r, std=0.02)
+            ms = time_ms(torch, lambda: lora_matmul_kernel(x, w, a, b, scale), flush)
+            plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
+            lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
+            nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
+            bms, bby = bound(nbytes, 2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
+            print(f"[time] {tag} lora_matmul f32 M={M} K={K} N={N} r={r}: kernel "
+                  f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(torch.matmul) "
+                  f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, {nbytes} B)")
+        KH, G, D, PS, MP = 4, 8, 128, 16, 32
+        B, L = len(lengths), PS * MP
+        q, kp, vp, lens, bt = decode_inputs(KH, G, D, PS, MP)
+        ms = time_ms(torch, lambda: paged_decode_kernel(q, kp, vp, lens, bt), flush)
+        plain = time_ms(torch, lambda: paged_decode_ref(q, kp, vp, lens, bt), flush)
+        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+        def library():            # the G query heads of a KV head as its query rows
+            k = kp[:, bt.long()].permute(1, 0, 2, 3, 4).reshape(B, KH, L, D)
+            v = vp[:, bt.long()].permute(1, 0, 2, 3, 4).reshape(B, KH, L, D)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        lib = time_ms(torch, library, flush)
+        tot = sum(lengths)
+        nbytes = (4 * (2 * B * KH * G * D + 2 * KH * tot * D) + 4 * B
+                  + 4 * sum(math.ceil(n / PS) for n in lengths))
+        bms, bby = bound(nbytes, 4 * KH * G * D * tot)
+        print(f"[time] {tag} paged_decode f32 B={B} KH={KH} G={G} D={D} PS={PS} "
+              f"lengths={lengths}: kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us "
+              f"library(gather+sdpa) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, "
+              f"{nbytes} B)")
+
+    # (a) yi-9b: GQA 32 heads over 4 KV heads of 128 (G 8), the paged engine
+    t_model = time.perf_counter()
+    cfg, params, lora = build("yi", "yi-9b", 150)
+    for M in (8, 16):
+        for N in (4096, 512):
+            check_lora("yi", M, 4096, N)
+    check_decode("yi", 4, 8, 128, slab=False)
+    time_rows("yi-9b")
+    eng = serve("yi", cfg, params, lora, paged=True)
+    decode_check("yi", cfg, eng, paged=True)
+    del eng, params, lora
+    print(f"[yi] wall {time.perf_counter() - t_model:.1f}s (host clock)")
+
+    # (b) olmoe-1b-7b: 64 experts of 1024, top-8; both engines (each held
+    # against its own plain path: routing capacity depends on the group, so
+    # the two engines need not agree) and one SFL round at split 8 of 16
+    t_model = time.perf_counter()
+    cfg, params, lora = build("olmoe", "olmoe-1b-7b", 151)
+    for M in (8, 16):
+        check_lora("olmoe", M, 2048, 2048)
+    for M in (256, 768):
+        check_lora("olmoe", M, 2048, 2048, backward=True)
+    check_decode("olmoe", 16, 1, 128)
+    for paged in (True, False):
+        eng = serve("olmoe", cfg, params, lora, paged=paged)
+        decode_check("olmoe", cfg, eng, paged=paged)
+        del eng
+    train("olmoe", cfg, params, lora, split=8)
+    del params, lora
+    print(f"[olmoe] wall {time.perf_counter() - t_model:.1f}s (host clock)")
+
+    # (c) minicpm-2b: 36 heads of 64, tied vocabulary of 122753 (the client
+    # embeds and the server un-embeds with the same table), SFL at split 20
+    t_model = time.perf_counter()
+    cfg, params, lora = build("minicpm", "minicpm-2b", 152)
+    for M in (256, 768):
+        check_lora("minicpm", M, 2304, 2304, backward=True)
+    train("minicpm", cfg, params, lora, split=20)
+    del params, lora
+    print(f"[minicpm] wall {time.perf_counter() - t_model:.1f}s (host clock)")
+
+    # (d) deepseek-7b: 32 KV heads of 128, the slab engine
+    t_model = time.perf_counter()
+    cfg, params, lora = build("deepseek", "deepseek-7b", 153)
+    for M in (8, 200):
+        check_lora("deepseek", M, 4096, 4096)
+    check_decode("deepseek", 32, 1, 128, paged=False)
+    eng = serve("deepseek", cfg, params, lora, paged=False)
+    decode_check("deepseek", cfg, eng, paged=False)
+    del eng, params, lora
+    torch.cuda.empty_cache()
+    print(f"[deepseek] wall {time.perf_counter() - t_model:.1f}s (host clock)")
+    print(f"[archs] phase 15 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
+    launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
+    return launches, err
 
 
 if __name__ == "__main__":

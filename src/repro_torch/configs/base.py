@@ -3,8 +3,8 @@
 A config is a *pattern* of layer blocks (mixer, mlp) repeated over depth.
 Field names, defaults and ``reduced`` match ``repro.configs.base`` so that
 a config built on either side describes the same model; only what the
-ported slices read is kept (no MoE or modality-frontend knobs: those
-archs are not ported yet).
+ported slices read is kept (no modality-frontend knobs: those archs are
+not ported yet).
 """
 from __future__ import annotations
 
@@ -54,6 +54,12 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
 
+    # MoE ------------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    shared_expert: bool = False         # llama4-style always-on expert
+    router_aux_coef: float = 0.01       # load-balance loss weight
+
     # Mamba2 / SSD -----------------------------------------------------------
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -97,7 +103,7 @@ class ArchConfig:
         return tuple(self.pattern[i % len(self.pattern)] for i in range(self.num_layers))
 
     def reduced(self, *, num_layers: int = 2, d_model: int = 256,
-                vocab: int = 512) -> "ArchConfig":
+                max_experts: int = 4, vocab: int = 512) -> "ArchConfig":
         """A tiny same-family variant for CPU tests (same rule as
         ``repro``'s, so both packages shrink a config identically)."""
         if num_layers % len(self.pattern) != 0:
@@ -116,6 +122,8 @@ class ArchConfig:
             head_dim=(d_model // num_heads) if num_heads else 0,
             d_ff=0 if self.d_ff == 0 else max(64, d_model * 2),
             vocab_size=vocab,
+            num_experts=min(self.num_experts, max_experts),
+            experts_per_token=min(self.experts_per_token, 2),
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_head_dim=32 if self.ssm_state else self.ssm_head_dim,
             ssm_chunk=32,

@@ -17,7 +17,7 @@ from .latency import (client_round_seconds_host, het_local_round_latency, het_to
                       latency_report, latency_report_het, local_round_latency,
                       split_workload, total_latency, workload_tables)
 from .lora import (adapter_bytes_per_layer, client_slot_masks, concat_tree, count_params,
-                   split_tree, tree_bytes)
+                   merge_adapter, split_tree, tree_bytes)
 from .resource import (Allocation, HeteroAllocation, Problem, as_hetero, bcd_minimize_delay,
                        bcd_minimize_delay_per_client, objective_het, reallocate_warm,
                        total_delay)
@@ -36,7 +36,7 @@ __all__ = [
     "het_local_round_latency", "het_total_latency", "latency_report", "latency_report_het",
     "local_round_latency", "split_workload", "total_latency", "workload_tables",
     "adapter_bytes_per_layer", "client_slot_masks",
-    "concat_tree", "count_params", "split_tree", "tree_bytes", "Allocation",
+    "concat_tree", "count_params", "merge_adapter", "split_tree", "tree_bytes", "Allocation",
     "HeteroAllocation", "Problem", "as_hetero", "bcd_minimize_delay",
     "bcd_minimize_delay_per_client", "objective_het", "reallocate_warm",
     "total_delay", "CentralizedLoRA", "RoundDynamics", "SflLLM", "SflState", "layers_to_reps",

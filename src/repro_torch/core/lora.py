@@ -1,5 +1,5 @@
-"""LoRA utilities: sizing, wire-format accounting and splitting — the port
-of ``repro.core.lora`` for per-layer adapter lists.
+"""LoRA utilities: merging, sizing, wire-format accounting and splitting —
+the port of ``repro.core.lora`` for per-layer adapter lists.
 
 The port keeps one adapter dict per layer (layer ``r * P + p`` is repeat
 r at pattern position p), so splitting at a repeat boundary is a list
@@ -12,6 +12,14 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 
 from ..tree import tree_leaves
+
+
+def merge_adapter(w: torch.Tensor, lora: dict, scale: float) -> torch.Tensor:
+    """W' = W0 + scale * (B A)^T — the deploy-time merge of one projection,
+    in ``repro``'s layout: w (d_in, d_out); lora {"a": (r, d_in), "b":
+    (d_out, r)}.  The product and the sum are f32, cast back to w's dtype."""
+    delta = torch.einsum("or,ri->io", lora["b"].float(), lora["a"].float()) * scale
+    return (w.float() + delta).to(w.dtype)
 
 
 def count_params(tree: Any) -> int:

@@ -215,7 +215,8 @@ class SflLLM:
                  device="cuda", *, act_bits: Union[int, Sequence[int], None] = None,
                  ranks: Optional[Sequence[int]] = None,
                  ell_range: Optional[Sequence[int]] = None,
-                 rank_max: Optional[int] = None, act_quant: bool = False, **unported):
+                 rank_max: Optional[int] = None, act_quant: bool = False,
+                 aux_coef: Optional[float] = None, **unported):
         # repro's mesh: refused unless left at its default
         refused = sorted(k for k, v in unported.items() if v is not None and v is not False)
         if refused:
@@ -225,6 +226,8 @@ class SflLLM:
         self.rt = default_train_runtime() if rt is None else rt
         self.opt = optimizer
         self.device = resolve_device(device)
+        # weight of the MoE load-balance aux loss, on both sides of the split
+        self.aux_coef = cfg.router_aux_coef if aux_coef is None else aux_coef
         K = train_cfg.num_clients
         P = len(cfg.pattern)
 
@@ -390,34 +393,39 @@ class SflLLM:
 
     # ------------------------------------------------------------------
     def _client_forward(self, lora_c, tokens: torch.Tensor, rep_hi=None,
-                        lora_scale=None) -> torch.Tensor:
-        """One client's FP: embed + its layers -> activations s_k.
-        ``rep_hi``: the client's own boundary in repeats (None = all of
-        the client base)."""
+                        lora_scale=None):
+        """One client's FP: embed + its layers -> (activations s_k, the
+        client's MoE aux loss).  ``rep_hi``: the client's own boundary in
+        repeats (None = all of the client base); a scalar gate, so the
+        repeats past it add no aux, as under ``repro``'s client vmap."""
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         x = embed(self.cfg, self.client_base["embed"], tokens, positions)
-        x, _ = stack_mod.apply_stack(self.cfg, self.client_base["layers"], x,
-                                     positions=positions, lora=lora_c, rt=self.rt,
-                                     mode="train", lora_scale=lora_scale,
-                                     rep_gate=None if rep_hi is None else (None, rep_hi))
-        return x
+        x, _, aux = stack_mod.apply_stack(self.cfg, self.client_base["layers"], x,
+                                          positions=positions, lora=lora_c, rt=self.rt,
+                                          mode="train", lora_scale=lora_scale,
+                                          rep_gate=None if rep_hi is None else (None, rep_hi))
+        return x, aux
 
     def _server_loss(self, lora_s, acts: torch.Tensor, labels: torch.Tensor,
                      rep_lo=None):
         """Pooled loss on the main server.  acts: (K, b, S, d).  ``rep_lo``
         (heterogeneous splits): per-sample entry depth in repeats of the
-        server base — repeats below it pass the sample through unchanged."""
+        server base — repeats below it pass the sample through unchanged;
+        a per-row gate, so every repeat's MoE aux counts over the whole
+        pooled batch, as in ``repro``.  Returns (loss + aux_coef * aux,
+        loss, aux)."""
         K, b, S, d = acts.shape
         x = acts.reshape(K * b, S, d)
         positions = torch.arange(S, dtype=torch.int32, device=acts.device)
-        x, _ = stack_mod.apply_stack(self.cfg, self.server_base["layers"], x,
-                                     positions=positions, lora=lora_s, rt=self.rt,
-                                     mode="train", lora_scale=self._server_scale,
-                                     rep_gate=None if rep_lo is None else (rep_lo, None))
+        x, _, aux = stack_mod.apply_stack(self.cfg, self.server_base["layers"], x,
+                                          positions=positions, lora=lora_s, rt=self.rt,
+                                          mode="train", lora_scale=self._server_scale,
+                                          rep_gate=None if rep_lo is None else (rep_lo, None))
         x = apply_norm(self.cfg, x, self.server_base["final_norm"])
         logits = unembed(self.cfg, self.server_base["embed"], x)
-        return cross_entropy(logits, labels.reshape(K * b, -1))
+        loss = cross_entropy(logits, labels.reshape(K * b, -1))
+        return loss + self.aux_coef * aux, loss, aux
 
     def _client_args(self, k: int, dyn: Optional[dict] = None) -> dict:
         """Client k's boundary and adapter scale for ``_client_forward``:
@@ -482,8 +490,9 @@ class SflLLM:
             # quantizer below, whose error feedback covers every client
             lc = [tree_map(lambda v, k=k: _leaf(v[k]), state.lora_client)
                   for k in range(K)]
-            acts_k = [self._client_forward(lc[k], tokens[k], **self._client_args(k, dyn))
-                      for k in range(K)]
+            acts_k, aux_k = zip(*(self._client_forward(lc[k], tokens[k],
+                                                       **self._client_args(k, dyn))
+                                  for k in range(K)))
             # (b) upload: the server gets a leaf cut from the client graphs,
             # quantized outside them (the straight-through estimator)
             acts = torch.stack([a.detach() for a in acts_k])
@@ -492,10 +501,10 @@ class SflLLM:
             acts.requires_grad_()
             # (c, d) server FP + BP on the pooled activations
             ls = tree_map(_leaf, state.lora_server)
-            loss = self._server_loss(ls, acts, labels,
-                                     self._rep_lo(range(K), tokens.shape[1], dyn.get("rep_hi")))
+            total, loss, aux = self._server_loss(
+                ls, acts, labels, self._rep_lo(range(K), tokens.shape[1], dyn.get("rep_hi")))
             ls_leaves = tree_leaves(ls)
-            grads = torch.autograd.grad(loss, ls_leaves + [acts], allow_unused=True)
+            grads = torch.autograd.grad(total, ls_leaves + [acts], allow_unused=True)
             g_server = tree_unflatten(
                 ls, [g if g is not None else torch.zeros_like(v)
                      for g, v in zip(grads[:-1], ls_leaves)])
@@ -506,12 +515,18 @@ class SflLLM:
             if self._grad_bits is not None:
                 g_acts, new_err_grad = fake_quant(g_acts, self._grad_bits, gen=gen_g,
                                                   err=state.err_grad)
-            back = [k for k in live if acts_k[k].requires_grad]
-            if back:
-                torch.autograd.backward([acts_k[k] for k in back],
-                                        grad_tensors=[g_acts[k] for k in back])
-        # the port has no MoE (refused), so there is no client aux loss and
-        # no aux cotangent to mask
+            # each client's MoE aux loss enters its backward with the seed
+            # aux_coef (a dropped client runs no backward: repro's seed
+            # aux_coef * part is 0 there)
+            roots, seeds = [], []
+            for k in live:
+                for t, g in ((acts_k[k], g_acts[k]),
+                             (aux_k[k], torch.full_like(aux_k[k], self.aux_coef))):
+                    if t.requires_grad:
+                        roots.append(t)
+                        seeds.append(g)
+            if roots:
+                torch.autograd.backward(roots, grad_tensors=seeds)
         g_client = tree_map(lambda *vs: torch.stack([_grad_or_zero(v) for v in vs]),
                             lc[0], *lc[1:])
         with torch.no_grad():
@@ -537,8 +552,7 @@ class SflLLM:
                            lora_server=apply_updates(state.lora_server, upd_s),
                            opt_client=opt_c, opt_server=opt_s, step=state.step + 1,
                            err_act=new_err_act, err_grad=new_err_grad)
-        loss = loss.detach()
-        return new, {"loss": loss, "total": loss}
+        return new, {"loss": loss.detach(), "total": total.detach(), "aux": aux.detach()}
 
     def _ensure_err_state(self, state: SflState, b: int, S: int, *,
                           armed_act: Optional[bool] = None) -> SflState:
@@ -641,8 +655,10 @@ class SflLLM:
         round_batches: tokens/labels (I, K, b, S).  ``dynamics``: this
         round's :class:`RoundDynamics` (participation / deadline dropout,
         re-allocation, corrupted uploads, robust aggregation, poison).
-        Returns (state, metrics) with metrics["loss"] and ["total"] of
-        shape (I,), ["participation"] (K,), the resolved mask,
+        Returns (state, metrics) with metrics["loss"], ["total"] (loss +
+        aux_coef * aux) and ["aux"] (the server's MoE load-balance loss over
+        the pooled batch, 0 without MoE) of shape (I,), ["participation"]
+        (K,), the resolved mask,
         ["rolled_back"] and, with ``robust``, ["anomaly_scores"]
         ({"update_norm", "cos_dist"}, (K,) each).  If any floating leaf of
         the new state is not finite, the whole round rolls back: the old
@@ -670,10 +686,10 @@ class SflLLM:
         # the round's starting (post-broadcast) adapters: the local steps
         # build new tensors, so this stays the pre-round upload reference
         ref = state.lora_client
-        new, losses = state, []
+        new, steps = state, []
         for i in range(batches["tokens"].shape[0]):
             new, m = self._step_impl(new, {k: v[i] for k, v in batches.items()}, cfg_dyn, part)
-            losses.append(m["loss"])
+            steps.append(m)
         if dyn.byzantine is not None:
             # the corrupted radio payload; the optimizer moments stay the
             # client's own
@@ -687,10 +703,9 @@ class SflLLM:
                 lambda v: torch.full_like(v, float("nan")), new.lora_server))
         finite = bool(tree_all_finite([new.lora_client, new.lora_server, new.opt_client,
                                        new.opt_server, new.err_act, new.err_grad]))
-        loss = torch.stack(losses)
-        metrics = {"loss": loss, "total": loss,
-                   "participation": torch.ones(K) if part is None else part,
-                   "rolled_back": torch.tensor(not finite)}
+        metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        metrics.update({"participation": torch.ones(K) if part is None else part,
+                        "rolled_back": torch.tensor(not finite)})
         if scores is not None:
             metrics["anomaly_scores"] = scores
         return (new if finite else state), metrics
@@ -754,9 +769,9 @@ class SflLLM:
         (after aggregation every client holds the slots client 0 owns)."""
         batch = self._to_device(batch)
         lora_c0 = tree_map(lambda v: v[0], state.lora_client)
-        acts = self._client_forward(lora_c0, batch["tokens"], **self._client_args(0))
+        acts, _ = self._client_forward(lora_c0, batch["tokens"], **self._client_args(0))
         return self._server_loss(state.lora_server, acts[None], batch["labels"][None],
-                                 self._rep_lo([0], batch["tokens"].shape[0]))
+                                 self._rep_lo([0], batch["tokens"].shape[0]))[1]
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,8 @@ Produces the paper's Section V quantities analytically from an ArchConfig:
 Embedding/positional FLOPs are neglected (paper Section VII); the LM head
 FLOPs are accounted as a server-side constant (the server always holds it).
 
-The port's copy of ``repro.core.workload`` for the architectures it runs
-(attention + dense MLP blocks); the MoE and Mamba terms wait for those
-architectures.
+The port's copy of ``repro.core.workload``: attention and Mamba2 mixers,
+dense and MoE MLPs.
 """
 from __future__ import annotations
 
@@ -54,6 +53,26 @@ def _mlp_flops(cfg: ArchConfig, S: int) -> float:
     return 2.0 * S * cfg.d_model * cfg.d_ff * n_mat
 
 
+def _moe_flops(cfg: ArchConfig, S: int) -> float:
+    router = 2.0 * S * cfg.d_model * cfg.num_experts
+    expert = 2.0 * S * cfg.experts_per_token * 3 * cfg.d_model * cfg.d_ff
+    shared = _mlp_flops(cfg, S) if cfg.shared_expert else 0.0
+    return router + expert + shared
+
+
+def _mamba_flops(cfg: ArchConfig, S: int) -> float:
+    d, di, N, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads
+    conv_dim = di + 2 * N
+    proj_in = 2.0 * S * d * (2 * di + 2 * N + nh)
+    conv = 2.0 * S * cfg.ssm_conv_width * conv_dim
+    Q = cfg.ssm_chunk
+    # SSD: intra-chunk (CB^T, masking, PV) + state build/apply
+    intra = 2.0 * S * min(Q, S) * (N + 2 * nh * cfg.ssm_head_dim)
+    states = 4.0 * S * nh * cfg.ssm_head_dim * N
+    proj_out = 2.0 * S * di * d
+    return proj_in + conv + intra + states + proj_out
+
+
 def _lora_flops_per_rank(cfg: ArchConfig, pat, S: int) -> float:
     from ..models.model import _lora_dims
 
@@ -85,12 +104,11 @@ def layer_workloads(cfg: ArchConfig, seq_len: int, *,
     S = seq_len
     out = []
     for pat in cfg.layer_kinds:
-        if pat.mixer != "attention" or pat.mlp not in ("dense", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: only attention + dense-MLP blocks are ported")
-        rho = _attn_flops(cfg, S)
+        rho = _attn_flops(cfg, S) if pat.mixer == "attention" else _mamba_flops(cfg, S)
         if pat.mlp == "dense":
             rho += _mlp_flops(cfg, S)
+        elif pat.mlp == "moe":
+            rho += _moe_flops(cfg, S)
         out.append(LayerWorkload(
             rho=rho,
             drho=_lora_flops_per_rank(cfg, pat, S),

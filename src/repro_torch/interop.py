@@ -128,24 +128,12 @@ def _params_to(tree: Any, device, dtype) -> Any:
     return _map_named(lambda a, name: to_tensor(a, device, _cast(dtype, name, True)), tree)
 
 
-def _refuse_moe(layers: Sequence[dict]) -> None:
-    """``repro``'s MoE MLP ({"router", "w_gate" (E, d, ff), ...}) has no
-    port: refuse it here rather than fail inside a dense MLP later."""
-    for i, layer in enumerate(layers):
-        mlp = layer.get("mlp", {})
-        if "router" in mlp or np.ndim(mlp.get("w_gate", {})) == 3:
-            leaf = "router" if "router" in mlp else "w_gate"
-            raise NotImplementedError(f"layer {i}: mlp.{leaf} is an MoE leaf; MoE blocks "
-                                      "are not ported")
-
-
 def params_from_numpy(params: dict, device="cuda", dtype=None) -> dict:
-    """repro params tree (numpy leaves) -> the port's params.  Raises
-    ``NotImplementedError`` on an MoE layer."""
-    layers = split_layers(params["layers"])
-    _refuse_moe(layers)
+    """repro params tree (numpy leaves) -> the port's params.  An MoE MLP
+    crosses like any other block: ``router.w`` (d, E), ``w_gate``/``w_up``
+    (E, d, ff), ``w_down`` (E, ff, d) and a shared expert's ``shared``."""
     return {"embed": _params_to(params["embed"], device, dtype),
-            "layers": _params_to(layers, device, dtype),
+            "layers": _params_to(split_layers(params["layers"]), device, dtype),
             "final_norm": _params_to(params["final_norm"], device, dtype)}
 
 

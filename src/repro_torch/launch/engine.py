@@ -564,6 +564,10 @@ class Trainer:
                 history.modeled_seconds += per_round
             if self.log_every and (e + 1) % self.log_every == 0:
                 msg = f"round {e + 1}/{global_rounds}  loss {losses[-1]:.4f}"
+                aux = metrics.get("aux") if isinstance(metrics, dict) else None
+                if aux is not None and bool((aux != 0).any()):
+                    # an MoE model: the server's load-balance aux, per step
+                    msg += "  aux " + " ".join(f"{a:.4f}" for a in aux.tolist())
                 if per_round or info is not None:
                     msg += f"  modeled {history.modeled_seconds:.1f}s"
                 if info is not None:

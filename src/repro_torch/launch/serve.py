@@ -1,6 +1,7 @@
 """Serving entry point of the port: the continuous-batching engine on a
-full-width ``--arch`` (GPT-2-S by default, or Mamba2-2.7B; ``--reduced``
-for a tiny variant), on the card by default — the paged KV pool where
+full-width ``--arch`` (GPT-2-S by default, any registered config:
+the dense RoPE family, the MoE models, Mamba2-2.7B; ``--reduced`` for a
+tiny variant), on the card by default — the paged KV pool where
 ``--page-size`` divides ``--max-len``, the slab layout with ``--slab`` (or
 otherwise), the naive per-slot loop with ``--naive``; ``--adapters N``
 serves N tenants' adapters from one paged engine through an
@@ -27,6 +28,8 @@ the same with and without them:
       --device cpu --adapters 5 --adapter-pool 4 --tenant-trace zipf --tenant-quota 1
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --reduced \
       --device cpu --requests 4 --slots 2 --gen 6 --prompt-len 12 [--naive]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --slots 8 \
+      --max-len 512 --profile
 """
 from __future__ import annotations
 
@@ -93,7 +96,10 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = cfg.reduced(num_layers=max(4, len(cfg.pattern)))
     dtype = getattr(torch, args.dtype)
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+    # drawn by a generator on the serving device: on the card, billions of
+    # weights without minutes of host draws (other numbers than the CPU
+    # generator's for the same seed)
+    params = init_params(cfg, torch.Generator(device=args.device).manual_seed(args.seed),
                          dtype, args.device)
     registry, lora = None, None
     if args.adapters:

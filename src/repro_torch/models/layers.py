@@ -98,8 +98,9 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Ten
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
-               bias: bool = False) -> dict:
-    p = {"w": _normal(gen, (d_in, d_out), d_in ** -0.5, dtype, device)}
+               bias: bool = False, scale: Optional[float] = None) -> dict:
+    scale = scale if scale is not None else d_in ** -0.5
+    p = {"w": _normal(gen, (d_in, d_out), scale, dtype, device)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return p

@@ -74,16 +74,15 @@ def init_lora_stack(cfg, gen: torch.Generator, rank: Optional[int] = None,
 def forward(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
             rt: Runtime = Runtime()) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (training).  tokens: (B, S) int.  Returns
-    (logits (B, S, V), aux loss) — aux is 0 for the ported (dense)
-    architectures."""
+    (logits (B, S, V), aux loss) — the sum of the MoE blocks' load-balance
+    losses, 0 without MoE."""
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = embed(cfg, params["embed"], tokens, positions)
-    x, _ = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
-                                 lora=lora, rt=rt, mode="train")
+    x, _, aux = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
+                                      lora=lora, rt=rt, mode="train")
     x = apply_norm(cfg, x, params["final_norm"])
-    logits = unembed(cfg, params["embed"], x)
-    return logits, torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return unembed(cfg, params["embed"], x), aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -98,10 +97,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(cfg, params: dict, lora, batch: dict, *, rt: Runtime = Runtime()):
     """Causal-LM cross entropy.  batch: tokens (B, S), labels (B, S) with
-    ``IGNORE_ID`` masking.  Returns (total, {"loss", "aux"})."""
+    ``IGNORE_ID`` masking.  Returns (loss + cfg.router_aux_coef * aux,
+    {"loss", "aux"})."""
     logits, aux = forward(cfg, params, batch["tokens"], lora=lora, rt=rt)
     loss = cross_entropy(logits, batch["labels"])
-    return loss, {"loss": loss, "aux": aux}
+    return loss + cfg.router_aux_coef * aux, {"loss": loss, "aux": aux}
 
 
 def prefill(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
@@ -113,9 +113,9 @@ def prefill(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = embed(cfg, params["embed"], tokens, positions)
-    x, caches = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
-                                      lora=lora, rt=rt, mode="prefill",
-                                      cache_len=cache_len)
+    x, caches, _ = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
+                                         lora=lora, rt=rt, mode="prefill",
+                                         cache_len=cache_len)
     i = S - 1 if logit_index is None else int(logit_index)
     x = apply_norm(cfg, x[:, i:i + 1], params["final_norm"])
     return unembed(cfg, params["embed"], x)[:, 0], caches
@@ -133,9 +133,9 @@ def decode_step(cfg, params: dict, token: torch.Tensor, caches, cur_index, *,
     cur_index = torch.as_tensor(cur_index, dtype=torch.int32, device=token.device)
     positions = cur_index[:, None] if cur_index.dim() else cur_index.expand(B)[:, None]
     x = embed(cfg, params["embed"], token, positions)
-    x, caches = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
-                                      mode="decode", caches=caches, cur_index=cur_index,
-                                      adapter_idx=adapter_idx)
+    x, caches, _ = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
+                                         mode="decode", caches=caches,
+                                         cur_index=cur_index, adapter_idx=adapter_idx)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x)[:, 0], caches
 
@@ -152,10 +152,10 @@ def paged_decode_step(cfg, params: dict, token: torch.Tensor, caches,
     place."""
     cur_index = cur_index.to(torch.int32)
     x = embed(cfg, params["embed"], token, cur_index[:, None])
-    x, caches = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
-                                      mode="decode", caches=caches,
-                                      cur_index=cur_index, block_tables=block_tables,
-                                      adapter_idx=adapter_idx)
+    x, caches, _ = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
+                                         mode="decode", caches=caches,
+                                         cur_index=cur_index, block_tables=block_tables,
+                                         adapter_idx=adapter_idx)
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x)[:, 0], caches
 
@@ -171,9 +171,9 @@ def paged_prefill_chunk(cfg, params: dict, tokens: torch.Tensor, caches,
     C = tokens.shape[1]
     positions = start + torch.arange(C, dtype=torch.int32, device=tokens.device)
     x = embed(cfg, params["embed"], tokens, positions)
-    x, caches = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
-                                      mode="chunk", caches=caches,
-                                      cur_index=start, block_tables=block_table)
+    x, caches, _ = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
+                                         mode="chunk", caches=caches,
+                                         cur_index=start, block_tables=block_table)
     x = x[:, logit_index:logit_index + 1]
     x = apply_norm(cfg, x, params["final_norm"])
     return unembed(cfg, params["embed"], x)[:, 0], caches
@@ -189,3 +189,76 @@ def init_paged_cache(cfg, num_pages: int, page_size: int, dtype=torch.float32,
                      device="cuda"):
     return stack_mod.init_paged_stack_cache(cfg, num_pages, page_size, dtype,
                                             resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# parameter counts, from the config alone (no weights are built: the
+# full-width configs run to hundreds of GB)
+# ---------------------------------------------------------------------------
+
+def _norm_params(cfg) -> int:
+    return cfg.d_model * (2 if cfg.norm == "layernorm" else 1)
+
+
+def _mlp_params(cfg) -> int:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        return 3 * d * ff
+    return 2 * d * ff + (ff + d if cfg.norm == "layernorm" else 0)
+
+
+def _block_params(cfg, pat) -> int:
+    d = cfg.d_model
+    n = _norm_params(cfg)
+    if pat.mixer == "attention":
+        h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        n += d * h * hd + 2 * d * kh * hd + h * hd * d
+        if cfg.norm == "layernorm":
+            n += h * hd + 2 * kh * hd + d
+    else:
+        di, N, nh, W = cfg.d_inner, cfg.ssm_state, cfg.ssm_num_heads, cfg.ssm_conv_width
+        conv_dim = di + 2 * N
+        n += (d * (2 * di + 2 * N + nh) + W * conv_dim + conv_dim + 3 * nh + di
+              + di * d)
+    if pat.mlp != "none":
+        n += _norm_params(cfg)
+        if pat.mlp == "moe":
+            n += d * cfg.num_experts + cfg.num_experts * 3 * d * cfg.d_ff
+            if cfg.shared_expert:
+                n += _mlp_params(cfg)
+        else:
+            n += _mlp_params(cfg)
+    return n
+
+
+def num_params(cfg) -> int:
+    """Parameters of ``init_params(cfg)``, counted from the config (the
+    twin of ``repro.models.model.num_params``)."""
+    n = cfg.vocab_size * cfg.d_model
+    if cfg.pos_emb == "learned":
+        n += cfg.max_seq_len * cfg.d_model
+    if not cfg.tie_embeddings:
+        n += cfg.d_model * cfg.vocab_size
+    return n + sum(_block_params(cfg, pat) for pat in cfg.layer_kinds) + _norm_params(cfg)
+
+
+def num_active_params(cfg) -> int:
+    """Active parameters per token (MoE: only the routed experts count)."""
+    total = num_params(cfg)
+    if not cfg.num_experts:
+        return total
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    n_moe_layers = sum(1 for p in cfg.layer_kinds if p.mlp == "moe")
+    return total - (cfg.num_experts - cfg.experts_per_token) * per_expert * n_moe_layers
+
+
+def lora_num_params(cfg, rank: Optional[int] = None) -> int:
+    """Parameters of ``init_lora_stack(cfg, rank)``."""
+    rank = rank or cfg.lora_rank
+    n = 0
+    for pat in cfg.layer_kinds:
+        for t in cfg.lora_targets:
+            dims = _lora_dims(cfg, pat, t)
+            if dims is not None:
+                n += rank * (dims[1] + dims[2])
+    return n

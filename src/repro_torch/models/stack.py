@@ -5,7 +5,8 @@ Where ``repro`` stacks each pattern position's parameters over the
 repeat axis and ``lax.scan``s over it, the port keeps one entry per layer
 (``params["layers"][i]`` is repeat ``i // P`` at pattern position
 ``i % P``) and runs the stack as a Python loop: PyTorch executes eagerly,
-so a scan buys nothing here.
+so a scan buys nothing here.  An MoE MLP (``models.moe``) adds its
+load-balance aux loss, which the stack sums over the layers it runs.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from ..precision import PrecisionConfig
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
@@ -37,6 +39,9 @@ class Runtime:
     # kernels.ssd_scan.ssd_scan_with_state (the CUDA kernel on a CUDA
     # tensor); "chunked" takes the plain ssd_chunked, repro's model twin
     ssd_impl: str = "chunked"
+    # MoE dispatch: tokens per routing group and the expert capacity factor
+    moe_group: int = 128
+    capacity_factor: float = 1.25
     # split-boundary bit-widths, stochastic rounding and error feedback
     # (``precision``); the default is fully disarmed (16/16/f32)
     precision: PrecisionConfig = PrecisionConfig()
@@ -61,14 +66,13 @@ def default_serve_runtime() -> Runtime:
 
 
 def init_block(cfg, pat, gen: torch.Generator, dtype, device) -> dict:
-    if pat.mlp not in ("dense", "none"):
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported")
     mixer = (attn_mod.init_attention(cfg, gen, dtype, device) if pat.mixer == "attention"
              else ssm_mod.init_mamba(cfg, gen, dtype, device))
     p: dict = {"norm1": init_norm(cfg, cfg.d_model, dtype, device), "mixer": mixer}
     if pat.mlp != "none":
         p["norm2"] = init_norm(cfg, cfg.d_model, dtype, device)
-        p["mlp"] = init_mlp(cfg, gen, dtype, device)
+        p["mlp"] = (moe_mod.init_moe(cfg, gen, dtype, device) if pat.mlp == "moe"
+                    else init_mlp(cfg, gen, dtype, device))
     return p
 
 
@@ -85,10 +89,11 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
     pools with per-slot adapter selection (multi-tenant serving; see
     ``layers.dense``).  A Mamba2 block runs modes "train", "prefill"
     (its cache is the {"ssm", "conv"} state) and slab "decode"; paged
-    modes raise, as in ``repro``.  An MoE block raises
-    ``NotImplementedError``: MoE is not ported.  Returns (x, cache)."""
-    if pat.mlp == "moe":
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported")
+    modes raise, as in ``repro``.  An MoE MLP (``pat.mlp == "moe"``) routes
+    every mode's tokens through ``models.moe.apply_moe`` in groups of
+    ``rt.moe_group`` (it carries no LoRA, as in ``repro``).  Returns (x,
+    cache, aux): aux is the MoE block's f32 load-balance loss, None for a
+    block without one."""
     mixer_lora = None if lora is None else lora.get("mixer")
     h = apply_norm(cfg, x, p["norm1"])
     if pat.mixer == "mamba":
@@ -121,12 +126,18 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
         raise ValueError(f"mode {mode!r}: the port runs 'train', 'prefill', "
                          "'decode' and 'chunk'")
     x = x + m
-    if pat.mlp != "none":
+    aux = None
+    if pat.mlp == "moe":
+        mo, aux = moe_mod.apply_moe(cfg, p["mlp"], apply_norm(cfg, x, p["norm2"]),
+                                    group_size=rt.moe_group,
+                                    capacity_factor=rt.capacity_factor)
+        x = x + mo
+    elif pat.mlp != "none":
         h = apply_norm(cfg, x, p["norm2"])
         x = x + apply_mlp(cfg, h, p["mlp"],
                           None if lora is None else lora.get("mlp"),
                           lora_scale, dense_impl=rt.dense_impl, adapter_idx=adapter_idx)
-    return x, cache
+    return x, cache, aux
 
 
 def _mamba_mixer(cfg, p, h, lora, lora_scale, rt: Runtime, mode: str, cache,
@@ -170,6 +181,12 @@ def init_paged_stack_cache(cfg, num_pages: int, page_size: int, dtype,
             for _ in range(cfg.num_layers)]
 
 
+def _per_row(bound) -> bool:
+    """Whether a gate bound is per row (a host sequence or a tensor with a
+    batch axis), not None or one int for every row."""
+    return bound is not None and torch.as_tensor(bound, device="cpu").dim() > 0
+
+
 def _live_rows(rep: int, lo, hi):
     """Which rows apply repeat ``rep`` under the gate ``lo <= rep < hi``:
     True (all), False (none), or a CPU bool mask over the batch rows.
@@ -209,12 +226,18 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
     pass through bit-unchanged (``torch.where(keep, block(x), x)``, as
     JAX's gate); a repeat no row applies is skipped and one every row
     applies runs ungated — the same values, without the dead blocks.
+    The MoE aux follows ``repro``'s gate: under a scalar gate (None or
+    ints) a gated repeat adds none, so it is skipped; under a per-row gate
+    every repeat adds its aux over the whole batch, so a repeat with an
+    MoE block that no row applies still runs, for its aux alone.
     Mode "prefill" builds one slab cache per layer (of length
     ``cache_len``, or the sequence's) and returns them as ``caches``.
     ``adapter_idx`` (B,) (mode "decode" only): multi-tenant decode — each
     layer's lora leaves are pools, (A, r, in) and (A, out, r), and slot b
     wears adapter ``adapter_idx[b]``.
-    Returns (x, caches); caches is None in mode "train"."""
+    Returns (x, caches, aux): caches is None in mode "train"; aux is the
+    sum of the MoE blocks' load-balance losses (an f32 scalar, 0 without
+    MoE)."""
     if adapter_idx is not None and mode != "decode":
         raise ValueError(f"adapter_idx is for mode 'decode', not {mode!r} (a paged "
                          "chunk slices its request's adapter out of the pool)")
@@ -232,17 +255,25 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
     if mode == "prefill" and caches is None:
         caches = [None] * len(layers)
     kinds = cfg.layer_kinds
+    aux_ungated = _per_row(gate_lo) or _per_row(gate_hi)
+    aux = None
     for i, p in enumerate(layers):
         live = _live_rows(i // P, gate_lo, gate_hi)
-        if live is False:
+        if live is False and not (aux_ungated and kinds[i].mlp == "moe"):
             continue
-        y, c = apply_block(
+        y, c, a = apply_block(
             cfg, kinds[i], p, x, lora=None if lora is None else lora[i],
             lora_scale=scale, rt=rt, mode=mode,
             cache=None if caches is None else caches[i],
             cur_index=cur_index, block_tables=block_tables, positions=positions,
             cache_len=cache_len, adapter_idx=adapter_idx)
+        if a is not None:
+            aux = a if aux is None else aux + a
+        if live is False:
+            continue
         x = y if live is True else torch.where(live.to(x.device)[:, None, None], y, x)
         if caches is not None:
             caches[i] = c
-    return x, caches
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, caches, aux

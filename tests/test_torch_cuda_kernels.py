@@ -1110,3 +1110,54 @@ def test_ssd_scan_kernel_at_the_models_decays_no_further_from_f64_than_chunked(c
     torch.testing.assert_close(h.double(), h64, atol=1e-4, rtol=1e-3)
     for k, c, r in ((y, yc, y64), (h, hc, h64)):
         assert (k.double() - r).abs().max() <= 2 * (c.double() - r).abs().max()
+
+
+# -- the dense RoPE family and the MoE FFN at full width: the shapes their
+# paths give the kernels (yi-9b's q and v at d 4096 with 4 KV heads of 128,
+# minicpm-2b's d 2304, olmoe-1b-7b's d 2048; decode at 8 slots x 512)
+
+NEW_WIDTHS = [(8, 4096, 4096, 4), (16, 4096, 4096, 4), (8, 4096, 512, 4),
+              (16, 4096, 512, 4), (8, 2304, 2304, 4), (16, 2048, 2048, 4),
+              (768, 4096, 512, 4), (768, 2304, 2304, 4), (768, 2048, 2048, 4)]
+
+
+@pytest.mark.parametrize("M,K,N,r", NEW_WIDTHS)
+def test_lora_kernels_at_the_new_widths(cuda, M, K, N, r):
+    """The forward at decode, chunk and training M; dX and the rank reduce
+    at the training M (the SFL round's 3 clients x 4 x 64 tokens)."""
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g).to(cuda)
+    w = (torch.randn(K, N, generator=g) * K ** -0.5).to(cuda)
+    a = (torch.randn(r, K, generator=g) * r ** -0.5).to(cuda)
+    b = (torch.randn(N, r, generator=g) * 0.05).to(cuda)
+    y = _one_launch_twice("lora_matmul", lambda: lora_matmul_kernel(x, w, a, b, 2.0))
+    torch.testing.assert_close(y, lora_matmul_ref(x, w, a, b, 2.0), atol=1e-4, rtol=1e-4)
+    if M > DECODE_MAX_M:
+        dy = torch.randn(M, N, generator=g).to(cuda)
+        dx = _one_launch_twice("lora_matmul_dx",
+                               lambda: lora_matmul_dx_kernel(dy, w, a, b, 2.0))
+        torch.testing.assert_close(dx, lora_matmul_dx_ref(dy, w, a, b, 2.0),
+                                   atol=1e-4, rtol=1e-4)
+        u = torch.randn(M, r, generator=g).to(cuda)
+        ur = _one_launch_twice("lora_rank_reduce", lambda: lora_rank_reduce_kernel(u, dy))
+        torch.testing.assert_close(ur, lora_rank_reduce_ref(u, dy), atol=1e-4 * M ** 0.5,
+                                   rtol=1e-4)
+
+
+# (KH, G, D): yi-9b (G 8, D 128), olmoe-1b-7b (16 KV heads of 128), minicpm-2b
+# (36 of 64), deepseek-7b (32 of 128); llama4-scout's G 5 and mistral-large's
+# G 12 (reduced only on one card) go through the wrappers too: a group over
+# the plan's 8 heads a block is split into ragged groups
+NEW_HEAD_GROUPS = [(4, 8, 128), (16, 1, 128), (36, 1, 64), (32, 1, 128), (8, 5, 128),
+                   (8, 12, 128)]
+NEW_LENGTHS = [0, 1, 16, 17, 512, 31, 3, 511]
+
+
+@pytest.mark.parametrize("KH,G,D", NEW_HEAD_GROUPS)
+def test_decode_kernels_at_the_new_head_groups(cuda, KH, G, D):
+    o = _paged_split_case(cuda, torch.float32, 8, KH, G, D, 16, 32, NEW_LENGTHS,
+                          KH * G + D, "float")
+    assert o.shape == (8, KH, G, D)
+    o = _flash_split_case(cuda, torch.float32, 8, KH, G, D, 512, NEW_LENGTHS, 0,
+                          KH * G + D + 1)
+    assert (o[0] == 0).all()

@@ -165,16 +165,16 @@ def test_apply_stack_gate_per_sample_equals_each_rows_own_substack():
     x = torch.randn(4, 8, tcfg.d_model, generator=torch.Generator().manual_seed(1))
     pos = torch.arange(8, dtype=torch.int32)
     lo = [0, 1, 3, 4]
-    y, _ = TM.stack.apply_stack(tcfg, params["layers"], x, rt=rt, positions=pos,
+    y, _, _ = TM.stack.apply_stack(tcfg, params["layers"], x, rt=rt, positions=pos,
                                 rep_gate=(lo, None))
     for j, l in enumerate(lo):
-        want, _ = TM.stack.apply_stack(tcfg, params["layers"][l:], x[j:j + 1], rt=rt,
+        want, _, _ = TM.stack.apply_stack(tcfg, params["layers"][l:], x[j:j + 1], rt=rt,
                                        positions=pos)
         np.testing.assert_allclose(y[j:j + 1].numpy(), want.numpy(), **FN_TOL)
     assert torch.equal(y[3], x[3])
-    hi, _ = TM.stack.apply_stack(tcfg, params["layers"], x, rt=rt, positions=pos,
+    hi, _, _ = TM.stack.apply_stack(tcfg, params["layers"], x, rt=rt, positions=pos,
                                  rep_gate=(None, 2))
-    want, _ = TM.stack.apply_stack(tcfg, params["layers"][:2], x, rt=rt, positions=pos)
+    want, _, _ = TM.stack.apply_stack(tcfg, params["layers"][:2], x, rt=rt, positions=pos)
     assert torch.equal(hi, want)
 
 

@@ -201,7 +201,8 @@ def test_layers_match_repro(name):
 
 
 # ---------------------------------------------------------------------------
-# MoE is not ported: both entries refuse it (llama4-scout-17b-a16e, reduced)
+# llama4-scout-17b-a16e (reduced) with its MLP made dense; the MoE block
+# itself is held in tests/test_torch_moe.py
 # ---------------------------------------------------------------------------
 
 def _llama4_cfgs(mlp=None):
@@ -217,27 +218,6 @@ def _llama4_cfgs(mlp=None):
           if f.name != "pattern"}
     tcfg = ArchConfig(**kw, pattern=tuple(LayerPattern(p.mixer, p.mlp) for p in jcfg.pattern))
     return jcfg, tcfg
-
-
-def test_params_from_numpy_refuses_repros_moe_params():
-    jcfg, _ = _llama4_cfgs()
-    assert jcfg.pattern[0].mlp == "moe"
-    params = _np_tree(JM.init_params(jcfg, jax.random.key(0), jnp.float32))
-    with pytest.raises(NotImplementedError, match="MoE blocks are not ported"):
-        interop.params_from_numpy(params, device="cpu")
-
-
-def test_apply_block_refuses_an_moe_pattern():
-    """repro's MoE leaves, split per layer as interop does, reach
-    apply_block: it refuses before it touches the MLP."""
-    jcfg, tcfg = _llama4_cfgs()
-    params = _np_tree(JM.init_params(jcfg, jax.random.key(0), jnp.float32))
-    layer = jax.tree.map(torch.from_numpy, interop.split_layers(params["layers"])[0])
-    x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="llama4-scout-17b-a16e-smoke: MoE"):
-        TM.stack.apply_block(tcfg, tcfg.pattern[0], layer, x, lora=None, lora_scale=1.0,
-                             rt=TM.Runtime(), mode="train",
-                             positions=torch.arange(4, dtype=torch.int32))
 
 
 def test_a_dense_config_still_imports_and_runs():

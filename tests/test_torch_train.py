@@ -140,9 +140,9 @@ def test_apply_stack_rep_slice_runs_the_split_halves():
     x = torch.randn(2, 16, tcfg.d_model, generator=torch.Generator().manual_seed(0))
     pos = torch.arange(16, dtype=torch.int32)
     kw = dict(positions=pos, lora=tl, rt=TM.default_train_runtime())
-    whole, _ = TM.apply_stack(tcfg, tp["layers"], x, **kw)
-    half, _ = TM.apply_stack(tcfg, tp["layers"], x, rep_slice=(0, ELL), **kw)
-    both, _ = TM.apply_stack(tcfg, tp["layers"], half, rep_slice=(ELL, 4), **kw)
+    whole, _, _ = TM.apply_stack(tcfg, tp["layers"], x, **kw)
+    half, _, _ = TM.apply_stack(tcfg, tp["layers"], x, rep_slice=(0, ELL), **kw)
+    both, _, _ = TM.apply_stack(tcfg, tp["layers"], half, rep_slice=(ELL, 4), **kw)
     torch.testing.assert_close(both, whole, atol=1e-6, rtol=1e-6)
 
 
