@@ -7,12 +7,12 @@ card:
 
 Phases (each prints its own lines; any failure exits non-zero):
  1. device: name, power limit, TF32 off for the float32 references;
- 2. build: all seven CUDA sources from src/repro_torch/kernels/csrc with
+ 2. build: all eight CUDA sources from src/repro_torch/kernels/csrc with
     nvcc, in parallel; ptxas's registers, shared memory and spills of each
     kernel of the three LoRA libraries (the TF32 tile's instantiations and
     the rank reduce's), of flash attention, of the two decode libraries
     (the split-K body under its float and int8 element policies: no int8
-    instantiation may spill) and of the SSD scan;
+    instantiation may spill), of the SSD scan and of its backward;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
     forward LoRA matmul in both its regimes (M <= 16 and above, Mamba2's
@@ -208,9 +208,39 @@ Phases (each prints its own lines; any failure exits non-zero):
     round, peak memory and a digest of the ids are printed, and yi-9b's q
     and v projections at M 8 and its paged decode are timed beside their
     plain versions, a library call and the bound.
+16. Mamba2 training: (a) the SSD scan's backward kernel
+    (``ssd_scan_bwd_kernel``) at Mamba2-2.7B's decays (A = -linspace(1,
+    16), dt = softplus(N(0, 1))), a random dy and a nonzero dh_last, at row
+    12's shapes (B 1, 80 heads of 64, N 128, S 200 and 512), Jamba's
+    full-width heads (B 2, 8 of 128, N 64, S 512) and the reduced shape
+    (B 2, 4 of 32, N 16, S 40 at chunk 32): its four cotangents within
+    1e-4 of ``ssd_scan_bwd_ref``'s largest entry, no further from autograd
+    through the chunked algorithm in f64 than 3x the same autograd in f32,
+    one launch, two runs bit-equal; (b) its time at the training shapes (a
+    client's B 2 and the server's pooled B 6, 320 tokens padded to 512) and
+    at B 1, S 512, beside the
+    plain version, autograd's backward through ``ssd_chunked`` and the f32
+    FFMA bound; (c) one SFL round of full-width, full-depth Mamba2-2.7B
+    (64 layers, d 2560, 2.83 B f32 parameters drawn on the card, rank-4
+    ssm_in/ssm_out adapters with B != 0) through ``launch.train.run``: 3
+    clients x 2 x 320 tokens (every step runs a padded second chunk), I =
+    6, AdamW 4e-4, split 32; the launch counters, reset just before, must
+    equal 128 ``ssd_scan`` and ``ssd_scan_bwd``, 256 ``lora_matmul``, 253
+    ``lora_matmul_dx`` (the client's first ``ssm_in`` takes no dX) and 512
+    ``lora_rank_reduce`` per local step; losses, s/round, peak memory and a
+    digest of the adapters are printed; (d) one local step from the trained
+    state on 64 tokens through the kernels, through the plain path and
+    through the plain path in f64: the kernels no further from f64 than 3x
+    the plain f32 path (loss and adapters); one more local step under
+    ``torch.profiler``: device busy share and device time by kernel; (e)
+    reduced Jamba (two periods
+    of one attention and seven mamba layers, MoE on the odd ones): one SFL
+    round (3 x 4 x 64 tokens, split 8 of 16) with exact launch counts and
+    one local step held against the plain path at phase 6's tolerance.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -362,9 +392,10 @@ def main() -> None:
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.1f}s")
     # the TF32 tile's (and the rank reduce's), flash attention's, the
-    # decode body's under its float and int8 policies, and the SSD scan's
+    # decode body's under its float and int8 policies, the SSD scan's and its
+    # backward's
     for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "flash_attention",
-                "flash_decode", "paged_decode", "ssd_scan"):
+                "flash_decode", "paged_decode", "ssd_scan", "ssd_scan_bwd"):
         for line in build.resource_usage(lib):
             print(f"[ptxas] {lib}: {line}")
     int8 = [ln for lib in ("flash_decode", "paged_decode") for ln in build.resource_usage(lib)
@@ -1952,10 +1983,13 @@ def main() -> None:
     arch_launches, arch_err = phase_archs(torch, np, dev, reqs, flush)
     for k, v in arch_err.items():
         err[k] = max(err[k], v)
+    ssm_train, ssm_err, ssm_rows = phase_mamba_train(torch, np, dev, flush)
+    err.update(ssm_err)
+    rows.update(ssm_rows)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
             mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train,
-            arch_launches)
+            arch_launches, ssm_train)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -2029,6 +2063,13 @@ def main() -> None:
              replaces="src/repro/kernels/ssd_scan/kernel.py:63",
              launches=launches["ssd_scan"], max_abs_err=err["ssd_scan"],
              **rows[("ssd_scan", 200)]),
+        # its backward (phase 16), timed at a client's training shape: 2 x
+        # 320 tokens padded to 512, 80 heads of 64, state 128
+        dict(name="ssd_scan_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+             replaces="src/repro/models/ssm.py:87 ssd_chunked (jax.grad; no Pallas kernel)",
+             launches=launches["ssd_scan_bwd"], max_abs_err=err["ssd_scan_bwd"],
+             **rows[("ssd_scan_bwd", 512)]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2953,6 +2994,169 @@ def phase_faults(torch, np, dev, reqs, params, lora):
     return serve_launches, train_launches
 
 
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def attention_per_step(Kc, L, ell):
+    """Launches per local step of a homogeneous round whose every layer has
+    LoRA on q and v: the forward per projection and pass, dX where the
+    projection's input needs a gradient (not the client's first layer),
+    two rank reduces per projection."""
+    return {"lora_matmul": 2 * (Kc * ell + L - ell),
+            "lora_rank_reduce": 4 * (Kc * ell + L - ell),
+            "lora_matmul_dx": 2 * (Kc * (ell - 1) + L - ell)}
+
+
+def mamba_per_step(Kc, L, ell):
+    """Launches per local step of Mamba2 with LoRA on ssm_in and ssm_out:
+    the scan and its backward once per block per client or server pass,
+    the forward per projection and pass, dX for every projection but the
+    client's first ssm_in (its input, the embedding, needs no gradient),
+    two rank reduces per projection."""
+    passes = Kc * ell + L - ell
+    return {"ssd_scan": passes, "ssd_scan_bwd": passes, "lora_matmul": 2 * passes,
+            "lora_rank_reduce": 4 * passes, "lora_matmul_dx": Kc * (2 * ell - 1) + 2 * (L - ell)}
+
+
+def jamba_per_step(Kc, L, ell):
+    """Launches per local step of reduced Jamba (periods of one attention
+    layer with LoRA on q and v, then seven mamba layers without LoRA):
+    every mamba block's scan and backward (each lies above an adapter),
+    the attention layers' LoRA as ``attention_per_step`` counts them."""
+    per = 8
+    att = attention_per_step(Kc, L // per, ell // per)
+    return {**att, "ssd_scan": 7 * (Kc * ell + L - ell) // per,
+            "ssd_scan_bwd": 7 * (Kc * ell + L - ell) // per}
+
+
+def sfl_round(torch, np, tag, cfg, params, lora, *, split, per_step, batch=4, seq=64,
+              reduced=False, witness_seq=None):
+    """One homogeneous SFL round through ``launch.train.run`` (3 clients x
+    ``batch`` x ``seq`` tokens of the synthetic E2E corpus, I = 6, AdamW
+    4e-4; ``params``/``lora`` None: drawn by ``run`` from its seed); the
+    launch counters, reset just before, must equal ``per_step(clients,
+    layers, split)`` times the steps; the server's aux loss is read from
+    each round's metrics; then one local step from the trained state
+    through the kernels and through the plain path (``Runtime()``).  By
+    default the two are held at phase 6's tolerance (loss 1e-4 relative,
+    adapters lr 1e-2).  With ``witness_seq`` the step runs on
+    ``witness_seq`` tokens, and the plain path also in f64 on the same
+    weights (every leaf cast, as phase 12's witness): the kernel path's
+    distance from it (loss, adapters) must be at most 3x the plain f32
+    path's, or within 1e-6 of the loss.  Returns (state, history, sfl,
+    launches)."""
+    from repro_torch import models as TM
+    from repro_torch.core import SflLLM
+    from repro_torch.kernels import backend
+    from repro_torch.launch import engine as engine_mod
+    from repro_torch.launch.train import build_argparser, run
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    targs = build_argparser().parse_args(
+        ["--arch", cfg.name, "--clients", "3", "--batch", str(batch), "--seq", str(seq),
+         "--local-steps", "6", "--steps", "6", "--split", str(split), "--lr", "4e-4",
+         "--device", "cuda", "--seed", "0", "--log-every", "1"]
+        + (["--reduced"] if reduced else []))
+    seen = []
+    plain_run_round = engine_mod.SflRound.run_round
+
+    def run_round(self, *a, **kw):
+        out = plain_run_round(self, *a, **kw)
+        seen.append(out[1])
+        return out
+
+    engine_mod.SflRound.run_round = run_round
+    try:
+        backend.reset_launch_counts()    # just before the main path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist, sfl = run(targs, params=params, lora=lora)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod.SflRound.run_round = plain_run_round
+    launches = dict(backend.LAUNCH_COUNTS)
+    cfg = sfl.cfg
+    Kc, L, ell = targs.clients, cfg.num_layers, sfl.ell_c
+    steps = len(hist.losses)
+    want = per_step(Kc, L, ell)
+    aux = [a for m in seen for a in m["aux"].tolist()]
+    print(f"[{tag}] SFL round of {cfg.name}: K={Kc} x b={targs.batch} x S={targs.seq}, "
+          f"I={targs.local_steps}, split {ell} of {L}, AdamW lr={targs.lr}: wall "
+          f"{wall:.2f}s incl. data and allocator; per round "
+          + ", ".join(f"{t:.3f}s" for t in hist.round_seconds)
+          + f" (host clock); peak device memory {peak_gib(torch):.2f} GiB")
+    print(f"[{tag}] losses: {' '.join(f'{x:.4f}' for x in hist.losses)}")
+    print(f"[{tag}] server aux per step: {' '.join(f'{x:.4f}' for x in aux)} "
+          f"(aux_coef {sfl.aux_coef})")
+    print(f"[{tag}] launches during the run: {launches}; per local step expected {want}")
+    if steps != 6 or not all(math.isfinite(x) for x in hist.losses):
+        fail(f"{cfg.name}: training losses not finite or wrong count: {hist.losses}")
+    if hist.rolled_back_rounds:
+        fail(f"{cfg.name}: rounds rolled back: {hist.rolled_back_rounds}")
+    if len(aux) != steps or not all(math.isfinite(x) for x in aux):
+        fail(f"{cfg.name}: aux losses missing or not finite: {aux}")
+    if cfg.num_experts and not min(aux) > 0:
+        fail(f"{cfg.name}: an MoE model's aux must be > 0: {aux}")
+    for k, v in want.items():
+        if launches.get(k, 0) != v * steps or v == 0:
+            fail(f"{cfg.name} {k}: {launches.get(k, 0)} launches in {steps} local "
+                 f"steps, expected {v * steps}")
+    if set(launches) != set(want):
+        fail(f"{cfg.name}: unexpected kernels on the training path: {launches}")
+
+    S = witness_seq or targs.seq
+    rng = np.random.default_rng(5)
+    tok = rng.integers(0, cfg.vocab_size, (Kc, targs.batch, S)).astype(np.int32)
+    step_batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=-1)}
+    kern_rt = sfl.rt
+
+    def step(s_, st_, rt):
+        s_.rt = rt
+        out, m = s_.local_step(st_, step_batch)
+        torch.cuda.synchronize()
+        return float(m["loss"]), [out.lora_client, out.lora_server]
+
+    (lk, ak), (lp, ap) = step(sfl, state, kern_rt), step(sfl, state, TM.Runtime())
+    sfl.rt = kern_rt
+    e_ad = max((a_ - b_).abs().max().item() for a_, b_ in zip(tree_leaves(ak),
+                                                             tree_leaves(ap)))
+    ad_tol = targs.lr * 1e-2
+    if witness_seq is None:
+        good = abs(lk - lp) <= 1e-4 * max(1.0, abs(lp)) and e_ad <= ad_tol
+        print(f"[{tag}] local_step kernels vs plain path (Runtime()): loss {lk:.6f} vs "
+              f"{lp:.6f} (tol 1e-4 rel), adapters max_abs_err={e_ad:.3g} (tol lr*1e-2 = "
+              f"{ad_tol:.1g}) {'ok' if good else 'FAIL'}")
+    else:
+        to64 = lambda t: tree_map(lambda v: v.double() if v.is_floating_point() else v, t)
+        sfl64 = SflLLM(cfg, to64(params), ell, sfl.tc, adamw(targs.lr), TM.Runtime(),
+                       device="cuda")
+        state64 = dataclasses.replace(state, **{
+            f.name: to64(getattr(state, f.name)) for f in dataclasses.fields(state)})
+        l64, a64 = step(sfl64, state64, TM.Runtime())
+        del state64
+        del sfl64
+        torch.cuda.empty_cache()
+        dist = lambda x: max((a_.double() - b_).abs().max().item()
+                             for a_, b_ in zip(tree_leaves(x), tree_leaves(a64)))
+        dk, dp = dist(ak), dist(ap)
+        lk64, lp64 = abs(lk - l64), abs(lp - l64)
+        good = (lk64 <= max(3 * lp64, 1e-6 * abs(l64)) and dk <= 3 * dp
+                and abs(lk - lp) <= 1e-3 * abs(lp))
+        print(f"[{tag}] local_step on {S} tokens, kernels vs plain path (Runtime()): loss "
+              f"{lk:.6f} vs {lp:.6f}, adapters max_abs_err={e_ad:.3g} (phase 6's tolerances: "
+              f"1e-4 rel, lr*1e-2 = {ad_tol:.1g}; a witness); against the plain path in f64 "
+              f"(loss {l64:.8f}): loss distance kernels {lk64:.3g} plain {lp64:.3g}, adapters "
+              f"kernels {dk:.3g} plain {dp:.3g} (kernels held at <= 3x plain, the loss also "
+              f"within 1e-6 rel; kernels vs plain loss within 1e-3 rel) "
+              f"{'ok' if good else 'FAIL'}")
+    if not good:
+        fail(f"{cfg.name}: a local step through the kernels disagrees with the plain path")
+    return state, hist, sfl, launches
+
+
 def phase_archs(torch, np, dev, reqs, flush):
     """Phase 15: the dense RoPE family and the MoE FFN at full width and full
     depth, from seed weights drawn on the card, rank-4 LoRA on q and v with
@@ -2973,8 +3177,6 @@ def phase_archs(torch, np, dev, reqs, flush):
                                                  lora_matmul_kernel, lora_matmul_ref,
                                                  lora_rank_reduce_kernel,
                                                  lora_rank_reduce_ref)
-    from repro_torch.launch import engine as engine_mod
-    from repro_torch.launch.train import build_argparser, run
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.tree import tree_leaves
 
@@ -3078,9 +3280,6 @@ def phase_archs(torch, np, dev, reqs, flush):
               f"{cfg.lora_targets} with B != 0")
         return cfg, params, lora
 
-    def peak():
-        return torch.cuda.max_memory_allocated() / 2 ** 30
-
     def serve(tag, cfg, params, lora, paged):
         """Phase 5's 16 requests through one engine; the launch counters,
         reset just before, must equal what the engine's steps imply."""
@@ -3112,7 +3311,7 @@ def phase_archs(torch, np, dev, reqs, flush):
               f"{n_tok / wall:.1f} tok/s; {st['decode_steps']} decode steps, mean "
               f"{st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.2f} ms/step; {pre} "
               f"{what}, {st['prefill_s'] / max(pre, 1) * 1e3:.2f} ms each (host clock); "
-              f"peak device memory {peak():.2f} GiB")
+              f"peak device memory {peak_gib(torch):.2f} GiB")
         print(f"[{tag}] launches during the run: {launches}")
         print(f"[{tag}] token ids digest of the {len(sreqs)} requests: {ids_digest(sreqs)}")
         if not all(r_.done and len(r_.output) == 32 for r_ in sreqs):
@@ -3187,89 +3386,6 @@ def phase_archs(torch, np, dev, reqs, flush):
         if not good:
             fail(f"{cfg.name}: a decode step through the kernels disagrees with the plain path")
 
-    def train(tag, cfg, params, lora, split):
-        """One homogeneous SFL round through ``launch.train.run`` (3 clients x
-        4 x 64 tokens of the synthetic E2E corpus, I = 6, AdamW 4e-4); the
-        launch counters, reset just before, must equal the per-step counts
-        of the split; the server's aux loss is read from each round's
-        metrics; then one local step from the trained state through the
-        kernels and through the plain path, at phase 6's tolerance."""
-        targs = build_argparser().parse_args(
-            ["--arch", cfg.name, "--clients", "3", "--batch", "4", "--seq", "64",
-             "--local-steps", "6", "--steps", "6", "--split", str(split), "--lr", "4e-4",
-             "--device", "cuda", "--seed", "0", "--log-every", "1"])
-        seen = []
-        plain_run_round = engine_mod.SflRound.run_round
-
-        def run_round(self, *a, **kw):
-            out = plain_run_round(self, *a, **kw)
-            seen.append(out[1])
-            return out
-
-        engine_mod.SflRound.run_round = run_round
-        try:
-            backend.reset_launch_counts()    # just before the main path
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, hist, sfl = run(targs, params=params, lora=lora)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            engine_mod.SflRound.run_round = plain_run_round
-        launches = dict(backend.LAUNCH_COUNTS)
-        Kc, L, ell = targs.clients, cfg.num_layers, sfl.ell_c
-        steps = len(hist.losses)
-        per_step = {"lora_matmul": 2 * (Kc * ell + L - ell),
-                    "lora_rank_reduce": 4 * (Kc * ell + L - ell),
-                    "lora_matmul_dx": 2 * (Kc * (ell - 1) + L - ell)}
-        aux = [a for m in seen for a in m["aux"].tolist()]
-        print(f"[{tag}] SFL round of {cfg.name}: K={Kc} x b={targs.batch} x S={targs.seq}, "
-              f"I={targs.local_steps}, split {ell} of {L}, AdamW lr={targs.lr}: wall "
-              f"{wall:.2f}s incl. data and allocator; per round "
-              + ", ".join(f"{t:.3f}s" for t in hist.round_seconds)
-              + f" (host clock); peak device memory {peak():.2f} GiB")
-        print(f"[{tag}] losses: {' '.join(f'{x:.4f}' for x in hist.losses)}")
-        print(f"[{tag}] server aux per step: {' '.join(f'{x:.4f}' for x in aux)} "
-              f"(aux_coef {sfl.aux_coef})")
-        print(f"[{tag}] launches during the run: {launches}; per local step expected "
-              f"{per_step}")
-        if steps != 6 or not all(math.isfinite(x) for x in hist.losses):
-            fail(f"{cfg.name}: training losses not finite or wrong count: {hist.losses}")
-        if hist.rolled_back_rounds:
-            fail(f"{cfg.name}: rounds rolled back: {hist.rolled_back_rounds}")
-        if len(aux) != steps or not all(math.isfinite(x) for x in aux):
-            fail(f"{cfg.name}: aux losses missing or not finite: {aux}")
-        if cfg.num_experts and not min(aux) > 0:
-            fail(f"{cfg.name}: an MoE model's aux must be > 0: {aux}")
-        for k, v in per_step.items():
-            if launches.get(k, 0) != v * steps or v == 0:
-                fail(f"{cfg.name} {k}: {launches.get(k, 0)} launches in {steps} local "
-                     f"steps, expected {v * steps}")
-        if set(launches) != set(per_step):
-            fail(f"{cfg.name}: unexpected kernels on the training path: {launches}")
-        runs.append(launches)
-
-        rng = np.random.default_rng(5)
-        tok = rng.integers(0, cfg.vocab_size, (Kc, targs.batch, targs.seq)).astype(np.int32)
-        batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=-1)}
-        outs = []
-        for rt in (TM.default_train_runtime(), TM.Runtime()):
-            sfl.rt = rt
-            st_, m = sfl.local_step(state, batch)
-            torch.cuda.synchronize()
-            outs.append((float(m["loss"]), st_))
-        (lk, sk), (lp, sp) = outs
-        e_ad = max((a_ - b_).abs().max().item() for side in ("lora_client", "lora_server")
-                   for a_, b_ in zip(tree_leaves(getattr(sk, side)),
-                                     tree_leaves(getattr(sp, side))))
-        ad_tol = targs.lr * 1e-2
-        good = abs(lk - lp) <= 1e-4 * max(1.0, abs(lp)) and e_ad <= ad_tol
-        print(f"[{tag}] local_step kernels vs plain path (Runtime()): loss {lk:.6f} vs "
-              f"{lp:.6f} (tol 1e-4 rel), adapters max_abs_err={e_ad:.3g} (tol lr*1e-2 = "
-              f"{ad_tol:.1g}) {'ok' if good else 'FAIL'}")
-        if not good:
-            fail(f"{cfg.name}: a local step through the kernels disagrees with the plain path")
-
     def time_rows(tag):
         """yi-9b's q and v projections at decode M 8, and its paged decode
         (G 8, D 128) at phase 4's lengths: kernel, plain version, one library
@@ -3335,7 +3451,8 @@ def phase_archs(torch, np, dev, reqs, flush):
         eng = serve("olmoe", cfg, params, lora, paged=paged)
         decode_check("olmoe", cfg, eng, paged=paged)
         del eng
-    train("olmoe", cfg, params, lora, split=8)
+    runs.append(sfl_round(torch, np, "olmoe", cfg, params, lora, split=8,
+                          per_step=attention_per_step)[3])
     del params, lora
     print(f"[olmoe] wall {time.perf_counter() - t_model:.1f}s (host clock)")
 
@@ -3345,7 +3462,8 @@ def phase_archs(torch, np, dev, reqs, flush):
     cfg, params, lora = build("minicpm", "minicpm-2b", 152)
     for M in (256, 768):
         check_lora("minicpm", M, 2304, 2304, backward=True)
-    train("minicpm", cfg, params, lora, split=20)
+    runs.append(sfl_round(torch, np, "minicpm", cfg, params, lora, split=20,
+                          per_step=attention_per_step)[3])
     del params, lora
     print(f"[minicpm] wall {time.perf_counter() - t_model:.1f}s (host clock)")
 
@@ -3363,6 +3481,216 @@ def phase_archs(torch, np, dev, reqs, flush):
     print(f"[archs] phase 15 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
     return launches, err
+
+
+def phase_mamba_train(torch, np, dev, flush):
+    """Phase 16: Mamba2 training on the card.  (a) the scan's backward
+    kernel against its plain version and against autograd through the
+    chunked algorithm in f64; (b) its times; (c) one SFL round of
+    full-width, full-depth Mamba2-2.7B; (d) one local step from the trained
+    state through the kernels and through the plain path, held against the
+    plain path in f64; (e) reduced Jamba: one SFL round and one local step.
+    Returns (the main paths' launch counts, the largest kernel-vs-plain
+    error of the backward kernel, its time row at the training shape)."""
+    import hashlib
+
+    import torch.nn.functional as F
+
+    from repro_torch import models as TM
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_scan_bwd_kernel,
+                                              ssd_scan_bwd_ref, ssd_scan_ref)
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    err, rows, runs = {"ssd_scan_bwd": 0.0}, {}, []
+
+    def op_inputs(B, nh, S, hd, N, Q, seed):
+        """The op's operands at Mamba2's decays: A = -linspace(1, 16, nh)
+        (A_log's init), dt = softplus(N(0, 1)) (dt_bias 0), xdt = x dt, g =
+        A dt; B, C ~ N(0, 1/N); a random dy and a nonzero dh_last; S tokens
+        padded with zeros to a multiple of Q, as the op pads.  Also the
+        model-layout operands, for autograd through ssd_chunked."""
+        gen = torch.Generator().manual_seed(seed)
+        dt = F.softplus(torch.randn(B, S, nh, generator=gen))
+        A = -torch.linspace(1.0, 16.0, nh)
+        xh = torch.randn(B, S, nh, hd, generator=gen)
+        Bm = torch.randn(B, S, N, generator=gen) * N ** -0.5
+        Cm = torch.randn(B, S, N, generator=gen) * N ** -0.5
+        dy = torch.randn(B, nh, S, hd, generator=gen)
+        dh = torch.randn(B, nh, hd, N, generator=gen)
+        pad = (-S) % Q
+        kern = (F.pad((xh * dt[..., None]).permute(0, 2, 1, 3), (0, 0, 0, pad)),
+                F.pad((dt * A).permute(0, 2, 1), (0, pad)), F.pad(Bm, (0, 0, 0, pad)),
+                F.pad(Cm, (0, 0, 0, pad)), F.pad(dy, (0, 0, 0, pad)))
+        model = (xh, Bm, Cm, dt, A)
+        return ([t.contiguous().to(dev) for t in kern], dh.to(dev),
+                [t.to(dev) for t in model])
+
+    def autograd_grads(kern, dh, Q, dtype):
+        """dxdt, dg, dBm, dCm by autograd through the chunked algorithm
+        (``ssd_scan_ref``: ``ssd_chunked``'s, in the kernel layout)."""
+        leaves = [t.to(dtype).clone().requires_grad_() for t in kern[:4]]
+        y, h = ssd_scan_ref(*leaves, chunk=Q)
+        loss = (y * kern[4].to(dtype)).sum() + (h * dh.to(dtype)).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    def bwd_work(B, nh, S, hd, N, Q):
+        """(bytes, flops) of the backward: each input (xdt, g, B, C, dy,
+        dh_last) read once and each output (dxdt, dg, dB, dC) written once;
+        per (batch, chunk) the causal half of C B^T, Q (Q + 1) N; per
+        (batch, head, chunk) the causal halves of dy xdt^T, (C B^T o E)^T dy
+        (K = hd), (E o G)^T C and (E o G) B (K = N), and five Q x hd x N
+        products (dxdt's and dB's state terms, dC's inter-chunk term, the
+        two state recurrences)."""
+        nc = S // Q
+        pairs = Q * (Q + 1) // 2
+        flops = B * nc * 2 * pairs * N + B * nh * nc * (2 * pairs * (2 * hd + 2 * N)
+                                                        + 10 * Q * hd * N)
+        nbytes = 4 * (3 * B * nh * S * hd + 2 * B * nh * S + 4 * B * S * N + B * nh * hd * N)
+        return nbytes, flops
+
+    # (a) the op at row 12's shapes, Jamba's full-width heads and the reduced
+    # shape: the four cotangents against the plain version (1e-4 of its
+    # largest entry: f32 sums in another order) and against the f64 witness,
+    # no further from it than 3x autograd through the chunked algorithm in f32
+    for B, nh, S, hd, N, Q, what in ((1, 80, 200, 64, 128, 256, "Mamba2-2.7B S 200"),
+                                     (1, 80, 512, 64, 128, 256, "Mamba2-2.7B S 512"),
+                                     (2, 8, 512, 128, 64, 256, "Jamba's heads"),
+                                     (2, 4, 40, 32, 16, 32, "reduced")):
+        kern, dh, _ = op_inputs(B, nh, S, hd, N, Q, seed=S + nh)
+        backend.reset_launch_counts()
+        got = ssd_scan_bwd_kernel(*kern, dh, chunk=Q)
+        again = ssd_scan_bwd_kernel(*kern, dh, chunk=Q)
+        torch.cuda.synchronize()
+        one = dict(backend.LAUNCH_COUNTS) == {"ssd_scan_bwd": 2}
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        plain = ssd_scan_bwd_ref(*kern, dh, chunk=Q)
+        w64 = autograd_grads(kern, dh, Q, torch.float64)
+        a32 = autograd_grads(kern, dh, Q, torch.float32)
+        torch.cuda.synchronize()
+        parts, good = [], one and same
+        for name, k_, p_, w_, a_ in zip(("dxdt", "dg", "dBm", "dCm"), got, plain, w64, a32):
+            top = p_.abs().max().item()
+            e = (k_ - p_).abs().max().item()
+            dk = (k_.double() - w_).abs().max().item() / w_.abs().max().item()
+            da = (a_.double() - w_).abs().max().item() / w_.abs().max().item()
+            ok = bool(torch.isfinite(k_).all()) and e <= 1e-4 * max(1.0, top) and dk <= 3 * da
+            good = good and ok
+            err["ssd_scan_bwd"] = max(err["ssd_scan_bwd"], e)
+            parts.append(f"{name} max_abs_err={e:.3g} (tol 1e-4 x max(1, {top:.3g})), from "
+                         f"f64 kernel {dk:.3g} autograd f32 {da:.3g}")
+        print(f"[train16] ssd_scan_bwd f32 B={B} S={S} nh={nh} hd={hd} N={N} chunk={Q} "
+              f"({what}; model decays, dh_last != 0): " + "; ".join(parts)
+              + f" (kernel <= 3x autograd's distance from f64); one launch {one}, two runs "
+              f"bit-equal {same} {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"ssd_scan_bwd disagrees at {what}")
+        del kern, dh, got, again, plain, w64, a32
+
+    # (b) times: the training shapes (a client's 2 x 320 tokens padded to
+    # 512, the server's pooled 6 x 320) and S 512 at B 1; the plain version,
+    # autograd's backward through ssd_chunked (model layout, its graph built
+    # once; no single PyTorch call computes the gradient) and the bound (f32
+    # FFMA)
+    for B, S_tok in ((2, 320), (6, 320), (1, 512)):
+        nh, S, hd, N, Q = 80, 512, 64, 128, 256
+        kern, dh, model = op_inputs(B, nh, S_tok, hd, N, Q, seed=B)
+        ms = time_ms(torch, lambda: ssd_scan_bwd_kernel(*kern, dh, chunk=Q), flush)
+        plain = time_ms(torch, lambda: ssd_scan_bwd_ref(*kern, dh, chunk=Q), flush, iters=20)
+        leaves = [t.clone().requires_grad_() for t in model]
+        y, h = ssd_chunked(*leaves, chunk=Q)
+        Sm = model[0].shape[1]
+        loss = (y * kern[4][:, :, :Sm].permute(0, 2, 1, 3)).sum() + (h * dh).sum()
+        auto = time_ms(torch, lambda: torch.autograd.grad(loss, leaves, retain_graph=True),
+                       flush, iters=20)
+        nbytes, flops = bwd_work(B, nh, S, hd, N, Q)
+        bms, bby = bound(nbytes, flops)
+        print(f"[time] ssd_scan_bwd f32 B={B} S={Sm} (padded to {S}) nh={nh} hd={hd} N={N} "
+              f"chunk={Q}: kernel {ms * 1e3:.2f}us plain ssd_scan_bwd_ref {plain * 1e3:.2f}us "
+              f"autograd backward through ssd_chunked {auto * 1e3:.2f}us library none; bound "
+              f"{bms * 1e3:.2f}us (f32 FFMA, {bby}, {flops} flop, {nbytes} B); "
+              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        if B == 2:                   # the JSON line's row: a client's shape
+            rows[("ssd_scan_bwd", S)] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                             bound_ms=bms, bound_by=bby)
+        del kern, dh, model, leaves, y, h, loss
+    torch.cuda.empty_cache()
+
+    # (c) full-width, full-depth Mamba2-2.7B: one SFL round through
+    # launch.train.run, 3 clients x 2 x 320 tokens (chunks of 256: every
+    # step runs a padded second chunk), I = 6, split 32, rank-4 LoRA on
+    # ssm_in/ssm_out with B != 0, weights drawn on the card; (d) its local
+    # step held against the plain path in f64 on 64 tokens, since the plain
+    # path's autograd at 320 tokens (its Q x Q chunk tensors per layer and
+    # client) does not fit the card beside the model, and a random 64-layer
+    # Mamba2 amplifies f32 rounding over depth (phase 12)
+    t_model = time.perf_counter()
+    cfg = get_arch("mamba2-2.7b")
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(160),
+                            torch.float32, "cuda")
+    lora = TM.init_lora_stack(cfg, torch.Generator(device=dev).manual_seed(161), 4,
+                              torch.float32, "cuda")
+    g_b = torch.Generator(device=dev).manual_seed(162)
+    for layer in lora:           # B != 0, or the rank path would be a no-op
+        for ad in layer["mixer"].values():
+            ad["b"].normal_(0, 0.02, generator=g_b)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in tree_leaves(params))
+    print(f"[train16] Mamba2-2.7B full width: {cfg.num_layers} layers d={cfg.d_model}, "
+          f"{cfg.ssm_num_heads} SSD heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, f32: {n_par} parameters ({n_par * 4 / 1e9:.2f} GB) drawn on the "
+          f"card; LoRA r=4 on {cfg.lora_targets} with B != 0")
+    torch.cuda.reset_peak_memory_stats()
+    state, hist, sfl, launches = sfl_round(
+        torch, np, "train16", cfg, params, lora, split=32, per_step=mamba_per_step,
+        batch=2, seq=320, witness_seq=64)
+    runs.append(launches)
+    ad = b"".join(t.detach().cpu().numpy().tobytes()
+                  for t in tree_leaves([state.lora_client, state.lora_server]))
+    print(f"[train16] Mamba2-2.7B adapters digest after the round: "
+          f"{hashlib.sha256(ad).hexdigest()[:16]}; wall {time.perf_counter() - t_model:.1f}s "
+          f"(host clock)")
+    # where a local step's time goes: one more step from the trained state
+    # at the round's shape, its output dropped, under torch.profiler (device
+    # busy share over the step's wall, device time by kernel), after a
+    # warm-up step and outside the round's clock
+    from repro_torch.launch.serve import _report
+    tok = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 2, 320)).astype(np.int32)
+    batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=-1)}
+    sfl.local_step(state, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU] + (
+        [torch.profiler.ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sfl.local_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"[train16] one local step of the round's shape under torch.profiler: "
+          f"{wall * 1e3:.1f} ms (host clock, profiler on)")
+    _report(prof, wall, top=14)
+    del state, hist, sfl, params, lora
+    torch.cuda.empty_cache()
+
+    # (e) reduced Jamba (two periods of one attention and seven mamba layers,
+    # MoE on the odd layers, d 256, 16 SSD heads of 32, state 16, chunk 32):
+    # one SFL round on 64 tokens (two chunks) at split 8 and one local step,
+    # kernels vs plain path at phase 6's tolerance
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state, hist, sfl, launches = sfl_round(
+        torch, np, "jamba", get_arch("jamba-1.5-large-398b"), None, None, split=8,
+        per_step=jamba_per_step, reduced=True)
+    runs.append(launches)
+    print(f"[jamba] {sfl.cfg.num_layers} layers ({[p.mixer + '/' + p.mlp for p in sfl.cfg.pattern]}"
+          f" a period) d={sfl.cfg.d_model}; wall {time.perf_counter() - t_model:.1f}s (host clock)")
+    del state, hist, sfl
+    torch.cuda.empty_cache()
+    print(f"[train16] phase 16 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
+    launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
+    return launches, err, rows
 
 
 if __name__ == "__main__":

@@ -19,7 +19,9 @@ for ``sm_90a`` at first use) with their plain PyTorch versions:
                      entry point; the model's training attention is
                      plain PyTorch, as in JAX);
 * ssd_scan         — the chunked SSD (Mamba2) forward with its final state
-                     (``ssd_scan_with_state``: Mamba2 prefill).
+                     (``ssd_scan_with_state``: Mamba2 prefill and training),
+                     and its backward (``ssd_scan_bwd_kernel``, under
+                     autograd: Mamba2 training).
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version
 (``backend.dispatch``); ``backend.LAUNCH_COUNTS`` counts kernel launches.
@@ -32,7 +34,7 @@ from .lora_matmul import (lora_matmul, lora_matmul_dx, lora_matmul_dx_ref,
                           lora_matmul_gathered, lora_matmul_gathered_ref,
                           lora_matmul_q8_dx, lora_matmul_q8_dx_ref, lora_matmul_q8_ref,
                           lora_matmul_ref, lora_rank_reduce, lora_rank_reduce_ref)
-from .ssd_scan import (ssd_chunked, ssd_scan, ssd_scan_with_state,
+from .ssd_scan import (ssd_chunked, ssd_scan, ssd_scan_bwd_ref, ssd_scan_with_state,
                        ssd_sequential_ref)
 
 __all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "flash_attention",
@@ -42,4 +44,4 @@ __all__ = ["LAUNCH_COUNTS", "reset_launch_counts", "flash_attention",
            "lora_matmul_gathered_ref", "lora_matmul_q8_dx",
            "lora_matmul_q8_dx_ref", "lora_matmul_q8_ref", "lora_matmul_ref",
            "lora_rank_reduce", "lora_rank_reduce_ref", "ssd_chunked", "ssd_scan",
-           "ssd_scan_with_state", "ssd_sequential_ref"]
+           "ssd_scan_bwd_ref", "ssd_scan_with_state", "ssd_sequential_ref"]

@@ -61,7 +61,9 @@ def run(args: argparse.Namespace, *, params=None, lora=None):
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
-        cfg = cfg.reduced(num_layers=max(4, len(cfg.pattern)))
+        # two pattern periods at least, so that a split exists (repro's CLI
+        # takes max(4, len(pattern)): one period of Jamba's 8, no split)
+        cfg = cfg.reduced(num_layers=max(4, 2 * len(cfg.pattern)))
     cfg = cfg.replace(lora_rank=args.rank)
 
     # data ------------------------------------------------------------------

@@ -33,7 +33,8 @@ from repro_torch.kernels.lora_matmul import (lora_matmul,   # noqa: E402
                                              lora_rank_reduce_kernel,
                                              lora_rank_reduce_ref)
 from repro_torch.kernels.lora_matmul.plan import DECODE_MAX_M  # noqa: E402
-from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_scan_kernel,  # noqa: E402
+from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_scan_bwd_kernel,  # noqa: E402
+                                          ssd_scan_bwd_ref, ssd_scan_kernel,
                                           ssd_scan_with_state, ssd_sequential_ref)
 from repro_torch.models import init_lora_stack, init_params  # noqa: E402
 from repro_torch.precision import (quantize_kv_int8, quantize_params_int8,  # noqa: E402
@@ -1054,9 +1055,16 @@ def test_ssd_scan_kernel_off_a_16_byte_boundary_gives_the_aligned_bits(cuda, B, 
 
 
 def test_ssd_scan_refuses_autograd_and_bad_operands_on_the_card(cuda):
+    """Autograd on the card now runs the backward kernel (one launch of
+    each kernel, no fallback to ``ssd_chunked``); bad operands are still
+    refused by both wrappers."""
     xh, Bm, Cm, dt, A = _ssd_inputs(1, 40, 2, 8, 8, cuda)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ssd_scan_with_state(xh.requires_grad_(), Bm, Cm, dt, A, chunk=16)
+    backend.reset_launch_counts()
+    y, h = ssd_scan_with_state(xh.requires_grad_(), Bm, Cm, dt, A, chunk=16)
+    (y.sum() + h.sum()).backward()
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS == {"ssd_scan": 1, "ssd_scan_bwd": 1}
+    assert bool(torch.isfinite(xh.grad).all())
     xdt = torch.zeros(1, 2, 32, 8, device=cuda)
     g = torch.zeros(1, 2, 32, device=cuda)
     Bk = torch.zeros(1, 32, 8, device=cuda)
@@ -1065,6 +1073,88 @@ def test_ssd_scan_refuses_autograd_and_bad_operands_on_the_card(cuda):
                         chunk=16)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_kernel(xdt, g, Bk.cpu(), Bk, chunk=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_bwd_kernel(xdt, g, Bk, Bk, xdt.cpu(), chunk=16)
+    with pytest.raises(ValueError, match="does not match"):
+        ssd_scan_bwd_kernel(xdt, g, Bk, Bk, xdt[:, :1].contiguous(), chunk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan_bwd_kernel(xdt, g, Bk, Bk, xdt, chunk=24)
+
+
+# the backward (csrc/ssd_scan_bwd.cu), (B, S, nh, hd, N, Q) in the kernel
+# layout: reduced Mamba2 / Jamba (4 heads of 32, N 16, Q 32), Mamba2-2.7B's
+# heads at one and two chunks and its training shape (B 2, 320 tokens padded
+# to 512), Jamba's full-width heads (128, N 64), hd 128 at N 256, ragged
+# tiles (Q 48, 100), B 4 and S 1024
+SSD_BWD_SHAPES = [(2, 64, 4, 32, 16, 32), (1, 256, 80, 64, 128, 256),
+                  (2, 512, 80, 64, 128, 256), (2, 512, 8, 128, 64, 256),
+                  (1, 256, 3, 128, 256, 256), (2, 96, 3, 100, 5, 48),
+                  (1, 200, 2, 16, 16, 100), (4, 1024, 2, 64, 128, 256),
+                  (3, 160, 5, 32, 64, 32)]
+
+
+@pytest.mark.parametrize("with_dh", [True, False], ids=["dh", "no_dh"])
+@pytest.mark.parametrize("B,S,nh,hd,N,Q", SSD_BWD_SHAPES)
+def test_ssd_scan_bwd_kernel_matches_plain_one_launch_equal_bits(cuda, B, S, nh, hd, N, Q,
+                                                                 with_dh):
+    """At the model's decays (A = -linspace(1, 16)): the four cotangents
+    within 1e-4 of the plain version's largest entry (f32 sums in another
+    order), one launch a call, two runs bit-equal."""
+    gen = torch.Generator().manual_seed(S + nh + hd)
+    dt = torch.nn.functional.softplus(torch.randn(B, nh, S, generator=gen))
+    xdt = (torch.randn(B, nh, S, hd, generator=gen) * dt[..., None]).to(cuda)
+    g = (-dt * torch.linspace(1.0, 16.0, nh)[None, :, None]).to(cuda)
+    Bm = (torch.randn(B, S, N, generator=gen) * N ** -0.5).to(cuda)
+    Cm = (torch.randn(B, S, N, generator=gen) * N ** -0.5).to(cuda)
+    dy = torch.randn(B, nh, S, hd, generator=gen).to(cuda)
+    dh = torch.randn(B, nh, hd, N, generator=gen).to(cuda) if with_dh else None
+    backend.reset_launch_counts()
+    got = ssd_scan_bwd_kernel(xdt, g, Bm, Cm, dy, dh, chunk=Q)
+    again = ssd_scan_bwd_kernel(xdt, g, Bm, Cm, dy, dh, chunk=Q)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS == {"ssd_scan_bwd": 2}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ssd_scan_bwd_ref(xdt, g, Bm, Cm, dy, dh, chunk=Q)
+    for k, r in zip(got, want):
+        assert k.shape == r.shape and bool(torch.isfinite(k).all())
+        assert (k - r).abs().max() <= 1e-4 * max(1.0, r.abs().max().item())
+
+
+def test_mamba_training_step_on_the_card_matches_the_cpu_step(cuda):
+    """One SFL local step of reduced Mamba2 (2 layers, chunks of 32, 40
+    tokens: two chunks, a padded tail) through the kernels equals the CPU
+    step (ssd_chunked under autograd); the scan and its backward once per
+    block per client or server pass."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import SflLLM
+    from repro_torch.interop import tree_to
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch("mamba2-2.7b").reduced(num_layers=2, d_model=64, vocab=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    lora = init_lora_stack(cfg, torch.Generator().manual_seed(1), device="cpu")
+    for layer in lora:
+        for ad in layer["mixer"].values():
+            ad["b"].normal_(0, 0.05, generator=torch.Generator().manual_seed(2))
+    tc = TrainConfig(num_clients=2, batch_size=2, local_steps=1)
+    tokens = torch.randint(0, 128, (2, 2, 40), generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": tokens, "labels": tokens}
+    outs = []
+    for dev in ("cpu", "cuda"):
+        sfl = SflLLM(cfg, params, 1, tc, adamw(1e-3), device=dev)
+        backend.reset_launch_counts()
+        st, m = sfl.local_step(sfl.init_state(lora), batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert backend.LAUNCH_COUNTS == {"ssd_scan": 2 + 1, "ssd_scan_bwd": 2 + 1,
+                                             "lora_matmul": 2 * (2 + 1),
+                                             "lora_matmul_dx": 2 * (2 * 1 - 1) + 2 * 1,
+                                             "lora_rank_reduce": 4 * (2 + 1)}
+        outs.append((float(m["loss"]), tree_to([st.lora_client, st.lora_server], "cpu")))
+    assert abs(outs[0][0] - outs[1][0]) < 1e-4
+    for a, b in zip(tree_leaves(outs[0][1]), tree_leaves(outs[1][1])):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-3)
 
 
 def test_mamba_slab_engines_on_the_card_match_the_cpu_engine(cuda):
