@@ -237,6 +237,35 @@ Phases (each prints its own lines; any failure exits non-zero):
     of one attention and seven mamba layers, MoE on the odd ones): one SFL
     round (3 x 4 x 64 tokens, split 8 of 16) with exact launch counts and
     one local step held against the plain path at phase 6's tolerance.
+17. the modality front ends at full width and depth (f32, weights drawn
+    on the card, rank-4 q/v adapters with B != 0, each model freed before
+    the next), each taking a prefix ``frontend_emb`` (B, F, d) = 0.1 N(0,
+    1) from a seeded generator: (a) InternVL2-2B (24 layers, d 2048, GQA
+    16/8 of 128, vocab 92553, F 256) and (b) MusicGen-Large (48 layers, 32
+    heads of 64, LayerNorm, GELU, learned positions over 524288, vocab
+    2048, F 64).  For each: ``lora_matmul`` at decode M 4, at the prefill's
+    4 x (F + 48) rows and, with dX and the rank reduce, at a client's 4 x
+    (F + 64) and the server's 12 x (F + 64) training rows, and
+    ``flash_decode`` over ``generate``'s slab caches, against their plain
+    versions; ``generate`` (4 prompts of 48 tokens after the prefix, 32
+    new, greedy, ``Runtime(dense_impl="fused", decode_attn_impl="flash")``)
+    with exactly 2 L x 32 ``lora_matmul`` and L x 31 ``flash_decode``
+    launches, its ids' digest and their equality with the plain path's
+    (printed); one decode step from the prefill's caches against the plain
+    path (logits 1e-3 x max(1, |logit|max), written KV 1e-4); another
+    prefix moves the last text logit; ``ServingEngine`` refuses the arch
+    (paged and slab), as ``repro``'s does; one SFL round through
+    ``launch.engine.Trainer.fit`` (3 clients x 4 x 64 text tokens of the
+    synthetic E2E corpus, each sample with its prefix, I = 6, AdamW 4e-4;
+    split 12 of 24 and 24 of 48) with ``attention_per_step`` launches each
+    step (96 / 90 / 192 and 192 / 186 / 384 of ``lora_matmul`` / dX / rank
+    reduce), then one local step against the plain path at phase 6's
+    tolerance, and once more under ``torch.profiler`` (device busy share,
+    device time by kernel); (c) times, as phase 4 takes them: ``lora_matmul`` at M 1280
+    and 4 (K 2048, N 2048 and 1024) and ``flash_decode`` at G 2, D 128
+    (8 KV heads) and G 1, D 64 (32 KV heads) over 4 slots at the last
+    decode step's length, each beside its plain version, a library call
+    and the bound.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -1986,10 +2015,13 @@ def main() -> None:
     ssm_train, ssm_err, ssm_rows = phase_mamba_train(torch, np, dev, flush)
     err.update(ssm_err)
     rows.update(ssm_rows)
+    fe_launches, fe_err = phase_frontends(torch, np, dev, flush)
+    for k, v in fe_err.items():
+        err[k] = max(err[k], v)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
             mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train,
-            arch_launches, ssm_train)
+            arch_launches, ssm_train, fe_launches)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -3157,6 +3189,42 @@ def sfl_round(torch, np, tag, cfg, params, lora, *, split, per_step, batch=4, se
     return state, hist, sfl, launches
 
 
+def lora_operands(randn, M, K, N, r=4):
+    """x (M, K), w (K, N), a (r, K), b (N, r) from ``randn(*shape, std=)``."""
+    return (randn(M, K), randn(K, N, std=K ** -0.5), randn(r, K, std=r ** -0.5),
+            randn(N, r, std=0.02))
+
+
+def check_lora_shape(torch, tag, randn, note, M, K, N, backward=False, r=4, scale=2.0):
+    """The forward at (M, K, N), and with ``backward`` dX and the rank
+    reduce at the same M, against their plain versions (f32 atol = rtol
+    1e-4, the reduce's atol times sqrt(M)); ``note(op, err)`` keeps each
+    op's largest error."""
+    from repro_torch.kernels.lora_matmul import (lora_matmul_dx_kernel, lora_matmul_dx_ref,
+                                                 lora_matmul_kernel, lora_matmul_ref,
+                                                 lora_rank_reduce_kernel,
+                                                 lora_rank_reduce_ref)
+    x, w, a, b = lora_operands(randn, M, K, N, r)
+    pairs = [("lora_matmul", lora_matmul_kernel(x, w, a, b, scale),
+              lora_matmul_ref(x, w, a, b, scale))]
+    if backward:
+        dy, u = randn(M, N), randn(M, r)
+        pairs += [("lora_matmul_dx", lora_matmul_dx_kernel(dy, w, a, b, scale),
+                   lora_matmul_dx_ref(dy, w, a, b, scale)),
+                  ("lora_rank_reduce", lora_rank_reduce_kernel(u, dy),
+                   lora_rank_reduce_ref(u, dy))]
+    torch.cuda.synchronize()
+    for op, got, want in pairs:
+        e = (got - want).abs().max().item()
+        atol = 1e-4 * (M ** 0.5 if op == "lora_rank_reduce" else 1.0)
+        ok = torch.allclose(got, want, atol=atol, rtol=1e-4)
+        print(f"[{tag}] {op} f32 M={M} K={K} N={N} r={r}: max_abs_err={e:.3g} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{op} at ({M}, {K}, {N}) disagrees with its plain version")
+        note(op, e)
+
+
 def phase_archs(torch, np, dev, reqs, flush):
     """Phase 15: the dense RoPE family and the MoE FFN at full width and full
     depth, from seed weights drawn on the card, rank-4 LoRA on q and v with
@@ -3173,10 +3241,7 @@ def phase_archs(torch, np, dev, reqs, flush):
     from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import (flash_decode_kernel, flash_decode_ref,
                                                      paged_decode_kernel, paged_decode_ref)
-    from repro_torch.kernels.lora_matmul import (lora_matmul_dx_kernel, lora_matmul_dx_ref,
-                                                 lora_matmul_kernel, lora_matmul_ref,
-                                                 lora_rank_reduce_kernel,
-                                                 lora_rank_reduce_ref)
+    from repro_torch.kernels.lora_matmul import lora_matmul_kernel, lora_matmul_ref
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.tree import tree_leaves
 
@@ -3193,29 +3258,7 @@ def phase_archs(torch, np, dev, reqs, flush):
         return (torch.randn(shape, generator=gen) * std).to(dev)
 
     def check_lora(tag, M, K, N, backward=False, r=4):
-        """The forward at (M, K, N), and with ``backward`` dX and the rank
-        reduce at the same M, against their plain versions (f32 atol = rtol
-        1e-4)."""
-        x, w = randn(M, K), randn(K, N, std=K ** -0.5)
-        a, b = randn(r, K, std=r ** -0.5), randn(N, r, std=0.02)
-        pairs = [("lora_matmul", lora_matmul_kernel(x, w, a, b, scale),
-                  lora_matmul_ref(x, w, a, b, scale))]
-        if backward:
-            dy, u = randn(M, N), randn(M, r)
-            pairs += [("lora_matmul_dx", lora_matmul_dx_kernel(dy, w, a, b, scale),
-                       lora_matmul_dx_ref(dy, w, a, b, scale)),
-                      ("lora_rank_reduce", lora_rank_reduce_kernel(u, dy),
-                       lora_rank_reduce_ref(u, dy))]
-        torch.cuda.synchronize()
-        for op, got, want in pairs:
-            e = (got - want).abs().max().item()
-            atol = 1e-4 * (M ** 0.5 if op == "lora_rank_reduce" else 1.0)
-            ok = torch.allclose(got, want, atol=atol, rtol=1e-4)
-            print(f"[{tag}] {op} f32 M={M} K={K} N={N} r={r}: max_abs_err={e:.3g} "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"{op} at ({M}, {K}, {N}) disagrees with its plain version")
-            note(op, e)
+        check_lora_shape(torch, tag, randn, note, M, K, N, backward, r, scale)
 
     def decode_inputs(KH, G, D, PS=16, MP=32):
         B, NP = len(lengths), len(lengths) * MP + 1
@@ -3691,6 +3734,351 @@ def phase_mamba_train(torch, np, dev, flush):
     print(f"[train16] phase 16 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
     return launches, err, rows
+
+
+def phase_frontends(torch, np, dev, flush):
+    """Phase 17: the modality front ends at full width and depth, each model
+    taking a prefix of precomputed embeddings ``frontend_emb`` (B, F, d) =
+    0.1 N(0, 1) from a seeded generator: (a) InternVL2-2B (F 256) and (b)
+    MusicGen-Large (F 64, learned positions from F on), f32 weights drawn
+    on the card, rank-4 LoRA on q and v with B != 0, each model freed before
+    the next.  For each: ``lora_matmul`` (decode M, a client's and the
+    server's training M, with dX and the rank reduce) and ``flash_decode``
+    (``generate``'s slab caches) against their plain versions at its shapes;
+    ``generate`` (4 prompts of 48 tokens after the prefix, 32 new, greedy,
+    fused LoRA and the flash decode) with exact launch counts; one decode
+    step from its prefill's caches against the plain path; the prefix moves
+    the last text logit; both engines refuse the arch; one SFL round
+    through ``Trainer.fit`` (3 clients x 4 x 64 text tokens of the
+    synthetic E2E corpus, each with its prefix, I = 6, AdamW 4e-4) with
+    ``attention_per_step`` launches a step, then one local step against
+    the plain path, and once more under ``torch.profiler``.  (c) The
+    kernels' times at the new shapes.  Returns
+    (the main paths' launch counts, the largest kernel-vs-plain error of
+    each kernel at this phase's shapes)."""
+    import hashlib
+
+    import torch.nn.functional as F
+
+    from repro_torch import models as TM
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.core import SflLLM
+    from repro_torch.data import WordTokenizer, e2e_splits, iid_partition, sfl_batches
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import flash_decode_kernel, flash_decode_ref
+    from repro_torch.kernels.lora_matmul import lora_matmul_kernel, lora_matmul_ref
+    from repro_torch.launch.engine import SflRound, Trainer
+    from repro_torch.models.generate import SampleConfig
+    from repro_torch.optim import adamw
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(17)
+    runs, err = [], {}
+    scale = 8.0 / 4                                     # lora_alpha / rank
+    NB, PROMPT, NEW = 4, 48, 32                         # generate's batch and lengths
+    KC, BC, SC, IC, LR = 3, 4, 64, 6, 4e-4              # the SFL round's shape
+
+    def note(op, e):
+        err[op] = max(err.get(op, 0.0), e)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen) * std).to(dev)
+
+    def prefix(rng, cfg, *lead):
+        return (0.1 * rng.standard_normal(lead + (cfg.frontend_tokens, cfg.d_model))
+                ).astype(np.float32)
+
+    def check_lora(tag, M, K, N, backward=False):
+        check_lora_shape(torch, tag, randn, note, M, K, N, backward, 4, scale)
+
+    def decode_operands(KH, G, D, L, lengths):
+        B = len(lengths)
+        return (randn(B, KH, G, D), randn(B, L, KH, D), randn(B, L, KH, D),
+                torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+    def check_decode(tag, KH, G, D, L, lengths):
+        q, k, v, lens = decode_operands(KH, G, D, L, lengths)
+        got = flash_decode_kernel(q, k, v, lens)
+        want = flash_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2), lens)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+        print(f"[{tag}] flash_decode f32 {len(lengths)} slots x {L}, KH={KH} G={G} D={D}, "
+              f"lengths {lengths}: max_abs_err={e:.3g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash_decode at KH {KH}, G {G}, D {D} disagrees with its plain version")
+        note("flash_decode", e)
+
+    # (c) times at the new shapes: row 1 at InternVL2's client training M
+    # (4 x (256 + 64) = 1280 rows) and at generate's decode M 4, q (N 2048)
+    # and InternVL2's v (N 1024) at K 2048; row 6 at generate's last decode
+    # step (4 slots at F + 48 + 31 of F + 48 + 32): InternVL2's 8 KV heads of
+    # 128 (G 2) and MusicGen's 32 of 64 (G 1)
+    for M, N in ((1280, 2048), (1280, 1024), (4, 2048), (4, 1024)):
+        K, r = 2048, 4
+        x, w, a, b = lora_operands(randn, M, K, N, r)
+        ms = time_ms(torch, lambda: lora_matmul_kernel(x, w, a, b, scale), flush)
+        plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
+        lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
+        nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
+        flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+        ffma, fby = bound(nbytes, flops)
+        if M > 16:
+            bms, bby = bound_tf32(nbytes, flops, 3)
+            what = f"3xTF32, {bby}; f32 FFMA {ffma * 1e3:.2f}us"
+        else:
+            bms, what = ffma, fby
+        print(f"[time] frontends lora_matmul f32 M={M} K={K} N={N} r={r}: kernel "
+              f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(torch.matmul x3) "
+              f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({what}; {nbytes} B, {flops} FLOP)")
+    for tag, KH, G, D, L in (("internvl2-2b", 8, 2, 128, 336), ("musicgen-large", 32, 1, 64, 144)):
+        lengths = [L - 1] * NB
+        q, k, v, lens = decode_operands(KH, G, D, L, lengths)
+        ms = time_ms(torch, lambda: flash_decode_kernel(q, k, v, lens), flush)
+        plain = time_ms(torch, lambda: flash_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2),
+                                                        lens), flush)
+        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)       # the slab view (B, KH, L, D)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kt, vt, attn_mask=mask),
+                      flush)
+        tot = sum(lengths)
+        nbytes = 4 * (2 * NB * KH * G * D + 2 * KH * tot * D) + 4 * NB
+        bms, bby = bound(nbytes, 4 * KH * G * D * tot)
+        print(f"[time] {tag} flash_decode f32 B={NB} KH={KH} G={G} D={D} L={L} lengths="
+              f"{lengths}: kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(masked "
+              f"sdpa) {lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, {nbytes} B)")
+    del q, k, v, lens, kt, vt, mask, x, w, a, b
+
+    def build(tag, name, seed):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_arch(name)
+        t0 = time.perf_counter()
+        params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                                torch.float32, "cuda")
+        lora = TM.init_lora_stack(cfg, torch.Generator(device=dev).manual_seed(seed + 1),
+                                  None, torch.float32, "cuda")
+        g_b = torch.Generator(device=dev).manual_seed(seed + 2)
+        for layer in lora:           # B != 0, or the rank path would be a no-op
+            for ad in layer["mixer"].values():
+                ad["b"].normal_(0, 0.02, generator=g_b)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in tree_leaves(params))
+        if n_par != TM.num_params(cfg):
+            fail(f"{name}: {n_par} parameters built, num_params says {TM.num_params(cfg)}")
+        pos = (f", learned positions over {cfg.max_seq_len} "
+               f"({cfg.max_seq_len * cfg.d_model * 4 / 1e9:.2f} GB)"
+               if cfg.pos_emb == "learned" else "")
+        print(f"[{tag}] {name} full width: {cfg.num_layers} layers d={cfg.d_model}, "
+              f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of {cfg.head_dim}, "
+              f"{cfg.mlp_kind} {cfg.d_ff}, {cfg.norm}, vocab {cfg.vocab_size}{pos}; "
+              f"{cfg.frontend} prefix of F={cfg.frontend_tokens}; f32: {n_par} parameters "
+              f"({n_par * 4 / 1e9:.2f} GB) drawn on the card in "
+              f"{time.perf_counter() - t0:.2f}s; LoRA r={cfg.lora_rank} on {cfg.lora_targets} "
+              f"with B != 0")
+        return cfg, params, lora
+
+    def serve(tag, cfg, params, lora):
+        """generate() with the prefix through the kernels (exact launch
+        counts), against the plain path's ids (printed); one decode step
+        from the prefill's caches against the plain path; the prefix's
+        effect on the last text logit; the engines' refusal."""
+        L, F_ = cfg.num_layers, cfg.frontend_tokens
+        rng = np.random.default_rng(170)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (NB, PROMPT))
+                                  .astype(np.int32)).to(dev)
+        fe = torch.from_numpy(prefix(rng, cfg, NB)).to(dev)
+        rt = TM.Runtime(dense_impl="fused", decode_attn_impl="flash")
+        sc = SampleConfig(greedy=True)
+        TM.generate(cfg, params, tokens[:, :8], lora=lora, rt=rt, max_new_tokens=2, sc=sc,
+                    frontend_emb=fe)                 # first-call set-up, not measured
+        backend.reset_launch_counts()                # just before the main path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, _ = TM.generate(cfg, params, tokens, lora=lora, rt=rt, max_new_tokens=NEW,
+                             sc=sc, frontend_emb=fe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(backend.LAUNCH_COUNTS)
+        want = {"lora_matmul": 2 * L * NEW, "flash_decode": L * (NEW - 1)}
+        plain_ids, _ = TM.generate(cfg, params, tokens, lora=lora, rt=TM.Runtime(),
+                                   max_new_tokens=NEW, sc=sc, frontend_emb=fe)
+        same = int((ids == plain_ids).all(dim=1).sum())
+        digest = hashlib.sha256(ids.cpu().numpy().tobytes()).hexdigest()[:16]
+        print(f"[{tag}] generate(frontend_emb (4, {F_}, {cfg.d_model})): {NB} prompts of "
+              f"{PROMPT} tokens after the prefix, {NEW} new, greedy, slab caches of "
+              f"{F_ + PROMPT + NEW}: {NB * NEW / wall:.1f} tok/s, {wall * 1e3:.1f} ms (host "
+              f"clock); peak device memory {peak_gib(torch):.2f} GiB")
+        print(f"[{tag}] launches during generate: {launches}; expected {want}")
+        print(f"[{tag}] token ids digest: {digest}; rows equal to the plain path's "
+              f"(Runtime()): {same} of {NB} (printed, not required: a near tie may flip)")
+        if tuple(ids.shape) != (NB, NEW) or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size:
+            fail(f"{cfg.name}: generate gave ids of shape {tuple(ids.shape)} outside the vocab")
+        if launches != want:
+            fail(f"{cfg.name}: generate launched {launches}, expected exactly {want}")
+        runs.append(launches)
+
+        # one decode step from the prefill's caches (F + 48 positions live),
+        # kernel path vs plain path, at phase 15's tolerances
+        logits0, caches = TM.prefill(cfg, params, tokens, lora=lora, rt=rt, frontend_emb=fe,
+                                     cache_len=F_ + PROMPT + NEW)
+        tok = logits0.argmax(-1).to(torch.int32)[:, None]
+        cur = F_ + PROMPT
+        outs = []
+        for r_ in (rt, TM.Runtime()):
+            cc = [{k: v.clone() for k, v in c.items()} for c in caches]
+            logits, cc = TM.decode_step(cfg, params, tok, cc, cur, lora=lora, rt=r_)
+            torch.cuda.synchronize()
+            outs.append((logits, cc))
+        (lk, ck), (lp, cp) = outs
+        top = lp.abs().max().item()
+        e_log = (lk - lp).abs().max().item()
+        kv_top = [max(b[n][:, cur].abs().max().item() for n in "kv") for b in cp]
+        e_kv = [max((a[n] - b[n]).abs().max().item() for n in "kv") / max(1.0, t_)
+                for a, b, t_ in zip(ck, cp, kv_top)]
+        good = (tuple(lk.shape) == (NB, cfg.vocab_size) and bool(torch.isfinite(lk).all())
+                and e_log <= 1e-3 * max(1.0, top) and max(e_kv) <= 1e-4)
+        print(f"[{tag}] decode_step at position {cur} after the prefix, logits kernel vs plain "
+              f"path: max_abs_err={e_log:.3g} of largest |logit| {top:.3g} (tol 1e-3 x max(1, "
+              f"that)); caches: worst layer's max_abs_err over the largest entry the step "
+              f"wrote there {max(e_kv):.3g} (tol 1e-4; written |K|, |V| up to "
+              f"{max(kv_top):.3g}) {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"{cfg.name}: a decode step through the kernels disagrees with the plain path")
+        del outs, caches, cc, ck, cp
+
+        # another prefix moves the last text logit
+        fe2 = torch.from_numpy(prefix(np.random.default_rng(171), cfg, NB)).to(dev)
+        logits2, _ = TM.prefill(cfg, params, tokens, lora=lora, rt=rt, frontend_emb=fe2)
+        moved = (logits2 - logits0).abs().max().item()
+        print(f"[{tag}] another prefix moves the last text logit by up to {moved:.3g} "
+              f"(must exceed 1e-4) {'ok' if moved > 1e-4 else 'FAIL'}")
+        if not moved > 1e-4:
+            fail(f"{cfg.name}: the prefix does not reach the text logits")
+        for paged in (True, False):
+            try:
+                ServingEngine(cfg, params, lora=lora, paged=paged, device="cuda")
+            except NotImplementedError as e:
+                print(f"[{tag}] ServingEngine(paged={paged}) refuses the arch, as repro's "
+                      f"does: {e}")
+            else:
+                fail(f"{cfg.name}: ServingEngine(paged={paged}) accepted a front-end arch")
+
+    def train(tag, cfg, params, lora, split):
+        """One SFL round through Trainer.fit on the E2E corpus with a prefix
+        per client sample; exact launch counts; one local step from the
+        trained state through the kernels and through the plain path."""
+        F_, d = cfg.frontend_tokens, cfg.d_model
+        train_ex, _, _ = e2e_splits(4000, 400, 400, seed=0)
+        tok = WordTokenizer.from_corpus([e.text for e in train_ex])
+        if tok.vocab_size > cfg.vocab_size:
+            fail(f"{cfg.name}: the corpus' {tok.vocab_size} words exceed the vocab")
+        parts = [np.array(train_ex, dtype=object)[idx]
+                 for idx in iid_partition(len(train_ex), KC, 0)]
+        rng = np.random.default_rng(172)
+
+        def data():
+            for batch in sfl_batches(tok, parts, BC, SC, 0):
+                yield dict(batch, frontend_emb=prefix(rng, cfg, KC, BC))
+
+        sfl = SflLLM(cfg, params, ell_c=split,
+                     train_cfg=TrainConfig(num_clients=KC, batch_size=BC, local_steps=IC,
+                                           learning_rate=LR),
+                     optimizer=adamw(LR), device="cuda")
+        state = sfl.init_state(lora)
+        trainer = Trainer(SflRound(sfl, [len(p) for p in parts]), local_steps=IC)
+        torch.cuda.reset_peak_memory_stats()
+        backend.reset_launch_counts()                # just before the main path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist = trainer.fit(state, data(), global_rounds=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(backend.LAUNCH_COUNTS)
+        L = cfg.num_layers
+        want = attention_per_step(KC, L, split)
+        print(f"[{tag}] SFL round of {cfg.name} through Trainer.fit: K={KC} x b={BC} x "
+              f"(F {F_} + S {SC}) rows, I={IC}, split {split} of {L}, AdamW lr={LR}: "
+              f"{hist.round_seconds[0]:.3f}s (host clock), wall {wall:.2f}s incl. data; peak "
+              f"device memory {peak_gib(torch):.2f} GiB")
+        print(f"[{tag}] losses: {' '.join(f'{x:.4f}' for x in hist.losses)}")
+        print(f"[{tag}] launches during the round: {launches}; per local step expected {want}")
+        if len(hist.losses) != IC or not all(math.isfinite(x) for x in hist.losses):
+            fail(f"{cfg.name}: training losses not finite or wrong count: {hist.losses}")
+        if hist.rolled_back_rounds:
+            fail(f"{cfg.name}: the round rolled back")
+        if launches != {k: v * IC for k, v in want.items()}:
+            fail(f"{cfg.name}: the round launched {launches}, expected {want} x {IC}")
+        runs.append(launches)
+        ad = b"".join(t.detach().cpu().numpy().tobytes()
+                      for t in tree_leaves([state.lora_client, state.lora_server]))
+        print(f"[{tag}] adapters digest after the round: {hashlib.sha256(ad).hexdigest()[:16]}")
+
+        rng2 = np.random.default_rng(5)
+        tk = rng2.integers(0, cfg.vocab_size, (KC, BC, SC)).astype(np.int32)
+        step_batch = {"tokens": tk, "labels": np.roll(tk, -1, axis=-1),
+                      "frontend_emb": prefix(rng2, cfg, KC, BC)}
+        kern_rt = sfl.rt
+
+        def step(rt):
+            sfl.rt = rt
+            out, m = sfl.local_step(state, step_batch)
+            torch.cuda.synchronize()
+            return float(m["loss"]), [out.lora_client, out.lora_server]
+
+        (lk, ak), (lp, ap) = step(kern_rt), step(TM.Runtime())
+        sfl.rt = kern_rt
+        e_ad = max((a_ - b_).abs().max().item() for a_, b_ in zip(tree_leaves(ak),
+                                                                 tree_leaves(ap)))
+        good = abs(lk - lp) <= 1e-4 * max(1.0, abs(lp)) and e_ad <= LR * 1e-2
+        print(f"[{tag}] local_step with the prefix, kernels vs plain path (Runtime()): loss "
+              f"{lk:.6f} vs {lp:.6f} (tol 1e-4 rel), adapters max_abs_err={e_ad:.3g} (tol "
+              f"lr*1e-2 = {LR * 1e-2:.1g}) {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"{cfg.name}: a local step through the kernels disagrees with the plain path")
+        # where a local step's time goes: the same step again through the
+        # kernels, its output dropped, under torch.profiler (device busy
+        # share over the step's wall, device time by kernel)
+        from repro_torch.launch.serve import _report
+        acts = [torch.profiler.ProfilerActivity.CPU] + (
+            [torch.profiler.ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            sfl.local_step(state, step_batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"[{tag}] one local step with the prefix under torch.profiler: "
+              f"{wall * 1e3:.1f} ms (host clock, profiler on)")
+        _report(prof, wall, top=10)
+
+    # (a) InternVL2-2B: GQA 16 over 8 KV heads of 128, SwiGLU, RMSNorm, RoPE,
+    # vocab 92553, a vision prefix of 256; split 12 of 24
+    # (b) MusicGen-Large: 32 heads of 64, GELU MLP, LayerNorm, learned
+    # positions over 524288, vocab 2048, an audio prefix of 64; split 24 of 48
+    for tag, name, seed, split in (("internvl", "internvl2-2b", 170, 12),
+                                   ("musicgen", "musicgen-large", 171, 24)):
+        t_model = time.perf_counter()
+        cfg, params, lora = build(tag, name, seed)
+        F_, KH, G, D = (cfg.frontend_tokens, cfg.num_kv_heads,
+                        cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+        for M in (NB, NB * (F_ + PROMPT)):
+            for N in sorted({cfg.num_heads * D, KH * D}):
+                check_lora(tag, M, cfg.d_model, N)
+        for M in (BC * (F_ + SC), KC * BC * (F_ + SC)):
+            for N in sorted({cfg.num_heads * D, KH * D}):
+                check_lora(tag, M, cfg.d_model, N, backward=True)
+        cap = F_ + PROMPT + NEW
+        check_decode(tag, KH, G, D, cap, [F_ + PROMPT + 1, F_ + PROMPT + 7, cap - 1, cap])
+        serve(tag, cfg, params, lora)
+        train(tag, cfg, params, lora, split)
+        del params, lora
+        torch.cuda.empty_cache()
+        print(f"[{tag}] wall {time.perf_counter() - t_model:.1f}s (host clock)")
+    print(f"[frontends] phase 17 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
+    launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
+    return launches, err
 
 
 if __name__ == "__main__":

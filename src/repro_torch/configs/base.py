@@ -2,15 +2,17 @@
 
 A config is a *pattern* of layer blocks (mixer, mlp) repeated over depth.
 Field names, defaults and ``reduced`` match ``repro.configs.base`` so that
-a config built on either side describes the same model; only what the
-ported slices read is kept (no modality-frontend knobs: those archs are
-not ported yet).
+a config built on either side describes the same model.  The modality
+front ends are stubs, as in ``repro``: ``frontend`` names the modality and
+``frontend_tokens`` the length F of the prefix of precomputed, already
+projected embeddings (B, F, d_model) that the model takes in front of the
+text.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Literal, Tuple
+from typing import Literal, Optional, Tuple
 
 Mixer = Literal["attention", "mamba"]
 Mlp = Literal["dense", "moe", "none"]
@@ -66,6 +68,10 @@ class ArchConfig:
     ssm_head_dim: int = 64
     ssm_conv_width: int = 4
     ssm_chunk: int = 256                # SSD chunk length
+
+    # modality frontend (a stub: precomputed embeddings of F tokens) --------
+    frontend: Optional[Literal["vision", "audio"]] = None
+    frontend_tokens: int = 0            # prefix length of stub embeddings
 
     # fine-tuning (the paper's technique) -----------------------------------
     lora_rank: int = 4
@@ -127,6 +133,7 @@ class ArchConfig:
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_head_dim=32 if self.ssm_state else self.ssm_head_dim,
             ssm_chunk=32,
+            frontend_tokens=min(self.frontend_tokens, 8),
             max_seq_len=256,
         )
 

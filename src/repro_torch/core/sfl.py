@@ -60,6 +60,12 @@ server adapter.  Any non-finite leaf of the new state rolls the whole
 round back to its input state, bit for bit.  Benign operands and a
 disarmed aggregator give the plain round bit for bit.
 
+Modality front ends (``cfg.frontend``: internvl2-2b, musicgen-large):
+the batches may carry ``frontend_emb``, (K, b, F, d) a step and (I, K, b,
+F, d) a round; client k puts its rows in front of its embedded text, so
+the uploads, the downloaded gradients and the error-feedback accumulators
+have F + S rows, and the server's loss drops the F prefix rows.
+
 Client adapter leaves carry a leading K axis, ``(K, ...)``, as in
 ``repro``'s ``SflState``; adapter trees are per-layer lists.  The mesh
 path is not ported (``ROADMAP.md``); the deprecated ``act_quant=True``
@@ -79,8 +85,9 @@ from ..configs import TrainConfig
 from ..interop import tree_to
 from ..kernels.backend import resolve_device
 from ..models import stack as stack_mod
-from ..models.layers import apply_norm, embed, unembed
-from ..models.model import IGNORE_ID, cross_entropy, init_lora_stack, loss_fn
+from ..models.layers import apply_norm, unembed
+from ..models.model import (IGNORE_ID, cross_entropy, embed_inputs, init_lora_stack, loss_fn,
+                            prefix_len)
 from ..models.stack import Runtime, default_train_runtime
 from ..optim import Optimizer, apply_updates
 from ..precision import fake_quant, round_key
@@ -392,15 +399,18 @@ class SflLLM:
                         step=torch.zeros((), dtype=torch.int32))
 
     # ------------------------------------------------------------------
-    def _client_forward(self, lora_c, tokens: torch.Tensor, rep_hi=None,
-                        lora_scale=None):
+    def _client_forward(self, lora_c, tokens: torch.Tensor, frontend_emb=None,
+                        rep_hi=None, lora_scale=None):
         """One client's FP: embed + its layers -> (activations s_k, the
-        client's MoE aux loss).  ``rep_hi``: the client's own boundary in
-        repeats (None = all of the client base); a scalar gate, so the
-        repeats past it add no aux, as under ``repro``'s client vmap."""
-        S = tokens.shape[1]
+        client's MoE aux loss).  ``frontend_emb`` (b, F, d): the client's
+        prefix, put in front of its embedded text (which takes positions
+        F..F+S-1), so s_k has F + S rows.  ``rep_hi``: the client's own
+        boundary in repeats (None = all of the client base); a scalar gate,
+        so the repeats past it add no aux, as under ``repro``'s client
+        vmap."""
+        S = tokens.shape[1] + prefix_len(frontend_emb)
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-        x = embed(self.cfg, self.client_base["embed"], tokens, positions)
+        x = embed_inputs(self.cfg, self.client_base, tokens, frontend_emb, positions)
         x, _, aux = stack_mod.apply_stack(self.cfg, self.client_base["layers"], x,
                                           positions=positions, lora=lora_c, rt=self.rt,
                                           mode="train", lora_scale=lora_scale,
@@ -409,7 +419,11 @@ class SflLLM:
 
     def _server_loss(self, lora_s, acts: torch.Tensor, labels: torch.Tensor,
                      rep_lo=None):
-        """Pooled loss on the main server.  acts: (K, b, S, d).  ``rep_lo``
+        """Pooled loss on the main server.  acts: (K, b, S, d), labels (K,
+        b, S_text): the first S - S_text rows of each sequence are the
+        front end's prefix, which takes no loss; only the text rows are
+        normed and unembedded (the same logits as ``repro``'s, which
+        unembeds every row and drops the prefix's).  ``rep_lo``
         (heterogeneous splits): per-sample entry depth in repeats of the
         server base — repeats below it pass the sample through unchanged;
         a per-row gate, so every repeat's MoE aux counts over the whole
@@ -422,9 +436,10 @@ class SflLLM:
                                           positions=positions, lora=lora_s, rt=self.rt,
                                           mode="train", lora_scale=self._server_scale,
                                           rep_gate=None if rep_lo is None else (rep_lo, None))
-        x = apply_norm(self.cfg, x, self.server_base["final_norm"])
+        labels = labels.reshape(K * b, -1)
+        x = apply_norm(self.cfg, x[:, S - labels.shape[1]:], self.server_base["final_norm"])
         logits = unembed(self.cfg, self.server_base["embed"], x)
-        loss = cross_entropy(logits, labels.reshape(K * b, -1))
+        loss = cross_entropy(logits, labels)
         return loss + self.aux_coef * aux, loss, aux
 
     def _client_args(self, k: int, dyn: Optional[dict] = None) -> dict:
@@ -458,13 +473,15 @@ class SflLLM:
     def _step_impl(self, state: SflState, batches: Dict[str, torch.Tensor],
                    dyn: Optional[dict] = None, part: Optional[torch.Tensor] = None):
         """One fine-tuning step (steps a-f of Section IV-A).
-        batches: tokens (K, b, S), labels (K, b, S) on the device.  ``dyn``
+        batches: tokens (K, b, S), labels (K, b, S) and optionally
+        frontend_emb (K, b, F, d) on the device.  ``dyn``
         (``rep_hi``/``slot_masks``/``scales``/``act_bits``, host values
         where per client) overrides the trainer's per-client configuration
         for this round; ``part`` is the round's (K,) 0/1 participation
         mask on the host (None = everyone).  Every masking op is exact
         under full participation."""
         tokens, labels = batches["tokens"], batches["labels"]
+        fe = batches.get("frontend_emb")
         K = self.tc.num_clients
         live = [k for k in range(K) if part is None or float(part[k]) > 0]
         if part is not None:
@@ -491,6 +508,7 @@ class SflLLM:
             lc = [tree_map(lambda v, k=k: _leaf(v[k]), state.lora_client)
                   for k in range(K)]
             acts_k, aux_k = zip(*(self._client_forward(lc[k], tokens[k],
+                                                       None if fe is None else fe[k],
                                                        **self._client_args(k, dyn))
                                   for k in range(K)))
             # (b) upload: the server gets a leaf cut from the client graphs,
@@ -554,16 +572,21 @@ class SflLLM:
                            err_act=new_err_act, err_grad=new_err_grad)
         return new, {"loss": loss.detach(), "total": total.detach(), "aux": aux.detach()}
 
-    def _ensure_err_state(self, state: SflState, b: int, S: int, *,
+    def _ensure_err_state(self, state: SflState, batches: Dict[str, torch.Tensor], *,
                           armed_act: Optional[bool] = None) -> SflState:
         """Attach zero error-feedback accumulators when the config asks for
-        them and the state has none yet; a no-op otherwise.  ``armed_act``:
-        the upload is quantized this round (default: the trainer's bits)."""
+        them and the state has none yet; a no-op otherwise.  They have the
+        uploads' shape (K, b, F + S, d): ``batches``' tokens give b and S,
+        its frontend_emb (if any) F.  ``armed_act``: the upload is
+        quantized this round (default: the trainer's bits)."""
         if not self.precision.error_feedback:
             return state
         if armed_act is None:
             armed_act = self._act_bits is not None
-        shape = (self.tc.num_clients, b, S, self.cfg.d_model)
+        b, S = batches["tokens"].shape[-2:]
+        fe = batches.get("frontend_emb")
+        shape = (self.tc.num_clients, b, S + (0 if fe is None else fe.shape[-2]),
+                 self.cfg.d_model)
         zeros = lambda: torch.zeros(shape, dtype=torch.float32, device=self.device)  # noqa: E731
         ea, eg = state.err_act, state.err_grad
         if armed_act and ea is None:
@@ -575,9 +598,10 @@ class SflLLM:
         return dataclasses.replace(state, err_act=ea, err_grad=eg)
 
     def local_step(self, state: SflState, batches):
-        """One local step on K stacked batches (tokens/labels (K, b, S))."""
+        """One local step on K stacked batches (tokens/labels (K, b, S),
+        optional frontend_emb (K, b, F, d))."""
         batches = self._to_device(batches)
-        state = self._ensure_err_state(state, *batches["tokens"].shape[-2:])
+        state = self._ensure_err_state(state, batches)
         return self._step_impl(state, batches)
 
     # ------------------------------------------------------------------
@@ -652,7 +676,8 @@ class SflLLM:
     def train_round(self, state: SflState, round_batches, sample_counts,
                     dynamics: Optional[RoundDynamics] = None):
         """One global round: the I local steps, FedAvg and broadcast.
-        round_batches: tokens/labels (I, K, b, S).  ``dynamics``: this
+        round_batches: tokens/labels (I, K, b, S), optional frontend_emb
+        (I, K, b, F, d).  ``dynamics``: this
         round's :class:`RoundDynamics` (participation / deadline dropout,
         re-allocation, corrupted uploads, robust aggregation, poison).
         Returns (state, metrics) with metrics["loss"], ["total"] (loss +
@@ -681,8 +706,7 @@ class SflLLM:
                 "act_bits": (None if dyn.act_bits is None else torch.as_tensor(
                     dyn.act_bits, dtype=torch.float32).to(self.device))}
         state = self._ensure_err_state(
-            state, *batches["tokens"].shape[-2:],
-            armed_act=self._act_bits is not None or dyn.act_bits is not None)
+            state, batches, armed_act=self._act_bits is not None or dyn.act_bits is not None)
         # the round's starting (post-broadcast) adapters: the local steps
         # build new tensors, so this stays the pre-round upload reference
         ref = state.lora_client
@@ -769,7 +793,8 @@ class SflLLM:
         (after aggregation every client holds the slots client 0 owns)."""
         batch = self._to_device(batch)
         lora_c0 = tree_map(lambda v: v[0], state.lora_client)
-        acts, _ = self._client_forward(lora_c0, batch["tokens"], **self._client_args(0))
+        acts, _ = self._client_forward(lora_c0, batch["tokens"], batch.get("frontend_emb"),
+                                       **self._client_args(0))
         return self._server_loss(state.lora_server, acts[None], batch["labels"][None],
                                  self._rep_lo([0], batch["tokens"].shape[0]))[1]
 

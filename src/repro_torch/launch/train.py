@@ -8,7 +8,9 @@ on the card by default; every LoRA-adapted projection then goes through
 the CUDA forward and backward kernels of ``kernels.lora_matmul``.
 ``--checkpoint PATH`` saves the adapters at the end (``repro``'s file
 format: the K clients' stacked adapters and the server's), which
-``launch.serve --lora-checkpoint`` serves.
+``launch.serve --lora-checkpoint`` serves.  A front-end arch
+(``--arch internvl2-2b|musicgen-large``) trains its language model on the
+text alone, as ``repro.launch.train`` does: the CLI feeds no prefix.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-s --split 6
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-s --reduced \

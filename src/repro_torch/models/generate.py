@@ -100,9 +100,12 @@ def sample_logits_per_key(logits: torch.Tensor,
 def generate(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
              rt: Runtime = Runtime(), max_new_tokens: int = 32,
              sc: SampleConfig = SampleConfig(),
-             gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefill + decode loop over slab caches of S + ``max_new_tokens``
-    positions.  tokens: (B, S) int.  Returns (generated (B,
+             gen: Optional[torch.Generator] = None,
+             frontend_emb=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill + decode loop over slab caches of S + F + ``max_new_tokens``
+    positions.  tokens: (B, S) int; ``frontend_emb`` (B, F, d) or None, the
+    prefix the prompt follows (decode sees it only through the caches).
+    Returns (generated (B,
     max_new_tokens) int32, done (B,) bool); rows that sampled ``sc.eos_id``
     stop (their later entries are 0) and the loop ends when every row has.
 
@@ -111,8 +114,10 @@ def generate(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
     ``generate``, sampled ones follow this generator, not JAX's key
     splits.  One host read per step decides whether every row is done."""
     B, S = tokens.shape
+    S += model_mod.prefix_len(frontend_emb)
     logits, caches = model_mod.prefill(cfg, params, tokens, lora=lora, rt=rt,
-                                       cache_len=S + max_new_tokens)
+                                       cache_len=S + max_new_tokens,
+                                       frontend_emb=frontend_emb)
     if gen is None and not sc.greedy:
         gen = torch.Generator(device=tokens.device).manual_seed(0)
     tok = sample_logits(logits, gen, sc)

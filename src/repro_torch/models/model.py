@@ -71,14 +71,31 @@ def init_lora_stack(cfg, gen: torch.Generator, rank: Optional[int] = None,
     return out
 
 
+def embed_inputs(cfg, params: dict, tokens: torch.Tensor, frontend_emb,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Embed the text at the last ``tokens.shape[1]`` positions and put the
+    front end's prefix (B, F, d), cast to the embeddings' dtype, in front:
+    the prefix takes positions 0..F-1 and no learned position row."""
+    x = embed(cfg, params["embed"], tokens, positions[-tokens.shape[1]:])
+    if frontend_emb is not None:
+        x = torch.cat([frontend_emb.to(x.dtype), x], dim=1)
+    return x
+
+
+def prefix_len(frontend_emb) -> int:
+    """F of a front end's prefix (B, F, d); 0 for None."""
+    return 0 if frontend_emb is None else int(frontend_emb.shape[1])
+
+
 def forward(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
-            rt: Runtime = Runtime()) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward (training).  tokens: (B, S) int.  Returns
-    (logits (B, S, V), aux loss) — the sum of the MoE blocks' load-balance
-    losses, 0 without MoE."""
-    S = tokens.shape[1]
+            rt: Runtime = Runtime(), frontend_emb=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward (training).  tokens: (B, S_text) int;
+    frontend_emb: (B, F, d) or None.  Returns (logits (B, S, V) over all
+    S = F + S_text rows, aux loss) — the aux is the sum of the MoE blocks'
+    load-balance losses, 0 without MoE."""
+    S = tokens.shape[1] + prefix_len(frontend_emb)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = embed(cfg, params["embed"], tokens, positions)
+    x = embed_inputs(cfg, params, tokens, frontend_emb, positions)
     x, _, aux = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
                                       lora=lora, rt=rt, mode="train")
     x = apply_norm(cfg, x, params["final_norm"])
@@ -97,26 +114,33 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(cfg, params: dict, lora, batch: dict, *, rt: Runtime = Runtime()):
     """Causal-LM cross entropy.  batch: tokens (B, S), labels (B, S) with
-    ``IGNORE_ID`` masking.  Returns (loss + cfg.router_aux_coef * aux,
+    ``IGNORE_ID`` masking, optional frontend_emb (B, F, d), whose F logit
+    rows the loss drops.  Returns (loss + cfg.router_aux_coef * aux,
     {"loss", "aux"})."""
-    logits, aux = forward(cfg, params, batch["tokens"], lora=lora, rt=rt)
-    loss = cross_entropy(logits, batch["labels"])
+    logits, aux = forward(cfg, params, batch["tokens"], lora=lora, rt=rt,
+                          frontend_emb=batch.get("frontend_emb"))
+    labels = batch["labels"]
+    loss = cross_entropy(logits[:, logits.shape[1] - labels.shape[1]:], labels)
     return loss + cfg.router_aux_coef * aux, {"loss": loss, "aux": aux}
 
 
 def prefill(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
-            rt: Runtime = Runtime(), cache_len: int = 0, logit_index=None):
-    """Build slab decode caches for ``tokens`` (B, S) int.  Returns
-    (logits (B, V) at token ``logit_index`` — the last one when None;
-    bucket-padded serving prompts read the true last prompt token — and
-    one cache per layer of length ``cache_len`` or S)."""
-    S = tokens.shape[1]
+            rt: Runtime = Runtime(), cache_len: int = 0, logit_index=None,
+            frontend_emb=None):
+    """Build slab decode caches for ``tokens`` (B, S) int behind the
+    optional prefix ``frontend_emb`` (B, F, d).  Returns (logits (B, V) at
+    text token ``logit_index`` — the last row when None; bucket-padded
+    serving prompts read the true last prompt token; the prefix offset F
+    is added here — and one cache per layer of length ``cache_len`` or
+    F + S)."""
+    F = prefix_len(frontend_emb)
+    S = tokens.shape[1] + F
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = embed(cfg, params["embed"], tokens, positions)
+    x = embed_inputs(cfg, params, tokens, frontend_emb, positions)
     x, caches, _ = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
                                          lora=lora, rt=rt, mode="prefill",
                                          cache_len=cache_len)
-    i = S - 1 if logit_index is None else int(logit_index)
+    i = S - 1 if logit_index is None else int(logit_index) + F
     x = apply_norm(cfg, x[:, i:i + 1], params["final_norm"])
     return unembed(cfg, params["embed"], x)[:, 0], caches
 

@@ -142,7 +142,10 @@ class ServingEngine:
     and ``pool_size >= max_slots``.  ``tenant_quota`` caps each tenant's
     live slots (0 = no cap; only with ``adapters``).  ``preempt=True``
     (paged) lets a stalled higher-priority request evict a lower-priority
-    one.  ``device="cuda"`` without a card raises."""
+    one.  ``device="cuda"`` without a card raises.  A front-end arch
+    (``cfg.frontend``: internvl2-2b, musicgen-large) raises
+    ``NotImplementedError``, as ``repro``'s engine does; ``generate``
+    serves those with their prefix."""
 
     def __init__(self, cfg, params, *, lora=None, rt: Optional[Runtime] = None,
                  max_slots: int = 4, max_len: int = 256,
@@ -151,6 +154,11 @@ class ServingEngine:
                  paged: Optional[bool] = None, page_size: int = 16,
                  num_pages: Optional[int] = None, device="cuda", dtype=torch.float32,
                  adapters=None, tenant_quota: int = 0, preempt: bool = False):
+        if getattr(cfg, "frontend", None):
+            # repro's refusal, before any other check: both engines
+            raise NotImplementedError(
+                "ServingEngine serves text-only requests; frontend archs "
+                "need a frontend_emb-aware admission path")
         attn_only = all(p.mixer == "attention" for p in cfg.pattern)
         paged_ok = fused and attn_only and not cfg.attn_window
         if paged is None:

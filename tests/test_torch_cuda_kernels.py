@@ -1251,3 +1251,33 @@ def test_decode_kernels_at_the_new_head_groups(cuda, KH, G, D):
     o = _flash_split_case(cuda, torch.float32, 8, KH, G, D, 512, NEW_LENGTHS, 0,
                           KH * G + D + 1)
     assert (o[0] == 0).all()
+
+
+# -- the modality front ends at full width: InternVL2-2B (d 2048, q 2048,
+# v 1024 over 8 KV heads of 128, G 2) and MusicGen-Large (d 2048, q and v
+# 2048, 32 KV heads of 64, G 1) with their prefixes of 256 and 64 rows:
+# decode M 4, a client's training M b * (F + S) (4 x 320, 4 x 128) and the
+# server's pooled 3 clients' worth (3840, 1536)
+
+FRONTEND_WIDTHS = [(4, 2048, 2048, 4), (4, 2048, 1024, 4), (1280, 2048, 2048, 4),
+                   (1280, 2048, 1024, 4), (3840, 2048, 1024, 4), (512, 2048, 2048, 4),
+                   (1536, 2048, 2048, 4)]
+
+
+@pytest.mark.parametrize("M,K,N,r", FRONTEND_WIDTHS)
+def test_lora_kernels_at_the_front_end_widths(cuda, M, K, N, r):
+    test_lora_kernels_at_the_new_widths(cuda, M, K, N, r)
+
+
+# (KH, G, D, L): generate()'s slab caches of F + S + new positions: 256 +
+# 48 + 32 for InternVL2, 64 + 48 + 32 for MusicGen; 4 prompts at lengths
+# from the prefix alone to the last decode step's
+FRONTEND_HEAD_GROUPS = [(8, 2, 128, 336, [256, 304, 305, 335]),
+                        (32, 1, 64, 144, [64, 112, 113, 143])]
+
+
+@pytest.mark.parametrize("KH,G,D,L,lengths", FRONTEND_HEAD_GROUPS,
+                         ids=["internvl2-2b", "musicgen-large"])
+def test_flash_decode_at_the_front_end_head_groups(cuda, KH, G, D, L, lengths):
+    o = _flash_split_case(cuda, torch.float32, 4, KH, G, D, L, lengths, 0, KH * G + D)
+    assert o.shape == (4, KH, G, D) and bool(torch.isfinite(o).all())

@@ -1,10 +1,13 @@
 """The dense RoPE family (minicpm-2b, deepseek-7b, yi-9b, mistral-large-123b)
-and the config-level functions of the slice against ``repro``: the six
-new configs and Jamba field by field (and their ``reduced()``), the refusal of the
-architectures not ported yet, forward, loss and LoRA gradients on the
+and the config-level functions of the slice against ``repro``: every
+assigned config but Mamba2 (the RoPE family, the MoE models, Jamba and
+the two front ends, ``frontend``/``frontend_tokens`` included) field by
+field (and their ``reduced()``), a ``KeyError`` for an unknown name,
+forward, loss and LoRA gradients on the
 same weights (2 layers, d 128-256; yi-9b at GQA 8 through
 ``reduced().replace(num_heads=8, num_kv_heads=1)``, since ``reduced()``
-caps the heads at 4), the paged engine's ids for yi-9b at GQA 8 and the
+caps the heads at 4), GPT-2-M's loss and LoRA gradients at full width
+and 2 layers, the paged engine's ids for yi-9b at GQA 8 and the
 slab engine's for deepseek-7b, ``layer_workloads`` (with the MoE and
 Mamba2 terms), ``num_params``/``num_active_params``/``lora_num_params`` at
 full width, ``merge_adapter``, and the serve and train CLIs on the new
@@ -39,7 +42,7 @@ from repro_torch.tree import tree_map                       # noqa: E402
 LOGIT_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 NEW = ("minicpm-2b", "deepseek-7b", "yi-9b", "mistral-large-123b", "olmoe-1b-7b",
-       "llama4-scout-17b-a16e", "jamba-1.5-large-398b")
+       "llama4-scout-17b-a16e", "jamba-1.5-large-398b", "internvl2-2b", "musicgen-large")
 _j_forward = jax.jit(JM.forward, static_argnums=(0,))
 
 
@@ -58,12 +61,12 @@ def test_config_equals_repros_field_by_field(name):
         assert _fields(tcfg.reduced(**kw)) == _fields(jcfg.reduced(**kw))
 
 
-@pytest.mark.parametrize("name", ["internvl2-2b", "musicgen-large"])
-def test_unported_archs_raise_key_error(name):
-    j_get_arch(name)                                  # repro has it
-    with pytest.raises(KeyError, match="not ported yet"):
-        t_get_arch(name)
-    assert name not in ARCHS
+def test_unknown_arch_raises_key_error():
+    with pytest.raises(KeyError):
+        j_get_arch("gpt2-xl")
+    with pytest.raises(KeyError, match="unknown arch 'gpt2-xl'"):
+        t_get_arch("gpt2-xl")
+    assert "gpt2-xl" not in ARCHS
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +122,35 @@ def test_forward_loss_and_lora_grads_match_repro(name, gqa8):
         has_aux=True))(jax.tree.map(jnp.asarray, lora))
     tl_ = tree_map(lambda v: v.requires_grad_(), interop.lora_from_numpy(lora, "cpu"))
     total, _ = TM.loss_fn(tcfg, tp, tl_, {k: torch.from_numpy(v) for k, v in batch.items()},
+                          rt=TM.default_train_runtime())
+    total.backward()
+    np.testing.assert_allclose(total.item(), float(jt), **GRAD_TOL)
+    got = interop.lora_to_numpy(tree_map(lambda v: v.grad, tl_), len(tcfg.pattern))
+    fa, ta = jax.tree.flatten(got)
+    fb, tb = jax.tree.flatten(jax.tree.map(np.asarray, jg))
+    assert ta == tb
+    for a, b in zip(fa, fb):
+        np.testing.assert_allclose(a, b, **GRAD_TOL)
+
+
+def test_gpt2_m_loss_and_lora_grads_match_repro():
+    """The paper's second model at its full width (d 1024, 16 heads of 64,
+    d_ff 4096, the tied vocabulary of 50257, 1024 learned positions), cut
+    to 2 layers: the loss and the LoRA gradients within 1e-4."""
+    jcfg, tcfg = (get("gpt2-m").replace(num_layers=2) for get in (j_get_arch, t_get_arch))
+    assert jcfg.d_model == 1024 and jcfg.tie_embeddings and jcfg.pos_emb == "learned"
+    params, lora = _weights(tcfg)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=-1)
+    labels[:, -3:] = -1
+    batch = {"tokens": tokens, "labels": labels}
+    (jt, _), jg = jax.jit(jax.value_and_grad(
+        lambda l: JM.loss_fn(jcfg, params, l, batch, rt=JM.default_train_runtime()),
+        has_aux=True))(jax.tree.map(jnp.asarray, lora))
+    tl_ = tree_map(lambda v: v.requires_grad_(), interop.lora_from_numpy(lora, "cpu"))
+    total, _ = TM.loss_fn(tcfg, interop.params_from_numpy(params, "cpu"), tl_,
+                          {k: torch.from_numpy(v) for k, v in batch.items()},
                           rt=TM.default_train_runtime())
     total.backward()
     np.testing.assert_allclose(total.item(), float(jt), **GRAD_TOL)
