@@ -266,6 +266,31 @@ Phases (each prints its own lines; any failure exits non-zero):
     (8 KV heads) and G 1, D 64 (32 KV heads) over 4 slots at the last
     decode step's length, each beside its plain version, a library call
     and the bound.
+18. the multi-device path over ``torch.distributed``, in spawned ranks
+    (``torch.multiprocessing``; a rank that raises fails the script):
+    three runs, each from seeded weights drawn on the card — a client-axis
+    round of full-width GPT-2-S (``SflLLM(mesh=)``, K 4 x 4 x 64, split 6,
+    I 6, AdamW 4e-4), a ``PodRound`` round of full-width minicpm-2b (10.90
+    GB f32, I 2, a pooled batch of 8 x 64, the frozen base FSDP-sharded
+    over "data") and ``apply_moe_shard_map`` at olmoe-1b-7b's layer (d
+    2048, 64 experts, top 8, ffn 1024, 4 x 256 tokens).  (a) One rank runs
+    them with no group, then over a one-rank NCCL group: held to each
+    other (losses 1e-4 relative; the first step's gradients 1e-4 of their
+    largest entry; each adapter entry lr*1e-2, or where its first
+    gradient g is under 400 times the gradients' measured error d,
+    lr*min(2, 4d/|g|), which is what AdamW makes of that error; the MoE
+    2e-4 against ``apply_moe`` with no drops), launches exactly the
+    per-step counts.  (b) Two ranks on the one card over gloo, CUDA
+    tensors staged through host memory (a printed line says so): 2
+    clients a rank, FSDP over "data" = 2 (each rank draws the base a
+    subtree at a time and keeps its pieces), 32 experts a rank, held to
+    (a)'s no-group runs; each rank prints its resident frozen bytes (half
+    the sharded leaves plus the replicated ones), the gathered bytes alive
+    at most, its peak memory (the weights' construction included) and its
+    launches; the clients' launches add up to the one-process count plus
+    one more server pass a step (every rank runs the server on its rows).
+    (c) One rank a card over NCCL where there are two cards or more; else
+    a line says why not.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -2018,10 +2043,11 @@ def main() -> None:
     fe_launches, fe_err = phase_frontends(torch, np, dev, flush)
     for k, v in fe_err.items():
         err[k] = max(err[k], v)
+    mesh_launches = phase_mesh(torch, np, dev)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
             mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train,
-            arch_launches, ssm_train, fe_launches)
+            arch_launches, ssm_train, fe_launches, mesh_launches)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -4079,6 +4105,450 @@ def phase_frontends(torch, np, dev, flush):
     print(f"[frontends] phase 17 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
     return launches, err
+
+
+# ---------------------------------------------------------------------------
+# 18. the multi-device path over torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_LR = 4e-4
+MESH_SFL = dict(K=4, b=4, S=64, split=6, I=6)      # full-width GPT-2-S
+MESH_POD = dict(I=2, B=8, S=64)                     # full-width minicpm-2b
+MESH_MOE = dict(B=4, S=256, cf_one=1.0, cf_two=2.0)  # olmoe-1b-7b's layer
+
+
+def _mesh_cfgs(small: bool):
+    """The three workloads' configs; ``small`` cuts each to d_model 64 (and
+    4 heads of 16, d_ff 128, 8 experts of 64) for a rehearsal on the CPU."""
+    from repro_torch.configs import get_arch
+    cfgs = [get_arch("gpt2-s"), get_arch("minicpm-2b"), get_arch("olmoe-1b-7b")]
+    if small:
+        cut = dict(d_model=64, num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128)
+        cfgs = [cfgs[0].replace(**cut), cfgs[1].replace(num_layers=4, **cut),
+                cfgs[2].replace(num_layers=1, **cut, num_experts=8)]
+    return cfgs
+
+
+def _mesh_lora(torch, TM, cfg, dev, seed):
+    """Rank-4 adapters with B != 0, drawn from seeded generators."""
+    lora = TM.init_lora_stack(cfg, torch.Generator().manual_seed(seed), 4, device=dev)
+    g_b = torch.Generator().manual_seed(seed + 1)
+    for layer in lora:
+        for ad in layer.get("mixer", {}).values():
+            ad["b"].copy_(torch.randn(ad["b"].shape, generator=g_b) * 0.02)
+    return lora
+
+
+def _recording(opt, first: int):
+    """``opt`` that also keeps, on the host, the gradients of its first
+    ``first`` updates (a round's first step: identical inputs on every
+    path).  Returns (optimizer, the list they go to)."""
+    from repro_torch.optim import Optimizer
+    from repro_torch.tree import tree_map
+    calls = []
+
+    def update(grads, state, params):
+        if len(calls) < first:
+            calls.append(tree_map(lambda v: v.detach().cpu().clone(), grads))
+        return opt.update(grads, state, params)
+    return Optimizer(opt.init, update), calls
+
+
+def _mesh_peak(torch, dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else 0.0
+
+
+def _mesh_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_sfl(torch, np, dev, mesh, small):
+    """One client-axis round (``SflLLM(mesh=)``; ``mesh`` None: one process
+    with no group): full-width GPT-2-S, K 4 x b 4 x S 64, split 6, I 6."""
+    from repro_torch import models as TM
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import SflLLM
+    from repro_torch.kernels import backend
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+    cfg = _mesh_cfgs(small)[0]
+    m = MESH_SFL
+    gen = torch.Generator(device=dev).manual_seed(180)
+    params = TM.init_params(cfg, gen, device=dev)
+    lora = _mesh_lora(torch, TM, cfg, dev, 181)
+    tok = np.random.default_rng(182).integers(
+        0, cfg.vocab_size, (m["I"], m["K"], m["b"], m["S"])).astype(np.int32)
+    batches = {"tokens": tok, "labels": np.roll(tok, -1, axis=-1)}
+    tc = TrainConfig(num_clients=m["K"], batch_size=m["b"], local_steps=m["I"])
+    opt, first = _recording(adamw(MESH_LR), 2)       # the server's, then the clients'
+    sfl = SflLLM(cfg, params, m["split"], tc, opt, device=dev, mesh=mesh)
+    state = sfl.init_state(lora)
+    backend.reset_launch_counts()
+    _mesh_sync(torch, dev)
+    t0 = time.perf_counter()
+    state, met = sfl.train_round(state, batches, [1.0, 2.0, 3.0, 4.0])
+    _mesh_sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches = dict(backend.LAUNCH_COUNTS)
+    whole = sfl.gather_state(state)
+    cpu = lambda t: tree_map(lambda v: v.detach().cpu(), t)  # noqa: E731
+    return {"loss": met["loss"].cpu().tolist(), "lora": cpu([whole.lora_client,
+                                                            whole.lora_server]),
+            "grads": [first[1], first[0]], "launches": launches, "seconds": secs,
+            "local_clients": sfl._kl,
+            "L": cfg.num_layers, "split": sfl.ell_c}
+
+
+def _mesh_pod(torch, np, dev, mesh, small):
+    """One ``PodRound`` round of full-width minicpm-2b (10.90 GB f32): I 2,
+    a pooled batch of 8 x 64 cut over "data".  Each rank draws the seeded
+    base a subtree at a time and keeps its pieces (``ShardedParams.init``),
+    so no rank's card holds the whole base unless it is a world of one."""
+    from repro_torch import models as TM
+    from repro_torch.kernels import backend
+    from repro_torch.launch.engine import PodRound
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.fsdp import ShardedParams
+    from repro_torch.tree import tree_map
+    cfg = _mesh_cfgs(small)[1]
+    m = MESH_POD
+    if mesh is None:            # a world of one: no group, nothing sharded
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+    params = ShardedParams.init(cfg, torch.Generator(device=dev).manual_seed(183), mesh)
+    lora = _mesh_lora(torch, TM, cfg, dev, 184)
+    opt, first = _recording(adamw(MESH_LR), 1)
+    pod = PodRound(cfg, params, None, opt, mesh)
+    tok = np.random.default_rng(185).integers(
+        0, cfg.vocab_size, (m["I"], m["B"], m["S"])).astype(np.int32)
+    backend.reset_launch_counts()
+    _mesh_sync(torch, dev)
+    t0 = time.perf_counter()
+    (lo, _), met = pod.run_round(pod.init_state(lora), {"tokens": tok,
+                                                         "labels": np.roll(tok, -1, -1)})
+    _mesh_sync(torch, dev)
+    secs = time.perf_counter() - t0
+    sp = pod.params
+    sh, rep = sp.rule_bytes()
+    layer = max(sp.gathered_bytes(f"layers/{i}") for i in range(cfg.num_layers))
+    return {"loss": met["loss"].cpu().tolist(), "lora": tree_map(lambda v: v.cpu(), lo),
+            "grads": first[0], "launches": dict(backend.LAUNCH_COUNTS), "seconds": secs,
+            "resident": sp.resident_bytes(), "sharded": sh, "replicated": rep,
+            "layer_bytes": layer, "embed_bytes": sp.gathered_bytes("embed"),
+            "peak_live": sp.peak_live_bytes, "gather_s": sp.gather_seconds,
+            "L": cfg.num_layers, "remat": pod.rt.remat}
+
+
+def _mesh_moe(torch, np, dev, mesh, small):
+    """``apply_moe_shard_map`` at olmoe-1b-7b's layer (d 2048, 64 experts,
+    top 8, ffn 1024) on 4 x 256 tokens (``mesh`` None: ``apply_moe`` with
+    no drops, group 1 and capacity factor 4).  Returns this rank's output
+    piece and its (data, model) coordinate."""
+    from repro_torch.models.moe import apply_moe, init_moe
+    from repro_torch.models.moe_shard_map import (apply_moe_shard_map, shard_moe_input,
+                                                  shard_moe_params)
+    cfg = _mesh_cfgs(small)[2]
+    gen = torch.Generator(device=dev).manual_seed(186)
+    p = init_moe(cfg, gen, torch.float32, dev)
+    x = torch.randn((MESH_MOE["B"], MESH_MOE["S"], cfg.d_model), generator=gen,
+                    device=dev) * 0.5
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if mesh is None:
+            y = apply_moe(cfg, p, x, group_size=1, capacity_factor=4.0)[0]
+            coord = (0, 0)
+        else:
+            tp = mesh.shape["model"]
+            cf = MESH_MOE["cf_one"] if tp == 1 else MESH_MOE["cf_two"]
+            y = apply_moe_shard_map(cfg, shard_moe_params(p, mesh), shard_moe_input(x, mesh),
+                                    mesh, capacity_factor=cf)
+            coord = (mesh.axis_rank("data"), mesh.axis_rank("model"))
+    _mesh_sync(torch, dev)
+    return {"y": y.cpu(), "coord": coord, "seconds": time.perf_counter() - t0}
+
+
+def _mesh_rank(rank, world, store, out, device, backend, small):
+    """One rank of phase 18 (a spawned process).  World 1: first the three
+    runs in this process with no group (the references), then over a
+    one-rank ``backend`` group; world 2: over a ``backend`` group, 2
+    clients a rank, FSDP over "data" = 2, 32 experts a rank.  Every result
+    goes to ``{out}.{rank}`` (a pickle); any error ends the process with an
+    exception, which fails the phase."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import init_file_store, make_client_mesh, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(2)
+    res = {"rank": rank, "world": world, "backend": backend}
+    runs = (("sfl", _mesh_sfl), ("pod", _mesh_pod), ("moe", _mesh_moe))
+    if world == 1:
+        # the first pass pays the process's first-call set-up (cuBLAS,
+        # the kernel libraries); its times are printed, the second pass
+        # is the reference
+        res["first_s"] = {k: fn(torch, np, dev, None, small)["seconds"] for k, fn in runs}
+        res["ref"] = {k: fn(torch, np, dev, None, small) for k, fn in runs}
+    dev = init_file_store(store, rank, world, device=dev.type, backend=backend)
+    meshes = {"sfl": make_client_mesh(device=dev),
+              "pod": make_mesh((world, 1), ("data", "model"), dev),
+              "moe": make_mesh((1, world), ("data", "model"), dev)}
+    res["mesh"] = {}
+    for k, fn in runs:
+        # the peak of each run, its weights' construction included
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        res["mesh"][k] = fn(torch, np, dev, meshes[k], small)
+        res["mesh"][k]["peak_gib"] = _mesh_peak(torch, dev)
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _mesh_spawn(world, backend, device, small, tmp):
+    """Spawn ``world`` ranks of ``_mesh_rank``; a rank that raises fails
+    the phase (``torch.multiprocessing`` re-raises it here).  Returns the
+    ranks' results."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    store, out = tmp / f"store{world}{backend}", tmp / f"out{world}{backend}"
+    mp.start_processes(_mesh_rank, args=(world, str(store), str(out), device, backend, small),
+                       nprocs=world, join=True, start_method="spawn")
+    res = []
+    for r in range(world):
+        with open(f"{out}.{r}", "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def _mesh_err(a, b) -> float:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return math.inf
+    return max((x.double() - y.double()).abs().max().item() for x, y in zip(la, lb))
+
+
+def pod_per_step(L, remat):
+    """Launches per ``PodRound`` step with LoRA on q and v: over more than
+    one rank (``remat``) each layer runs under ``torch.utils.checkpoint``,
+    so its forward runs twice (the pass and the backward's recompute);
+    every layer's input but the first's (the embedding) takes a dX; two
+    rank reduces per projection."""
+    return {"lora_matmul": (4 if remat else 2) * L, "lora_matmul_dx": 2 * (L - 1),
+            "lora_rank_reduce": 4 * L}
+
+
+def phase_mesh(torch, np, dev, small=False):
+    """18. The multi-device path: (a) one rank over a one-rank NCCL group
+    against the same trainers in one process with no group, (b) two ranks
+    on the one card over gloo (CUDA tensors staged through host memory)
+    against (a), (c) one rank a card over NCCL where there are two cards or
+    more.  Returns the launches of the ranks' main-path runs."""
+    import tempfile
+    t_phase = time.perf_counter()
+    device = dev.type
+    nccl = "nccl" if device == "cuda" else "gloo"
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    tol_ad = MESH_LR * 1e-2
+    launches_total = {}
+
+    def add(l_):
+        for k, v in l_.items():
+            launches_total[k] = launches_total.get(k, 0) + v
+
+    def loss_ok(a, b):
+        return all(abs(x - y) <= 1e-4 * max(1.0, abs(y)) for x, y in zip(a, b)) and \
+            len(a) == len(b)
+
+    def held(tag, got, want, what):
+        """Losses at phase 6's 1e-4 relative; the first step's gradients
+        (the same inputs on both paths) within 1e-4 of their largest entry;
+        every adapter entry after the round within a bound that follows
+        from the measured gradient error d (the largest absolute error of
+        the first step's gradients).  AdamW's first step moves an entry by
+        lr*g/(|g|+eps), its next ones by lr*m/sqrt(v): a gradient error d
+        on an entry comes back as about lr*d/|g|, and a sign flip of a
+        gradient under d moves the entry by 2 lr.  So an entry whose first
+        gradient is g is held to lr*min(2, max(1e-2, 4*d/|g|)): phase 6's
+        lr*1e-2 wherever |g| >= 400 d, and no more than one flip anywhere."""
+        from repro_torch.tree import tree_leaves
+        g_got, g_want = tree_leaves(got["grads"]), tree_leaves(want["grads"])
+        scale = max(g.abs().max().item() for g in g_want)
+        d_g = max((a - b).abs().max().item() for a, b in zip(g_got, g_want))
+        e_ad = worst = 0.0
+        n_wide = n_past = n_all = 0
+        for a, b, g in zip(tree_leaves(got["lora"]), tree_leaves(want["lora"]), g_want):
+            d = (a.double() - b.double()).abs()
+            bound = MESH_LR * (4 * d_g / g.double().abs()).clamp(1e-2, 2.0)
+            e_ad = max(e_ad, d.max().item())
+            worst = max(worst, (d / bound).max().item())
+            n_wide += int((bound > tol_ad).sum())
+            n_past += int((d > tol_ad).sum())
+            n_all += d.numel()
+        good = (loss_ok(got["loss"], want["loss"]) and len(g_got) == len(g_want)
+                and d_g <= 1e-4 * scale and worst <= 1.0)
+        print(f"[mesh] {tag} {what}: losses {' '.join(f'{x:.6f}' for x in got['loss'])} vs "
+              f"{' '.join(f'{x:.6f}' for x in want['loss'])} (tol 1e-4 rel); first-step "
+              f"gradients max_abs_err d={d_g:.3g}, {d_g / scale:.3g} of the largest entry "
+              f"{scale:.3g} (tol 1e-4); adapters max_abs_err={e_ad:.3g}, at most {worst:.3g} of "
+              f"each entry's bound lr*min(2, max(1e-2, 4d/|g|)) (tol 1; {n_wide} of {n_all} "
+              f"entries have a bound above lr*1e-2 = {tol_ad:.1g}, {n_past} are past "
+              f"lr*1e-2) {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"phase 18 {tag}: {what} disagrees")
+
+    def whole_sfl(ranks):
+        """Rank 0's client round with the first step's client gradients of
+        every rank put together (each holds its own clients')."""
+        from repro_torch.tree import tree_map
+        r0 = ranks[0]["mesh"]["sfl"]
+        client = tree_map(lambda *vs: torch.cat(vs), *[r["mesh"]["sfl"]["grads"][0]
+                                                        for r in ranks])
+        return {**r0, "grads": [client, r0["grads"][1]]}
+
+    def moe_held(tag, y, y_ref, what):
+        e = (y - y_ref).abs().max().item()
+        good = tuple(y.shape) == tuple(y_ref.shape) and e <= 2e-4 and bool(
+            torch.isfinite(y).all())
+        print(f"[mesh] {tag} apply_moe_shard_map vs {what}: shape {tuple(y.shape)} "
+              f"max_abs_err={e:.3g} (tol 2e-4) {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"phase 18 {tag}: the expert-parallel MoE disagrees with {what}")
+
+    def expect(tag, name, launches, want, steps):
+        good = all(launches.get(k, 0) == v * steps for k, v in want.items()) and \
+            set(launches) == set(want)
+        print(f"[mesh] {tag} {name} launches {launches}; expected {want} x {steps} steps "
+              f"{'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"phase 18 {tag}: {name} launches")
+
+    # -- (a) one rank, one-rank NCCL group vs no group -----------------------
+    t0 = time.perf_counter()
+    (a,) = _mesh_spawn(1, nccl, device, small, tmp)
+    ref, one = a["ref"], a["mesh"]
+    I_, Ks = MESH_SFL["I"], MESH_SFL["K"]
+    L, ell = one["sfl"]["L"], one["sfl"]["split"]
+    print(f"[mesh] (a) one rank over a one-rank {nccl} group: spawned and ran in "
+          f"{time.perf_counter() - t0:.1f}s (host clock)")
+    held("(a)", one["sfl"], ref["sfl"], "client-axis round (K 4 x b 4 x S 64, split 6, I 6) "
+         "vs SflLLM with no group")
+    expect("(a)", "client round", one["sfl"]["launches"], attention_per_step(Ks, L, ell), I_)
+    expect("(a)", "no-group client round", ref["sfl"]["launches"],
+           attention_per_step(Ks, L, ell), I_)
+    held("(a)", one["pod"], ref["pod"], "PodRound (minicpm-2b, I 2, 8 x 64) vs PodRound "
+         "with no group")
+    expect("(a)", "PodRound", one["pod"]["launches"],
+           pod_per_step(one["pod"]["L"], one["pod"]["remat"]), MESH_POD["I"])
+    moe_held("(a)", one["moe"]["y"], ref["moe"]["y"], "apply_moe with no drops")
+    for k in ("sfl", "pod"):
+        add(one[k]["launches"])
+    first = a["first_s"]
+    print(f"[mesh] (a) s a run (host clock): client round {one['sfl']['seconds']:.3f} (no "
+          f"group {ref['sfl']['seconds']:.3f}, its first call {first['sfl']:.3f}), PodRound "
+          f"{one['pod']['seconds']:.3f} (no group {ref['pod']['seconds']:.3f}, first "
+          f"{first['pod']:.3f}), MoE {one['moe']['seconds']:.3f} (apply_moe "
+          f"{ref['moe']['seconds']:.3f}, first {first['moe']:.3f}); PodRound peak "
+          f"{one['pod']['peak_gib']:.2f} GiB (construction included), resident frozen "
+          f"{one['pod']['resident'] / 2 ** 30:.3f} GiB")
+
+    # -- (b) two ranks on one card over gloo ---------------------------------
+    t0 = time.perf_counter()
+    two = _mesh_spawn(2, "gloo", device, small, tmp)
+    print(f"[mesh] (b) two ranks on one {device} over gloo (CUDA tensors staged through host "
+          f"memory): spawned and ran in {time.perf_counter() - t0:.1f}s (host clock)")
+    per_rank = attention_per_step(Ks // 2, L, ell)
+    for r in two:
+        m = r["mesh"]
+        pod = m["pod"]
+        rows = {k: m["sfl"]["launches"].get(k, 0) for k in
+                ("lora_matmul", "lora_matmul_dx", "lora_rank_reduce")}
+        bound_b = pod["sharded"] // 2 + pod["replicated"] + 2 * max(pod["layer_bytes"],
+                                                                    pod["embed_bytes"])
+        good = (m["sfl"]["local_clients"] == Ks // 2 and pod["resident"] <= bound_b
+                and pod["resident"] == pod["sharded"] // 2 + pod["replicated"])
+        print(f"[mesh] (b) rank {r['rank']}: {m['sfl']['local_clients']} clients; client round "
+              f"launches of rows 1, 3, 4 {rows}; PodRound resident frozen bytes "
+              f"{pod['resident']} = sharded {pod['sharded']} / 2 + replicated "
+              f"{pod['replicated']} (bound with two gathered layers {bound_b}), gathered bytes "
+              f"alive at most {pod['peak_live']} (a layer {pod['layer_bytes']}, the embedding "
+              f"{pod['embed_bytes']}), peak device memory {pod['peak_gib']:.2f} GiB "
+              f"(construction included; every rank on the one card allocates its own), "
+              f"launches {pod['launches']}; s a run: client round {m['sfl']['seconds']:.3f}, "
+              f"PodRound {pod['seconds']:.3f} (of "
+              f"which gathering the base {pod['gather_s']:.3f}), MoE "
+              f"{m['moe']['seconds']:.3f} {'ok' if good else 'FAIL'}")
+        if not good:
+            fail("phase 18 (b): a rank's clients or resident frozen bytes")
+        expect(f"(b) rank {r['rank']}", "client round", m["sfl"]["launches"], per_rank, I_)
+        expect(f"(b) rank {r['rank']}", "PodRound", pod["launches"],
+               pod_per_step(pod["L"], pod["remat"]), MESH_POD["I"])
+        add(m["sfl"]["launches"])
+        add(pod["launches"])
+    # the clients' launches add up to the one-process count; the server runs
+    # on every rank (each on its clients' rows), so it counts once a rank
+    total = {k: sum(r["mesh"]["sfl"]["launches"].get(k, 0) for r in two) for k in per_rank}
+    server = attention_per_step(0, L, ell)
+    want_sum = {k: ref["sfl"]["launches"].get(k, 0) + (len(two) - 1) * server[k] * I_
+                for k in per_rank}
+    good = total == want_sum
+    print(f"[mesh] (b) client round launches summed over the ranks {total} = the one-process "
+          f"count {ref['sfl']['launches']} + one more server pass a step {server} x {I_} "
+          f"{'ok' if good else 'FAIL'}")
+    if not good:
+        fail("phase 18 (b): the ranks' launches do not add up")
+    held("(b)", whole_sfl(two), ref["sfl"], "client-axis round (2 clients a rank) vs (a)'s "
+         "no-group round")
+    for k in ("sfl", "pod"):
+        a_, b_ = two[1]["mesh"][k], two[0]["mesh"][k]
+        good = a_["loss"] == b_["loss"] and _mesh_err(a_["lora"], b_["lora"]) == 0.0
+        print(f"[mesh] (b) {k}: rank 1's losses and gathered adapters equal rank 0's bit for "
+              f"bit {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"phase 18 (b): the ranks' {k} states differ")
+    held("(b)", two[0]["mesh"]["pod"], ref["pod"], "PodRound, FSDP over 'data' = 2, vs (a)'s "
+         "no-group PodRound")
+    y = torch.zeros_like(ref["moe"]["y"])
+    s = MESH_MOE["S"] // 2
+    for r in two:
+        _, j = r["mesh"]["moe"]["coord"]
+        y[:, j * s:(j + 1) * s] = r["mesh"]["moe"]["y"]
+    moe_held("(b)", y, ref["moe"]["y"], "(a)'s apply_moe (32 experts a rank)")
+    moe_held("(b)", y, one["moe"]["y"], "(a)'s one-rank shard map")
+
+    # -- (c) one rank a card --------------------------------------------------
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    if n_cards >= 2:
+        world = min(n_cards, 4)
+        t0 = time.perf_counter()
+        many = _mesh_spawn(world, "nccl", device, small, tmp)
+        print(f"[mesh] (c) {world} ranks, one card each, over NCCL: "
+              f"{time.perf_counter() - t0:.1f}s (host clock)")
+        held("(c)", whole_sfl(many), ref["sfl"], f"client-axis round over {world} ranks")
+        held("(c)", many[0]["mesh"]["pod"], ref["pod"], f"PodRound over {world} ranks")
+        for r in many:
+            add(r["mesh"]["sfl"]["launches"])
+            add(r["mesh"]["pod"]["launches"])
+    else:
+        print(f"[mesh] (c) not run: {n_cards} card(s) visible; one rank a card over NCCL "
+              "needs two or more")
+    print(f"[mesh] phase 18 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
+    return launches_total
 
 
 if __name__ == "__main__":

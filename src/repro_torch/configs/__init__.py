@@ -12,7 +12,7 @@ from __future__ import annotations
 from . import (deepseek_7b, gpt2_m, gpt2_s, internvl2_2b, jamba_1_5_large_398b,
                llama4_scout_17b_a16e, mamba2_2_7b, minicpm_2b, mistral_large_123b,
                musicgen_large, olmoe_1b_7b, yi_9b)
-from .base import ArchConfig, LayerPattern, TrainConfig
+from .base import ArchConfig, LayerPattern, ShapeConfig, TrainConfig
 from .system import DEFAULT_SYSTEM, SystemConfig
 
 # Paper's own models (benchmarks of Section VII).
@@ -35,4 +35,4 @@ def get_arch(name: str) -> ArchConfig:
 
 
 __all__ = ["ArchConfig", "LayerPattern", "PAPER_MODELS", "PORTED", "ARCHS",
-           "get_arch", "TrainConfig", "DEFAULT_SYSTEM", "SystemConfig"]
+           "get_arch", "ShapeConfig", "TrainConfig", "DEFAULT_SYSTEM", "SystemConfig"]

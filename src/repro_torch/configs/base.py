@@ -108,6 +108,15 @@ class ArchConfig:
         ``r * len(pattern) + p`` is repeat r at pattern position p."""
         return tuple(self.pattern[i % len(self.pattern)] for i in range(self.num_layers))
 
+    @property
+    def has_attention(self) -> bool:
+        return any(p.mixer == "attention" for p in self.pattern)
+
+    @property
+    def pure_full_attention(self) -> bool:
+        return self.has_attention and self.attn_window == 0 and all(
+            p.mixer == "attention" for p in self.pattern)
+
     def reduced(self, *, num_layers: int = 2, d_model: int = 256,
                 max_experts: int = 4, vocab: int = 512) -> "ArchConfig":
         """A tiny same-family variant for CPU tests (same rule as
@@ -139,6 +148,16 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes (``configs.shapes``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
 
 
 @dataclass(frozen=True)

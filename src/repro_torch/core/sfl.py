@@ -67,9 +67,31 @@ the uploads, the downloaded gradients and the error-feedback accumulators
 have F + S rows, and the server's loss drops the F prefix rows.
 
 Client adapter leaves carry a leading K axis, ``(K, ...)``, as in
-``repro``'s ``SflState``; adapter trees are per-layer lists.  The mesh
-path is not ported (``ROADMAP.md``); the deprecated ``act_quant=True``
-warns and maps to 8-bit uploads, as in ``repro``.
+``repro``'s ``SflState``; adapter trees are per-layer lists.  The
+deprecated ``act_quant=True`` warns and maps to 8-bit uploads, as in
+``repro``; ``donate=True``, ``repro``'s default, has no effect here (an
+eager step builds a new state anyway).
+
+The client axis over ranks (``mesh=``, a ``launch.mesh`` mesh with a
+``"clients"`` axis of n ranks, K a multiple of n): ``repro``'s
+``sfl_state_shardings`` made explicit.  Each rank holds and runs its K/n
+clients — their slice of ``lora_client``, ``opt_client``,
+``err_act``/``err_grad`` (the state :meth:`SflLLM.init_state` returns, or
+:meth:`SflLLM.shard_state` cuts from a whole one), the batches, slot
+masks, scales and dynamics — and runs the server's forward and backward
+on its clients' rows.  The callers pass whole batches and dynamics; every
+rank cuts its own.  The server adapter and its optimizer state are
+replicated: the pooled loss divides by the pool's count of valid labels,
+an MoE block's load-balance means are the pool's (``Runtime.pool``), the
+server gradient is all-reduced, so every rank steps it identically.
+Stochastic rounding draws the whole tensor's noise and cuts its rows, so
+a rank rounds its clients as one process would.  Whether anybody is live
+is decided over all K (the mask is whole on every rank).  FedAvg and the
+robust aggregators all-gather the K adapters, aggregate identically on
+every rank, and keep the local slice; losses and anomaly scores come back
+whole on every rank, and the roll-back decision is global.  When K is not
+a multiple of n every rank runs every client, as ``repro``'s
+``_client_spec`` replicates.
 """
 from __future__ import annotations
 
@@ -87,20 +109,18 @@ from ..kernels.backend import resolve_device
 from ..models import stack as stack_mod
 from ..models.layers import apply_norm, unembed
 from ..models.model import (IGNORE_ID, cross_entropy, embed_inputs, init_lora_stack, loss_fn,
-                            prefix_len)
+                            prefix_len, valid_labels)
 from ..models.stack import Runtime, default_train_runtime
 from ..optim import Optimizer, apply_updates
 from ..precision import fake_quant, round_key
+from ..sharding.collectives import all_gather_tree, all_reduce, all_reduce_tree
+from ..sharding.specs import CLIENT_AXIS
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .aggregation import broadcast_het, fedavg_partial, robust_aggregate, tree_all_finite
 from .defense import corrupt_updates
 from .latency import client_round_seconds_host, workload_tables
 from .lora import client_slot_masks
 from .split import layers_to_reps, valid_splits
-
-_NOT_PORTED = ("SflLLM: {} belong(s) to the mesh path of repro's SflLLM, which is not "
-               "ported (ROADMAP.md, Open items, item 10)")
-
 
 def quantize_activations(s: torch.Tensor) -> torch.Tensor:
     """int8 per-token symmetric fake quantization of split-layer
@@ -186,10 +206,15 @@ def _grad_or_zero(v: torch.Tensor) -> torch.Tensor:
     return v.grad if v.grad is not None else torch.zeros_like(v)
 
 
+def _as_tensors(batches: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """numpy (or tensor) batches -> tensors where they lie (numpy: host)."""
+    return {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+            for k, v in batches.items() if v is not None}
+
+
 def _batch_to(batches: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """numpy (or tensor) batches -> tensors on ``device``."""
-    return {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))).to(device)
-            for k, v in batches.items() if v is not None}
+    return {k: v.to(device) for k, v in _as_tensors(batches).items()}
 
 
 def _adapter_ranks(tree: Any, name: str = ""):
@@ -223,11 +248,7 @@ class SflLLM:
                  ranks: Optional[Sequence[int]] = None,
                  ell_range: Optional[Sequence[int]] = None,
                  rank_max: Optional[int] = None, act_quant: bool = False,
-                 aux_coef: Optional[float] = None, **unported):
-        # repro's mesh: refused unless left at its default
-        refused = sorted(k for k, v in unported.items() if v is not None and v is not False)
-        if refused:
-            raise NotImplementedError(_NOT_PORTED.format(refused))
+                 aux_coef: Optional[float] = None, mesh=None, donate: bool = True):
         self.cfg = cfg
         self.tc = train_cfg
         self.rt = default_train_runtime() if rt is None else rt
@@ -237,6 +258,23 @@ class SflLLM:
         self.aux_coef = cfg.router_aux_coef if aux_coef is None else aux_coef
         K = train_cfg.num_clients
         P = len(cfg.pattern)
+
+        # ---- the client axis over ranks ---------------------------------
+        # this rank runs clients [_lo, _lo + _kl); _group is the "clients"
+        # axis's process group (None: one process, or every rank runs all)
+        self.mesh = mesh
+        self._group, self._lo, self._kl = None, 0, K
+        if mesh is not None:
+            if CLIENT_AXIS not in mesh.shape:
+                raise ValueError(f"SflLLM(mesh=): the mesh has axes {tuple(mesh.shape)}, "
+                                 f"not {CLIENT_AXIS!r} (launch.mesh.make_client_mesh)")
+            n = mesh.shape[CLIENT_AXIS]
+            if K % n == 0 and mesh.group(CLIENT_AXIS) is not None:
+                self._group = mesh.group(CLIENT_AXIS)
+                self._kl = K // n
+                self._lo = mesh.axis_rank(CLIENT_AXIS) * self._kl
+        self._rt_server = (self.rt if self._group is None
+                           else self.rt.replace(pool=self._group))
 
         # ---- per-client split points / ranks ----------------------------
         self.ell_k = _per_client(ell_c, K, "split points")
@@ -394,9 +432,51 @@ class SflLLM:
         lc_k = broadcast_het(lora[:self.rep_max * P], self.tc.num_clients,
                              self._client_masks)
         ls = tree_map(lambda v: v.detach().clone(), lora[self.rep_min * P:])
-        return SflState(lora_client=lc_k, lora_server=ls,
-                        opt_client=self.opt.init(lc_k), opt_server=self.opt.init(ls),
-                        step=torch.zeros((), dtype=torch.int32))
+        return self.shard_state(SflState(
+            lora_client=lc_k, lora_server=ls, opt_client=self.opt.init(lc_k),
+            opt_server=self.opt.init(ls), step=torch.zeros((), dtype=torch.int32)))
+
+    # ------------------------------------------------------------------
+    # the client axis: this rank's slice of K-leading values, and back
+    def _mine(self, tree, dim: int = 0, copy: bool = False):
+        """This rank's clients of every K-leading leaf (K along ``dim``;
+        scalars pass).  Views unless ``copy``; the tree itself when this
+        rank runs every client."""
+        if self._kl == self.tc.num_clients:
+            return tree
+
+        def cut(v):
+            if v.dim() <= dim:
+                return v
+            v = v.narrow(dim, self._lo, self._kl)
+            return v.clone() if copy else v
+        return tree_map(cut, tree)
+
+    def _gather(self, tree):
+        """All K clients of every (K/n, ...) leaf, on every rank."""
+        return all_gather_tree(tree, self._group)
+
+    def shard_state(self, state: SflState) -> SflState:
+        """This rank's share of a whole state (``repro``'s ``shard_state``
+        places one on the mesh): the client leaves cut to its clients, the
+        server's kept whole.  The state itself without a client axis."""
+        if self._kl == self.tc.num_clients:
+            return state
+        return dataclasses.replace(
+            state, lora_client=self._mine(state.lora_client, copy=True),
+            opt_client=self._mine(state.opt_client, copy=True),
+            err_act=self._mine(state.err_act, copy=True),
+            err_grad=self._mine(state.err_grad, copy=True))
+
+    def gather_state(self, state: SflState) -> SflState:
+        """The whole state (all K clients) on every rank; the inverse of
+        :meth:`shard_state`."""
+        if self._kl == self.tc.num_clients:
+            return state
+        return dataclasses.replace(
+            state, lora_client=self._gather(state.lora_client),
+            opt_client=self._gather(state.opt_client), err_act=self._gather(state.err_act),
+            err_grad=self._gather(state.err_grad))
 
     # ------------------------------------------------------------------
     def _client_forward(self, lora_c, tokens: torch.Tensor, frontend_emb=None,
@@ -418,7 +498,7 @@ class SflLLM:
         return x, aux
 
     def _server_loss(self, lora_s, acts: torch.Tensor, labels: torch.Tensor,
-                     rep_lo=None):
+                     rep_lo=None, pooled: bool = True):
         """Pooled loss on the main server.  acts: (K, b, S, d), labels (K,
         b, S_text): the first S - S_text rows of each sequence are the
         front end's prefix, which takes no loss; only the text rows are
@@ -427,19 +507,25 @@ class SflLLM:
         (heterogeneous splits): per-sample entry depth in repeats of the
         server base — repeats below it pass the sample through unchanged;
         a per-row gate, so every repeat's MoE aux counts over the whole
-        pooled batch, as in ``repro``.  Returns (loss + aux_coef * aux,
-        loss, aux)."""
+        pooled batch, as in ``repro``.  ``pooled``: these are one rank's
+        rows of the pool over the client axis, and the loss and aux are
+        this rank's shares of the pool's (False: the rows are all there
+        is, as in ``eval_loss``).  Returns (loss + aux_coef * aux, loss,
+        aux)."""
         K, b, S, d = acts.shape
         x = acts.reshape(K * b, S, d)
         positions = torch.arange(S, dtype=torch.int32, device=acts.device)
         x, _, aux = stack_mod.apply_stack(self.cfg, self.server_base["layers"], x,
-                                          positions=positions, lora=lora_s, rt=self.rt,
+                                          positions=positions, lora=lora_s,
+                                          rt=self._rt_server if pooled else self.rt,
                                           mode="train", lora_scale=self._server_scale,
                                           rep_gate=None if rep_lo is None else (rep_lo, None))
         labels = labels.reshape(K * b, -1)
         x = apply_norm(self.cfg, x[:, S - labels.shape[1]:], self.server_base["final_norm"])
         logits = unembed(self.cfg, self.server_base["embed"], x)
-        loss = cross_entropy(logits, labels)
+        denom = (all_reduce(valid_labels(labels), self._group)
+                 if pooled and self._group is not None else None)
+        loss = cross_entropy(logits, labels, denom)
         return loss + self.aux_coef * aux, loss, aux
 
     def _client_args(self, k: int, dyn: Optional[dict] = None) -> dict:
@@ -473,31 +559,40 @@ class SflLLM:
     def _step_impl(self, state: SflState, batches: Dict[str, torch.Tensor],
                    dyn: Optional[dict] = None, part: Optional[torch.Tensor] = None):
         """One fine-tuning step (steps a-f of Section IV-A).
-        batches: tokens (K, b, S), labels (K, b, S) and optionally
-        frontend_emb (K, b, F, d) on the device.  ``dyn``
-        (``rep_hi``/``slot_masks``/``scales``/``act_bits``, host values
-        where per client) overrides the trainer's per-client configuration
-        for this round; ``part`` is the round's (K,) 0/1 participation
-        mask on the host (None = everyone).  Every masking op is exact
-        under full participation."""
+        batches: this rank's clients' tokens (K_l, b, S), labels (K_l, b, S)
+        and optionally frontend_emb (K_l, b, F, d) on the device (K_l = K
+        without a client axis).  ``dyn`` (``rep_hi``/``slot_masks``/
+        ``scales``/``act_bits``, host values where per client, all K)
+        overrides the trainer's per-client configuration for this round;
+        ``part`` is the round's (K,) 0/1 participation mask on the host
+        (None = everyone).  Every masking op is exact under full
+        participation."""
         tokens, labels = batches["tokens"], batches["labels"]
         fe = batches.get("frontend_emb")
-        K = self.tc.num_clients
-        live = [k for k in range(K) if part is None or float(part[k]) > 0]
+        K, lo, kl = self.tc.num_clients, self._lo, self._kl
+        ks = range(lo, lo + kl)
+        live = [k for k in ks if part is None or float(part[k]) > 0]
+        # an empty round is decided over all K clients, not this rank's
+        anyone = part is None or bool((part > 0).any())
+        part_l = None if part is None else part[lo:lo + kl]
         if part is not None:
             # a dropped client never uploads: its tokens leave the pooled
             # loss (numerator and denominator), so the server trains on the
             # survivors' pool and the cotangent of its activations is 0
-            keep = part.to(labels.device).reshape(-1, 1, 1) > 0
+            keep = part_l.to(labels.device).reshape(-1, 1, 1) > 0
             labels = labels.masked_fill(~keep, IGNORE_ID)
         dyn = dyn or {}
-        masks = (dyn["slot_masks"] if dyn.get("slot_masks") is not None
-                 else self._client_masks)
-        act_bits = dyn["act_bits"] if dyn.get("act_bits") is not None else self._act_bits
+        masks = self._mine(dyn["slot_masks"] if dyn.get("slot_masks") is not None
+                           else self._client_masks)
+        act_bits = self._mine(dyn["act_bits"] if dyn.get("act_bits") is not None
+                              else self._act_bits)
+        grad_bits = self._mine(self._grad_bits)
+        # stochastic rounding draws the whole (K, ...) tensor's noise
+        rows = None if kl == K else (lo, K)
         new_err_act, new_err_grad = state.err_act, state.err_grad
         gen_a = gen_g = None
         if self.precision.stochastic_rounding and (
-                act_bits is not None or self._grad_bits is not None):
+                act_bits is not None or grad_bits is not None):
             step = int(state.step)
             gen_a = round_key(self.precision.rng_seed, step, 0, self.device)
             gen_g = round_key(self.precision.rng_seed, step, 1, self.device)
@@ -505,41 +600,51 @@ class SflLLM:
             # (a) client-side FP, one client at a time, each its own adapter.
             # A dropped client runs too: its upload still passes the
             # quantizer below, whose error feedback covers every client
-            lc = [tree_map(lambda v, k=k: _leaf(v[k]), state.lora_client)
-                  for k in range(K)]
-            acts_k, aux_k = zip(*(self._client_forward(lc[k], tokens[k],
-                                                       None if fe is None else fe[k],
+            lc = [tree_map(lambda v, j=j: _leaf(v[j]), state.lora_client)
+                  for j in range(kl)]
+            acts_k, aux_k = zip(*(self._client_forward(lc[j], tokens[j],
+                                                       None if fe is None else fe[j],
                                                        **self._client_args(k, dyn))
-                                  for k in range(K)))
+                                  for j, k in enumerate(ks)))
             # (b) upload: the server gets a leaf cut from the client graphs,
             # quantized outside them (the straight-through estimator)
             acts = torch.stack([a.detach() for a in acts_k])
             if act_bits is not None:
-                acts, new_err_act = fake_quant(acts, act_bits, gen=gen_a, err=state.err_act)
+                acts, new_err_act = fake_quant(acts, act_bits, gen=gen_a, err=state.err_act,
+                                               rows=rows)
             acts.requires_grad_()
-            # (c, d) server FP + BP on the pooled activations
+            # (c, d) server FP + BP on the pooled activations (this rank's
+            # rows of the pool over the client axis)
             ls = tree_map(_leaf, state.lora_server)
             total, loss, aux = self._server_loss(
-                ls, acts, labels, self._rep_lo(range(K), tokens.shape[1], dyn.get("rep_hi")))
+                ls, acts, labels, self._rep_lo(ks, tokens.shape[1], dyn.get("rep_hi")))
             ls_leaves = tree_leaves(ls)
             grads = torch.autograd.grad(total, ls_leaves + [acts], allow_unused=True)
             g_server = tree_unflatten(
                 ls, [g if g is not None else torch.zeros_like(v)
                      for g, v in zip(grads[:-1], ls_leaves)])
             g_acts = grads[-1]
+            if self._group is not None:
+                # the ranks' shares of the pool's loss and gradient
+                g_server = all_reduce_tree(g_server, self._group)
+                loss, aux = all_reduce(torch.stack([loss.detach(), aux.detach()]),
+                                       self._group)
+                total = loss + self.aux_coef * aux
             # (e) download dL/ds_k, quantized like the upload; (f) client BP,
             # for the clients that take part (a dropped one's update is
             # discarded below)
-            if self._grad_bits is not None:
-                g_acts, new_err_grad = fake_quant(g_acts, self._grad_bits, gen=gen_g,
-                                                  err=state.err_grad)
+            if grad_bits is not None:
+                g_acts, new_err_grad = fake_quant(g_acts, grad_bits, gen=gen_g,
+                                                  err=state.err_grad, rows=rows)
             # each client's MoE aux loss enters its backward with the seed
             # aux_coef (a dropped client runs no backward: repro's seed
             # aux_coef * part is 0 there)
             roots, seeds = [], []
-            for k in live:
-                for t, g in ((acts_k[k], g_acts[k]),
-                             (aux_k[k], torch.full_like(aux_k[k], self.aux_coef))):
+            for j, k in enumerate(ks):
+                if k not in live:
+                    continue
+                for t, g in ((acts_k[j], g_acts[j]),
+                             (aux_k[j], torch.full_like(aux_k[j], self.aux_coef))):
                     if t.requires_grad:
                         roots.append(t)
                         seeds.append(g)
@@ -556,12 +661,12 @@ class SflLLM:
             if part is not None:
                 # a dropped client's adapter AND optimizer moments freeze for
                 # the round (zero gradients alone would still decay Adam's)
-                pd = part.to(self.device)
+                pd = part_l.to(self.device)
                 pcol = lambda v: pd.reshape((-1,) + (1,) * (v.dim() - 1))  # noqa: E731
                 upd_c = tree_map(lambda u: u * pcol(u).to(u.dtype), upd_c)
                 opt_c = tree_map(lambda n, o: n if n.dim() == 0
                                  else torch.where(pcol(n) > 0, n, o), opt_c, state.opt_client)
-                if not live:
+                if not anyone:
                     # an empty round freezes the server as well: nobody
                     # uploaded, nothing trained
                     upd_s = tree_map(torch.zeros_like, upd_s)
@@ -576,7 +681,8 @@ class SflLLM:
                           armed_act: Optional[bool] = None) -> SflState:
         """Attach zero error-feedback accumulators when the config asks for
         them and the state has none yet; a no-op otherwise.  They have the
-        uploads' shape (K, b, F + S, d): ``batches``' tokens give b and S,
+        uploads' shape (K_l, b, F + S, d), this rank's clients: ``batches``'
+        tokens give b and S,
         its frontend_emb (if any) F.  ``armed_act``: the upload is
         quantized this round (default: the trainer's bits)."""
         if not self.precision.error_feedback:
@@ -585,7 +691,7 @@ class SflLLM:
             armed_act = self._act_bits is not None
         b, S = batches["tokens"].shape[-2:]
         fe = batches.get("frontend_emb")
-        shape = (self.tc.num_clients, b, S + (0 if fe is None else fe.shape[-2]),
+        shape = (self._kl, b, S + (0 if fe is None else fe.shape[-2]),
                  self.cfg.d_model)
         zeros = lambda: torch.zeros(shape, dtype=torch.float32, device=self.device)  # noqa: E731
         ea, eg = state.err_act, state.err_grad
@@ -599,13 +705,14 @@ class SflLLM:
 
     def local_step(self, state: SflState, batches):
         """One local step on K stacked batches (tokens/labels (K, b, S),
-        optional frontend_emb (K, b, F, d))."""
-        batches = self._to_device(batches)
+        optional frontend_emb (K, b, F, d)); a rank of the client axis cuts
+        its own clients' rows."""
+        batches = self._to_device(self._mine(_as_tensors(batches)))
         state = self._ensure_err_state(state, batches)
         return self._step_impl(state, batches)
 
     # ------------------------------------------------------------------
-    def _aggregate(self, state: SflState, weights, part: Optional[torch.Tensor] = None,
+    def _aggregate(self, lora_client, weights, part: Optional[torch.Tensor] = None,
                    masks: Any = None, robust=None, ref: Any = None):
         """Federated-server round (eq. 7) under optional partial
         participation: the global adapter is the survivors' weighted
@@ -616,28 +723,31 @@ class SflLLM:
         client keeps its state.  ``masks``: this round's slot masks (None
         = the trainer's).  ``robust`` (a ``RobustAggConfig``) swaps the
         average for ``robust_aggregate`` and scores each client's update
-        against ``ref``, the round's starting adapters.  Returns (state,
-        scores or None)."""
+        against ``ref``, the round's starting adapters.  ``lora_client``,
+        ``ref`` and ``masks`` hold all K clients.  Returns (the K clients'
+        adapters, scores or None)."""
         K = self.tc.num_clients
         masks = self._client_masks if masks is None else masks
         part_w = torch.ones(K, dtype=torch.float32) if part is None else part
         scores = None
         if robust is not None:
-            global_c, scores = robust_aggregate(state.lora_client, ref, weights, part_w,
+            global_c, scores = robust_aggregate(lora_client, ref, weights, part_w,
                                                 masks, robust)
         else:
-            global_c = fedavg_partial(state.lora_client, weights, part_w, masks)
+            global_c = fedavg_partial(lora_client, weights, part_w, masks)
         lc_k = broadcast_het(global_c, K, masks)
         if part is not None:
             pd = part.to(self.device)
             lc_k = tree_map(lambda n, o: torch.where(
-                pd.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o), lc_k, state.lora_client)
-        return dataclasses.replace(state, lora_client=lc_k), scores
+                pd.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o), lc_k, lora_client)
+        return lc_k, scores
 
     def aggregate(self, state: SflState, sample_counts) -> SflState:
-        """FedAvg client adapters + broadcast (eq. 7)."""
-        return self._aggregate(state, torch.tensor(list(sample_counts),
-                                                   dtype=torch.float32))[0]
+        """FedAvg client adapters + broadcast (eq. 7); over the client axis
+        every rank gathers the K adapters and keeps its own slice."""
+        lc, _ = self._aggregate(self._gather(state.lora_client),
+                                torch.tensor(list(sample_counts), dtype=torch.float32))
+        return dataclasses.replace(state, lora_client=self._mine(lc, copy=True))
 
     def _participation_for(self, dyn: RoundDynamics, batches) -> Optional[torch.Tensor]:
         """The round's (K,) f32 mask on the host, or None (everyone).  An
@@ -688,9 +798,11 @@ class SflLLM:
         ({"update_norm", "cos_dist"}, (K,) each).  If any floating leaf of
         the new state is not finite, the whole round rolls back: the old
         state is returned unchanged (as ``repro``'s ``tree_all_finite``
-        gate does)."""
+        gate does).  Over the client axis every rank passes the whole round
+        (all K clients' batches and dynamics) and cuts its own; the losses,
+        the mask, the roll-back flag and the scores come back whole."""
         K = self.tc.num_clients
-        batches = self._to_device(round_batches)
+        batches = self._to_device(self._mine(_as_tensors(round_batches), dim=1))
         weights = torch.tensor(list(sample_counts), dtype=torch.float32)
         dyn = RoundDynamics() if dynamics is None else dynamics
         part = self._participation_for(dyn, batches)
@@ -714,19 +826,28 @@ class SflLLM:
         for i in range(batches["tokens"].shape[0]):
             new, m = self._step_impl(new, {k: v[i] for k, v in batches.items()}, cfg_dyn, part)
             steps.append(m)
+        # the federated server sees all K uploads: gathered over the client
+        # axis, aggregated alike on every rank, each keeping its slice
+        lc = self._gather(new.lora_client)
+        if dyn.byzantine is not None or dyn.robust is not None:
+            ref = self._gather(ref)
         if dyn.byzantine is not None:
             # the corrupted radio payload; the optimizer moments stay the
             # client's own
-            new = dataclasses.replace(new, lora_client=corrupt_updates(new.lora_client, ref,
-                                                                       dyn.byzantine))
-        new, scores = self._aggregate(new, weights, part,
-                                      None if cfg_dyn is None else cfg_dyn["slot_masks"],
-                                      dyn.robust, ref)
+            lc = corrupt_updates(lc, ref, dyn.byzantine)
+        lc, scores = self._aggregate(lc, weights, part,
+                                     None if cfg_dyn is None else cfg_dyn["slot_masks"],
+                                     dyn.robust, ref)
+        new = dataclasses.replace(new, lora_client=self._mine(lc, copy=True))
         if dyn.poison is not None and float(dyn.poison) > 0:
             new = dataclasses.replace(new, lora_server=tree_map(
                 lambda v: torch.full_like(v, float("nan")), new.lora_server))
-        finite = bool(tree_all_finite([new.lora_client, new.lora_server, new.opt_client,
-                                       new.opt_server, new.err_act, new.err_grad]))
+        finite = tree_all_finite([new.lora_client, new.lora_server, new.opt_client,
+                                  new.opt_server, new.err_act, new.err_grad])
+        if self._group is not None:
+            # one rank's non-finite leaf rolls every rank back
+            finite = all_reduce(finite.float().to(self.device), self._group, "min") > 0
+        finite = bool(finite)
         metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
         metrics.update({"participation": torch.ones(K) if part is None else part,
                         "rolled_back": torch.tensor(not finite)})
@@ -792,11 +913,11 @@ class SflLLM:
         """Validation loss through client 0's adapter, split and scale
         (after aggregation every client holds the slots client 0 owns)."""
         batch = self._to_device(batch)
-        lora_c0 = tree_map(lambda v: v[0], state.lora_client)
+        lora_c0 = tree_map(lambda v: v[0], self._gather(state.lora_client))
         acts, _ = self._client_forward(lora_c0, batch["tokens"], batch.get("frontend_emb"),
                                        **self._client_args(0))
         return self._server_loss(state.lora_server, acts[None], batch["labels"][None],
-                                 self._rep_lo([0], batch["tokens"].shape[0]))[1]
+                                 self._rep_lo([0], batch["tokens"].shape[0]), pooled=False)[1]
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,11 @@ defense (robust aggregation with a reputation quarantine) and fault hooks
 (poison, Byzantine uploads), each round's numbers entering
 ``SflLLM.train_round`` as a ``core.sfl.RoundDynamics``.
 
+``PodRound`` is the datacenter lowering: one LoRA step over a ``("data",
+"model")`` mesh of ranks, the frozen base FSDP-sharded over "data"
+(``sharding.fsdp``); over a client mesh ``SflRound`` gathers the state
+for its checkpoints, and rank 0 alone prints and writes files.
+
 Trainers plug in through adapters exposing
 ``run_round(state, round_batches) -> (state, metrics)`` where
 ``metrics["loss"]`` has shape (I,), ``checkpoint_payload(state)`` (the
@@ -37,6 +42,7 @@ from ..core.latency import client_round_seconds_host
 from ..data.pipeline import stack_rounds
 from ..interop import (lora_from_numpy, lora_to_numpy, sfl_state_from_numpy,
                        sfl_state_to_numpy, to_numpy, to_tensor)
+from .mesh import global_rank
 
 
 class SflRound:
@@ -52,18 +58,21 @@ class SflRound:
 
     def checkpoint_payload(self, state) -> dict:
         P = len(self.sfl.cfg.pattern)
-        tree = sfl_state_to_numpy(state, P)
+        tree = sfl_state_to_numpy(self.sfl.gather_state(state), P)
         return {"lora_server": tree["lora_server"], "lora_client": tree["lora_client"]}
 
     def episode_tree(self, state):
-        """The whole state as ``repro``'s ``SflState`` layout: the port's
-        dataclass (same fields, same order) holding stacked numpy trees."""
+        """The whole state (all K clients, gathered over a client axis) as
+        ``repro``'s ``SflState`` layout: the port's dataclass (same fields,
+        same order) holding stacked numpy trees."""
         from ..core.sfl import SflState
-        return SflState(**sfl_state_to_numpy(state, len(self.sfl.cfg.pattern)))
+        return SflState(**sfl_state_to_numpy(self.sfl.gather_state(state),
+                                             len(self.sfl.cfg.pattern)))
 
     def from_episode_tree(self, tree):
-        return sfl_state_from_numpy({f.name: getattr(tree, f.name)
-                                     for f in dataclasses.fields(tree)}, self.sfl.device)
+        return self.sfl.shard_state(sfl_state_from_numpy(
+            {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)},
+            self.sfl.device))
 
 
 class CentralizedRound:
@@ -90,6 +99,85 @@ class CentralizedRound:
         lora, opt = tree
         return (lora_from_numpy(lora, dev),
                 {k: to_tensor(v, "cpu") if k == "step" else lora_from_numpy(v, dev)
+                 for k, v in opt.items()})
+
+
+class PodRound:
+    """Adapter: the datacenter lowering (``repro``'s ``PodRound``) — one
+    LoRA train step (``launch.steps.make_train_step``'s) over a ``("data",
+    "model")`` mesh, I times a round.  state = (lora, opt_state).
+
+    The frozen base is FSDP-sharded over ``"data"`` by the rule table
+    (``sharding.fsdp.ShardedParams``); the LoRA and its optimizer state are
+    replicated; the pooled batch (I, B, S) is cut over ``"data"``
+    (``sharding.specs.stacked_batch_spec``); the loss divides by the pool's
+    valid-label count and the LoRA gradients are all-reduced over
+    ``"data"`` (``Runtime.pool``), so every rank steps the same adapter.
+    Over more than one rank each layer is recomputed in the backward
+    (``Runtime.remat``), gathering it again.  ``rt`` None takes
+    ``default_train_runtime()``.  A ``"model"`` axis above 1 (``repro``'s
+    GSPMD tensor parallelism) raises ``NotImplementedError``.  ``params``
+    is a ``ShardedParams`` or the whole tree, on the host or on any
+    device (every rank the same); only this rank's pieces go to the
+    device."""
+
+    def __init__(self, cfg, params, rt, optimizer, mesh):
+        from ..models.stack import default_train_runtime
+        from ..sharding.fsdp import ShardedParams
+        from .steps import make_train_step
+
+        if mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                "PodRound: tensor parallelism over a 'model' axis above 1 is not ported "
+                "(ROADMAP.md, Open items); build the mesh as (n, 1)")
+        rt = default_train_runtime() if rt is None else rt
+        self.cfg = cfg
+        self.optimizer = optimizer
+        self.mesh = mesh
+        self.device = mesh.device
+        self.params = params if isinstance(params, ShardedParams) else ShardedParams(params, mesh)
+        group = mesh.group("data")
+        self.rt = rt if group is None else rt.replace(pool=group, remat=self.params.n > 1)
+        self._step = make_train_step(cfg, self.rt, optimizer)
+
+    def init_state(self, lora):
+        """Fresh copies on the device: the caller's template stays intact."""
+        from ..interop import tree_to
+        from ..tree import tree_map
+        lora = tree_map(lambda v: v.detach().clone(), tree_to(lora, self.device))
+        return lora, self.optimizer.init(lora)
+
+    def step(self, lora, opt_state, batch):
+        """One train step on this rank's rows of the pooled batch."""
+        return self._step(self.params.view(), lora, opt_state, batch)
+
+    def run_round(self, state, round_batches):
+        """round_batches: tokens/labels (I, B, S) of the whole pool, as every
+        rank passes them; this rank cuts its rows."""
+        from ..sharding.specs import shard, stacked_batch_spec
+        lora, opt_state = state
+        batches = {k: shard(torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v,
+                            stacked_batch_spec(tuple(np.shape(v)), self.mesh), self.mesh)
+                   .to(self.device) for k, v in round_batches.items() if v is not None}
+        ms = []
+        for i in range(batches["tokens"].shape[0]):
+            lora, opt_state, m = self.step(lora, opt_state, {k: v[i] for k, v in batches.items()})
+            ms.append(m)
+        return (lora, opt_state), {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    def checkpoint_payload(self, state) -> dict:
+        return {"lora": lora_to_numpy(state[0], len(self.cfg.pattern))}
+
+    def episode_tree(self, state):
+        P = len(self.cfg.pattern)
+        lora, opt = state
+        return (lora_to_numpy(lora, P),
+                {k: to_numpy(v) if k == "step" else lora_to_numpy(v, P) for k, v in opt.items()})
+
+    def from_episode_tree(self, tree):
+        lora, opt = tree
+        return (lora_from_numpy(lora, self.device),
+                {k: to_tensor(v, "cpu") if k == "step" else lora_from_numpy(v, self.device)
                  for k, v in opt.items()})
 
 
@@ -575,7 +663,8 @@ class Trainer:
                             f"{len(info['participation'])}")
                     if info["realloc"]:
                         msg += "  [re-allocated]"
-                print(msg)
+                if global_rank() == 0:
+                    print(msg)
             if (self.checkpoint_path and self.checkpoint_every
                     and (e + 1) % self.checkpoint_every == 0):
                 self._save(state)
@@ -592,13 +681,19 @@ class Trainer:
             self._save(state)
         return state, history
 
+    # every rank gathers a payload (a collective over a client axis); rank
+    # 0 alone writes it
     def _save(self, state) -> None:
         from ..checkpoint import save_pytree
-        save_pytree(self.checkpoint_path, self.algo.checkpoint_payload(state))
+        payload = self.algo.checkpoint_payload(state)
+        if global_rank() == 0:
+            save_pytree(self.checkpoint_path, payload)
 
     def _save_episode(self, state, round_idx: int, history) -> None:
         from ..checkpoint import save_episode
         meta = {"round": int(round_idx),
                 "history": dataclasses.asdict(history),
                 "dynamics": None if self.dynamics is None else self.dynamics.cursor()}
-        save_episode(self.episode_path, self.algo.episode_tree(state), meta)
+        tree = self.algo.episode_tree(state)
+        if global_rank() == 0:
+            save_episode(self.episode_path, tree, meta)

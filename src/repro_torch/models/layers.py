@@ -93,6 +93,9 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Ten
     CPU generator; a CUDA generator draws large weights on the card, with
     other numbers than a CPU one of the same seed), then moved to
     ``device``."""
+    if torch.device(device).type == "meta":
+        # an abstract tree: shapes and dtypes, no draws, no memory
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * std
     return t.to(device=device, dtype=dtype)
 

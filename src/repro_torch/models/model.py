@@ -13,6 +13,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..kernels.backend import resolve_device
+from ..sharding.collectives import all_reduce
 from . import stack as stack_mod
 from .layers import apply_norm, embed, init_embeddings, init_lora, init_norm, unembed
 from .stack import Runtime
@@ -25,15 +26,41 @@ _SSM_TARGETS = ("ssm_in", "ssm_out")
 
 
 def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
-                device="cuda") -> dict:
+                device="cuda", keep=None) -> dict:
     """Random weights from ``gen``: a CPU generator gives the same weights
     on every device; a CUDA one draws them on the card (other numbers, but
-    no host time for billions of draws)."""
-    device = resolve_device(device)
-    return {"embed": init_embeddings(cfg, gen, dtype, device),
-            "layers": [stack_mod.init_block(cfg, pat, gen, dtype, device)
-                       for pat in cfg.layer_kinds],
-            "final_norm": init_norm(cfg, cfg.d_model, dtype, device)}
+    no host time for billions of draws).  ``keep(prefix, subtree)`` takes
+    each subtree (``"embed"``, ``"layers/3"``, ``"final_norm"``) as soon
+    as it is drawn, before the next, and its result takes the subtree's
+    place (``sharding.fsdp`` keeps a rank's pieces)."""
+    return _params(cfg, gen, dtype, resolve_device(device), keep)
+
+
+def _params(cfg, gen, dtype, device, keep=None) -> dict:
+    keep = keep or (lambda prefix, sub: sub)
+    return {"embed": keep("embed", init_embeddings(cfg, gen, dtype, device)),
+            "layers": [keep(f"layers/{i}", stack_mod.init_block(cfg, pat, gen, dtype, device))
+                       for i, pat in enumerate(cfg.layer_kinds)],
+            "final_norm": keep("final_norm", init_norm(cfg, cfg.d_model, dtype, device))}
+
+
+META = torch.device("meta")
+
+
+def abstract_params(cfg, dtype=torch.float32) -> dict:
+    """The params tree as ``meta`` tensors: shapes and dtypes, no memory
+    (``repro``'s ``abstract_params``, in the port's per-layer layout)."""
+    return _params(cfg, torch.Generator(), dtype, META)
+
+
+def abstract_lora(cfg, rank: Optional[int] = None, dtype=torch.float32) -> List[dict]:
+    """The adapter tree as ``meta`` tensors."""
+    return _lora_stack(cfg, torch.Generator(), rank, dtype, META)
+
+
+def abstract_cache(cfg, batch: int, cache_len: int, dtype=torch.float32) -> List[dict]:
+    """One slab cache per layer as ``meta`` tensors."""
+    return stack_mod.init_stack_cache(cfg, batch, cache_len, dtype, META)
 
 
 def _lora_dims(cfg, pat, target: str):
@@ -55,7 +82,10 @@ def _lora_dims(cfg, pat, target: str):
 def init_lora_stack(cfg, gen: torch.Generator, rank: Optional[int] = None,
                     dtype=torch.float32, device="cuda") -> List[dict]:
     """LoRA adapters for ``cfg.lora_targets``, one dict per layer."""
-    device = resolve_device(device)
+    return _lora_stack(cfg, gen, rank, dtype, resolve_device(device))
+
+
+def _lora_stack(cfg, gen, rank, dtype, device) -> List[dict]:
     rank = rank or cfg.lora_rank
     out = []
     for pat in cfg.layer_kinds:
@@ -102,25 +132,38 @@ def forward(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
     return unembed(cfg, params["embed"], x), aux
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token NLL over the labels that are not ``IGNORE_ID``, in
-    f32 (the twin of ``repro.core.sfl._ce_loss``)."""
+    f32 (the twin of ``repro.core.sfl._ce_loss``).  ``denom``: the count
+    to divide by in place of these labels' own (the valid labels of a
+    whole pooled batch of which these are one rank's rows)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long().clamp_min(0)[..., None])[..., 0]
     mask = (labels != IGNORE_ID).float()
-    return torch.sum((logz - gold) * mask) / mask.sum().clamp_min(1.0)
+    if denom is None:
+        denom = mask.sum()
+    return torch.sum((logz - gold) * mask) / denom.clamp_min(1.0)
+
+
+def valid_labels(labels: torch.Tensor) -> torch.Tensor:
+    """The f32 count of labels that take a loss."""
+    return (labels != IGNORE_ID).float().sum()
 
 
 def loss_fn(cfg, params: dict, lora, batch: dict, *, rt: Runtime = Runtime()):
     """Causal-LM cross entropy.  batch: tokens (B, S), labels (B, S) with
     ``IGNORE_ID`` masking, optional frontend_emb (B, F, d), whose F logit
     rows the loss drops.  Returns (loss + cfg.router_aux_coef * aux,
-    {"loss", "aux"})."""
+    {"loss", "aux"}).  Under ``rt.pool`` the batch is this rank's rows of
+    a pooled one: the loss divides by the pool's count of valid labels and
+    the aux is this rank's share, so the ranks' values sum to the pool's."""
     logits, aux = forward(cfg, params, batch["tokens"], lora=lora, rt=rt,
                           frontend_emb=batch.get("frontend_emb"))
     labels = batch["labels"]
-    loss = cross_entropy(logits[:, logits.shape[1] - labels.shape[1]:], labels)
+    denom = None if rt.pool is None else all_reduce(valid_labels(labels), rt.pool)
+    loss = cross_entropy(logits[:, logits.shape[1] - labels.shape[1]:], labels, denom)
     return loss + cfg.router_aux_coef * aux, {"loss": loss, "aux": aux}
 
 

@@ -15,8 +15,8 @@ expert products are plain einsums, as in ``repro`` (no Pallas kernel
 there either).  Gradients flow through the gates and the router's
 density, never through the expert ids, the one-hots or the dispatch.
 
-``repro``'s ``shard_specs`` (expert parallelism over a mesh) is not
-ported: it needs a mesh (``ROADMAP.md``, Open items, item 10).
+Expert parallelism with explicit all-to-alls over a mesh's "model" axis
+is ``models.moe_shard_map``.
 """
 from __future__ import annotations
 
@@ -56,9 +56,17 @@ def capacity(sg: int, K: int, E: int, capacity_factor: float) -> int:
 
 
 def apply_moe(cfg, p: dict, x: torch.Tensor, *, group_size: int = 128,
-              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+              capacity_factor: float = 1.25, pool=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (output (B, S, d), the Switch load-balance aux loss, an
-    f32 scalar E * sum(density * density_proxy))."""
+    f32 scalar E * sum(density * density_proxy)).
+
+    ``pool``: the process group whose ranks hold equal shares of one
+    pooled batch, of which ``x`` is this rank's.  The aux is then this
+    rank's share of the pool's: the (gradient-free) proxy is all-reduced
+    to the pool's mean, the density is this rank's mean over the group
+    size, so the ranks' shares sum to the pool's aux and each share's
+    gradient is its rows' part of the pool's.  The capacity groups lie
+    along each sequence, so a split of rows leaves the routing as it is."""
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     sg = _pick_group_size(S, group_size)
@@ -104,6 +112,11 @@ def apply_moe(cfg, p: dict, x: torch.Tensor, *, group_size: int = 128,
     # Switch-style load-balance aux loss
     density = probs.mean(dim=(0, 1))                            # (E,)
     density_proxy = F.one_hot(ids[..., 0], E).float().mean(dim=(0, 1))
+    if pool is not None:
+        from ..sharding.collectives import all_reduce, group_size
+        n = group_size(pool)
+        density_proxy = all_reduce(density_proxy, pool) / n
+        density = density / n
     aux = E * torch.sum(density * density_proxy)
 
     out = y.reshape(B, S, d)

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..precision import PrecisionConfig
 from . import attention as attn_mod
@@ -26,7 +27,10 @@ from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 @dataclass(frozen=True)
 class Runtime:
     """The training and serving knobs of ``repro.models.stack.Runtime``
-    that the port runs (no remat or sharding knobs yet)."""
+    that the port runs.  Not yet ported: ``remat_policy`` (``remat``
+    recomputes everything, ``repro``'s "full"), ``q_chunk``,
+    ``attn_s_bf16`` and the layout hints ``dp_axes``/``tp_axis``/
+    ``seq_shard``/``moe_constraints`` (``ROADMAP.md``)."""
 
     dense_impl: str = "einsum"          # "einsum" | "fused" (kernels.lora_matmul)
     # "flash" routes decode through the decode kernels — slab caches through
@@ -45,6 +49,16 @@ class Runtime:
     # split-boundary bit-widths, stochastic rounding and error feedback
     # (``precision``); the default is fully disarmed (16/16/f32)
     precision: PrecisionConfig = PrecisionConfig()
+    # the process group the rows of a pooled batch are split over evenly
+    # (the SFL server's client shards, the pod step's "data" shards): an
+    # MoE block's load-balance means are then taken over the whole pool
+    # (``models.moe.apply_moe(pool=)``).  None: the batch is all here
+    pool: Optional[object] = None
+    # mode "train": run each layer under torch.utils.checkpoint, which keeps
+    # none of its activations and recomputes it in the backward.  A layer
+    # is read from ``layers`` inside, so a stack whose reads gather the
+    # layer (``sharding.fsdp``) gathers it again for the recompute
+    remat: bool = False
 
     def replace(self, **kw) -> "Runtime":
         return dataclasses.replace(self, **kw)
@@ -130,7 +144,7 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
     if pat.mlp == "moe":
         mo, aux = moe_mod.apply_moe(cfg, p["mlp"], apply_norm(cfg, x, p["norm2"]),
                                     group_size=rt.moe_group,
-                                    capacity_factor=rt.capacity_factor)
+                                    capacity_factor=rt.capacity_factor, pool=rt.pool)
         x = x + mo
     elif pat.mlp != "none":
         h = apply_norm(cfg, x, p["norm2"])
@@ -257,16 +271,20 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
     kinds = cfg.layer_kinds
     aux_ungated = _per_row(gate_lo) or _per_row(gate_hi)
     aux = None
-    for i, p in enumerate(layers):
+    for i in range(len(layers)):
         live = _live_rows(i // P, gate_lo, gate_hi)
         if live is False and not (aux_ungated and kinds[i].mlp == "moe"):
             continue
-        y, c, a = apply_block(
-            cfg, kinds[i], p, x, lora=None if lora is None else lora[i],
-            lora_scale=scale, rt=rt, mode=mode,
-            cache=None if caches is None else caches[i],
-            cur_index=cur_index, block_tables=block_tables, positions=positions,
-            cache_len=cache_len, adapter_idx=adapter_idx)
+
+        def block(x, i=i):
+            return apply_block(
+                cfg, kinds[i], layers[i], x, lora=None if lora is None else lora[i],
+                lora_scale=scale, rt=rt, mode=mode,
+                cache=None if caches is None else caches[i],
+                cur_index=cur_index, block_tables=block_tables, positions=positions,
+                cache_len=cache_len, adapter_idx=adapter_idx)
+        y, c, a = (checkpoint(block, x, use_reentrant=False) if rt.remat and mode == "train"
+                   else block(x))
         if a is not None:
             aux = a if aux is None else aux + a
         if live is False:

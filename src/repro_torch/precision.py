@@ -89,7 +89,7 @@ def _bits_view(bits, ndim: int, device) -> torch.Tensor:
 
 
 def fake_quant(x: torch.Tensor, bits, *, gen: Optional[torch.Generator] = None,
-               err: Optional[torch.Tensor] = None
+               err: Optional[torch.Tensor] = None, rows: Optional[Tuple[int, int]] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Symmetric per-tensor fake quantization.
 
@@ -102,7 +102,13 @@ def fake_quant(x: torch.Tensor, bits, *, gen: Optional[torch.Generator] = None,
     fresh residual comes back as the second value (zeros wherever
     disarmed).  No gradient flows through the quantizer: the trainer
     places it outside the client graph (straight-through), or use
-    :func:`fake_quant_ste`."""
+    :func:`fake_quant_ste`.
+
+    ``rows=(offset, total)``: ``x`` is rows ``offset..`` of a tensor of
+    ``total`` rows along dim 0 (one rank's clients), and ``bits`` has a
+    leading axis, so each row's scale is its own: the stochastic draws are
+    the whole tensor's, cut to these rows, and the shard rounds as the
+    whole would."""
     b = _bits_view(bits, x.dim(), x.device)
     levels = 2.0 ** (b - 1.0) - 1.0
     x_in = x if err is None else x + err.to(x.dtype)
@@ -113,7 +119,14 @@ def fake_quant(x: torch.Tensor, bits, *, gen: Optional[torch.Generator] = None,
     scale = torch.clamp_min(amax / torch.clamp_min(levels, 1.0), SCALE_FLOOR)
     scaled = xf / scale
     if gen is not None:
-        u = torch.rand(x.shape, generator=gen, dtype=torch.float32, device=x.device)
+        if rows is None:
+            u = torch.rand(x.shape, generator=gen, dtype=torch.float32, device=x.device)
+        else:
+            if nb == 0:
+                raise ValueError("fake_quant(rows=) needs per-row bits")
+            u = torch.rand((rows[1],) + tuple(x.shape[1:]), generator=gen,
+                           dtype=torch.float32, device=x.device)
+            u = u[rows[0]:rows[0] + x.shape[0]]
         q = torch.floor(scaled + u)
     else:
         q = torch.round(scaled)

@@ -1,0 +1,118 @@
+"""The collectives GSPMD inserts in ``repro``, written out over
+``torch.distributed``: all-reduce, all-gather along any dim and an
+equal-split all-to-all, each over one mesh axis's process group.
+
+A group of None (a world of one, or an axis the mesh lacks) is the
+identity: nothing is exchanged.  A one-rank group still calls the backend.
+CUDA tensors go over the group as they are (NCCL), CPU tensors too
+(gloo).  A gloo group handed CUDA tensors — two ranks sharing one card,
+where NCCL refuses — stages them through host memory: the copy to the
+host, the collective, the copy back.  That route is chosen by the group's
+backend alone, before the call, and never taken after an error.
+
+The all-to-all has a differentiable form, ``all_to_all_grad`` (a
+``torch.autograd.Function`` over the same primitive, so the staged route
+differentiates too): an equal-split all-to-all is its own transpose.  It
+is the one collective a loss is taken through (the expert-parallel MoE);
+the trainers all-reduce and gather gradients, adapters and detached
+metrics, which carry no gradient.
+"""
+from __future__ import annotations
+
+from typing import Any, List
+
+import torch
+import torch.distributed as dist
+
+from ..tree import tree_leaves, tree_unflatten
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The reduction of ``t`` over the group (a new tensor; ``t`` is left
+    as it was)."""
+    if group is None:
+        return t.clone()
+    staged = _staged(t, group)
+    buf = t.detach().to("cpu", copy=True) if staged else t.detach().clone()
+    dist.all_reduce(buf, op=_OPS[op], group=group)
+    return buf.to(t.device) if staged else buf
+
+
+def all_reduce_tree(tree: Any, group, op: str = "sum") -> Any:
+    """All-reduce every leaf of a tree in one collective: the leaves are
+    flattened into one f32 buffer of the first leaf's device."""
+    leaves = tree_leaves(tree)
+    if group is None or not leaves:
+        return tree
+    flat = torch.cat([v.detach().reshape(-1).float() for v in leaves])
+    flat = all_reduce(flat, group, op)
+    out, i = [], 0
+    for v in leaves:
+        out.append(flat[i:i + v.numel()].reshape(v.shape).to(v.dtype))
+        i += v.numel()
+    return tree_unflatten(tree, out)
+
+
+def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The ranks' tensors (of one shape) concatenated along ``dim`` in
+    group-rank order."""
+    if group is None:
+        return t
+    n = dist.get_world_size(group)
+    staged = _staged(t, group)
+    src = (t.detach().to("cpu") if staged else t.detach()).contiguous()
+    parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(t.device) if staged else out
+
+
+def all_gather_tree(tree: Any, group, dim: int = 0) -> Any:
+    """``all_gather`` of every leaf; scalar leaves stay as they are."""
+    if group is None:
+        return tree
+    leaves = tree_leaves(tree)
+    return tree_unflatten(tree, [v if v.dim() == 0 else all_gather(v, group, dim)
+                                 for v in leaves])
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Equal-split all-to-all along dim 0: ``t`` (n * c, ...) sends its
+    j-th block of c rows to group rank j; the result's i-th block is the
+    block rank i sent here."""
+    if group is None:
+        return t
+    n = dist.get_world_size(group)
+    if t.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 ({t.shape[0]}) is not a multiple of {n}")
+    staged = _staged(t, group)
+    src = (t.detach().to("cpu") if staged else t.detach()).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(t.device) if staged else out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.group), None
+
+
+def all_to_all_grad(t: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable :func:`all_to_all`."""
+    return t if group is None else _AllToAll.apply(t, group)

@@ -1281,3 +1281,59 @@ FRONTEND_HEAD_GROUPS = [(8, 2, 128, 336, [256, 304, 305, 335]),
 def test_flash_decode_at_the_front_end_head_groups(cuda, KH, G, D, L, lengths):
     o = _flash_split_case(cuda, torch.float32, 4, KH, G, D, L, lengths, 0, KH * G + D)
     assert o.shape == (4, KH, G, D) and bool(torch.isfinite(o).all())
+
+
+# ---------------------------------------------------------------------------
+# the multi-device path's collectives with CUDA tensors
+# ---------------------------------------------------------------------------
+
+_COLLECTIVE_RANK = r"""
+import sys, torch
+sys.path.insert(0, sys.argv[5])
+from repro_torch.launch.mesh import init_file_store, make_debug_mesh
+from repro_torch.sharding import collectives as C
+rank, world, store, backend = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dev = init_file_store(store, rank, world, device="cuda", backend=backend)
+mesh = make_debug_mesh(1, world, device=dev)
+g = mesh.group("model")
+x = torch.arange(6.0, device=dev).reshape(3, 2) + 10 * rank
+s = C.all_reduce(x, g)
+want = sum(torch.arange(6.0, device=dev).reshape(3, 2) + 10 * r for r in range(world))
+assert s.is_cuda and torch.equal(s, want), s
+a = C.all_gather(x, g, dim=1)
+assert a.is_cuda and a.shape == (3, 2 * world) and torch.equal(a[:, 2 * rank:2 * rank + 2], x)
+t = torch.arange(4.0 * world, device=dev) + 100 * rank
+o = C.all_to_all(t, g)
+assert o.is_cuda and all(torch.equal(o[4 * r:4 * r + 4], torch.arange(4.0 * rank, 4.0 * rank + 4,
+                                                                      device=dev) + 100 * r)
+                         for r in range(world))
+tl = t.clone().requires_grad_()
+(C.all_to_all_grad(tl, g) * torch.arange(4.0 * world, device=dev)).sum().backward()
+assert tl.grad.is_cuda and torch.equal(tl.grad, C.all_to_all(torch.arange(4.0 * world,
+                                                                          device=dev), g))
+print("RANK", rank, "OK", mesh.staged)
+"""
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_collectives_carry_cuda_tensors(cuda, tmp_path, world, backend):
+    """all_reduce, all_gather (dim 1), the equal-split all_to_all and its
+    differentiable form on CUDA tensors: over a one-rank
+    NCCL group, and over gloo between two ranks sharing the card (staged
+    through host memory, which the mesh reports)."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    procs = [subprocess.Popen([sys.executable, "-c", _COLLECTIVE_RANK, str(r), str(world),
+                               str(tmp_path / "store"), backend, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RANK {r} OK {backend == 'gloo'}" in out, out[-2000:]

@@ -435,8 +435,10 @@ def test_sfl_train_matches_repro(capsys):
 
 
 def test_sfl_refuses_what_is_not_ported():
-    """The mesh is not ported: it raises, naming the roadmap.  Everything
-    else this test once refused is ported now and must be accepted: the
+    """A mesh without a "clients" axis raises ValueError (the client axis
+    is ported: tests/test_torch_mesh_sfl.py), and repro's default
+    donate=True is accepted.  Everything else this test once refused is
+    ported now and must be accepted: the
     deprecated act_quant shim (it warns), the fault and robust fields of
     RoundDynamics (poison, robust, byzantine) and WirelessDynamics'
     defense, as are the capacity envelope and dynamic allocation."""
@@ -449,8 +451,10 @@ def test_sfl_refuses_what_is_not_ported():
     _, tcfg = _cfgs(layers=2)
     tp = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     tc = TTrainConfig(num_clients=2, batch_size=1, local_steps=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", mesh=object())
+    from repro_torch.launch.mesh import make_debug_mesh
+    with pytest.raises(ValueError, match="clients"):
+        SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", mesh=make_debug_mesh(1, 1))
+    assert SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu", donate=True).mesh is None
     with pytest.warns(DeprecationWarning, match="act_quant"):
         assert SflLLM(tcfg, tp, 1, tc, t_sgd(0.1), device="cpu",
                       act_quant=True).act_bits_k == (8, 8)
