@@ -270,9 +270,9 @@ Phases (each prints its own lines; any failure exits non-zero):
     (``torch.multiprocessing``; a rank that raises fails the script):
     three runs, each from seeded weights drawn on the card — a client-axis
     round of full-width GPT-2-S (``SflLLM(mesh=)``, K 4 x 4 x 64, split 6,
-    I 6, AdamW 4e-4), a ``PodRound`` round of full-width minicpm-2b (10.90
-    GB f32, I 2, a pooled batch of 8 x 64, the frozen base FSDP-sharded
-    over "data") and ``apply_moe_shard_map`` at olmoe-1b-7b's layer (d
+    I 6, AdamW 4e-4), a ``PodRound`` round of full-width minicpm-2b (20 of
+    its 40 layers, I 2, a pooled batch of 8 x 64, the frozen
+    base FSDP-sharded over "data") and ``apply_moe_shard_map`` at olmoe-1b-7b's layer (d
     2048, 64 experts, top 8, ffn 1024, 4 x 256 tokens).  (a) One rank runs
     them with no group, then over a one-rank NCCL group: held to each
     other (losses 1e-4 relative; the first step's gradients 1e-4 of their
@@ -291,10 +291,39 @@ Phases (each prints its own lines; any failure exits non-zero):
     one more server pass a step (every rank runs the server on its rows).
     (c) One rank a card over NCCL where there are two cards or more; else
     a line says why not.
+19. tensor parallelism over "model" and the last ``Runtime`` knobs: (a)
+    one process, full-width minicpm-2b (f32, weights drawn on the card,
+    rank-4 q/v adapters with B != 0), one train step at B 1 x S 4096
+    (``train_4k``'s length): kv_chunk 512 with q_chunk 0 and no remat (the
+    reference), then q_chunk 2048 with remat none, "full" and "dots",
+    each held to the reference (loss 1e-4 relative, LoRA gradients 1e-4 of
+    the largest entry) with exact launch counts ("full" runs every
+    projection's forward twice, "dots" once), ms a step and peak memory;
+    then a bf16 step with ``attn_s_bf16`` against f32 scores (loss 2e-2
+    relative, gradients 5e-2 of the largest).  (e) rows 1, 3 and 4 at the
+    TP-local shapes of (b)'s yi-9b (M 512: q and v column-parallel at N
+    2048 and 256, o and down row-parallel at K 2048 and 5504) against their
+    plain versions, with B as a trained adapter's (std 0.5) too, and timed
+    beside the plain version, a library call and the bound.  Then
+    ``PodRound`` rounds (I 2, SGD 1e-2, every step's gradients kept) in
+    spawned ranks, each base drawn on the card a subtree at a time: one
+    process with no group runs the references (yi-9b with LoRA on q, v, o,
+    down over 8 x 64; yi-9b again through the plain projections, the f32
+    yardstick; olmoe-1b-7b over 4 x 128; GPT-2-S over 8 x 64); (b) two
+    ranks on the card over host-staged gloo on a (1, 2) mesh run yi-9b and
+    olmoe with ``moe_constraints`` off, on, and on with ``seq_shard``; (c)
+    four ranks on a (2, 2) mesh run GPT-2-S; (d) one rank a card over NCCL
+    where there are two or more.  Each rank's round is held to its
+    reference (losses 1e-4 relative, the first step's gradients 1e-4 of the
+    largest entry, adapters within lr times the steps' summed gradient
+    error), with exact launch counts, resident frozen bytes equal to the
+    rule table's count for its (data, model) piece, s a round and peak
+    memory; the ranks of (b) end bit-equal.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -2044,10 +2073,13 @@ def main() -> None:
     for k, v in fe_err.items():
         err[k] = max(err[k], v)
     mesh_launches = phase_mesh(torch, np, dev)
+    tp_launches, tp_err = phase_tp(torch, np, dev, flush)
+    for k, v in tp_err.items():
+        err[k] = max(err[k], v)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
             mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train,
-            arch_launches, ssm_train, fe_launches, mesh_launches)
+            arch_launches, ssm_train, fe_launches, mesh_launches, tp_launches)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -4113,7 +4145,10 @@ def phase_frontends(torch, np, dev, flush):
 
 MESH_LR = 4e-4
 MESH_SFL = dict(K=4, b=4, S=64, split=6, I=6)      # full-width GPT-2-S
-MESH_POD = dict(I=2, B=8, S=64)                     # full-width minicpm-2b
+# full-width minicpm-2b at 20 of its 40 layers: two ranks sharing the card
+# gather every layer through host memory twice a step (85-103 s a round at
+# 40 layers on one H100), which phase 19 needs of the script's time
+MESH_POD = dict(I=2, B=8, S=64, L=20)
 MESH_MOE = dict(B=4, S=256, cf_one=1.0, cf_two=2.0)  # olmoe-1b-7b's layer
 
 
@@ -4121,7 +4156,8 @@ def _mesh_cfgs(small: bool):
     """The three workloads' configs; ``small`` cuts each to d_model 64 (and
     4 heads of 16, d_ff 128, 8 experts of 64) for a rehearsal on the CPU."""
     from repro_torch.configs import get_arch
-    cfgs = [get_arch("gpt2-s"), get_arch("minicpm-2b"), get_arch("olmoe-1b-7b")]
+    cfgs = [get_arch("gpt2-s"), get_arch("minicpm-2b").replace(num_layers=MESH_POD["L"]),
+            get_arch("olmoe-1b-7b")]
     if small:
         cut = dict(d_model=64, num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128)
         cfgs = [cfgs[0].replace(**cut), cfgs[1].replace(num_layers=4, **cut),
@@ -4200,8 +4236,13 @@ def _mesh_sfl(torch, np, dev, mesh, small):
             "L": cfg.num_layers, "split": sfl.ell_c}
 
 
+def recomputes(rt) -> bool:
+    """Whether a layer's projections run again in the backward."""
+    return rt.remat and rt.remat_policy == "full"
+
+
 def _mesh_pod(torch, np, dev, mesh, small):
-    """One ``PodRound`` round of full-width minicpm-2b (10.90 GB f32): I 2,
+    """One ``PodRound`` round of full-width minicpm-2b (20 layers): I 2,
     a pooled batch of 8 x 64 cut over "data".  Each rank draws the seeded
     base a subtree at a time and keeps its pieces (``ShardedParams.init``),
     so no rank's card holds the whole base unless it is a world of one."""
@@ -4219,7 +4260,10 @@ def _mesh_pod(torch, np, dev, mesh, small):
     params = ShardedParams.init(cfg, torch.Generator(device=dev).manual_seed(183), mesh)
     lora = _mesh_lora(torch, TM, cfg, dev, 184)
     opt, first = _recording(adamw(MESH_LR), 1)
-    pod = PodRound(cfg, params, None, opt, mesh)
+    # remat "full": over more than one "data" rank every layer is gathered
+    # again and recomputed in the backward (phase 19 (c) runs "dots")
+    pod = PodRound(cfg, params, TM.default_train_runtime().replace(remat_policy="full"),
+                   opt, mesh)
     tok = np.random.default_rng(185).integers(
         0, cfg.vocab_size, (m["I"], m["B"], m["S"])).astype(np.int32)
     backend.reset_launch_counts()
@@ -4237,7 +4281,7 @@ def _mesh_pod(torch, np, dev, mesh, small):
             "resident": sp.resident_bytes(), "sharded": sh, "replicated": rep,
             "layer_bytes": layer, "embed_bytes": sp.gathered_bytes("embed"),
             "peak_live": sp.peak_live_bytes, "gather_s": sp.gather_seconds,
-            "L": cfg.num_layers, "remat": pod.rt.remat}
+            "L": cfg.num_layers}
 
 
 def _mesh_moe(torch, np, dev, mesh, small):
@@ -4341,13 +4385,69 @@ def _mesh_err(a, b) -> float:
     return max((x.double() - y.double()).abs().max().item() for x, y in zip(la, lb))
 
 
-def pod_per_step(L, remat):
-    """Launches per ``PodRound`` step with LoRA on q and v: over more than
-    one rank (``remat``) each layer runs under ``torch.utils.checkpoint``,
-    so its forward runs twice (the pass and the backward's recompute);
-    every layer's input but the first's (the embedding) takes a dX; two
-    rank reduces per projection."""
-    return {"lora_matmul": (4 if remat else 2) * L, "lora_matmul_dx": 2 * (L - 1),
+def loss_ok(a, b) -> bool:
+    """Losses at phase 6's 1e-4 relative."""
+    return all(abs(x - y) <= 1e-4 * max(1.0, abs(y)) for x, y in zip(a, b)) and \
+        len(a) == len(b)
+
+
+def mesh_held(tag, got, want, what):
+    """Losses at phase 6's 1e-4 relative; the first step's gradients
+    (the same inputs on both paths) within 1e-4 of their largest entry;
+    every adapter entry after the round within a bound that follows
+    from the measured gradient error d (the largest absolute error of
+    the first step's gradients).  AdamW's first step moves an entry by
+    lr*g/(|g|+eps), its next ones by lr*m/sqrt(v): a gradient error d
+    on an entry comes back as about lr*d/|g|, and a sign flip of a
+    gradient under d moves the entry by 2 lr.  So an entry whose first
+    gradient is g is held to lr*min(2, max(1e-2, 4*d/|g|)): phase 6's
+    lr*1e-2 wherever |g| >= 400 d, and no more than one flip anywhere."""
+    from repro_torch.tree import tree_leaves
+    g_got, g_want = tree_leaves(got["grads"]), tree_leaves(want["grads"])
+    scale = max(g.abs().max().item() for g in g_want)
+    d_g = max((a - b).abs().max().item() for a, b in zip(g_got, g_want))
+    tol_ad = MESH_LR * 1e-2
+    e_ad = worst = 0.0
+    n_wide = n_past = n_all = 0
+    for a, b, g in zip(tree_leaves(got["lora"]), tree_leaves(want["lora"]), g_want):
+        d = (a.double() - b.double()).abs()
+        bound = MESH_LR * (4 * d_g / g.double().abs()).clamp(1e-2, 2.0)
+        e_ad = max(e_ad, d.max().item())
+        worst = max(worst, (d / bound).max().item())
+        n_wide += int((bound > tol_ad).sum())
+        n_past += int((d > tol_ad).sum())
+        n_all += d.numel()
+    good = (loss_ok(got["loss"], want["loss"]) and len(g_got) == len(g_want)
+            and d_g <= 1e-4 * scale and worst <= 1.0)
+    print(f"[mesh] {tag} {what}: losses {' '.join(f'{x:.6f}' for x in got['loss'])} vs "
+          f"{' '.join(f'{x:.6f}' for x in want['loss'])} (tol 1e-4 rel); first-step "
+          f"gradients max_abs_err d={d_g:.3g}, {d_g / scale:.3g} of the largest entry "
+          f"{scale:.3g} (tol 1e-4); adapters max_abs_err={e_ad:.3g}, at most {worst:.3g} of "
+          f"each entry's bound lr*min(2, max(1e-2, 4d/|g|)) (tol 1; {n_wide} of {n_all} "
+          f"entries have a bound above lr*1e-2 = {tol_ad:.1g}, {n_past} are past "
+          f"lr*1e-2) {'ok' if good else 'FAIL'}")
+    if not good:
+        fail(f"phase 18 {tag}: {what} disagrees")
+
+
+def mesh_expect(tag, name, launches, want, steps, phase=18, prefix="mesh"):
+    """The launches of a run: exactly ``want`` per step, and nothing else."""
+    good = all(launches.get(k, 0) == v * steps for k, v in want.items()) and \
+        set(launches) == set(want)
+    print(f"[{prefix}] {tag} {name} launches {launches}; expected {want} x {steps} steps "
+          f"{'ok' if good else 'FAIL'}")
+    if not good:
+        fail(f"phase {phase} {tag}: {name} launches")
+
+
+def pod_per_step(L, recompute):
+    """Launches per ``PodRound`` step with LoRA on q and v: where each layer
+    is recomputed in the backward under remat "full" (``recompute``: the
+    runtime of (b) and (c), more than one "data" rank), its forward runs
+    twice; under "dots" the recompute takes the projections' saved
+    outputs and launches none; every layer's input but the first's (the
+    embedding) takes a dX; two rank reduces per projection."""
+    return {"lora_matmul": (4 if recompute else 2) * L, "lora_matmul_dx": 2 * (L - 1),
             "lora_rank_reduce": 4 * L}
 
 
@@ -4364,53 +4464,14 @@ def phase_mesh(torch, np, dev, small=False):
     if device == "cuda":
         torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
-    tol_ad = MESH_LR * 1e-2
     launches_total = {}
 
     def add(l_):
         for k, v in l_.items():
             launches_total[k] = launches_total.get(k, 0) + v
 
-    def loss_ok(a, b):
-        return all(abs(x - y) <= 1e-4 * max(1.0, abs(y)) for x, y in zip(a, b)) and \
-            len(a) == len(b)
-
-    def held(tag, got, want, what):
-        """Losses at phase 6's 1e-4 relative; the first step's gradients
-        (the same inputs on both paths) within 1e-4 of their largest entry;
-        every adapter entry after the round within a bound that follows
-        from the measured gradient error d (the largest absolute error of
-        the first step's gradients).  AdamW's first step moves an entry by
-        lr*g/(|g|+eps), its next ones by lr*m/sqrt(v): a gradient error d
-        on an entry comes back as about lr*d/|g|, and a sign flip of a
-        gradient under d moves the entry by 2 lr.  So an entry whose first
-        gradient is g is held to lr*min(2, max(1e-2, 4*d/|g|)): phase 6's
-        lr*1e-2 wherever |g| >= 400 d, and no more than one flip anywhere."""
-        from repro_torch.tree import tree_leaves
-        g_got, g_want = tree_leaves(got["grads"]), tree_leaves(want["grads"])
-        scale = max(g.abs().max().item() for g in g_want)
-        d_g = max((a - b).abs().max().item() for a, b in zip(g_got, g_want))
-        e_ad = worst = 0.0
-        n_wide = n_past = n_all = 0
-        for a, b, g in zip(tree_leaves(got["lora"]), tree_leaves(want["lora"]), g_want):
-            d = (a.double() - b.double()).abs()
-            bound = MESH_LR * (4 * d_g / g.double().abs()).clamp(1e-2, 2.0)
-            e_ad = max(e_ad, d.max().item())
-            worst = max(worst, (d / bound).max().item())
-            n_wide += int((bound > tol_ad).sum())
-            n_past += int((d > tol_ad).sum())
-            n_all += d.numel()
-        good = (loss_ok(got["loss"], want["loss"]) and len(g_got) == len(g_want)
-                and d_g <= 1e-4 * scale and worst <= 1.0)
-        print(f"[mesh] {tag} {what}: losses {' '.join(f'{x:.6f}' for x in got['loss'])} vs "
-              f"{' '.join(f'{x:.6f}' for x in want['loss'])} (tol 1e-4 rel); first-step "
-              f"gradients max_abs_err d={d_g:.3g}, {d_g / scale:.3g} of the largest entry "
-              f"{scale:.3g} (tol 1e-4); adapters max_abs_err={e_ad:.3g}, at most {worst:.3g} of "
-              f"each entry's bound lr*min(2, max(1e-2, 4d/|g|)) (tol 1; {n_wide} of {n_all} "
-              f"entries have a bound above lr*1e-2 = {tol_ad:.1g}, {n_past} are past "
-              f"lr*1e-2) {'ok' if good else 'FAIL'}")
-        if not good:
-            fail(f"phase 18 {tag}: {what} disagrees")
+    held = mesh_held
+    expect = mesh_expect
 
     def whole_sfl(ranks):
         """Rank 0's client round with the first step's client gradients of
@@ -4430,14 +4491,6 @@ def phase_mesh(torch, np, dev, small=False):
         if not good:
             fail(f"phase 18 {tag}: the expert-parallel MoE disagrees with {what}")
 
-    def expect(tag, name, launches, want, steps):
-        good = all(launches.get(k, 0) == v * steps for k, v in want.items()) and \
-            set(launches) == set(want)
-        print(f"[mesh] {tag} {name} launches {launches}; expected {want} x {steps} steps "
-              f"{'ok' if good else 'FAIL'}")
-        if not good:
-            fail(f"phase 18 {tag}: {name} launches")
-
     # -- (a) one rank, one-rank NCCL group vs no group -----------------------
     t0 = time.perf_counter()
     (a,) = _mesh_spawn(1, nccl, device, small, tmp)
@@ -4454,7 +4507,7 @@ def phase_mesh(torch, np, dev, small=False):
     held("(a)", one["pod"], ref["pod"], "PodRound (minicpm-2b, I 2, 8 x 64) vs PodRound "
          "with no group")
     expect("(a)", "PodRound", one["pod"]["launches"],
-           pod_per_step(one["pod"]["L"], one["pod"]["remat"]), MESH_POD["I"])
+           pod_per_step(one["pod"]["L"], False), MESH_POD["I"])
     moe_held("(a)", one["moe"]["y"], ref["moe"]["y"], "apply_moe with no drops")
     for k in ("sfl", "pod"):
         add(one[k]["launches"])
@@ -4496,8 +4549,10 @@ def phase_mesh(torch, np, dev, small=False):
         if not good:
             fail("phase 18 (b): a rank's clients or resident frozen bytes")
         expect(f"(b) rank {r['rank']}", "client round", m["sfl"]["launches"], per_rank, I_)
+        # FSDP over two "data" ranks under remat "full": every layer's
+        # forward runs again in the backward
         expect(f"(b) rank {r['rank']}", "PodRound", pod["launches"],
-               pod_per_step(pod["L"], pod["remat"]), MESH_POD["I"])
+               pod_per_step(pod["L"], True), MESH_POD["I"])
         add(m["sfl"]["launches"])
         add(pod["launches"])
     # the clients' launches add up to the one-process count; the server runs
@@ -4549,6 +4604,507 @@ def phase_mesh(torch, np, dev, small=False):
               "needs two or more")
     print(f"[mesh] phase 18 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
     return launches_total
+
+
+# ---------------------------------------------------------------------------
+# 19. tensor parallelism over "model" and the last Runtime knobs
+# ---------------------------------------------------------------------------
+
+KNOB = dict(B=1, S=4096, kv_chunk=512, q_chunk=2048)   # train_4k's length
+TP_RUNS = {
+    # name: (config, Runtime knobs, rows, tokens a row)
+    "yi": ("yi-9b", {}, 8, 64),
+    # 4 rows: two ranks sharing the card stage every capacity buffer of the
+    # exchange through the host (26-28 s a round at 8 rows on one H100)
+    "olmoe": ("olmoe-1b-7b", {}, 4, 128),
+    "olmoe_mc": ("olmoe-1b-7b", {"moe_constraints": True}, 4, 128),
+    "olmoe_seq": ("olmoe-1b-7b", {"moe_constraints": True, "seq_shard": True}, 4, 128),
+    "gpt2": ("gpt2-s", {}, 8, 64),
+    # the yardstick: yi-9b in one process through the plain projections
+    "yi_plain": ("yi-9b", {"dense_impl": "einsum"}, 8, 64),
+}
+TP_I = 2
+# SGD: the adapters then move by the gradients themselves.  Under AdamW, on
+# one H100, yi-9b's first-step gradients agreed to 3.08e-5 of their
+# largest entry, but Adam's lr*g/(|g|+eps) flipped the B entries whose
+# first gradient lay under that error, and the second step's gradients of
+# A (proportional to B) moved by a few percent: 217,337 entries past
+# lr*1e-2, up to 2 lr
+TP_LR = 1e-2
+TP_YI_TARGETS = ("q", "v", "o", "down")    # column- and row-parallel LoRA
+TP_SEED = {"yi-9b": 190, "olmoe-1b-7b": 192, "gpt2-s": 194}
+
+
+def _tp_cfg(name: str, small: bool):
+    """A phase-19 config at full width (``small``: cut to d_model 64 with 4
+    heads of 16 and d_ff 128 at 2 layers, for a rehearsal on the CPU)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    if name == "yi-9b":
+        cfg = cfg.replace(lora_targets=TP_YI_TARGETS)
+    if small:
+        kv = 2 if cfg.num_kv_heads < cfg.num_heads else 4
+        cfg = cfg.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=kv,
+                          head_dim=16, d_ff=128, num_experts=min(cfg.num_experts, 8),
+                          experts_per_token=min(cfg.experts_per_token, 2))
+    return cfg
+
+
+def _tp_lora(torch, TM, cfg, dev, seed):
+    """Rank-4 adapters on every target with B != 0, from seeded generators."""
+    lora = TM.init_lora_stack(cfg, torch.Generator().manual_seed(seed), 4, device=dev)
+    g_b = torch.Generator().manual_seed(seed + 1)
+    for layer in lora:
+        for group in layer.values():
+            for ad in group.values():
+                ad["b"].copy_(torch.randn(ad["b"].shape, generator=g_b) * 0.02)
+    return lora
+
+
+def _step_errs(got, want):
+    """Per step: (the gradients' largest absolute error, that over their
+    largest entry, the worst leaf, the largest entry)."""
+    from repro_torch.tree import tree_leaves
+    out = []
+    for g_got, g_want in zip(got["grads"], want["grads"]):
+        a, b = tree_leaves(g_got), tree_leaves(g_want)
+        errs = [(x - y).abs().max().item() for x, y in zip(a, b)]
+        d = max(errs)
+        j = errs.index(d)
+        top = max(y.abs().max().item() for y in b)
+        out.append((d, d / top, f"leaf {j} {tuple(b[j].shape)} of largest "
+                    f"{b[j].abs().max().item():.3g}", top))
+    return out
+
+
+def tp_held(tag, got, want, what, plain=None):
+    """Phase 18's bounds where they apply to an SGD round: losses at 1e-4
+    relative; each step's gradients within 1e-4 of their largest entry, a
+    later step's within twice ``plain``'s error where that is larger
+    (``plain``: the one-process plain path, the same f32 model through
+    other sums, against the same reference: the conditioning of the
+    steps after the first, whatever the layout); the adapters within lr
+    times the sum over the steps of those bounds on the gradients'
+    absolute error (SGD moves them by the gradients themselves), plus
+    1e-6 for the updates' own rounding."""
+    errs = _step_errs(got, want)
+    yard = None if plain is None else _step_errs(plain, want)
+    tols = [1e-4 if i == 0 or yard is None else max(1e-4, 2 * yard[i][1])
+            for i in range(len(errs))]
+    bound_ad = TP_LR * sum(t * e[3] for t, e in zip(tols, errs)) + 1e-6
+    e_ad = _mesh_err(got["lora"], want["lora"])
+    good = (loss_ok(got["loss"], want["loss"]) and len(errs) == TP_I == len(want["grads"])
+            and all(e[1] <= t for e, t in zip(errs, tols)) and e_ad <= bound_ad)
+    seen = "" if yard is None else "; the plain path's (dense_impl einsum): " + " ".join(
+        f"{e[1]:.3g}" for e in yard)
+    print(f"[tp] {tag} {what}: losses {' '.join(f'{x:.6f}' for x in got['loss'])} vs "
+          f"{' '.join(f'{x:.6f}' for x in want['loss'])} (tol 1e-4 rel); the steps' "
+          f"gradients max_abs_err {' '.join(f'{e[0]:.3g}' for e in errs)}, "
+          f"{' '.join(f'{e[1]:.3g}' for e in errs)} of their largest entry (tol "
+          f"{' '.join(f'{t:.3g}' for t in tols)}; worst: {'; '.join(e[2] for e in errs)}"
+          f"{seen}); adapters max_abs_err={e_ad:.3g} (tol lr*sum(tol*largest) + 1e-6 = "
+          f"{bound_ad:.3g}) {'ok' if good else 'FAIL'}")
+    if not good:
+        fail(f"phase 19 {tag}: {what} disagrees")
+
+
+def tp_per_step(cfg, recompute):
+    """Launches per step of every rank: one forward per adapted projection
+    (two where the layer is recomputed under remat "full"), a dX for each
+    but the first layer's q/k/v (their input comes from the frozen
+    embedding), two rank reduces each."""
+    n = len(cfg.lora_targets)
+    first = sum(t in ("q", "k", "v") for t in cfg.lora_targets)
+    L = cfg.num_layers
+    return {"lora_matmul": (2 if recompute else 1) * n * L, "lora_matmul_dx": n * L - first,
+            "lora_rank_reduce": 2 * n * L}
+
+
+def rule_table_bytes(cfg, mesh) -> int:
+    """The rule table's bytes of one rank's (data, model) piece of the f32
+    base: each leaf's bytes over the sizes of the axes its spec names."""
+    from repro_torch.models.model import abstract_params
+    from repro_torch.sharding.specs import param_spec, tree_paths
+    total = 0
+    for path, v in tree_paths(abstract_params(cfg)):
+        spec = param_spec(path, tuple(v.shape), mesh)
+        total += v.numel() * v.element_size() // math.prod(
+            mesh.shape.get(e, 1) for e in spec if e is not None)
+    return total
+
+
+def _tp_pod(torch, np, dev, mesh, small, run):
+    """One ``PodRound`` round (I 2) of ``run`` (``TP_RUNS``) over ``mesh``
+    (None: one process with no group), the base drawn on the device a
+    subtree at a time (``ShardedParams.init``), SGD at ``TP_LR``; every
+    step's gradients are kept."""
+    from repro_torch import models as TM
+    from repro_torch.kernels import backend
+    from repro_torch.launch.engine import PodRound
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import sgd
+    from repro_torch.sharding.fsdp import ShardedParams
+    from repro_torch.tree import tree_map
+    name, knobs, B, S = TP_RUNS[run]
+    cfg = _tp_cfg(name, small)
+    if mesh is None:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+    params = ShardedParams.init(cfg, torch.Generator(device=dev).manual_seed(TP_SEED[name]),
+                                mesh)
+    lora = _tp_lora(torch, TM, cfg, dev, TP_SEED[name] + 1)
+    opt, grads = _recording(sgd(TP_LR), TP_I)
+    pod = PodRound(cfg, params, TM.default_train_runtime().replace(**knobs), opt, mesh)
+    tok = np.random.default_rng(TP_SEED[name] + 2).integers(
+        0, cfg.vocab_size, (TP_I, B, S)).astype(np.int32)
+    backend.reset_launch_counts()
+    _mesh_sync(torch, dev)
+    t0 = time.perf_counter()
+    (lo, _), met = pod.run_round(pod.init_state(lora), {"tokens": tok,
+                                                         "labels": np.roll(tok, -1, -1)})
+    _mesh_sync(torch, dev)
+    secs = time.perf_counter() - t0
+    return {"loss": met["loss"].cpu().tolist(), "aux": met["aux"].cpu().tolist(),
+            "lora": tree_map(lambda v: v.cpu(), lo), "grads": grads,
+            "launches": dict(backend.LAUNCH_COUNTS), "seconds": secs,
+            "resident": pod.params.resident_bytes(),
+            "want_resident": rule_table_bytes(cfg, mesh),
+            "per_step": tp_per_step(cfg, recomputes(pod.rt)), "tp": pod.rt.tp_axis,
+            "seq": bool(knobs.get("seq_shard")), "mesh": dict(mesh.shape)}
+
+
+def _tp_rank(rank, world, store, out, device, backend, small, runs, shape):
+    """One rank of phase 19 (a spawned process): ``runs`` over a mesh of
+    ``shape`` ("data", "model") on a ``backend`` group, or with no group in
+    a world of one.  Results go to ``{out}.{rank}``."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import init_file_store, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    mesh = None
+    if world > 1:
+        dev = init_file_store(store, rank, world, device=dev.type, backend=backend)
+        mesh = make_mesh(shape, ("data", "model"), dev)
+    res = {"rank": rank, "runs": {}}
+    t0 = time.perf_counter()
+    _tp_pod(torch, np, dev, mesh, True, "gpt2")      # the process's first-call set-up
+    res["warm_s"] = time.perf_counter() - t0
+    for run in runs:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        res["runs"][run] = _tp_pod(torch, np, dev, mesh, small, run)
+        res["runs"][run]["peak_gib"] = _mesh_peak(torch, dev)
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(res, f)
+    if world > 1:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _tp_spawn(world, backend, device, small, tmp, runs, shape):
+    import pickle
+
+    import torch.multiprocessing as mp
+    tag = f"{world}{backend}{runs[0]}"
+    store, out = tmp / f"store{tag}", tmp / f"out{tag}"
+    mp.start_processes(_tp_rank, args=(world, str(store), str(out), device, backend, small,
+                                       runs, shape),
+                       nprocs=world, join=True, start_method="spawn")
+    res = []
+    for r in range(world):
+        with open(f"{out}.{r}", "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def _knob_step(torch, np, dev, small):
+    """(a) one train step of full-width minicpm-2b at S 4096 under each
+    runtime: the loss, the LoRA gradients, ms a step (host clock around a
+    synchronized step), peak memory and the launches."""
+    from repro_torch import models as TM
+    from repro_torch.kernels import backend
+    from repro_torch.launch.steps import _value_and_grad
+    from repro_torch.tree import tree_map
+    from repro_torch.configs import get_arch
+    cfg = get_arch("minicpm-2b")
+    B, S = KNOB["B"], KNOB["S"]
+    if small:
+        cfg = cfg.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
+                          d_ff=128)
+        S = 256
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(196), device=dev)
+    lora = _tp_lora(torch, TM, cfg, dev, 197)
+    tok = torch.from_numpy(np.random.default_rng(198).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)).to(dev)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, -1)}
+    base = TM.default_train_runtime().replace(kv_chunk=KNOB["kv_chunk"])
+    q_chunk = KNOB["q_chunk"] if not small else 128
+    rts = {"ref": base, "none": base.replace(q_chunk=q_chunk),
+           "full": base.replace(q_chunk=q_chunk, remat=True, remat_policy="full"),
+           "dots": base.replace(q_chunk=q_chunk, remat=True, remat_policy="dots")}
+
+    def step(rt, p, lo):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        backend.reset_launch_counts()
+        _mesh_sync(torch, dev)
+        t0 = time.perf_counter()
+        loss, aux, grads = _value_and_grad(
+            lambda lo_: TM.loss_fn(cfg, p, lo_, batch, rt=rt), lo)
+        _mesh_sync(torch, dev)
+        return {"loss": loss.item(), "grads": tree_map(lambda v: v.float().cpu(), grads),
+                "ms": (time.perf_counter() - t0) * 1e3, "peak_gib": _mesh_peak(torch, dev),
+                "launches": dict(backend.LAUNCH_COUNTS)}
+
+    step(rts["ref"], params, lora)                 # first-call set-up, not kept
+    out = {k: step(rt, params, lora) for k, rt in rts.items()}
+    # the low-precision score einsum on a bf16 step, against f32 scores
+    p16 = tree_map(lambda v: v.to(torch.bfloat16), params)
+    l16 = tree_map(lambda v: v.to(torch.bfloat16), lora)
+    del params
+    rt16 = base.replace(q_chunk=q_chunk)
+    out["bf16_f32s"] = step(rt16, p16, l16)
+    out["bf16_s16"] = step(rt16.replace(attn_s_bf16=True), p16, l16)
+    return cfg, S, q_chunk, out
+
+
+def _tp_kernels(torch, np, dev, flush, note):
+    """(e) rows 1, 3 and 4 at the TP-local shapes of (b)'s yi-9b round
+    (8 x 64 rows on each rank of a (1, 2) mesh): q and v column-parallel
+    at N 2048 and 256, o and down row-parallel at K 2048 and 5504; each
+    against its plain version, then timed beside it, a library call and
+    the bound."""
+    from repro_torch.kernels.lora_matmul import (lora_matmul_dx_kernel, lora_matmul_dx_ref,
+                                                 lora_matmul_kernel, lora_matmul_ref,
+                                                 lora_rank_reduce_kernel,
+                                                 lora_rank_reduce_ref)
+    gen = torch.Generator(device=dev).manual_seed(199)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    M, r, s = 512, 4, 2.0
+    shapes = {"q": (4096, 2048), "v": (4096, 256), "o": (2048, 4096), "down": (5504, 4096)}
+    for name, (K, N) in shapes.items():
+        check_lora_shape(torch, "tp", randn, note, M, K, N, backward=True)
+        # B as a trained adapter's (std 0.5, not 0.02): the low-rank term weighs;
+        # held relative to the largest entry, which the f32 sums' error follows
+        x, w, a, b = lora_operands(randn, M, K, N, r)
+        b = b * 25.0
+        dy = randn(M, N)
+        for op, got, want in (("lora_matmul", lora_matmul_kernel(x, w, a, b, s),
+                               lora_matmul_ref(x, w, a, b, s)),
+                              ("lora_matmul_dx", lora_matmul_dx_kernel(dy, w, a, b, s),
+                               lora_matmul_dx_ref(dy, w, a, b, s))):
+            e, top = (got - want).abs().max().item(), want.abs().max().item()
+            ok = e <= 1e-6 * top
+            print(f"[tp] {op} f32 {name} M={M} K={K} N={N} r={r}, B std 0.5: "
+                  f"max_abs_err={e:.3g}, {e / top:.3g} of the largest entry {top:.3g} (tol "
+                  f"1e-6: the outputs reach ~500, where f32's own spacing is 3e-5) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{op} at ({M}, {K}, {N}) with a large B disagrees with its plain version")
+    for name, (K, N) in shapes.items():
+        x, w, a, b = lora_operands(randn, M, K, N, r)
+        dy, u = randn(M, N), randn(M, r)
+        f_bytes = 4 * (M * K + K * N + r * K + N * r + M * N)
+        f_ops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+        rr_bytes = 4 * (M * r + M * N + r * N)
+        for op, kern, ref, lib, nb, fl, tc in (
+                ("lora_matmul", lambda: lora_matmul_kernel(x, w, a, b, s),
+                 lambda: lora_matmul_ref(x, w, a, b, s),
+                 lambda: x @ w + s * ((x @ a.T) @ b.T), f_bytes, f_ops, True),
+                ("lora_matmul_dx", lambda: lora_matmul_dx_kernel(dy, w, a, b, s),
+                 lambda: lora_matmul_dx_ref(dy, w, a, b, s),
+                 lambda: dy @ w.T + s * ((dy @ b) @ a), f_bytes, f_ops, True),
+                ("lora_rank_reduce", lambda: lora_rank_reduce_kernel(u, dy),
+                 lambda: lora_rank_reduce_ref(u, dy), lambda: u.T @ dy, rr_bytes,
+                 2 * M * r * N, False)):
+            ms = time_ms(torch, kern, flush)
+            plain = time_ms(torch, ref, flush)
+            lib_ms = time_ms(torch, lib, flush)
+            bms, bby = bound_tf32(nb, fl, 3) if tc else bound(nb, fl)
+            print(f"[tp] time {op} f32 {name} M={M} K={K} N={N} r={r} (yi-9b at tp 2): "
+                  f"kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library "
+                  f"{lib_ms * 1e3:.2f}us bound {bms * 1e3:.2f}us "
+                  f"({'3xTF32, ' if tc else ''}{bby})")
+    # every fused forward goes through the custom op repro_torch::lora_matmul_fwd
+    # (so that remat "dots" can save it): its host cost at a decode shape,
+    # GPT-2-S's q at 8 slots, beside the bare launch it wraps
+    from repro_torch.kernels.lora_matmul.ops import _forward, lora_matmul_op
+    x, w, a, b = lora_operands(randn, 8, 768, 768, r)
+    fused = lora_matmul_op()
+    with torch.no_grad():
+        t_op = host_us(torch, lambda: fused(x, w, a, b, s), n=2000)
+        t_bare = host_us(torch, lambda: _forward(x, w, a, b, s), n=2000)
+        t_op2 = host_us(torch, lambda: fused(x, w, a, b, s), n=2000)
+    print(f"[tp] host time of the fused forward at M 8, K = N 768 (GPT-2-S's q at 8 slots), "
+          f"2000 back-to-back calls, synchronized: through the custom op {t_op:.2f} / "
+          f"{t_op2:.2f} us a call, the bare launch {t_bare:.2f} us")
+
+
+def phase_tp(torch, np, dev, flush=None, small=False):
+    """19. Tensor parallelism over "model" and the last ``Runtime`` knobs:
+    (a) the knobs on one process, (b) two ranks on the one card over gloo
+    on a (1, 2) mesh, (c) four on a (2, 2) mesh, (d) one rank a card over
+    NCCL where there are two or more, (e) rows 1, 3 and 4 at (b)'s
+    TP-local shapes.  Returns (the launches of the main-path runs, the
+    kernels' largest errors at the TP-local shapes)."""
+    import tempfile
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    device = dev.type
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    launches_total, err = {}, {}
+
+    def add(l_):
+        for k, v in l_.items():
+            launches_total[k] = launches_total.get(k, 0) + v
+
+    def note(op, e):
+        err[op] = max(err.get(op, 0.0), e)
+
+    held = tp_held
+    expect = functools.partial(mesh_expect, phase=19, prefix="tp")
+
+    # -- (a) the knobs, one process -------------------------------------------
+    cfg, S, q_chunk, a = _knob_step(torch, np, dev, small)
+    ref = a["ref"]
+    scale = max(g.abs().max().item() for g in tree_leaves(ref["grads"]))
+    per = tp_per_step(cfg, False)
+    for k in ("ref", "none", "full", "dots"):
+        r_ = a[k]
+        d_g = max((x - y).abs().max().item()
+                  for x, y in zip(tree_leaves(r_["grads"]), tree_leaves(ref["grads"])))
+        want = tp_per_step(cfg, k == "full")
+        good = (math.isfinite(r_["loss"]) and abs(r_["loss"] - ref["loss"])
+                <= 1e-4 * max(1.0, abs(ref["loss"])) and d_g <= 1e-4 * scale
+                and r_["launches"] == want)
+        print(f"[tp] (a) minicpm-2b B {KNOB['B']} x S {S}, kv_chunk {KNOB['kv_chunk']}, "
+              f"{'q_chunk 0, no remat (the reference)' if k == 'ref' else f'q_chunk {q_chunk}, remat {k}'}: "
+              f"loss {r_['loss']:.6f} vs {ref['loss']:.6f} (tol 1e-4 rel), LoRA gradients "
+              f"max_abs_err {d_g:.3g} = {d_g / scale:.3g} of the largest {scale:.3g} (tol "
+              f"1e-4); {r_['ms']:.1f} ms a step (host clock, synchronized), peak "
+              f"{r_['peak_gib']:.2f} GiB; launches {r_['launches']} (expected {want}) "
+              f"{'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"phase 19 (a): the {k} step disagrees")
+        if k != "ref":
+            add(r_["launches"])
+    lo, hi = a["bf16_f32s"], a["bf16_s16"]
+    g_lo, g_hi = tree_leaves(lo["grads"]), tree_leaves(hi["grads"])
+    sc = max(g.abs().max().item() for g in g_lo)
+    d16 = max((x - y).abs().max().item() for x, y in zip(g_hi, g_lo))
+    good = (math.isfinite(hi["loss"]) and abs(hi["loss"] - lo["loss"])
+            <= 2e-2 * max(1.0, abs(lo["loss"])) and d16 <= 5e-2 * sc
+            and hi["launches"] == per)
+    print(f"[tp] (a) bf16 step, attn_s_bf16 (score einsum in bf16) vs f32 scores: loss "
+          f"{hi['loss']:.6f} vs {lo['loss']:.6f} (tol 2e-2 rel), LoRA gradients max_abs_err "
+          f"{d16:.3g} = {d16 / sc:.3g} of the largest {sc:.3g} (tol 5e-2); {hi['ms']:.1f} vs "
+          f"{lo['ms']:.1f} ms a step, peak {hi['peak_gib']:.2f} vs {lo['peak_gib']:.2f} GiB "
+          f"{'ok' if good else 'FAIL'}")
+    if not good:
+        fail("phase 19 (a): the bf16 score einsum moves the step past bf16 tolerance")
+    add(hi["launches"])
+    del a, ref, lo, hi
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    def report(tag, r, want):
+        rr = r["rank"]
+        for run, m in r["runs"].items():
+            good = (m["resident"] == m["want_resident"] and m["tp"] == "model"
+                    and all(math.isfinite(x) for x in m["loss"]))
+            print(f"[tp] {tag} rank {rr} {run} {TP_RUNS[run][0]} mesh {m['mesh']}"
+                  f"{' seq_shard' if m['seq'] else ''}: resident frozen bytes {m['resident']} "
+                  f"(the rule table's {m['want_resident']}), {m['seconds']:.3f} s a round "
+                  f"(host clock), peak {m['peak_gib']:.2f} GiB (construction included), "
+                  f"aux {' '.join(f'{x:.6f}' for x in m['aux'])} {'ok' if good else 'FAIL'}")
+            if not good:
+                fail(f"phase 19 {tag}: rank {rr}'s {run} round")
+            expect(f"{tag} rank {rr}", f"{run} PodRound", m["launches"], m["per_step"], TP_I)
+            held(f"{tag} rank {rr}", m, want[run], f"{run} PodRound over {m['mesh']} vs one "
+                 "process", plain if run == "yi" else None)
+            add(m["launches"])
+
+    # -- (e) rows 1, 3, 4 at the TP-local shapes ---------------------------------
+    if device == "cuda":
+        _tp_kernels(torch, np, dev, flush, note)
+
+    # -- references: one process, no group -------------------------------------
+    t0 = time.perf_counter()
+    (one,) = _tp_spawn(1, "gloo", device, small, tmp, ["yi", "yi_plain", "olmoe", "gpt2"],
+                       (1, 1))
+    want = dict(one["runs"])
+    plain = want.pop("yi_plain")
+    for k in ("olmoe_mc", "olmoe_seq"):
+        want[k] = want["olmoe"]
+    print(f"[tp] (ref) one process: the first-call set-up (a PodRound of GPT-2-S cut to d "
+          f"64) {one['warm_s']:.1f}s (host clock)")
+    for run, m in one["runs"].items():
+        if run == "yi_plain":
+            print(f"[tp] (ref) yi-9b one process through the plain projections: "
+                  f"{m['seconds']:.3f} s a round, losses "
+                  f"{' '.join(f'{x:.6f}' for x in m['loss'])}, launches {m['launches']}")
+            continue
+        expect("(ref)", f"{run} PodRound with no group", m["launches"], m["per_step"], TP_I)
+        print(f"[tp] (ref) {run} {TP_RUNS[run][0]} one process: {m['seconds']:.3f} s a round, "
+              f"peak {m['peak_gib']:.2f} GiB, losses {' '.join(f'{x:.6f}' for x in m['loss'])}")
+    print(f"[tp] references spawned and ran in {time.perf_counter() - t0:.1f}s (host clock)")
+
+    # -- (b) two ranks, one card, gloo, (1, 2) ----------------------------------
+    t0 = time.perf_counter()
+    two = _tp_spawn(2, "gloo", device, small, tmp, ["yi", "olmoe", "olmoe_mc", "olmoe_seq"],
+                    (1, 2))
+    print(f"[tp] (b) two ranks on one {device} over gloo, mesh (1, 2): spawned and ran in "
+          f"{time.perf_counter() - t0:.1f}s (host clock)")
+    for r in two:
+        print(f"[tp] (b) rank {r['rank']}: first-call set-up {r['warm_s']:.1f}s")
+        report("(b)", r, want)
+    for run in two[0]["runs"]:
+        x, y = two[0]["runs"][run], two[1]["runs"][run]
+        good = x["loss"] == y["loss"] and _mesh_err(x["lora"], y["lora"]) == 0.0
+        print(f"[tp] (b) {run}: rank 1's losses and adapters equal rank 0's bit for bit "
+              f"{'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"phase 19 (b): the ranks' {run} states differ")
+
+    # -- (c) four ranks, one card, gloo, (2, 2) ---------------------------------
+    t0 = time.perf_counter()
+    four = _tp_spawn(4, "gloo", device, small, tmp, ["gpt2"], (2, 2))
+    print(f"[tp] (c) four ranks on one {device} over gloo, mesh (2, 2): spawned and ran in "
+          f"{time.perf_counter() - t0:.1f}s (host clock)")
+    for r in four:
+        report("(c)", r, want)
+
+    # -- (d) one rank a card ------------------------------------------------------
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    if n_cards >= 2:
+        t0 = time.perf_counter()
+        for r in _tp_spawn(2, "nccl", device, small, tmp, ["yi", "olmoe_seq"], (1, 2)):
+            report("(d)", r, want)
+        if n_cards >= 4:
+            for r in _tp_spawn(4, "nccl", device, small, tmp, ["gpt2"], (2, 2)):
+                report("(d)", r, want)
+        print(f"[tp] (d) one rank a card over NCCL: {time.perf_counter() - t0:.1f}s")
+    else:
+        print(f"[tp] (d) not run: {n_cards} card(s) visible; one rank a card over NCCL needs "
+              "two or more")
+
+    print(f"[tp] phase 19 wall {time.perf_counter() - t_phase:.1f}s (host clock)")
+    return launches_total, err
 
 
 if __name__ == "__main__":

@@ -22,7 +22,9 @@ serving decode never differentiates.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -343,12 +345,45 @@ def lora_matmul_q8_dx(dy, w_q, w_scale, a, b, scale: float) -> torch.Tensor:
         ref=lambda: lora_matmul_q8_dx_ref(dy, w_q, ws, a, b, scale), x=dy)
 
 
-def _forward(x2, w, a, b, scale: float) -> torch.Tensor:
+def _forward(x2: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             scale: float) -> torch.Tensor:
     return backend.dispatch(
         "lora_matmul",
         kernel=lambda: lora_matmul_kernel(x2, w.contiguous(), a.contiguous(),
                                           b.contiguous(), scale),
         ref=lambda: lora_matmul_ref(x2, w, a, b, scale), x=x2)
+
+
+_OP_NAME = "repro_torch::lora_matmul_fwd"
+_AS_OP = threading.local()
+
+
+def lora_matmul_op():
+    """The forward as the custom op ``repro_torch::lora_matmul_fwd``
+    (registered at first use).  A ctypes launch is invisible to a
+    dispatch-level policy; as one opaque op, the forward is something
+    ``torch.utils.checkpoint``'s selective policy can save, so the "dots"
+    remat (``models.stack``) keeps its output and a recompute launches
+    nothing."""
+    ns = torch.ops.repro_torch
+    if not hasattr(ns, "lora_matmul_fwd"):
+        torch.library.custom_op(_OP_NAME, mutates_args=())(_forward)
+    return ns.lora_matmul_fwd.default
+
+
+@contextlib.contextmanager
+def forward_as_op():
+    """Within it, on this thread, the fused forward runs as
+    :func:`lora_matmul_op`; elsewhere as the bare launch.  Remat "dots"
+    enters it around each checkpointed block, in the forward and in the
+    recompute.  Everything else takes the bare launch: the op's dispatch
+    adds tens of µs of host time a call (``PERF.md`` §6)."""
+    depth = getattr(_AS_OP, "depth", 0)
+    _AS_OP.depth = depth + 1
+    try:
+        yield
+    finally:
+        _AS_OP.depth = depth
 
 
 class _FusedLoraMatmul(torch.autograd.Function):
@@ -358,7 +393,8 @@ class _FusedLoraMatmul(torch.autograd.Function):
     def forward(ctx, x2, w, a, b, scale: float):
         ctx.scale = scale
         ctx.save_for_backward(x2, w, a, b)
-        return _forward(x2, w, a, b, scale)
+        fwd = lora_matmul_op() if getattr(_AS_OP, "depth", 0) else _forward
+        return fwd(x2, w, a, b, scale)
 
     @staticmethod
     def backward(ctx, dy):

@@ -16,9 +16,10 @@ defense (robust aggregation with a reputation quarantine) and fault hooks
 ``SflLLM.train_round`` as a ``core.sfl.RoundDynamics``.
 
 ``PodRound`` is the datacenter lowering: one LoRA step over a ``("data",
-"model")`` mesh of ranks, the frozen base FSDP-sharded over "data"
-(``sharding.fsdp``); over a client mesh ``SflRound`` gathers the state
-for its checkpoints, and rank 0 alone prints and writes files.
+"model")`` or ``("pod", "data", "model")`` mesh of ranks, the frozen base
+FSDP-sharded over "data" (``sharding.fsdp``) and tensor-parallel over
+"model" (``sharding.tp``); over a client mesh ``SflRound`` gathers the
+state for its checkpoints, and rank 0 alone prints and writes files.
 
 Trainers plug in through adapters exposing
 ``run_round(state, round_batches) -> (state, metrics)`` where
@@ -104,40 +105,43 @@ class CentralizedRound:
 
 class PodRound:
     """Adapter: the datacenter lowering (``repro``'s ``PodRound``) — one
-    LoRA train step (``launch.steps.make_train_step``'s) over a ``("data",
-    "model")`` mesh, I times a round.  state = (lora, opt_state).
+    LoRA train step (``launch.steps.make_train_step``'s) over any mesh of
+    ``repro``'s, ``("data", "model")`` of any shape or ``("pod", "data",
+    "model")``, I times a round.  state = (lora, opt_state).
 
-    The frozen base is FSDP-sharded over ``"data"`` by the rule table
-    (``sharding.fsdp.ShardedParams``); the LoRA and its optimizer state are
-    replicated; the pooled batch (I, B, S) is cut over ``"data"``
-    (``sharding.specs.stacked_batch_spec``); the loss divides by the pool's
-    valid-label count and the LoRA gradients are all-reduced over
-    ``"data"`` (``Runtime.pool``), so every rank steps the same adapter.
-    Over more than one rank each layer is recomputed in the backward
-    (``Runtime.remat``), gathering it again.  ``rt`` None takes
-    ``default_train_runtime()``.  A ``"model"`` axis above 1 (``repro``'s
-    GSPMD tensor parallelism) raises ``NotImplementedError``.  ``params``
-    is a ``ShardedParams`` or the whole tree, on the host or on any
-    device (every rank the same); only this rank's pieces go to the
-    device."""
+    The frozen base is cut by the rule table (``sharding.fsdp.
+    ShardedParams``): FSDP over ``"data"``, tensor parallelism over
+    ``"model"`` (``sharding.tp``, through ``Runtime.tp_axis``); the LoRA
+    and its optimizer state are replicated; the pooled batch (I, B, S) is
+    cut over the batch axes (``sharding.specs.stacked_batch_spec``:
+    "pod" and "data") and replicated over "model"; the loss divides by
+    the pool's valid-label count and the LoRA gradients are all-reduced
+    over the batch axes (``Runtime.pool``), so every rank steps the same
+    adapter.  Over more than one "data" rank each layer is recomputed in
+    the backward (``Runtime.remat`` under the runtime's policy),
+    gathering it again.  ``rt`` None takes ``default_train_runtime()``;
+    its ``seq_shard`` and ``moe_constraints`` are kept.  ``params`` is a
+    ``ShardedParams`` or the whole tree, on the host or on any device
+    (every rank the same); only this rank's pieces go to the device."""
 
     def __init__(self, cfg, params, rt, optimizer, mesh):
         from ..models.stack import default_train_runtime
         from ..sharding.fsdp import ShardedParams
+        from ..sharding.specs import batch_axes
         from .steps import make_train_step
 
-        if mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                "PodRound: tensor parallelism over a 'model' axis above 1 is not ported "
-                "(ROADMAP.md, Open items); build the mesh as (n, 1)")
         rt = default_train_runtime() if rt is None else rt
         self.cfg = cfg
         self.optimizer = optimizer
         self.mesh = mesh
         self.device = mesh.device
         self.params = params if isinstance(params, ShardedParams) else ShardedParams(params, mesh)
-        group = mesh.group("data")
-        self.rt = rt if group is None else rt.replace(pool=group, remat=self.params.n > 1)
+        if mesh.device_mesh is not None:
+            dp = batch_axes(mesh)
+            rt = rt.replace(pool=mesh.group_over(dp), dp_axes=dp, mesh=mesh,
+                            tp_axis="model" if mesh.shape.get("model", 1) > 1 else None,
+                            remat=rt.remat or self.params.n > 1)
+        self.rt = rt
         self._step = make_train_step(cfg, self.rt, optimizer)
 
     def init_state(self, lora):

@@ -27,6 +27,7 @@ mesh states on a printed line when it is built.
 """
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -107,6 +108,31 @@ class Mesh:
         if self.device_mesh is None or axis not in self.shape:
             return 0
         return self.device_mesh.get_local_rank(axis)
+
+    def group_over(self, axes) -> Optional[object]:
+        """The process group of this rank's block over several ``axes``
+        (those the mesh lacks dropped): one axis's group as ``group``
+        gives it, or for more than one a group made once by every rank
+        (a collective call: each rank must ask for the same axes in the
+        same order).  None in a world of one or for no axes."""
+        axes = tuple(a for a in axes if a in self.shape)
+        if self.device_mesh is None or not axes:
+            return None
+        if len(axes) == 1:
+            return self.group(axes[0])
+        cache = self.__dict__.setdefault("_groups", {})
+        if axes not in cache:
+            ranks = self.device_mesh.mesh
+            order = [self.axis_names.index(a) for a in axes]
+            rest = [i for i in range(len(self.axis_names)) if i not in order]
+            n = math.prod(self.shape[a] for a in axes)
+            rows = ranks.permute(rest + order).reshape(-1, n)
+            me = global_rank()
+            for row in rows.tolist():
+                g = dist.new_group(row)
+                if me in row:
+                    cache[axes] = g
+        return cache[axes]
 
     @property
     def staged(self) -> bool:

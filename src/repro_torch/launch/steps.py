@@ -78,7 +78,10 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, optimizer: Optimizer):
     frozen.  ``train_step(params, lora, opt_state, batch) -> (lora,
     opt_state, metrics)``.  Under ``rt.pool`` the batch is this rank's
     rows of a pooled one; the gradients and metrics are the pool's, so
-    every rank takes the same step."""
+    every rank takes the same step.  Under a tensor-parallel ``rt``
+    (``tp_axis`` naming an axis of ``rt.mesh`` above one rank) ``params``
+    are this rank's "model" pieces (``sharding.tp``) and the LoRA
+    gradients come out whole on every rank of the axis."""
 
     def train_step(params, lora, opt_state, batch):
         _, metrics, grads = _value_and_grad(

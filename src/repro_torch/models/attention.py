@@ -7,7 +7,9 @@ the port of ``repro.models.attention``.
 The training attention is plain PyTorch, as it is jnp in JAX:
 ``online_attention`` is the twin of ``repro``'s ``_flash_attention``
 custom VJP (forward scan with the log-sum-exp saved, backward recomputing
-the probabilities chunk by chunk), here a ``torch.autograd.Function``.
+the probabilities chunk by chunk), here a ``torch.autograd.Function``,
+with ``repro``'s knobs: ``kv_chunk``, query blocking (``q_chunk``) and the
+low-precision score einsum (``s_low_precision``, ``Runtime.attn_s_bf16``).
 
 The serving caches and pools are updated IN PLACE (index assignment), where JAX
 returns a new array that buffer donation lets XLA write in place; each
@@ -20,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_decode, paged_decode, paged_decode_ref
+from ..sharding.collectives import gather_whole, split_along
+from ..sharding.tp import WHOLE, Entry, TensorParallel, col_lora, is_cut, row_lora
 from .layers import apply_rope, dense, init_dense
 
 NEG_INF = -1e30
@@ -104,19 +108,28 @@ def _chunk_kv(k, v, k_pos, kv_chunk: int):
     return kc, vc, k_pos.reshape(n, kv_chunk), pad
 
 
-def _flash_fwd_scan(q, k, v, q_pos, k_pos, window: int, kv_chunk: int):
+def _flash_fwd_scan(q, k, v, q_pos, k_pos, window: int, kv_chunk: int,
+                    s_low_precision: bool = False):
     """Online-softmax forward.  Returns (out (B, Sq, KH, G, D) f32,
-    lse (B, KH, G, Sq) f32)."""
+    lse (B, KH, G, Sq) f32).  ``s_low_precision`` keeps the scaled query
+    and the score einsum in the input dtype (``repro``'s bf16 score
+    einsum); the softmax and the sums stay f32."""
     B, Sq, H, D = q.shape
     KH = k.shape[2]
     G = H // KH
     kc, vc, pc, _ = _chunk_kv(k, v, k_pos, kv_chunk)
-    qf = q.float().reshape(B, Sq, KH, G, D) * D ** -0.5
+    if s_low_precision:
+        qs = q.reshape(B, Sq, KH, G, D) * torch.tensor(D ** -0.5, dtype=q.dtype)
+    else:
+        qs = q.float().reshape(B, Sq, KH, G, D) * D ** -0.5
     m = torch.full((B, KH, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, KH, G, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, Sq, KH, G, D), dtype=torch.float32, device=q.device)
     for ki, vi, pi in zip(kc, vc, pc):
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, ki.float())
+        if s_low_precision:
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qs, ki.to(qs.dtype)).float()
+        else:
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qs, ki.float())
         valid = _mask(q_pos, pi, window)
         s = s.masked_fill(~valid, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
@@ -135,11 +148,15 @@ def _flash_fwd_scan(q, k, v, q_pos, k_pos, window: int, kv_chunk: int):
 class _FlashAttention(torch.autograd.Function):
     """Chunked online-softmax attention that never holds the (Sq, Sk)
     score matrix, in the forward or the backward — the twin of
-    ``repro.models.attention._flash_attention``."""
+    ``repro.models.attention._flash_attention``.  The backward recomputes
+    the scores in f32 whatever ``s_low_precision`` is, as ``repro``'s
+    ``_flash_bwd`` does (the flag rides along to it unused)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, window: int, kv_chunk: int):
-        out, lse = _flash_fwd_scan(q, k, v, q_pos, k_pos, window, kv_chunk)
+    def forward(ctx, q, k, v, q_pos, k_pos, window: int, kv_chunk: int,
+                s_low_precision: bool = False):
+        out, lse = _flash_fwd_scan(q, k, v, q_pos, k_pos, window, kv_chunk,
+                                   s_low_precision)
         ctx.window, ctx.kv_chunk = window, kv_chunk
         ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
         B, Sq, H, D = q.shape
@@ -172,42 +189,116 @@ class _FlashAttention(torch.autograd.Function):
         dk = torch.cat(dks, dim=1)[:, :Sk]
         dv = torch.cat(dvs, dim=1)[:, :Sk]
         return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def online_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
-                     kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+                     kv_chunk: int = KV_CHUNK, q_chunk: int = 0,
+                     causal_prefix: bool = False,
+                     s_low_precision: bool = False) -> torch.Tensor:
     """Flash-style online-softmax attention (never materializes the
     (Sq, Sk) score matrix in forward or backward).  q: (B, Sq, H, D);
-    k, v: (B, Sk, KH, D); positions (Sq,), (Sk,)."""
-    return _FlashAttention.apply(q, k, v, q_pos, k_pos, window, min(kv_chunk, k.shape[1]))
+    k, v: (B, Sk, KH, D); positions (Sq,), (Sk,).
+
+    ``q_chunk`` blocks the queries when it divides Sq into more than one
+    block, in ``repro``'s two forms: with ``causal_prefix`` (q_pos ==
+    k_pos == arange, plain causal self-attention) block i attends only to
+    the KV prefix it can reach, from the window's start rounded down to a
+    multiple of ``kv_chunk``; otherwise every block attends to the whole
+    KV (``repro``'s ``lax.map``)."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    fa = _FlashAttention.apply
+    if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
+        nq = Sq // q_chunk
+        qb = q.reshape(B, nq, q_chunk, H, D)
+        pb = q_pos.reshape(nq, q_chunk)
+        outs = []
+        for i in range(nq):
+            if causal_prefix and Sq == Sk:
+                lo = max(0, (i + 1) * q_chunk - window) if window else 0
+                lo = (lo // kv_chunk) * kv_chunk                # chunk-aligned
+                hi = (i + 1) * q_chunk
+                outs.append(fa(qb[:, i], k[:, lo:hi], v[:, lo:hi], pb[i], k_pos[lo:hi],
+                               window, min(kv_chunk, hi - lo), s_low_precision))
+            else:
+                outs.append(fa(qb[:, i], k, v, pb[i], k_pos, window, min(kv_chunk, Sk),
+                               s_low_precision))
+        return torch.cat(outs, dim=1)
+    return fa(q, k, v, q_pos, k_pos, window, min(kv_chunk, Sk), s_low_precision)
 
 
-def run_attention(q, k, v, q_pos, k_pos, *, window: int = 0,
-                  kv_chunk: int = KV_CHUNK) -> torch.Tensor:
-    """A KV length that fits one chunk takes the full-score form (exact
-    attention over the same mask); anything longer the chunked online
-    softmax — the rule of ``repro``'s ``run_attention``."""
-    if k.shape[1] <= kv_chunk:
+def run_attention(q, k, v, q_pos, k_pos, *, impl: str = "chunked", window: int = 0,
+                  kv_chunk: int = KV_CHUNK, q_chunk: int = 0, causal_prefix: bool = False,
+                  s_low_precision: bool = False) -> torch.Tensor:
+    """``repro``'s rule: ``impl="naive"`` takes the full-score form; so
+    does a KV length that fits one chunk when there is no query blocking
+    and no low-precision score einsum (exact attention over the same
+    mask); anything else the chunked online softmax."""
+    if impl == "naive" or (k.shape[1] <= kv_chunk and q_chunk == 0
+                           and not s_low_precision):
         return naive_attention(q, k, v, q_pos, k_pos, window)
-    return online_attention(q, k, v, q_pos, k_pos, window=window, kv_chunk=kv_chunk)
+    return online_attention(q, k, v, q_pos, k_pos, window=window, kv_chunk=kv_chunk,
+                            q_chunk=q_chunk, causal_prefix=causal_prefix,
+                            s_low_precision=s_low_precision)
+
+
+def attn_knobs(rt) -> dict:
+    """The ``Runtime``'s attention knobs as ``self_attention`` keywords."""
+    return dict(impl=rt.attn_impl, kv_chunk=rt.kv_chunk, q_chunk=rt.q_chunk,
+                s_low_precision=rt.attn_s_bf16)
 
 
 def self_attention(cfg, p, x, positions, *, lora=None, lora_scale=1.0,
                    dense_impl: str = "einsum", return_cache: bool = False,
-                   cache_len: int = 0):
+                   cache_len: int = 0, impl: str = "chunked", kv_chunk: int = KV_CHUNK,
+                   q_chunk: int = 0, s_low_precision: bool = False,
+                   tp: TensorParallel = WHOLE, seq: bool = False):
     """Causal self-attention over a full sequence (training, prefill): x
-    (B, S, d), positions (S,) absolute positions.  With ``return_cache``
+    (B, S, d), positions (S,) absolute positions; ``impl``, ``kv_chunk``,
+    ``q_chunk`` and ``s_low_precision`` go to ``run_attention`` (query
+    blocks walk their causal prefix).  With ``return_cache``
     also returns a decode cache of length ``cache_len or S`` (a ring of
     the trailing window when ``cfg.attn_window`` is smaller): {"k", "v":
-    (B, L, KH, D), "pos": (B, L) int32, -1 = empty}."""
-    B, S, _ = x.shape
-    q, k, v = _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl)
+    (B, L, KH, D), "pos": (B, L) int32, -1 = empty}.
+
+    Over a tensor-parallel axis ``tp`` (mode "train", ``sharding.tp``) x
+    is whole rows, or with ``seq`` this rank's piece of the sequence (the
+    output likewise), and a projection whose weight is cut runs on this
+    rank's heads: column-parallel q/k/v, row-parallel ``wo``.  Where the
+    cut falls within a KV group (KH % tp != 0) q/k/v are gathered and
+    attention runs whole, each rank then taking its heads for ``wo``."""
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, S = x.shape[0], positions.shape[0]
+    ent = Entry(x, tp, seq)
+    local_heads = KH % tp.n == 0
+
+    def proj(wname, lname, width):
+        w = p[wname]
+        if is_cut(w["w"], 1, width):
+            y = dense(ent.par(), w["w"], w.get("b"), col_lora(_lora(lora, lname), tp),
+                      lora_scale, impl=dense_impl)
+            return y if local_heads else gather_whole(y, tp.group, -1)
+        return dense(ent.rep(), w["w"], w.get("b"), _lora(lora, lname), lora_scale,
+                     impl=dense_impl, w_scale=w.get("w_scale"))
+
+    q = proj("wq", "q", H * hd).reshape(B, S, -1, hd)
+    k = proj("wk", "k", KH * hd).reshape(B, S, -1, hd)
+    v = proj("wv", "v", KH * hd).reshape(B, S, -1, hd)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions.expand(B, S), cfg.rope_theta)
         k = apply_rope(k, positions.expand(B, S), cfg.rope_theta)
-    o = run_attention(q, k, v, positions, positions, window=cfg.attn_window)
-    y = _out_proj(p, o.reshape(B, S, -1), lora, lora_scale, dense_impl)
+    o = run_attention(q, k, v, positions, positions, impl=impl, window=cfg.attn_window,
+                      kv_chunk=kv_chunk, q_chunk=q_chunk, causal_prefix=True,
+                      s_low_precision=s_low_precision).reshape(B, S, -1)
+    wo = p["wo"]
+    if is_cut(wo["w"], 0, H * hd):
+        if not local_heads:
+            o = split_along(o, tp.group, -1)
+        y = ent.exit(partial=dense(o, wo["w"], None, row_lora(_lora(lora, "o"), tp),
+                                   lora_scale, impl=dense_impl), bias=wo.get("b"))
+    else:
+        y = ent.exit(whole=_out_proj(p, o, lora, lora_scale, dense_impl))
     if not return_cache:
         return y
     L = cache_len or S

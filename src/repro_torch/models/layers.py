@@ -14,6 +14,8 @@ import torch.nn.functional as F
 
 from ..kernels.lora_matmul import lora_matmul, lora_matmul_gathered, take_adapters
 from ..precision import dequantize_weight
+from ..sharding.collectives import copy_to, gather_along, gather_whole, reduce_from
+from ..sharding.tp import WHOLE, Entry, TensorParallel, col_lora, is_cut, row_lora
 
 
 def _cast_like(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -205,12 +207,41 @@ def gelu_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
     return _proj(h, p["w_down"], lora, "down", lora_scale, dense_impl, adapter_idx)
 
 
+def mlp_parts(cfg, ent: Entry, p: dict, lora: Optional[dict] = None,
+              lora_scale: float = 1.0, dense_impl: str = "einsum",
+              adapter_idx: Optional[torch.Tensor] = None, kind: Optional[str] = None):
+    """The MLP (``kind``, default ``cfg.mlp_kind``) on ``ent``'s input as
+    the (partial, whole, bias) that ``Entry.exit`` sums: whole where the
+    ff dim is whole, else column-parallel up (and gate) and row-parallel
+    down on this rank's ff columns (``sharding.tp``)."""
+    fn = swiglu_mlp if (kind or cfg.mlp_kind) == "swiglu" else gelu_mlp
+    if not is_cut(p["w_up"]["w"], 1, cfg.d_ff):
+        return None, fn(cfg, ent.rep(), p, lora, lora_scale, dense_impl, adapter_idx), None
+    tp = ent.tp
+    x = ent.par()
+
+    def col(name, lname):
+        return dense(x, p[name]["w"], p[name].get("b"), col_lora(_sub(lora, lname), tp),
+                     lora_scale, impl=dense_impl)
+
+    u = col("w_up", "up")
+    if fn is swiglu_mlp:
+        h = F.silu(col("w_gate", "gate").float()).to(x.dtype) * u
+    else:
+        h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
+    down = p["w_down"]
+    return (dense(h, down["w"], None, row_lora(_sub(lora, "down"), tp), lora_scale,
+                  impl=dense_impl), None, down.get("b"))
+
+
 def apply_mlp(cfg, x, p: dict, lora: Optional[dict] = None,
               lora_scale: float = 1.0, dense_impl: str = "einsum",
-              adapter_idx: Optional[torch.Tensor] = None):
-    if cfg.mlp_kind == "swiglu":
-        return swiglu_mlp(cfg, x, p, lora, lora_scale, dense_impl, adapter_idx)
-    return gelu_mlp(cfg, x, p, lora, lora_scale, dense_impl, adapter_idx)
+              adapter_idx: Optional[torch.Tensor] = None, tp: TensorParallel = WHOLE,
+              seq: bool = False):
+    """The MLP on x (B, S, d); over a tensor-parallel axis ``tp`` on this
+    rank's pieces, x whole rows or (``seq``) its piece of the sequence."""
+    ent = Entry(x, tp, seq)
+    return ent.exit(*mlp_parts(cfg, ent, p, lora, lora_scale, dense_impl, adapter_idx))
 
 
 def init_mlp(cfg, gen: torch.Generator, dtype, device) -> dict:
@@ -238,14 +269,37 @@ def init_embeddings(cfg, gen: torch.Generator, dtype, device) -> dict:
     return p
 
 
-def embed(cfg, p: dict, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    x = p["tok"][tokens.long()]
+def embed(cfg, p: dict, tokens: torch.Tensor, positions: torch.Tensor,
+          tp: TensorParallel = WHOLE) -> torch.Tensor:
+    """Whole rows (B, S, d).  Where ``tok``'s vocabulary is this rank's
+    piece (``sharding.tp``): a masked lookup in it, summed over the axis;
+    where ``pos`` is cut over d: its rows' pieces, gathered."""
+    tok = p["tok"]
+    if is_cut(tok, 0, cfg.vocab_size):
+        idx = tokens.long() - tp.rank * tok.shape[0]
+        inside = (idx >= 0) & (idx < tok.shape[0])
+        x = reduce_from(tok[idx.clamp(0, tok.shape[0] - 1)] * inside[..., None].to(tok.dtype),
+                        tp.group)
+    else:
+        x = tok[tokens.long()]
     if cfg.pos_emb == "learned":
         pos_table = p["pos"]
-        x = x + pos_table[positions.long().clamp(0, pos_table.shape[0] - 1)]
+        rows = pos_table[positions.long().clamp(0, pos_table.shape[0] - 1)]
+        if is_cut(pos_table, 1, cfg.d_model):
+            rows = gather_whole(rows, tp.group, -1)
+        x = x + rows
     return x
 
 
-def unembed(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+def unembed(cfg, p: dict, x: torch.Tensor, tp: TensorParallel = WHOLE,
+            seq: bool = False) -> torch.Tensor:
+    """Logits of the final normed x (whole rows, or with ``seq`` its piece
+    of the sequence) over all its rows: (B, S, V), or (B, S, V/tp) of
+    this rank's piece of the vocabulary where the unembedding (``tok``
+    when tied) is cut over it."""
     w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
+    if is_cut(w, 1, cfg.vocab_size):
+        x = gather_along(x, tp.group, 1) if seq else copy_to(x, tp.group)
+    elif seq:
+        x = gather_whole(x, tp.group, 1)
     return x @ _cast_like(x, w)

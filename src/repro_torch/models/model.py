@@ -13,7 +13,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..kernels.backend import resolve_device
-from ..sharding.collectives import all_reduce
+from ..sharding.collectives import all_reduce, reduce_from, split_along
+from ..sharding.tp import WHOLE, TensorParallel, seq_sharded, tp_of
 from . import stack as stack_mod
 from .layers import apply_norm, embed, init_embeddings, init_lora, init_norm, unembed
 from .stack import Runtime
@@ -102,11 +103,12 @@ def _lora_stack(cfg, gen, rank, dtype, device) -> List[dict]:
 
 
 def embed_inputs(cfg, params: dict, tokens: torch.Tensor, frontend_emb,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, tp: TensorParallel = WHOLE) -> torch.Tensor:
     """Embed the text at the last ``tokens.shape[1]`` positions and put the
     front end's prefix (B, F, d), cast to the embeddings' dtype, in front:
-    the prefix takes positions 0..F-1 and no learned position row."""
-    x = embed(cfg, params["embed"], tokens, positions[-tokens.shape[1]:])
+    the prefix takes positions 0..F-1 and no learned position row.  ``tp``:
+    the axis the embeddings' pieces lie over (``layers.embed``)."""
+    x = embed(cfg, params["embed"], tokens, positions[-tokens.shape[1]:], tp)
     if frontend_emb is not None:
         x = torch.cat([frontend_emb.to(x.dtype), x], dim=1)
     return x
@@ -122,25 +124,45 @@ def forward(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
     """Full-sequence forward (training).  tokens: (B, S_text) int;
     frontend_emb: (B, F, d) or None.  Returns (logits (B, S, V) over all
     S = F + S_text rows, aux loss) — the aux is the sum of the MoE blocks'
-    load-balance losses, 0 without MoE."""
+    load-balance losses, 0 without MoE.  Under tensor parallelism
+    (``Runtime.tp_axis``, ``sharding.tp``) the logits are this rank's
+    piece of the vocabulary where the rule table cuts it."""
+    tp = tp_of(rt)
     S = tokens.shape[1] + prefix_len(frontend_emb)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = embed_inputs(cfg, params, tokens, frontend_emb, positions)
+    x = embed_inputs(cfg, params, tokens, frontend_emb, positions, tp)
+    seq = seq_sharded(rt, tp, S)
+    if seq:
+        x = split_along(x, tp.group, 1)
     x, _, aux = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
                                       lora=lora, rt=rt, mode="train")
     x = apply_norm(cfg, x, params["final_norm"])
-    return unembed(cfg, params["embed"], x), aux
+    return unembed(cfg, params["embed"], x, tp, seq), aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  denom: Optional[torch.Tensor] = None,
+                  vocab_tp: TensorParallel = WHOLE) -> torch.Tensor:
     """Mean next-token NLL over the labels that are not ``IGNORE_ID``, in
     f32 (the twin of ``repro.core.sfl._ce_loss``).  ``denom``: the count
     to divide by in place of these labels' own (the valid labels of a
-    whole pooled batch of which these are one rank's rows)."""
+    whole pooled batch of which these are one rank's rows).
+    ``vocab_tp``: the axis the vocabulary is cut over, ``logits`` holding
+    this rank's equal piece of it (``sharding.tp``); the max, the sum-exp
+    and the gold logit are then taken over the axis."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    g = vocab_tp.group
+    if g is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    else:
+        m = all_reduce(logits.detach().amax(-1), g, "max")
+        logz = m + torch.log(reduce_from(torch.exp(logits - m[..., None]).sum(-1), g))
+        V = logits.shape[-1]
+        idx = labels.long() - vocab_tp.rank * V
+        inside = (idx >= 0) & (idx < V)
+        gold = torch.gather(logits, -1, idx.clamp(0, V - 1)[..., None])[..., 0]
+        gold = reduce_from(gold * inside, g)
     mask = (labels != IGNORE_ID).float()
     if denom is None:
         denom = mask.sum()
@@ -158,12 +180,17 @@ def loss_fn(cfg, params: dict, lora, batch: dict, *, rt: Runtime = Runtime()):
     rows the loss drops.  Returns (loss + cfg.router_aux_coef * aux,
     {"loss", "aux"}).  Under ``rt.pool`` the batch is this rank's rows of
     a pooled one: the loss divides by the pool's count of valid labels and
-    the aux is this rank's share, so the ranks' values sum to the pool's."""
+    the aux is this rank's share, so the ranks' values sum to the pool's.
+    Under tensor parallelism (``sharding.tp``) the cross entropy runs over
+    the vocabulary's pieces, and every rank of the axis returns the same
+    values."""
     logits, aux = forward(cfg, params, batch["tokens"], lora=lora, rt=rt,
                           frontend_emb=batch.get("frontend_emb"))
     labels = batch["labels"]
     denom = None if rt.pool is None else all_reduce(valid_labels(labels), rt.pool)
-    loss = cross_entropy(logits[:, logits.shape[1] - labels.shape[1]:], labels, denom)
+    cut = logits.shape[-1] != cfg.vocab_size
+    loss = cross_entropy(logits[:, logits.shape[1] - labels.shape[1]:], labels, denom,
+                         tp_of(rt) if cut else WHOLE)
     return loss + cfg.router_aux_coef * aux, {"loss": loss, "aux": aux}
 
 

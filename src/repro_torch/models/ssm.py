@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ssd_chunked, ssd_scan_with_state
+from ..sharding.tp import WHOLE, Entry, TensorParallel, gather_cut
 from .layers import _normal, dense, init_dense, rmsnorm, upcast
 
 
@@ -85,12 +86,22 @@ def _lora(lora, name):
 
 def mamba_block(cfg, p: dict, x: torch.Tensor, *, lora=None, lora_scale=1.0,
                 return_state: bool = False, dense_impl: str = "einsum",
-                ssd_impl: str = "chunked"):
+                ssd_impl: str = "chunked", tp: TensorParallel = WHOLE, seq: bool = False):
     """Full Mamba2 block (train / prefill).  x: (B, S, d_model).  With
     ``return_state`` also returns {"ssm": (B, nh, hd, N) f32, "conv":
     (B, W-1, conv_dim)}: the state after the last token, and the last W-1
     PRE-activation conv inputs, recomputed by ``in_proj`` on the tail
-    (zero-padded in front when S < W-1), as ``repro`` does."""
+    (zero-padded in front when S < W-1), as ``repro`` does.
+
+    Over a tensor-parallel axis ``tp`` (mode "train", ``sharding.tp``)
+    the block's pieces are gathered and it runs whole on every rank: x
+    whole rows, or with ``seq`` this rank's piece of the sequence (the
+    output likewise)."""
+    ent = Entry(x, tp, seq)
+    if tp.group is not None:
+        p = gather_cut(p, init_mamba(cfg, torch.Generator(), p["in_proj"]["w"].dtype, "meta"),
+                       tp)
+        x = ent.rep()
     B, S, _ = x.shape
     d_in, nh, N, conv_dim = _dims(cfg)
     zxbcdt = dense(x, p["in_proj"]["w"], lora=_lora(lora, "ssm_in"),
@@ -116,7 +127,7 @@ def mamba_block(cfg, p: dict, x: torch.Tensor, *, lora=None, lora_scale=1.0,
     out = dense(y, p["out_proj"]["w"], lora=_lora(lora, "ssm_out"),
                 lora_scale=lora_scale, impl=dense_impl)
     if not return_state:
-        return out
+        return ent.exit(whole=out)
     W = cfg.ssm_conv_width
     zxbcdt_tail = dense(x[:, max(0, S - (W - 1)):], p["in_proj"]["w"],
                         lora=_lora(lora, "ssm_in"), lora_scale=lora_scale,

@@ -11,13 +11,14 @@ load-balance aux loss, which the stack sums over the layers it runs.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..precision import PrecisionConfig
+from ..sharding.tp import seq_sharded, tp_of
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -26,13 +27,25 @@ from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 @dataclass(frozen=True)
 class Runtime:
-    """The training and serving knobs of ``repro.models.stack.Runtime``
-    that the port runs.  Not yet ported: ``remat_policy`` (``remat``
-    recomputes everything, ``repro``'s "full"), ``q_chunk``,
-    ``attn_s_bf16`` and the layout hints ``dp_axes``/``tp_axis``/
-    ``seq_shard``/``moe_constraints`` (``ROADMAP.md``)."""
+    """The training and serving knobs: every field of
+    ``repro.models.stack.Runtime``, with its default, and the port's own
+    (``ssd_impl``, ``pool``, ``mesh``).
 
+    In ``repro`` the layout hints (``dp_axes``, ``tp_axis``, ``seq_shard``,
+    ``moe_constraints``) are sharding constraints for GSPMD.  In the port
+    they say how the model functions split their work over the ranks of
+    ``mesh`` (a ``launch.mesh.Mesh``): ``tp_axis`` names the axis the
+    weights' "model" pieces and the heads, ff columns, experts and vocab
+    lie over (``sharding.tp``; None: every rank runs whole),
+    ``dp_axes`` the axes the batch rows lie over, ``seq_shard`` cuts the
+    activations between blocks over ``tp_axis`` on the sequence, and
+    ``moe_constraints`` sends each rank's tokens to their experts' ranks
+    by all-to-all.  None of them changes a value."""
+
+    attn_impl: str = "chunked"          # "naive" | "chunked"
     dense_impl: str = "einsum"          # "einsum" | "fused" (kernels.lora_matmul)
+    kv_chunk: int = 512                 # online-softmax KV chunk
+    q_chunk: int = 0                    # 0 = no query blocking
     # "flash" routes decode through the decode kernels — slab caches through
     # kernels.flash_attention.flash_decode, paged pools through
     # kernels.flash_attention.paged_decode (the CUDA kernels on a CUDA
@@ -46,19 +59,29 @@ class Runtime:
     # MoE dispatch: tokens per routing group and the expert capacity factor
     moe_group: int = 128
     capacity_factor: float = 1.25
+    # mode "train": run each layer under torch.utils.checkpoint.  "full"
+    # keeps none of its activations and recomputes the layer in the
+    # backward; "dots" keeps the projections' outputs (``layers.dense``,
+    # the fused LoRA op included) and recomputes the rest.  A layer is
+    # read from ``layers`` inside, so a stack whose reads gather the layer
+    # (``sharding.fsdp``) gathers it again for the recompute
+    remat: bool = False
+    remat_policy: str = "full"          # "full" | "dots"
+    dp_axes: Tuple[str, ...] = ()
+    tp_axis: Optional[str] = None
+    seq_shard: bool = False             # Megatron-style sequence parallelism
+    moe_constraints: bool = False       # tokens to their experts by all-to-all
+    attn_s_bf16: bool = False           # the score einsum in the input dtype
     # split-boundary bit-widths, stochastic rounding and error feedback
     # (``precision``); the default is fully disarmed (16/16/f32)
     precision: PrecisionConfig = PrecisionConfig()
     # the process group the rows of a pooled batch are split over evenly
-    # (the SFL server's client shards, the pod step's "data" shards): an
-    # MoE block's load-balance means are then taken over the whole pool
+    # (the SFL server's client shards, the pod step's ``dp_axes`` shards):
+    # an MoE block's load-balance means are then taken over the whole pool
     # (``models.moe.apply_moe(pool=)``).  None: the batch is all here
     pool: Optional[object] = None
-    # mode "train": run each layer under torch.utils.checkpoint, which keeps
-    # none of its activations and recomputes it in the backward.  A layer
-    # is read from ``layers`` inside, so a stack whose reads gather the
-    # layer (``sharding.fsdp``) gathers it again for the recompute
-    remat: bool = False
+    # the mesh ``tp_axis`` names an axis of (``launch.mesh.Mesh``)
+    mesh: Optional[object] = field(default=None, compare=False)
 
     def replace(self, **kw) -> "Runtime":
         return dataclasses.replace(self, **kw)
@@ -66,10 +89,13 @@ class Runtime:
 
 def default_train_runtime() -> Runtime:
     """The trainers' fast path: every LoRA-adapted projection through the
-    fused ``kernels.lora_matmul`` with its backward kernels.  Training
+    fused ``kernels.lora_matmul`` with its backward kernels, the SSD scan
+    kernel, chunked attention, and the cheap "dots" policy if
+    rematerialization is switched on (``repro``'s defaults).  Training
     attention is plain PyTorch in every runtime, as it is jnp in JAX
     (``attention.run_attention``)."""
-    return Runtime(dense_impl="fused", ssd_impl="kernel")
+    return Runtime(attn_impl="chunked", dense_impl="fused", ssd_impl="kernel",
+                   remat_policy="dots")
 
 
 def default_serve_runtime() -> Runtime:
@@ -77,6 +103,40 @@ def default_serve_runtime() -> Runtime:
     and the SSD scan kernel (each routed by device: kernels on CUDA, plain
     code on CPU)."""
     return Runtime(dense_impl="fused", decode_attn_impl="flash", ssd_impl="kernel")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``repro``'s ``dots_with_no_batch_dims_saveable``: keep the output of
+    every matmul without batch dims (``aten.mm``/``addmm``: the
+    projections, the einsum form's and the fused op's plain version's
+    products) and of the fused LoRA op (its CUDA launch, an opaque custom
+    op), recompute the rest (``bmm``: attention scores, MoE experts)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _dots_saved()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_saved():
+    from ..kernels.lora_matmul.ops import lora_matmul_op
+    return (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, lora_matmul_op())
+
+
+def _remat(block, x, policy: str):
+    """``block(x)`` under ``torch.utils.checkpoint`` with ``repro``'s
+    remat policy."""
+    if policy == "full":
+        return checkpoint(block, x, use_reentrant=False)
+    if policy != "dots":
+        raise ValueError(f"remat_policy {policy!r}: 'full' or 'dots'")
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    from ..kernels.lora_matmul.ops import forward_as_op
+
+    def saving(x):
+        with forward_as_op():                # the fused forward as the op the policy saves
+            return block(x)
+    return checkpoint(saving, x, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(_dots_policy))
 
 
 def init_block(cfg, pat, gen: torch.Generator, dtype, device) -> dict:
@@ -107,21 +167,36 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
     every mode's tokens through ``models.moe.apply_moe`` in groups of
     ``rt.moe_group`` (it carries no LoRA, as in ``repro``).  Returns (x,
     cache, aux): aux is the MoE block's f32 load-balance loss, None for a
-    block without one."""
+    block without one.  Under a ``Runtime`` whose ``tp_axis`` has more
+    than one rank, mode "train" runs on this rank's pieces
+    (``sharding.tp``): x is whole rows (B, S, d), or with ``seq_shard``
+    this rank's piece of the sequence, positions the whole (S,); the
+    other modes raise."""
+    tp = tp_of(rt)
+    seq = False
+    if tp.n > 1:
+        if mode != "train":
+            raise NotImplementedError(f"tensor parallelism runs mode 'train', not {mode!r} "
+                                      "(ROADMAP.md)")
+        S = positions.shape[0]
+        seq = seq_sharded(rt, tp, S)
+        if x.shape[1] != (S // tp.n if seq else S):
+            raise ValueError(f"tp block: x has {x.shape[1]} rows of a sequence of {S}")
     mixer_lora = None if lora is None else lora.get("mixer")
     h = apply_norm(cfg, x, p["norm1"])
     if pat.mixer == "mamba":
         m, cache = _mamba_mixer(cfg, p["mixer"], h, mixer_lora, lora_scale, rt, mode,
-                                cache, block_tables, adapter_idx)
+                                cache, block_tables, adapter_idx, tp, seq)
     elif mode == "train":
         m = attn_mod.self_attention(
             cfg, p["mixer"], h, positions, lora=mixer_lora, lora_scale=lora_scale,
-            dense_impl=rt.dense_impl)
+            dense_impl=rt.dense_impl, tp=tp, seq=seq, **attn_mod.attn_knobs(rt))
     elif mode == "prefill":
         m, cache = attn_mod.self_attention(
             cfg, p["mixer"], h, positions, lora=mixer_lora, lora_scale=lora_scale,
             dense_impl=rt.dense_impl, return_cache=True,
-            cache_len=cache["k"].shape[1] if cache is not None else cache_len)
+            cache_len=cache["k"].shape[1] if cache is not None else cache_len,
+            **attn_mod.attn_knobs(rt))
     elif mode == "decode" and block_tables is not None:
         m, cache = attn_mod.paged_decode_attention(
             cfg, p["mixer"], h, cache, block_tables, cur_index,
@@ -144,18 +219,20 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
     if pat.mlp == "moe":
         mo, aux = moe_mod.apply_moe(cfg, p["mlp"], apply_norm(cfg, x, p["norm2"]),
                                     group_size=rt.moe_group,
-                                    capacity_factor=rt.capacity_factor, pool=rt.pool)
+                                    capacity_factor=rt.capacity_factor, pool=rt.pool,
+                                    tp=tp, seq=seq, constraints=rt.moe_constraints)
         x = x + mo
     elif pat.mlp != "none":
         h = apply_norm(cfg, x, p["norm2"])
         x = x + apply_mlp(cfg, h, p["mlp"],
                           None if lora is None else lora.get("mlp"),
-                          lora_scale, dense_impl=rt.dense_impl, adapter_idx=adapter_idx)
+                          lora_scale, dense_impl=rt.dense_impl, adapter_idx=adapter_idx,
+                          tp=tp, seq=seq)
     return x, cache, aux
 
 
 def _mamba_mixer(cfg, p, h, lora, lora_scale, rt: Runtime, mode: str, cache,
-                 block_tables, adapter_idx):
+                 block_tables, adapter_idx, tp, seq):
     if mode == "chunk" or block_tables is not None:
         raise NotImplementedError(
             "paged serving is attention-only (mamba state is not paged); "
@@ -170,7 +247,8 @@ def _mamba_mixer(cfg, p, h, lora, lora_scale, rt: Runtime, mode: str, cache,
         return ssm_mod.mamba_block(cfg, p, h, return_state=True, ssd_impl=rt.ssd_impl,
                                    **kw)
     if mode == "train":
-        return ssm_mod.mamba_block(cfg, p, h, ssd_impl=rt.ssd_impl, **kw), cache
+        return ssm_mod.mamba_block(cfg, p, h, ssd_impl=rt.ssd_impl, tp=tp, seq=seq,
+                                   **kw), cache
     raise ValueError(f"mode {mode!r}: the port runs 'train', 'prefill', 'decode' "
                      "and 'chunk'")
 
@@ -283,7 +361,7 @@ def apply_stack(cfg, layers: List[dict], x, *, lora: Optional[List[dict]] = None
                 cache=None if caches is None else caches[i],
                 cur_index=cur_index, block_tables=block_tables, positions=positions,
                 cache_len=cache_len, adapter_idx=adapter_idx)
-        y, c, a = (checkpoint(block, x, use_reentrant=False) if rt.remat and mode == "train"
+        y, c, a = (_remat(block, x, rt.remat_policy) if rt.remat and mode == "train"
                    else block(x))
         if a is not None:
             aux = a if aux is None else aux + a

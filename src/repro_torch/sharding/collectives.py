@@ -12,10 +12,22 @@ backend alone, before the call, and never taken after an error.
 
 The all-to-all has a differentiable form, ``all_to_all_grad`` (a
 ``torch.autograd.Function`` over the same primitive, so the staged route
-differentiates too): an equal-split all-to-all is its own transpose.  It
-is the one collective a loss is taken through (the expert-parallel MoE);
-the trainers all-reduce and gather gradients, adapters and detached
-metrics, which carry no gradient.
+differentiates too): an equal-split all-to-all is its own transpose.
+Tensor parallelism (``sharding.tp``) takes its loss through six more,
+each a ``torch.autograd.Function`` whose backward is its forward's
+conjugate (Megatron's f and g, and their sequence-parallel and
+gather/split pairs):
+
+* ``copy_to``: identity forward, all-reduce backward (a replicated
+  tensor entering work split over the group);
+* ``reduce_from``: all-reduce forward, identity backward (partial sums
+  leaving it);
+* ``reduce_scatter_along`` / ``gather_along``: reduce-scatter forward and
+  all-gather backward along a dim, and the reverse (``seq_shard``'s
+  exits and entries);
+* ``split_along`` / ``gather_whole``: this rank's slice forward and
+  all-gather backward, and the reverse (a replicated computation's
+  entries and exits).
 """
 from __future__ import annotations
 
@@ -116,3 +128,129 @@ class _AllToAll(torch.autograd.Function):
 def all_to_all_grad(t: torch.Tensor, group) -> torch.Tensor:
     """Differentiable :func:`all_to_all`."""
     return t if group is None else _AllToAll.apply(t, group)
+
+
+def _rank(group) -> int:
+    return dist.get_rank(group)
+
+
+def _slice(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's equal piece of ``t`` along ``dim`` (a copy)."""
+    n = group_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {n} ranks")
+    c = t.shape[dim] // n
+    return t.narrow(dim, _rank(group) * c, c).contiguous()
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of ``t`` over the group, this rank's equal piece along
+    ``dim``: one ``reduce_scatter_tensor`` over NCCL, an all-reduce and a
+    slice over gloo (which has no reduce-scatter of tensors)."""
+    if group is None:
+        return t
+    if dist.get_backend(group) != "nccl":
+        return _slice(all_reduce(t, group), group, dim)
+    n = group_size(group)
+    src = t.detach().movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ReduceScatterAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _SplitAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _slice(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.group, ctx.dim), None, None
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, all-reduce backward."""
+    return t if group is None else _CopyTo.apply(t, group)
+
+
+def reduce_from(t: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce (sum) forward, identity backward."""
+    return t if group is None else _ReduceFrom.apply(t, group)
+
+
+def reduce_scatter_along(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+    return t if group is None else _ReduceScatterAlong.apply(t, group, dim)
+
+
+def gather_along(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` forward, reduce-scatter backward: the entry
+    of split work that each rank differentiates in part."""
+    return t if group is None else _GatherAlong.apply(t, group, dim)
+
+
+def split_along(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's piece along ``dim`` forward, all-gather backward."""
+    return t if group is None else _SplitAlong.apply(t, group, dim)
+
+
+def gather_whole(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` forward, this rank's piece backward: the
+    entry of a computation every rank runs whole and alike."""
+    return t if group is None else _GatherWhole.apply(t, group, dim)

@@ -1,12 +1,16 @@
 """FSDP of the frozen base over a mesh's ``"data"`` axis — what GSPMD does
 with ``repro``'s ``params_shardings`` in the pod step, written out.
 
-Each rank keeps only its ``"data"`` piece of every leaf that
-``sharding.specs.param_spec`` shards (dim 1 of ``wq``, dim 2 of ``wo``,
-dim 1 of the tied ``embed/tok``, ...) and the whole of every other leaf.
-``ShardedParams.view()`` is a params tree for ``models.model.loss_fn``
-whose reads gather: ``view["layers"][i]`` is layer i whole (one
-all-gather per dtype of its pieces), alive while it is referenced.
+Each rank keeps only its (``"data"``, ``"model"``) piece of every leaf
+that ``sharding.specs.param_spec`` shards (``wq`` over "data" on d and
+over "model" on its heads, ``wo`` the other way round, the tied
+``embed/tok`` over "model" on the vocabulary and "data" on d, ...) and
+the whole of every other leaf.  ``ShardedParams.view()`` is a params tree
+for ``models.model.loss_fn`` whose reads gather over "data":
+``view["layers"][i]`` is layer i's ``"model"`` piece (one all-gather per
+dtype of its pieces; layer i whole on a mesh without a "model" axis
+above 1), alive while it is referenced; ``sharding.tp`` runs on those
+pieces.
 
 Backward needs the weights again (dX runs dy·Wᵀ).  With more than one
 rank, each layer runs under ``torch.utils.checkpoint`` (``Runtime.remat``,
@@ -41,7 +45,8 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 class ShardedParams:
-    """A frozen params tree, FSDP-sharded over ``"data"``.
+    """A frozen params tree, FSDP-sharded over ``"data"`` (and cut over
+    ``"model"`` for ``sharding.tp``).
 
     ``params``: the whole tree, every rank the same (drawn from one seed),
     on the host or on any device: its sharded leaves are cut to this
@@ -49,7 +54,7 @@ class ShardedParams:
     ``mesh.device``, so the caller may drop the whole tree.
     :meth:`init` draws the tree from a generator and keeps each subtree's
     pieces as it is drawn, so that the whole tree never exists.
-    ``gather(prefix)`` returns the whole subtree at ``prefix``
+    ``gather(prefix)`` returns the subtree at ``prefix``, whole over "data",
     (``"layers/3"``, ``"embed"``, ``"final_norm"``) for the time it is
     referenced; ``live_bytes`` / ``peak_live_bytes`` count the gathered
     bytes alive now / at most, ``gather_seconds`` the host time spent in
@@ -75,10 +80,6 @@ class ShardedParams:
         return self
 
     def _setup(self, params: dict, mesh) -> None:
-        if mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                "FSDP over 'data' only: tensor parallelism over a 'model' axis above 1 "
-                "is not ported (ROADMAP.md)")
         self.mesh = mesh
         self.group = mesh.group(DATA)
         self.n = mesh.shape.get(DATA, 1)
@@ -88,11 +89,16 @@ class ShardedParams:
         self.gather_seconds = 0.0
 
     def _cut(self, path: str, v: torch.Tensor) -> torch.Tensor:
-        piece = shard(v, self.specs[path], self.mesh) if self._sharded(path) else v
-        return piece.to(self.mesh.device)
+        return shard(v, self.specs[path], self.mesh).to(self.mesh.device)
+
+    def _data_dim(self, path: str):
+        """The dim the rule table cuts over "data", or None."""
+        return next((d for d, e in enumerate(self.specs[path])
+                     if e == DATA or (isinstance(e, tuple) and DATA in e)), None)
 
     def _sharded(self, path: str) -> bool:
-        return self.n > 1 and any(e is not None for e in self.specs[path])
+        """Whether this rank holds a "data" piece of the leaf."""
+        return self.n > 1 and self._data_dim(path) is not None
 
     # ---- accounting ---------------------------------------------------------
     def resident_bytes(self) -> int:
@@ -105,7 +111,8 @@ class ShardedParams:
         return sum(storages.values())
 
     def rule_bytes(self) -> Tuple[int, int]:
-        """(bytes of the leaves the rule table shards, of the others), whole."""
+        """(bytes of the leaves the rule table shards over "data", of the
+        others), each leaf's "model" piece, whole over "data"."""
         sh = rep = 0
         for p, v in tree_paths(self.local):
             if self._sharded(p):
@@ -115,7 +122,8 @@ class ShardedParams:
         return sh, rep
 
     def gathered_bytes(self, prefix: str) -> int:
-        """Bytes of the whole subtree at ``prefix``'s sharded leaves."""
+        """Bytes of the subtree at ``prefix``'s "data"-sharded leaves as a
+        gather gives them (their "model" pieces)."""
         return sum(_nbytes(v) * self.n for p, v in tree_paths(self._sub(prefix), prefix + "/")
                    if self._sharded(p))
 
@@ -133,8 +141,10 @@ class ShardedParams:
         return _View(self)
 
     def gather(self, prefix: str):
-        """The whole subtree at ``prefix``: one all-gather per dtype of its
-        sharded leaves' pieces, each leaf rebuilt along its sharded dim."""
+        """The subtree at ``prefix``, whole over "data": one all-gather per
+        dtype of its "data"-sharded leaves' pieces, each leaf rebuilt
+        along its "data" dim (a leaf cut over "model" stays this rank's
+        piece)."""
         sub = self._sub(prefix)
         paths = [(p, v) for p, v in tree_paths(sub, prefix + "/") if self._sharded(p)]
         if not paths:
@@ -149,7 +159,7 @@ class ShardedParams:
             parts = all_gather(flat, self.group).reshape(self.n, flat.numel())
             off = 0
             for p, v in items:
-                dim = next(d for d, e in enumerate(self.specs[p]) if e is not None)
+                dim = self._data_dim(p)
                 pieces = [parts[r, off:off + v.numel()].reshape(v.shape) for r in range(self.n)]
                 whole[p] = torch.cat(pieces, dim=dim)
                 off += v.numel()

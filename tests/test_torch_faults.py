@@ -82,6 +82,23 @@ def weights():
                 params=_np(JM.init_params(jcfg, jax.random.key(0))), lora=_adapter(jcfg, 1))
 
 
+def _unaligned(a: np.ndarray) -> np.ndarray:
+    """A copy of ``a`` that starts one byte past a 64-byte boundary.
+
+    ``repro``'s paged step passes its NaN-poke flags to the jitted step,
+    dispatched asynchronously, as ``jnp.asarray(self._nan_poke)``, and
+    clears them in place right after.  On the CPU ``jnp.asarray`` aliases
+    a host array aligned to 64 bytes, so the step could read the flags
+    already cleared: a poke then landed in about one run in three.  JAX
+    copies an array that is not so aligned, so the step sees the flags as
+    they were at the call."""
+    buf = np.zeros(a.nbytes + 65, dtype=np.uint8)
+    start = (-buf.ctypes.data) % 64 + 1
+    out = buf[start:start + a.nbytes].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
 class Pkg:
     """One package's serving names, and its engine on the shared weights."""
 
@@ -97,8 +114,10 @@ class Pkg:
         kw.setdefault("seed", 7)
         w = self.w
         if self.name == "repro":
-            return jserving.ServingEngine(w["jcfg"], w["params"],
-                                          lora=w["lora"] if lora else None, paged=True, **kw)
+            eng = jserving.ServingEngine(w["jcfg"], w["params"],
+                                         lora=w["lora"] if lora else None, paged=True, **kw)
+            eng._nan_poke = _unaligned(eng._nan_poke)
+            return eng
         return tserving.ServingEngine(
             w["tcfg"], interop.params_from_numpy(w["params"], "cpu"),
             lora=interop.lora_from_numpy(w["lora"], "cpu") if lora else None,

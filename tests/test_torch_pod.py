@@ -1,5 +1,6 @@
 """The pod mode (``launch.engine.PodRound``): the FSDP LoRA step over a
-(2, 1) ``("data", "model")`` gloo group, one spawn for every case
+(2, 1) ``("data", "model")`` gloo group (a "model" axis above 1 is
+``test_torch_tp.py``'s), one spawn for every case
 (``torch_mesh_cases``), and the ``--mode pod`` CLI under ``torchrun``.
 
 * GPT-2-S reduced to 4 layers on ``repro``'s weights, a pooled batch of
@@ -15,8 +16,6 @@
   equal those cut from the whole tree; the layers are recomputed in the
   backward over 2 ranks and not in a world of one, where the view and
   ``Runtime.remat`` give the plain loss and gradients.
-* A "model" axis above 1 raises ``NotImplementedError`` naming the
-  roadmap.
 * ``torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train
   --mode pod`` prints the one-process run's loss lines.
 """
@@ -196,16 +195,6 @@ def test_step_builders_match_the_model_functions():
     got = steps.make_decode_step(cfg, rt)(params, lora, tok, caches, torch.tensor(7))
     want = TM.decode_step(cfg, params, tok, wcaches, torch.tensor(7), lora=lora, rt=rt)
     assert torch.equal(got[0], want[0])
-
-
-def test_model_axis_raises():
-    from repro_torch.launch.engine import PodRound
-    from repro_torch.sharding.fsdp import ShardedParams
-    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2}, axis_names=("data", "model"))
-    for build in (lambda: PodRound(None, {}, None, None, mesh),
-                  lambda: ShardedParams({}, mesh)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build()
 
 
 def test_torchrun_pod_cli_matches_one_process(tmp_path):

@@ -1,12 +1,13 @@
 """Cases of the port's multi-rank paths, run in one process (no group) and
-in every rank of a gloo group, for ``test_torch_mesh_sfl.py`` and
-``test_torch_pod.py``.  Imports no JAX: the ranks are plain PyTorch.
+in every rank of a gloo group, for ``test_torch_mesh_sfl.py``,
+``test_torch_pod.py``, ``test_torch_tp.py`` and
+``test_torch_moe_shard_map.py``.  Imports no JAX: the ranks are plain PyTorch.
 
 As a script it is one rank:
 
     python tests/torch_mesh_cases.py SUITE RANK WORLD STORE OUT [INPUTS]
 
-SUITE is ``sfl`` or ``pod``; STORE the FileStore path every rank shares;
+SUITE is ``sfl``, ``pod``, ``tp`` or ``moe``; STORE the FileStore path every rank shares;
 OUT the pickle rank 0 writes (every case's results, every tensor as
 numpy); INPUTS a pickle of numpy trees handed over by the test (weights
 drawn by ``repro``).  Each rank prints ``RANK r OK`` at the end.
@@ -168,6 +169,118 @@ def run_pod_case(case: str, mesh, inputs=None) -> dict:
             "remat": pod.rt.remat, "same_init": same_init}
 
 
+# the tensor-parallel cases: name -> (mesh shape, axes, config key, Runtime
+# knobs).  A mesh smaller than the world runs once per block of its size
+# (``tp_mesh``), every block alike
+TP_CASES = {
+    "gpt2_12": ((1, 2), ("data", "model"), "gpt2", {}),
+    "gpt2_22": ((2, 2), ("data", "model"), "gpt2", {}),
+    "gpt2_22_full": ((2, 2), ("data", "model"), "gpt2", {"remat_policy": "full"}),
+    "gpt2_pod": ((2, 1, 2), ("pod", "data", "model"), "gpt2", {}),
+    "gqa_div": ((2, 2), ("data", "model"), "gqa_div", {}),
+    "gqa_nodiv": ((1, 2), ("data", "model"), "gqa_nodiv", {}),
+    "olmoe": ((2, 2), ("data", "model"), "olmoe", {}),
+    "olmoe_mc": ((1, 2), ("data", "model"), "olmoe", {"moe_constraints": True}),
+    "jamba": ((1, 2), ("data", "model"), "jamba", {}),
+    "gqa_seq": ((2, 2), ("data", "model"), "gqa_div_s128", {"seq_shard": True}),
+    "olmoe_seq": ((1, 2), ("data", "model"), "olmoe_s128", {"seq_shard": True}),
+    "olmoe_seq_mc": ((2, 2), ("data", "model"), "olmoe_s128",
+                     {"seq_shard": True, "moe_constraints": True}),
+}
+TP_ROWS = 8
+# SGD: the adapters then move by the gradients themselves.  Adam's first
+# steps move an entry by about lr g / (|g| + eps), which turns an f32
+# reordering error of 1e-8 in a gradient near eps = 1e-8 into 1e-3 of
+# the update: two correct sums disagree there whatever the layout
+TP_LR = 0.1
+
+
+def tp_config(get_arch, key: str):
+    """-> (cfg, S, moe_group) of a config key, built alike by either
+    package's ``get_arch``.  GPT-2-S: biases, LayerNorm, learned positions,
+    a tied vocabulary of 512 (cut over "model"); the GQA RoPE model with
+    LoRA on q, v, o, up, down (row-parallel LoRA), its 4 KV heads cut on
+    whole groups or its one KV head not (and a vocabulary of 509 that no
+    axis cuts); olmoe with 4 experts of 2; Jamba's period of 8 (Mamba,
+    attention, MoE every other layer) with LoRA in the Mamba mixers too;
+    S 128 for seq_shard, whose olmoe groups of 32 fall within a rank's 64
+    (at S 16 a group of 16 is cut over the two ranks)."""
+    base = key.replace("_s128", "")
+    S = 128 if key.endswith("_s128") else 16
+    moe_group = 32 if key == "olmoe_s128" else 128
+    if base == "gpt2":
+        cfg = get_arch("gpt2-s").reduced(num_layers=2, d_model=64, vocab=512)
+    elif base in ("gqa_div", "gqa_nodiv"):
+        cfg = get_arch("yi-9b").reduced(num_layers=2, d_model=64,
+                                        vocab=512 if base == "gqa_div" else 509)
+        cfg = cfg.replace(lora_targets=("q", "v", "o", "up", "down"))
+        if base == "gqa_nodiv":
+            cfg = cfg.replace(num_kv_heads=1)
+    elif base == "olmoe":
+        cfg = get_arch("olmoe-1b-7b").reduced(num_layers=2, d_model=64)
+    elif base == "jamba":
+        cfg = get_arch("jamba-1.5-large-398b").reduced(num_layers=8, d_model=64)
+        cfg = cfg.replace(lora_targets=("q", "v", "ssm_in", "ssm_out"))
+    else:
+        raise KeyError(key)
+    return cfg, S, moe_group
+
+
+def tp_mesh(shape, axes):
+    """A mesh of ``shape`` over a world that it divides: the world is cut
+    into blocks of its size (rank-major), each its own mesh."""
+    import math
+    from repro_torch.launch.mesh import Mesh, make_mesh, world_size
+    n, world = math.prod(shape), world_size()
+    if n == world:
+        return make_mesh(shape, axes)
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh("cpu", (world // n,) + tuple(shape),
+                          mesh_dim_names=("block",) + tuple(axes))
+    return Mesh(tuple(axes), dict(zip(axes, shape)), torch.device("cpu"),
+                device_mesh=dm[tuple(axes)], backend="gloo")
+
+
+def tp_runtime(cfg_key: str, knobs: dict):
+    _, _, moe_group = tp_config(get_arch, cfg_key)
+    return TM.default_train_runtime().replace(ssd_impl="chunked", moe_group=moe_group,
+                                              **knobs)
+
+
+def run_tp_case(case: str, mesh, inputs) -> dict:
+    """Two steps of ``PodRound`` on ``case``'s config and knobs over
+    ``mesh`` (or one process for a mesh of one), on ``repro``'s weights.
+    ``gap``: the smallest margin, over every routed token of the run,
+    between two of its K + 1 most probable experts (None without MoE):
+    under it, any reordering of f32 sums can route a token differently
+    (another expert, or the choices in another order)."""
+    from repro_torch.launch.engine import PodRound
+    from repro_torch.models import moe as moe_mod
+    key, knobs = TP_CASES[case][2], TP_CASES[case][3]
+    cfg, _, _ = tp_config(get_arch, key)
+    inp = inputs["tp"][key]
+    pod = PodRound(cfg, params_from_numpy(inp["params"], "cpu"), tp_runtime(key, knobs),
+                   sgd(TP_LR), mesh)
+    gaps, route = [], moe_mod.route
+
+    def recording_route(cfg, p, xg):
+        probs, gates, ids = route(cfg, p, xg)
+        top = torch.topk(probs.detach(), cfg.experts_per_token + 1, dim=-1).values
+        gaps.append(float((top[..., :-1] - top[..., 1:]).min()))
+        return probs, gates, ids
+
+    moe_mod.route = recording_route
+    try:
+        (lo, _), m = pod.run_round(pod.init_state(lora_from_numpy(inp["lora"], "cpu")),
+                                   {"tokens": inp["tokens"], "labels": inp["labels"]})
+    finally:
+        moe_mod.route = route
+    return {"loss": m["loss"].numpy(), "aux": m["aux"].numpy(), "lora": _np(lo),
+            "resident": pod.params.resident_bytes(),
+            "coord": {a: mesh.axis_rank(a) for a in mesh.axis_names},
+            "tp": pod.rt.tp_axis, "remat": pod.rt.remat, "gap": min(gaps, default=None)}
+
+
 MOE = dict(B=4, S=16, E=4, top=2, d=64, ff=32)
 
 
@@ -212,6 +325,10 @@ def main(argv) -> None:
         mesh = make_mesh((world, 1), ("data", "model"))
         for case in POD_CASES:
             results[case] = run_pod_case(case, mesh, inputs)
+    elif suite == "tp":
+        for case, (shape, axes, key, _) in TP_CASES.items():
+            if key in inputs["tp"]:             # the configs handed over
+                results[case] = run_tp_case(case, tp_mesh(shape, axes), inputs)
     elif suite == "moe":
         results["moe"] = run_moe_case(make_mesh((2, world // 2), ("data", "model")), inputs)
     else:
