@@ -219,8 +219,9 @@ Phases (each prints its own lines; any failure exits non-zero):
     one launch, two runs bit-equal; (b) its time at the training shapes (a
     client's B 2 and the server's pooled B 6, 320 tokens padded to 512) and
     at B 1, S 512, beside the
-    plain version, autograd's backward through ``ssd_chunked`` and the f32
-    FFMA bound; (c) one SFL round of full-width, full-depth Mamba2-2.7B
+    plain version, autograd's backward through ``ssd_chunked`` and the
+    3xTF32 bound (the f32 FFMA one beside), and at a client's shape the
+    device time of each of its passes (torch.profiler); (c) one SFL round of full-width, full-depth Mamba2-2.7B
     (64 layers, d 2560, 2.83 B f32 parameters drawn on the card, rank-4
     ssm_in/ssm_out adapters with B != 0) through ``launch.train.run``: 3
     clients x 2 x 320 tokens (every step runs a padded second chunk), I =
@@ -232,7 +233,8 @@ Phases (each prints its own lines; any failure exits non-zero):
     state on 64 tokens through the kernels, through the plain path and
     through the plain path in f64: the kernels no further from f64 than 3x
     the plain f32 path (loss and adapters); one more local step under
-    ``torch.profiler``: device busy share and device time by kernel; (e)
+    ``torch.profiler``: device busy share, device time by kernel, and the
+    backward kernel's share of the step and the peak memory; (e)
     reduced Jamba (two periods
     of one attention and seven mamba layers, MoE on the odd ones): one SFL
     round (3 x 4 x 64 tokens, split 8 of 16) with exact launch counts and
@@ -3584,6 +3586,128 @@ def phase_archs(torch, np, dev, reqs, flush):
     return launches, err
 
 
+def ssd_bwd_inputs(torch, dev, B, nh, S, hd, N, Q, seed):
+    """The SSD scan's operands at Mamba2's decays: A = -linspace(1, 16, nh)
+    (A_log's init), dt = softplus(N(0, 1)) (dt_bias 0), xdt = x dt, g = A
+    dt; B, C ~ N(0, 1/N); a random dy and a nonzero dh_last; S tokens
+    padded with zeros to a multiple of Q, as the op pads.  Returns (the
+    kernel layout's xdt, g, Bm, Cm, dy; dh_last; the model layout's xh,
+    Bm, Cm, dt, A), on ``dev``."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(seed)
+    dt = F.softplus(torch.randn(B, S, nh, generator=gen))
+    A = -torch.linspace(1.0, 16.0, nh)
+    xh = torch.randn(B, S, nh, hd, generator=gen)
+    Bm = torch.randn(B, S, N, generator=gen) * N ** -0.5
+    Cm = torch.randn(B, S, N, generator=gen) * N ** -0.5
+    dy = torch.randn(B, nh, S, hd, generator=gen)
+    dh = torch.randn(B, nh, hd, N, generator=gen)
+    pad = (-S) % Q
+    kern = (F.pad((xh * dt[..., None]).permute(0, 2, 1, 3), (0, 0, 0, pad)),
+            F.pad((dt * A).permute(0, 2, 1), (0, pad)), F.pad(Bm, (0, 0, 0, pad)),
+            F.pad(Cm, (0, 0, 0, pad)), F.pad(dy, (0, 0, 0, pad)))
+    model = (xh, Bm, Cm, dt, A)
+    return ([t.contiguous().to(dev) for t in kern], dh.to(dev),
+            [t.to(dev) for t in model])
+
+
+def kernel_label(name: str) -> str:
+    """A traced kernel's name without its return type, namespace and
+    parameters: ``void (anonymous namespace)::bwd_pairs<4>(ChunkArgs)`` ->
+    ``bwd_pairs<4>``."""
+    import re
+    return re.sub(r"^void |\(anonymous namespace\)::", "", name).split("(")[0]
+
+
+def device_time_by_kernel(torch, fn, reps=10):
+    """Device time of one call of ``fn`` by kernel name, in us, under
+    torch.profiler (CUPTI): {name: (launches a call, us a call)}, after
+    one warm-up call.  Empty where no device events were traced."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + (e.time_range.end - e.time_range.start))
+    return {k: (n / reps, t / reps) for k, (n, t) in by_name.items()}
+
+
+def ssd_bwd_work(B, nh, S, hd, N, Q):
+    """(bytes, flops) of the backward: each input (xdt, g, B, C, dy,
+    dh_last) read once and each output (dxdt, dg, dB, dC) written once;
+    per (batch, chunk) the causal half of C B^T, Q (Q + 1) N; per
+    (batch, head, chunk) the causal halves of dy xdt^T, (C B^T o E)^T dy
+    (K = hd), (E o G)^T C and (E o G) B (K = N), and the Q x hd x N
+    products: dxdt's and dB's state terms in every chunk, dC's inter-chunk
+    term where the incoming state is not zero (every chunk but the first),
+    the state recurrence for every chunk but the last (the final state is
+    not needed) and dh's for every chunk but the first."""
+    nc = S // Q
+    pairs = Q * (Q + 1) // 2
+    flops = (B * nc * 2 * pairs * N + B * nh * nc * 2 * pairs * (2 * hd + 2 * N)
+             + B * nh * (5 * nc - 3) * 2 * Q * hd * N)
+    nbytes = 4 * (3 * B * nh * S * hd + 2 * B * nh * S + 4 * B * S * N + B * nh * hd * N)
+    return nbytes, flops
+
+
+def ssd_bwd_times(torch, dev, flush):
+    """Phase 16 (b): times of ``ssd_scan_bwd_kernel`` at the training
+    shapes (a client's 2 x 320 tokens padded to 512, the server's pooled 6
+    x 320) and S 512 at B 1; the plain version, autograd's backward through
+    ssd_chunked (model layout, its graph built once; no single PyTorch call
+    computes the gradient) and the bounds (3xTF32, f32 FFMA beside, from
+    ``ssd_bwd_work``); at a client's shape also the device
+    time of each pass.  Imports the kernel from whichever ``repro_torch``
+    comes first on sys.path, so that one call can time a parent commit's
+    kernel with this function.  Returns the JSON line's row."""
+    from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_scan_bwd_kernel,
+                                              ssd_scan_bwd_ref)
+    rows = {}
+    for B, S_tok in ((2, 320), (6, 320), (1, 512)):
+        nh, S, hd, N, Q = 80, 512, 64, 128, 256
+        kern, dh, model = ssd_bwd_inputs(torch, dev, B, nh, S_tok, hd, N, Q, seed=B)
+        ms = time_ms(torch, lambda: ssd_scan_bwd_kernel(*kern, dh, chunk=Q), flush)
+        plain = time_ms(torch, lambda: ssd_scan_bwd_ref(*kern, dh, chunk=Q), flush, iters=20)
+        leaves = [t.clone().requires_grad_() for t in model]
+        y, h = ssd_chunked(*leaves, chunk=Q)
+        Sm = model[0].shape[1]
+        loss = (y * kern[4][:, :, :Sm].permute(0, 2, 1, 3)).sum() + (h * dh).sum()
+        auto = time_ms(torch, lambda: torch.autograd.grad(loss, leaves, retain_graph=True),
+                       flush, iters=20)
+        nbytes, flops = ssd_bwd_work(B, nh, S, hd, N, Q)
+        bms, bby = bound_tf32(nbytes, flops, 3)
+        fms, fby = bound(nbytes, flops)
+        print(f"[time] ssd_scan_bwd f32 B={B} S={Sm} (padded to {S}) nh={nh} hd={hd} N={N} "
+              f"chunk={Q}: kernel {ms * 1e3:.2f}us plain ssd_scan_bwd_ref {plain * 1e3:.2f}us "
+              f"autograd backward through ssd_chunked {auto * 1e3:.2f}us library none; bound "
+              f"{bms * 1e3:.2f}us (3xTF32, {bby}; f32 FFMA {fms * 1e3:.2f}us, {fby}; {flops} "
+              f"flop, {nbytes} B); {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        if B == 2:                   # the JSON line's row: a client's shape
+            rows[("ssd_scan_bwd", S)] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                             bound_ms=bms, bound_by=bby)
+            # where the kernel's time goes: device time of each of its
+            # passes under torch.profiler
+            passes = device_time_by_kernel(
+                torch, lambda: ssd_scan_bwd_kernel(*kern, dh, chunk=Q))
+            tot = sum(t for _, t in passes.values())
+            print(f"[time] ssd_scan_bwd passes at B={B} S={Sm} (torch.profiler, device time "
+                  f"a call, {sum(n for n, _ in passes.values()):g} launches): "
+                  + "; ".join(f"{kernel_label(k)} {t:.2f}us ({100 * t / tot:.1f}%)"
+                              for k, (_, t) in sorted(passes.items(), key=lambda kv: -kv[1][1]))
+                  + f"; total {tot:.2f}us")
+        del kern, dh, model, leaves, y, h, loss
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_mamba_train(torch, np, dev, flush):
     """Phase 16: Mamba2 training on the card.  (a) the scan's backward
     kernel against its plain version and against autograd through the
@@ -3607,28 +3731,6 @@ def phase_mamba_train(torch, np, dev, flush):
     t_phase = time.perf_counter()
     err, rows, runs = {"ssd_scan_bwd": 0.0}, {}, []
 
-    def op_inputs(B, nh, S, hd, N, Q, seed):
-        """The op's operands at Mamba2's decays: A = -linspace(1, 16, nh)
-        (A_log's init), dt = softplus(N(0, 1)) (dt_bias 0), xdt = x dt, g =
-        A dt; B, C ~ N(0, 1/N); a random dy and a nonzero dh_last; S tokens
-        padded with zeros to a multiple of Q, as the op pads.  Also the
-        model-layout operands, for autograd through ssd_chunked."""
-        gen = torch.Generator().manual_seed(seed)
-        dt = F.softplus(torch.randn(B, S, nh, generator=gen))
-        A = -torch.linspace(1.0, 16.0, nh)
-        xh = torch.randn(B, S, nh, hd, generator=gen)
-        Bm = torch.randn(B, S, N, generator=gen) * N ** -0.5
-        Cm = torch.randn(B, S, N, generator=gen) * N ** -0.5
-        dy = torch.randn(B, nh, S, hd, generator=gen)
-        dh = torch.randn(B, nh, hd, N, generator=gen)
-        pad = (-S) % Q
-        kern = (F.pad((xh * dt[..., None]).permute(0, 2, 1, 3), (0, 0, 0, pad)),
-                F.pad((dt * A).permute(0, 2, 1), (0, pad)), F.pad(Bm, (0, 0, 0, pad)),
-                F.pad(Cm, (0, 0, 0, pad)), F.pad(dy, (0, 0, 0, pad)))
-        model = (xh, Bm, Cm, dt, A)
-        return ([t.contiguous().to(dev) for t in kern], dh.to(dev),
-                [t.to(dev) for t in model])
-
     def autograd_grads(kern, dh, Q, dtype):
         """dxdt, dg, dBm, dCm by autograd through the chunked algorithm
         (``ssd_scan_ref``: ``ssd_chunked``'s, in the kernel layout)."""
@@ -3637,20 +3739,6 @@ def phase_mamba_train(torch, np, dev, flush):
         loss = (y * kern[4].to(dtype)).sum() + (h * dh.to(dtype)).sum()
         return torch.autograd.grad(loss, leaves)
 
-    def bwd_work(B, nh, S, hd, N, Q):
-        """(bytes, flops) of the backward: each input (xdt, g, B, C, dy,
-        dh_last) read once and each output (dxdt, dg, dB, dC) written once;
-        per (batch, chunk) the causal half of C B^T, Q (Q + 1) N; per
-        (batch, head, chunk) the causal halves of dy xdt^T, (C B^T o E)^T dy
-        (K = hd), (E o G)^T C and (E o G) B (K = N), and five Q x hd x N
-        products (dxdt's and dB's state terms, dC's inter-chunk term, the
-        two state recurrences)."""
-        nc = S // Q
-        pairs = Q * (Q + 1) // 2
-        flops = B * nc * 2 * pairs * N + B * nh * nc * (2 * pairs * (2 * hd + 2 * N)
-                                                        + 10 * Q * hd * N)
-        nbytes = 4 * (3 * B * nh * S * hd + 2 * B * nh * S + 4 * B * S * N + B * nh * hd * N)
-        return nbytes, flops
 
     # (a) the op at row 12's shapes, Jamba's full-width heads and the reduced
     # shape: the four cotangents against the plain version (1e-4 of its
@@ -3660,7 +3748,7 @@ def phase_mamba_train(torch, np, dev, flush):
                                      (1, 80, 512, 64, 128, 256, "Mamba2-2.7B S 512"),
                                      (2, 8, 512, 128, 64, 256, "Jamba's heads"),
                                      (2, 4, 40, 32, 16, 32, "reduced")):
-        kern, dh, _ = op_inputs(B, nh, S, hd, N, Q, seed=S + nh)
+        kern, dh, _ = ssd_bwd_inputs(torch, dev, B, nh, S, hd, N, Q, seed=S + nh)
         backend.reset_launch_counts()
         got = ssd_scan_bwd_kernel(*kern, dh, chunk=Q)
         again = ssd_scan_bwd_kernel(*kern, dh, chunk=Q)
@@ -3690,34 +3778,8 @@ def phase_mamba_train(torch, np, dev, flush):
             fail(f"ssd_scan_bwd disagrees at {what}")
         del kern, dh, got, again, plain, w64, a32
 
-    # (b) times: the training shapes (a client's 2 x 320 tokens padded to
-    # 512, the server's pooled 6 x 320) and S 512 at B 1; the plain version,
-    # autograd's backward through ssd_chunked (model layout, its graph built
-    # once; no single PyTorch call computes the gradient) and the bound (f32
-    # FFMA)
-    for B, S_tok in ((2, 320), (6, 320), (1, 512)):
-        nh, S, hd, N, Q = 80, 512, 64, 128, 256
-        kern, dh, model = op_inputs(B, nh, S_tok, hd, N, Q, seed=B)
-        ms = time_ms(torch, lambda: ssd_scan_bwd_kernel(*kern, dh, chunk=Q), flush)
-        plain = time_ms(torch, lambda: ssd_scan_bwd_ref(*kern, dh, chunk=Q), flush, iters=20)
-        leaves = [t.clone().requires_grad_() for t in model]
-        y, h = ssd_chunked(*leaves, chunk=Q)
-        Sm = model[0].shape[1]
-        loss = (y * kern[4][:, :, :Sm].permute(0, 2, 1, 3)).sum() + (h * dh).sum()
-        auto = time_ms(torch, lambda: torch.autograd.grad(loss, leaves, retain_graph=True),
-                       flush, iters=20)
-        nbytes, flops = bwd_work(B, nh, S, hd, N, Q)
-        bms, bby = bound(nbytes, flops)
-        print(f"[time] ssd_scan_bwd f32 B={B} S={Sm} (padded to {S}) nh={nh} hd={hd} N={N} "
-              f"chunk={Q}: kernel {ms * 1e3:.2f}us plain ssd_scan_bwd_ref {plain * 1e3:.2f}us "
-              f"autograd backward through ssd_chunked {auto * 1e3:.2f}us library none; bound "
-              f"{bms * 1e3:.2f}us (f32 FFMA, {bby}, {flops} flop, {nbytes} B); "
-              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-        if B == 2:                   # the JSON line's row: a client's shape
-            rows[("ssd_scan_bwd", S)] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                                             bound_ms=bms, bound_by=bby)
-        del kern, dh, model, leaves, y, h, loss
-    torch.cuda.empty_cache()
+    # (b) times
+    rows.update(ssd_bwd_times(torch, dev, flush))
 
     # (c) full-width, full-depth Mamba2-2.7B: one SFL round through
     # launch.train.run, 3 clients x 2 x 320 tokens (chunks of 256: every
@@ -3760,6 +3822,7 @@ def phase_mamba_train(torch, np, dev, flush):
     from repro_torch.launch.serve import _report
     tok = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 2, 320)).astype(np.int32)
     batch = {"tokens": tok, "labels": np.roll(tok, -1, axis=-1)}
+    torch.cuda.reset_peak_memory_stats()
     sfl.local_step(state, batch)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU] + (
@@ -3772,6 +3835,16 @@ def phase_mamba_train(torch, np, dev, flush):
     print(f"[train16] one local step of the round's shape under torch.profiler: "
           f"{wall * 1e3:.1f} ms (host clock, profiler on)")
     _report(prof, wall, top=14)
+    from torch.autograd import DeviceType
+    kern_us = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    bwd_us = sum(t for n_, t in kern_us
+                 if any(p in n_ for p in ("bwd_prep", "bwd_pairs", "bwd_rows", "bwd_finish")))
+    all_us = sum(t for _, t in kern_us) or 1.0
+    print(f"[train16] ssd_scan_bwd's passes in the profiled step: {bwd_us / 1e3:.2f} ms of "
+          f"{all_us / 1e3:.2f} ms of kernel time ({100 * bwd_us / all_us:.1f}%), "
+          f"{100 * bwd_us * 1e-6 / wall:.1f}% of the step's {wall * 1e3:.1f} ms wall; peak "
+          f"device memory of this step and its warm-up {peak_gib(torch):.2f} GiB")
     del state, hist, sfl, params, lora
     torch.cuda.empty_cache()
 

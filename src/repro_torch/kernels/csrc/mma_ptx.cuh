@@ -2,7 +2,8 @@
 // Hopper (sm_90a): element conversions, cp.async (global -> shared, with
 // zero fill), the TF32 rounding of the 3xTF32 split and the
 // mma.sync.m16n8k8 TF32 product.  Included by csrc/lora_mma.cuh (the LoRA
-// GEMM tile) and csrc/flash_attention.cu.
+// GEMM tile, and through it csrc/ssd_scan.cu), csrc/flash_attention.cu and
+// csrc/ssd_scan_bwd.cu.
 
 #pragma once
 
@@ -65,6 +66,30 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the 3xTF32 split of v: big = rna(v), small = rna(v - big)
+__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(v[e], big[e], small[e]);
+}
+
+// c += a b in 3xTF32, a split already, b = (b0, b1) split here: the small
+// terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], const float b0, const float b1) {
+  uint32_t bb[2], bs[2];
+  split(b0, bb[0], bs[0]);
+  split(b1, bb[1], bs[1]);
+  mma_tf32(c, as, bb);
+  mma_tf32(c, ab, bs);
+  mma_tf32(c, ab, bb);
 }
 
 // One element of T, global -> shared: 4-byte cp.async for f32, a plain

@@ -179,29 +179,6 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// the split of v: big = rna(v), small = rna(v - big)
-__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(v);
-  small = tf32_rna(v - __uint_as_float(big));
-}
-
-// tmp += a b in 3xTF32: the small terms first
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], const float b0, const float b1) {
-  uint32_t bb[2], bs[2];
-  split(b0, bb[0], bs[0]);
-  split(b1, bb[1], bs[1]);
-  mma_tf32(c, as, bb);
-  mma_tf32(c, ab, bs);
-  mma_tf32(c, ab, bb);
-}
-
-__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&big)[4],
-                                       uint32_t (&small)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split(v[e], big[e], small[e]);
-}
-
 // cum[0..Q) = inclusive prefix sum of g[0..Q) in double, SSD_NT at a time
 __device__ void chunk_cumsum(const float* __restrict__ g, double* cum, int Q,
                              double* warp_tot) {

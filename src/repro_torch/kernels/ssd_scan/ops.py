@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import backend, build
-from .plan import ssd_plan, vec_loads
+from .plan import ssd_bwd_plan, ssd_plan, vec_loads
 from .ref import ssd_chunked, ssd_scan_bwd_ref, ssd_scan_ref, ssd_sequential_ref
 
 SSD_MAX_STATE = 256                # SSD_NMAX in csrc/ssd_scan.cu
@@ -30,8 +30,8 @@ def _bwd_entries():
     lib = build.load("ssd_scan_bwd")
     ws, fn = lib.ssd_scan_bwd_workspace, lib.ssd_scan_bwd_launch
     if fn.argtypes is None:
-        ws.argtypes, ws.restype = [ctypes.c_int] * 6, ctypes.c_longlong
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ws.argtypes, ws.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return ws, fn
 
@@ -102,9 +102,11 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, g: torch.Tensor, Bm: torch.Tensor,
     kernel layout: xdt, g, Bm, Cm as ``ssd_scan_kernel`` takes them, dy (B,
     nh, S, hd) the cotangent of y, dh_last (B, nh, hd, N) that of the final
     state or None (zero); float32, contiguous, on one CUDA device; S a
-    multiple of Q = min(chunk, S); N <= 256.  Returns (dxdt, dg, dBm, dCm)
-    in the layouts of xdt, g, Bm and Cm (dBm and dCm summed over heads),
-    float32; two runs give equal bits.  Raises on anything else."""
+    multiple of Q = min(chunk, S); N <= 256, hd <= 128.  Four launches with
+    ``plan.ssd_bwd_plan``'s heads a block and instantiation.  Returns (dxdt,
+    dg, dBm, dCm) in the layouts of xdt, g, Bm and Cm (dBm and dCm summed
+    over heads), float32; two runs give equal bits.  Raises on anything
+    else."""
     extra = (("dy", dy),) + (() if dh_last is None else (("dh_last", dh_last),))
     B, nh, S, hd, N, Q = _check_operands("ssd_scan_bwd", xdt, g, Bm, Cm, chunk, extra)
     if dy.shape != xdt.shape or (dh_last is not None
@@ -118,11 +120,18 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, g: torch.Tensor, Bm: torch.Tensor,
     if xdt.numel() == 0:
         return tuple(o.zero_() for o in outs)
     with torch.cuda.device(dev):
+        plan = ssd_bwd_plan(B, nh, S, hd, N, Q,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
+        ptrs = (xdt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dy.data_ptr()) + (
+            () if dh_last is None else (dh_last.data_ptr(),))
+        vec = vec_loads(N, hd, *ptrs)
         ws_bytes, launch = _bwd_entries()
-        ws = torch.empty(ws_bytes(B, nh, S, hd, N, Q), dtype=torch.uint8, device=dev)
+        ws = torch.empty(ws_bytes(B, nh, S, hd, N, Q, plan.heads), dtype=torch.uint8,
+                         device=dev)
         err = launch(xdt.data_ptr(), g.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                      dy.data_ptr(), None if dh_last is None else dh_last.data_ptr(),
                      *(o.data_ptr() for o in outs), ws.data_ptr(), B, nh, S, hd, N, Q,
+                     plan.heads, plan.dtiles, int(vec),
                      torch.cuda.current_stream(dev).cuda_stream)
     build.check("ssd_scan_bwd", err)
     backend.count_launch("ssd_scan_bwd")

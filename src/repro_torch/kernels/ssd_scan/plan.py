@@ -27,6 +27,30 @@ tiles and writes nothing.
 Chunks longer than ``SUBCHUNK`` rows are walked as sub-chunks of at most
 ``SUBCHUNK`` (the scan's result does not depend on the chunk length, only
 its rounding does), so a chunk has at most ``SUBCHUNK / TILE`` row tiles.
+
+``ssd_bwd_plan`` is the plan of the backward (``csrc/ssd_scan_bwd.cu``),
+four launches over the same segments (a chunk's sub-chunks of at most
+``SUBCHUNK`` rows; the gradient, like the scan, does not depend on where
+the chunks end):
+
+* prep: one block per causal C Bᵀ tile of a (batch, segment), and one per
+  (batch, head, direction, 64 x 64 state tile) walking the segments in
+  order (the state entering each) or in reverse (dh at each one's end);
+* pairs: one block per (batch, segment, head group, 64-row key tile r)
+  forms the pair tiles (i, r), i >= r, each once: dxdt of tile r, both
+  sums of P for dg, and E o G (to a workspace) for the rows launch;
+* rows: one block per (batch, segment, head group, 64-row tile r): the
+  group's dB rows of tile r from the pair tiles (i, r), i >= r, and its
+  dC rows from the pair tiles (r, j), j <= r;
+* finish: dB and dC summed over the head groups in order, and dg's scans.
+
+``heads`` heads run one after another in a pairs or rows block; the rows
+block adds their dB and dC rows up in place, so the head sum reads ``groups =
+ceil(nh / heads)`` partials instead of nh.  It is the largest of 8, 4, 2
+and 1 that leaves at least ``BWD_MIN_WAVES`` blocks per SM in those two
+launches (none of them is a cluster).  ``dtiles`` names the pairs
+kernel's instantiation: head dims padded to ``16 * dtiles`` (32, 64 or
+128), each warp holding ``dtiles`` 8-column tiles of dxdt.
 """
 from __future__ import annotations
 
@@ -37,6 +61,9 @@ from ..limits import MAX_CLUSTER
 TILE = 64               # rows of a query or key tile, and of a C Bᵀ tile side
 SUBCHUNK = 256          # rows of the longest sub-chunk a block holds at once
 COL_TILE = 32           # head dims a block serves (SSD_DC in csrc/ssd_scan.cu)
+BWD_HD_MAX = 128        # largest head dim the backward takes (HDMAX in ssd_scan_bwd.cu)
+BWD_MIN_WAVES = 4       # pairs/rows blocks per SM the head grouping keeps
+BWD_THREADS = 256       # threads of every backward block
 
 
 @dataclass(frozen=True)
@@ -71,3 +98,49 @@ def vec_loads(N: int, hd: int, *ptrs: int) -> bool:
     aligned; element copies otherwise.  The copy width never changes the
     arithmetic."""
     return N % 4 == 0 and hd % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+@dataclass(frozen=True)
+class SsdBwdPlan:
+    seg: int            # rows of a full segment: min(Q, SUBCHUNK)
+    seg_per_chunk: int  # segments of a chunk: ceil(Q / SUBCHUNK)
+    segments: int       # segments of a batch row: (S / Q) * seg_per_chunk
+    tiles: int          # 64-row tiles of a full segment (T <= 4)
+    pairs: int          # its causal pair tiles (i, j), j <= i: T (T + 1) / 2
+    heads: int          # heads a pairs or rows block runs in turn
+    groups: int         # head groups: ceil(nh / heads)
+    dtiles: int         # the pairs kernel's instantiation: hd <= 16 * dtiles
+    prep_blocks: int    # C Bᵀ tiles, then state tiles
+    chunk_blocks: int   # the pairs launch and the rows launch each
+    finish_blocks: int  # head-sum blocks (one entry a thread), then dg's
+
+
+def bwd_segments(S: int, Q: int):
+    """(start, rows) of every segment of a batch row, in order: each chunk
+    of Q rows cut into pieces of SUBCHUNK, the last one ragged."""
+    return [(c + m, min(SUBCHUNK, Q - m)) for c in range(0, S, Q)
+            for m in range(0, Q, SUBCHUNK)]
+
+
+def ssd_bwd_plan(B: int, nh: int, S: int, hd: int, N: int, Q: int,
+                 sm_count: int) -> SsdBwdPlan:
+    """The plan of ``ssd_scan_bwd_kernel`` for xdt (B, nh, S, hd), a state
+    of N and chunks of Q rows, on a card of ``sm_count`` SMs."""
+    if min(B, nh, S, hd, N, Q, sm_count) < 1 or S % Q:
+        raise ValueError(f"ssd_bwd_plan: B={B} nh={nh} S={S} hd={hd} N={N} Q={Q} "
+                         f"sm_count={sm_count} must be positive and Q must divide S")
+    if hd > BWD_HD_MAX:
+        raise ValueError(f"ssd_bwd_plan: head dim {hd} above {BWD_HD_MAX}")
+    seg = min(Q, SUBCHUNK)
+    spc = -(-Q // SUBCHUNK)
+    nseg = len(bwd_segments(S, Q))
+    T = -(-seg // TILE)
+    heads = next(h for h in (8, 4, 2, 1)
+                 if h == 1 or B * nseg * -(-nh // h) * T >= BWD_MIN_WAVES * sm_count)
+    groups = -(-nh // heads)
+    dtiles = next(d for d in (2, 4, 8) if hd <= 16 * d)
+    prep = B * nseg * T * (T + 1) // 2 + B * nh * 2 * -(-hd // TILE) * -(-N // TILE)
+    chunk = B * nseg * groups * T
+    finish = -(-B * S * N // BWD_THREADS) + B * nh * nseg
+    return SsdBwdPlan(seg, spc, nseg, T, T * (T + 1) // 2, heads, groups, dtiles, prep,
+                      chunk, finish)

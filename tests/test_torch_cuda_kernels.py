@@ -1085,12 +1085,17 @@ def test_ssd_scan_refuses_autograd_and_bad_operands_on_the_card(cuda):
 # layout: reduced Mamba2 / Jamba (4 heads of 32, N 16, Q 32), Mamba2-2.7B's
 # heads at one and two chunks and its training shape (B 2, 320 tokens padded
 # to 512), Jamba's full-width heads (128, N 64), hd 128 at N 256, ragged
-# tiles (Q 48, 100), B 4 and S 1024
+# tiles (Q 48, 100), B 4 and S 1024; the plan's edges: each instantiation
+# (hd 32, 64, 128), N 16 to 256, Q 32, 64 and 256 at three chunks, head
+# groups that do not divide the heads, and chunks of 512 (two segments)
 SSD_BWD_SHAPES = [(2, 64, 4, 32, 16, 32), (1, 256, 80, 64, 128, 256),
                   (2, 512, 80, 64, 128, 256), (2, 512, 8, 128, 64, 256),
                   (1, 256, 3, 128, 256, 256), (2, 96, 3, 100, 5, 48),
                   (1, 200, 2, 16, 16, 100), (4, 1024, 2, 64, 128, 256),
-                  (3, 160, 5, 32, 64, 32)]
+                  (3, 160, 5, 32, 64, 32), (2, 96, 6, 32, 256, 32),
+                  (2, 192, 3, 64, 64, 64), (1, 192, 3, 128, 128, 64),
+                  (1, 768, 4, 32, 128, 256), (6, 512, 81, 64, 128, 256),
+                  (1, 1024, 2, 64, 128, 512)]
 
 
 @pytest.mark.parametrize("with_dh", [True, False], ids=["dh", "no_dh"])
