@@ -321,8 +321,44 @@ Phases (each prints its own lines; any failure exits non-zero):
     error), with exact launch counts, resident frozen bytes equal to the
     rule table's count for its (data, model) piece, s a round and peak
     memory; the ranks of (b) end bit-equal.
+20. prefill and decode over a ("data", "model") mesh, and the dry-run, in
+    spawned ranks (each base drawn on the card a subtree at a time and cut
+    to the rank's pieces, f32, rank-4 adapters with B != 0): one process
+    with no group runs the references through the plain PyTorch versions
+    (einsum projections, the plain decode attention, the chunked scan), so
+    that each kernel, at the local shapes a rank gives it, answers to plain
+    PyTorch on the same weights and tokens; (a) yi-9b (LoRA on q, v, o, down)
+    at tp 2, two ranks on the card over host-staged gloo,
+    ``dense_impl="fused"``, ``decode_attn_impl="flash"``: a prefill of 4
+    prompts of 512 tokens and 8 greedy decode steps, the KV cache cut by
+    heads (``flash_decode`` on each rank's two); (b) the same at tp 8 over
+    eight ranks (KH 4 does not divide 8: the cache cut by its length,
+    ``decode_attn_impl="naive"``, the ranks' partial softmaxes joined by
+    one all-reduce max and one sum), held to (a)'s plain reference; (c)
+    Mamba2-2.7B (full width, 16 of its 64 layers) at tp 2 with
+    ``ssd_impl="kernel"``: a 200-token prefill of 2 prompts and 8 decode
+    steps, the mixer gathered whole, its state kept in pieces.  Each
+    rank's greedy ids equal the reference's, its logits
+    (gathered over the vocabulary) lie within 1e-4 of the reference's
+    largest (Mamba2's reference runs in f64, as phase 12's witness: a
+    random Mamba2 amplifies f32 rounding over depth, so its logits may
+    also lie up to 3x the plain f32 path's distance from it), its
+    launches are exactly rows 1, 6 and 12's counts; prefill
+    and decode-step times and peak memory are printed.  (d) the dry-run
+    (``python -m repro_torch.launch.dryrun``, no card) of one pair of each
+    shape kind at (16, 16), started first and run beside the ranks, prints
+    its roofline lines; its FLOPs of (a)'s decode step at a fake (1, 2)
+    mesh equal ``FlopCounterMode``'s count on each of (a)'s ranks.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
+
+    python3 chip_smoke.py --host-times [TREE ...]
+
+runs only phase 16 and phase 19 (e) (the host time of a bare and of an
+op-routed fused forward a call) of each TREE (a checkout: its own
+chip_smoke.py and src; this one where none is given), one process each,
+in the order given: parent, change, change, parent compares two commits
+on one card.
 """
 import dataclasses
 import functools
@@ -335,10 +371,6 @@ import time
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
-HBM_BYTES_PER_S = 3.35e12           # H100 SXM, data sheet
-PEAK_FLOPS = {"float32": 67e12,     # outside the tensor cores
-              "bfloat16": 989e12,   # dense tensor-core rate
-              "tf32": 495e12}       # dense tensor-core rate
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}        # lora_matmul atol = rtol
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # every decode kernel
 # backward kernels: f32 sums over 768 terms with TF32 off; bf16 gradients
@@ -346,6 +378,13 @@ PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # every decode kernel
 GRAD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
             "bfloat16": dict(atol=2e-1, rtol=5e-2)}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # repro's TOLS for f32
+
+
+def _limits():
+    """The card's rates, from ``repro_torch/kernels/limits.py`` (H100 SXM5
+    80GB, 700 W, NVIDIA's datasheet): one source for every bound."""
+    from repro_torch.kernels import limits
+    return limits
 
 
 def fail(msg: str) -> None:
@@ -398,11 +437,24 @@ def host_us(torch, fn, n=200):
     return (time.perf_counter() - t0) / n * 1e6
 
 
+def lora_flops(M: int, K: int, N: int, r: int) -> int:
+    """The fused LoRA forward's (and dX's) work: the kernel op's FLOP
+    formula, the one the dry-run counts."""
+    from repro_torch.kernels.lora_matmul.ops import lora_flops as formula
+    return formula(M, K, N, r)
+
+
+def scan_flops(B: int, nh: int, S: int, hd: int, N: int, Q: int) -> int:
+    """The SSD scan's work on these inputs: the kernel op's FLOP formula."""
+    from repro_torch.kernels.ssd_scan.ops import scan_flops as formula
+    return formula(B, nh, S, hd, N, Q)
+
+
 def bound(nbytes: float, flops: float):
     """(bound_ms, bound_by) of f32 work: the larger of bytes over the
     memory rate and operations over the f32 rate outside tensor cores."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = nbytes / _limits().HBM_BYTES_PER_S * 1e3
+    t_ops = flops / _limits().PEAK_FLOPS["float32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -411,8 +463,8 @@ def bound_tf32(nbytes: float, flops: float, passes: int):
     larger of bytes over the memory rate and `passes` TF32 products per
     f32 product over the TF32 rate (3xTF32: three; an operand exact in
     TF32, as int8 is: two)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = passes * flops / PEAK_FLOPS["tf32"] * 1e3
+    t_bytes = nbytes / _limits().HBM_BYTES_PER_S * 1e3
+    t_ops = passes * flops / _limits().PEAK_FLOPS["tf32"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1086,8 +1138,9 @@ def main() -> None:
         plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
         lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
         nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
-        flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["float32"] * 1e3
+        flops = lora_flops(M, K, N, r)
+        t_bytes = nbytes / _limits().HBM_BYTES_PER_S * 1e3
+        t_ops = flops / _limits().PEAK_FLOPS["float32"] * 1e3
         rows[("lora_matmul", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                         bound_ms=max(t_bytes, t_ops),
                                         bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -1113,7 +1166,7 @@ def main() -> None:
     lib = time_ms(torch, gather_library, flush)
     used = len(set(idx.tolist()))
     nbytes = 4 * (M * K + K * N + used * (r * K + N * r) + M * N + M)
-    bms, bby = bound(nbytes, 2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
+    bms, bby = bound(nbytes, lora_flops(M, K, N, r))
     rows[("lora_matmul_gather", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                            bound_ms=bms, bound_by=bby)
     print(f"[time] lora_matmul_gather f32 M={M} K={K} N={N} r={r} A={A} ({used} adapters "
@@ -1141,7 +1194,8 @@ def main() -> None:
     nbytes = (4 * (2 * B * KH * G * D + 2 * KH * tot * D) + 4 * B
               + 4 * sum(math.ceil(n / PS) for n in lengths))
     flops = 4 * KH * G * D * tot
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = nbytes / _limits().HBM_BYTES_PER_S * 1e3
+    t_ops = flops / _limits().PEAK_FLOPS["float32"] * 1e3
     rows[("paged_decode", B)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                      bound_ms=max(t_bytes, t_ops),
                                      bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -1246,7 +1300,7 @@ def main() -> None:
     plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
     lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
     nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
-    flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+    flops = lora_flops(M, K, N, r)
     bms, bby = bound_tf32(nbytes, flops, 3)
     rows[("lora_matmul", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                                     bound_by=bby)
@@ -1264,7 +1318,7 @@ def main() -> None:
         plain = time_ms(torch, lambda: lora_matmul_dx_ref(dy, w, a, b, scale), flush)
         lib = time_ms(torch, lambda: dy @ w.T + scale * ((dy @ b) @ a), flush)
         nbytes = 4 * (M * N + K * N + r * K + N * r + M * K)
-        flops = 2 * M * N * K + 2 * M * N * r + 2 * M * r * K
+        flops = lora_flops(M, K, N, r)
         bms, bby = bound_tf32(nbytes, flops, 3)
         rows[("lora_matmul_dx", M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                            bound_ms=bms, bound_by=bby)
@@ -1356,7 +1410,7 @@ def main() -> None:
             ms = time_ms(torch, kern, flush)
             plain = time_ms(torch, plain_fn, flush)
             lib = time_ms(torch, lib_fn, flush)
-            flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+            flops = lora_flops(M, K, N, r)
             bms, bby = bound_tf32(nbytes, flops, 2)
             rows[(op, M) if r == 8 else (op, M, r)] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=bby)
@@ -1380,7 +1434,7 @@ def main() -> None:
             plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
             lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
             nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
-            flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+            flops = lora_flops(M, K, N, r)
             tile = M > DECODE_MAX_M
             bms, bby = bound_tf32(nbytes, flops, 3) if tile else bound(nbytes, flops)
             rows[("lora_matmul", what, M)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -1418,18 +1472,9 @@ def main() -> None:
         Q = min(chunk, S)
         xdt = (xh * dts[..., None]).permute(0, 2, 1, 3).contiguous()
         g = (dts * A).permute(0, 2, 1).contiguous()
-        # the work these inputs need, per chunk of q tokens: the causal half
-        # of C B^T once per batch (B and C are shared by the heads); per head
-        # the causal half of the masked product, the state update, and C h
-        # where the incoming state is not zero (after the first chunk); each
+        # the work these inputs need (the kernel op's FLOP formula); each
         # operand read once and y, h_last written once
-        flops = 0
-        for c0 in range(0, S, Q):
-            q = min(Q, S - c0)
-            pairs = q * (q + 1) // 2
-            flops += B * 2 * pairs * N + B * nh * (2 * pairs * hd + 2 * q * N * hd)
-            if c0:
-                flops += B * nh * 2 * q * N * hd
+        flops = scan_flops(B, nh, S, hd, N, Q)
         nbytes = 4 * (2 * B * nh * S * hd + B * nh * S + 2 * B * S * N + B * nh * hd * N)
         bms, bby = bound_tf32(nbytes, flops, 3)
         ms = time_ms(torch, lambda: ssd_scan_kernel(xdt, g, Bm, Cm, chunk=Q), flush)
@@ -2078,10 +2123,12 @@ def main() -> None:
     tp_launches, tp_err = phase_tp(torch, np, dev, flush)
     for k, v in tp_err.items():
         err[k] = max(err[k], v)
+    serve_tp_launches = phase_serve_tp(torch, np, dev, flush)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
             mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train,
-            arch_launches, ssm_train, fe_launches, mesh_launches, tp_launches)
+            arch_launches, ssm_train, fe_launches, mesh_launches, tp_launches,
+            serve_tp_launches)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -3501,7 +3548,7 @@ def phase_archs(torch, np, dev, reqs, flush):
             plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
             lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
             nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
-            bms, bby = bound(nbytes, 2 * M * K * N + 2 * M * K * r + 2 * M * r * N)
+            bms, bby = bound(nbytes, lora_flops(M, K, N, r))
             print(f"[time] {tag} lora_matmul f32 M={M} K={K} N={N} r={r}: kernel "
                   f"{ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library(torch.matmul) "
                   f"{lib * 1e3:.2f}us bound {bms * 1e3:.2f}us ({bby}, {nbytes} B)")
@@ -3643,17 +3690,10 @@ def device_time_by_kernel(torch, fn, reps=10):
 def ssd_bwd_work(B, nh, S, hd, N, Q):
     """(bytes, flops) of the backward: each input (xdt, g, B, C, dy,
     dh_last) read once and each output (dxdt, dg, dB, dC) written once;
-    per (batch, chunk) the causal half of C B^T, Q (Q + 1) N; per
-    (batch, head, chunk) the causal halves of dy xdt^T, (C B^T o E)^T dy
-    (K = hd), (E o G)^T C and (E o G) B (K = N), and the Q x hd x N
-    products: dxdt's and dB's state terms in every chunk, dC's inter-chunk
-    term where the incoming state is not zero (every chunk but the first),
-    the state recurrence for every chunk but the last (the final state is
-    not needed) and dh's for every chunk but the first."""
-    nc = S // Q
-    pairs = Q * (Q + 1) // 2
-    flops = (B * nc * 2 * pairs * N + B * nh * nc * 2 * pairs * (2 * hd + 2 * N)
-             + B * nh * (5 * nc - 3) * 2 * Q * hd * N)
+    the work this run needs by the kernel op's FLOP formula
+    (``ssd_scan.ops.scan_bwd_flops``)."""
+    from repro_torch.kernels.ssd_scan.ops import scan_bwd_flops
+    flops = scan_bwd_flops(B, nh, S, hd, N, Q)
     nbytes = 4 * (3 * B * nh * S * hd + 2 * B * nh * S + 4 * B * S * N + B * nh * hd * N)
     return nbytes, flops
 
@@ -3954,7 +3994,7 @@ def phase_frontends(torch, np, dev, flush):
         plain = time_ms(torch, lambda: lora_matmul_ref(x, w, a, b, scale), flush)
         lib = time_ms(torch, lambda: x @ w + scale * ((x @ a.T) @ b.T), flush)
         nbytes = 4 * (M * K + K * N + r * K + N * r + M * N)
-        flops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+        flops = lora_flops(M, K, N, r)
         ffma, fby = bound(nbytes, flops)
         if M > 16:
             bms, bby = bound_tf32(nbytes, flops, 3)
@@ -4993,7 +5033,7 @@ def _tp_kernels(torch, np, dev, flush, note):
         x, w, a, b = lora_operands(randn, M, K, N, r)
         dy, u = randn(M, N), randn(M, r)
         f_bytes = 4 * (M * K + K * N + r * K + N * r + M * N)
-        f_ops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+        f_ops = lora_flops(M, K, N, r)
         rr_bytes = 4 * (M * r + M * N + r * N)
         for op, kern, ref, lib, nb, fl, tc in (
                 ("lora_matmul", lambda: lora_matmul_kernel(x, w, a, b, s),
@@ -5013,19 +5053,26 @@ def _tp_kernels(torch, np, dev, flush, note):
                   f"kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library "
                   f"{lib_ms * 1e3:.2f}us bound {bms * 1e3:.2f}us "
                   f"({'3xTF32, ' if tc else ''}{bby})")
-    # every fused forward goes through the custom op repro_torch::lora_matmul_fwd
-    # (so that remat "dots" can save it): its host cost at a decode shape,
-    # GPT-2-S's q at 8 slots, beside the bare launch it wraps
-    from repro_torch.kernels.lora_matmul.ops import _forward, lora_matmul_op
+    # within backend.as_ops (remat "dots") the fused forward goes through the
+    # custom op repro_torch::kernel_lora_matmul (so that the policy can save
+    # it); elsewhere it is the bare launch: the host cost of each at a decode
+    # shape, GPT-2-S's q at 8 slots
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.lora_matmul.ops import _forward
     x, w, a, b = lora_operands(randn, 8, 768, 768, r)
-    fused = lora_matmul_op()
+
+    def through_op():
+        with backend.as_ops(("lora_matmul",)):
+            return _forward(x, w, a, b, s)
+
     with torch.no_grad():
-        t_op = host_us(torch, lambda: fused(x, w, a, b, s), n=2000)
+        t_op = host_us(torch, through_op, n=2000)
         t_bare = host_us(torch, lambda: _forward(x, w, a, b, s), n=2000)
-        t_op2 = host_us(torch, lambda: fused(x, w, a, b, s), n=2000)
+        t_op2 = host_us(torch, through_op, n=2000)
+        t_bare2 = host_us(torch, lambda: _forward(x, w, a, b, s), n=2000)
     print(f"[tp] host time of the fused forward at M 8, K = N 768 (GPT-2-S's q at 8 slots), "
           f"2000 back-to-back calls, synchronized: through the custom op {t_op:.2f} / "
-          f"{t_op2:.2f} us a call, the bare launch {t_bare:.2f} us")
+          f"{t_op2:.2f} us a call, the bare launch {t_bare:.2f} / {t_bare2:.2f} us ({smi_line()})")
 
 
 def phase_tp(torch, np, dev, flush=None, small=False):
@@ -5180,5 +5227,392 @@ def phase_tp(torch, np, dev, flush=None, small=False):
     return launches_total, err
 
 
+
+# -- phase 20: prefill and decode over a mesh, and the dry-run ---------------
+
+SERVE_DIMS = {"yi-9b": (4, 512, 8), "mamba2-2.7b": (2, 200, 8)}   # B, prompt, steps
+SERVE_SEED = {"yi-9b": 200, "mamba2-2.7b": 203}
+SERVE_RUNS = {
+    # name: (config, ranks over "model", Runtime knobs); the *_plain runs
+    # are the references, one process through the plain PyTorch versions
+    "yi_heads": ("yi-9b", 2, dict(dense_impl="fused", decode_attn_impl="flash")),
+    "yi_len": ("yi-9b", 8, dict(dense_impl="fused", decode_attn_impl="naive")),
+    "mamba": ("mamba2-2.7b", 2, dict(dense_impl="fused", ssd_impl="kernel")),
+    "yi_plain": ("yi-9b", 1, dict(dense_impl="einsum", decode_attn_impl="naive")),
+    "mamba_plain": ("mamba2-2.7b", 1, dict(dense_impl="einsum", ssd_impl="chunked")),
+    "mamba_f64": ("mamba2-2.7b", 1, dict(dense_impl="einsum", ssd_impl="chunked")),
+}
+# runs whose weights and adapters are cast to float64: Mamba2's witness,
+# since a random Mamba2 amplifies f32 rounding over its depth and the
+# plain f32 path is itself far from exact (phase 12)
+SERVE_F64 = ("mamba_f64",)
+# the dry-run's pairs, one of each shape kind, at (16, 16): the shallowest
+# configs of each, so that the three abstract runs end within a minute or two
+DRYRUN_PAIRS = (("olmoe-1b-7b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"),
+                ("yi-9b", "decode_32k"))
+SERVE_TOL = 1e-4        # logits: f32, against the largest of the reference's
+
+
+SERVE_SSM_LAYERS = 16   # of Mamba2-2.7B's 64: see _serve_cfg
+
+
+def _serve_cfg(name: str, small: bool):
+    """A phase-20 config at full width: yi-9b with LoRA on q, v, o, down
+    (column- and row-parallel) at full depth, Mamba2-2.7B on
+    ssm_in/ssm_out at 16 of its 64 layers (each rank gathers every mixer
+    through the host for each prefill and decode step: 15.4 s a step at
+    64 layers over gloo on one H100).  ``small``: 2 layers at d_model 64
+    (yi-9b: 8 heads of 8 over its 4 KV heads; the full vocabularies), for
+    a rehearsal on the CPU."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    if name == "yi-9b":
+        cfg = cfg.replace(lora_targets=TP_YI_TARGETS)
+        if small:
+            cfg = cfg.replace(num_layers=2, d_model=64, num_heads=8, head_dim=8, d_ff=128)
+    elif small:
+        cfg = cfg.replace(num_layers=2, d_model=64, ssm_state=16, ssm_head_dim=32)
+    else:
+        cfg = cfg.replace(num_layers=SERVE_SSM_LAYERS)
+    return cfg
+
+
+def serve_per_run(cfg, run: str, steps: int) -> dict:
+    """Launches of one prefill and ``steps`` decode steps on every rank:
+    under ``dense_impl="fused"`` each adapted projection once a prefill
+    and once a step (a Mamba2 prefill also recomputes ``in_proj`` on the
+    conv tail); under ``decode_attn_impl="flash"`` one ``flash_decode`` a
+    layer a step over a cache cut by heads; under ``ssd_impl="kernel"``
+    one ``ssd_scan`` a Mamba2 layer a prefill.  The plain routes launch
+    nothing."""
+    L = cfg.num_layers
+    n = len(cfg.lora_targets)
+    knobs = SERVE_RUNS[run][2]
+    out = {}
+    if knobs["dense_impl"] == "fused":
+        out["lora_matmul"] = n * L * (1 + steps) + (L if cfg.family == "ssm" else 0)
+    if knobs.get("decode_attn_impl") == "flash":
+        out["flash_decode"] = L * steps
+    if knobs.get("ssd_impl") == "kernel":
+        out["ssd_scan"] = L
+    return out
+
+
+def _serve_run(torch, np, dev, mesh, small, run):
+    """One prefill of ``run``'s prompts and greedy decode steps over
+    ``mesh``'s "model" axis (None: one process, no group), the base drawn
+    on the device a subtree at a time and cut to this rank's pieces
+    (``ShardedParams.init``); the logits gathered whole each step.  Then,
+    with the launch counts read, one more decode step under
+    ``FlopCounterMode`` (its count for the dry-run's to meet)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import models as TM
+    from repro_torch.kernels import backend
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.collectives import all_gather
+    from repro_torch.sharding.fsdp import ShardedParams
+    name, _, knobs = SERVE_RUNS[run]
+    cfg = _serve_cfg(name, small)
+    B, S, steps = SERVE_DIMS[name]
+    rt = TM.Runtime(**knobs)
+    group = None
+    if mesh is None:
+        base_mesh = make_mesh((1, 1), ("data", "model"), dev)
+    else:
+        base_mesh = mesh
+        rt = rt.replace(tp_axis="model", mesh=mesh)
+        group = mesh.group("model")
+    params = ShardedParams.init(cfg, torch.Generator(device=dev).manual_seed(SERVE_SEED[name]),
+                                base_mesh).local
+    lora = _tp_lora(torch, TM, cfg, dev, SERVE_SEED[name] + 1)
+    if run in SERVE_F64:
+        from repro_torch.tree import tree_map
+        params, lora = (tree_map(lambda v: v.double() if v.is_floating_point() else v, t)
+                        for t in (params, lora))
+    tok = torch.from_numpy(np.random.default_rng(SERVE_SEED[name] + 2).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)).to(dev)
+
+    def whole(lg):
+        return lg if lg.shape[-1] == cfg.vocab_size else all_gather(lg, group, -1)
+
+    logits_all, ids = [], []
+    backend.reset_launch_counts()
+    _mesh_sync(torch, dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg, caches = TM.prefill(cfg, params, tok, lora=lora, rt=rt, cache_len=S + steps)
+        lg = whole(lg)
+        _mesh_sync(torch, dev)
+        t_pre = time.perf_counter() - t0
+        for t in range(steps + 1):
+            logits_all.append(lg.float().cpu())
+            ids.append(lg.argmax(-1))
+            if t == steps:
+                break
+            lg, caches = TM.decode_step(cfg, params, ids[-1][:, None], caches, S + t,
+                                        lora=lora, rt=rt)
+            lg = whole(lg)
+        _mesh_sync(torch, dev)
+    t_dec = (time.perf_counter() - t0 - t_pre) / steps
+    launches = dict(backend.LAUNCH_COUNTS)
+    shapes = [{k: tuple(v.shape) for k, v in c.items()} for c in caches[:2]]
+    backend.define_ops()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc, backend.as_ops():
+        TM.decode_step(cfg, params, ids[-1][:, None], caches, S + steps - 1, lora=lora, rt=rt)
+    return {"ids": torch.stack(ids, 1).cpu(), "logits": torch.stack(logits_all, 1),
+            "launches": launches, "prefill_s": t_pre, "step_s": t_dec,
+            "flops": int(fc.get_total_flops()), "cache_shapes": shapes,
+            "per_run": serve_per_run(cfg, run, steps)}
+
+
+def _serve_rank(rank, world, store, out, device, backend, small, runs):
+    """One rank of phase 20 (a spawned process): ``runs`` over a (1, world)
+    mesh on a ``backend`` group, or with no group in a world of one."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.mesh import init_file_store, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    mesh = None
+    if world > 1:
+        dev = init_file_store(store, rank, world, device=dev.type, backend=backend)
+        mesh = make_mesh((1, world), ("data", "model"), dev)
+    res = {"rank": rank, "runs": {}}
+    for run in runs:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        res["runs"][run] = _serve_run(torch, np, dev, mesh, small, run)
+        res["runs"][run]["peak_gib"] = _mesh_peak(torch, dev)
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(res, f)
+    if world > 1:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _serve_spawn(world, backend, device, small, tmp, runs):
+    import pickle
+
+    import torch.multiprocessing as mp
+    tag = f"serve{world}{runs[0]}"
+    store, out = tmp / f"store{tag}", tmp / f"out{tag}"
+    mp.start_processes(_serve_rank, args=(world, str(store), str(out), device, backend, small,
+                                          runs),
+                       nprocs=world, join=True, start_method="spawn")
+    res = []
+    for r in range(world):
+        with open(f"{out}.{r}", "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+DRYRUN_CHECK = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import evaluate, fake_device
+from repro_torch.launch.mesh import init_fake, make_mesh
+B, L, tp, rank = (int(a) for a in sys.argv[2:6])
+cfg = get_arch("yi-9b").replace(lora_targets=tuple(sys.argv[6].split(",")))
+if sys.argv[7] == "small":
+    cfg = cfg.replace(num_layers=2, d_model=64, num_heads=8, head_dim=8, d_ff=128)
+init_fake(tp, rank)
+mesh = make_mesh((1, tp), ("data", "model"), fake_device())
+_, cost, _ = evaluate(cfg, ShapeConfig("decode", L, B, "decode"), mesh,
+                      {"dense_impl": "fused", "decode_attn_impl": "flash"})
+print(json.dumps({"flops": cost.flops, "by_op": cost.flops_by_op}))
+"""
+
+
+def phase_serve_tp(torch, np, dev, flush=None, small=False):
+    """20. Prefill and decode over a ("data", "model") mesh, and the
+    dry-run: (a) yi-9b at tp 2 (its KV cache cut by heads, ``flash_decode``
+    on each rank's), (b) at tp 8 (KH 4 does not divide 8: the cache cut by
+    its length, the partial softmaxes joined over the ranks), (c)
+    Mamba2-2.7B at tp 2 (``ssd_scan`` on each rank, the state in pieces),
+    each held against one process of the port on the same weights through
+    the plain PyTorch versions (einsum projections, the plain decode
+    attention, the chunked scan; Mamba2's in f64 beside f32, held as
+    phase 12 holds its witness), so that every kernel launched at a
+    rank's local shapes answers to plain PyTorch on the same inputs; (d) the
+    dry-run of one pair of each shape kind at (16, 16), and its FLOPs of
+    (a)'s decode step against ``FlopCounterMode``'s on (a)'s ranks.
+    Returns the launches of the main-path runs."""
+    import os
+    import tempfile
+    t_phase = time.perf_counter()
+    device = dev.type
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    smi = smi_line() if device == "cuda" else "cpu"
+    launches_total = {}
+    expect = functools.partial(mesh_expect, phase=20, prefix="serve")
+
+    def add(l_):
+        for k, v in l_.items():
+            launches_total[k] = launches_total.get(k, 0) + v
+
+    # (d) starts first: its abstract runs need no card and take the host's
+    # other cores while the ranks run
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    drs = {}
+    for arch, shape in DRYRUN_PAIRS:
+        drs[(arch, shape)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--out", str(tmp / "dryrun")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env)
+    yi = _serve_cfg("yi-9b", small)
+    B, S, steps = SERVE_DIMS["yi-9b"]
+    checks = {r: subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHECK, str(SRC), str(B), str(S + steps), "2", str(r),
+         ",".join(yi.lora_targets), "small" if small else "full"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(2)}
+
+    def held(tag, got, want, what, yard=None):
+        """``got``'s ids equal ``want``'s, its logits within SERVE_TOL of
+        the largest; against an f64 witness, ``yard`` (the plain f32
+        path's distance from it) allows up to 3x that, as phase 12 does."""
+        e = (got["logits"] - want["logits"]).abs().max().item()
+        top = want["logits"].abs().max().item()
+        same = torch.equal(got["ids"], want["ids"])
+        tol = SERVE_TOL * top if yard is None else max(SERVE_TOL * top, 3 * yard)
+        good = same and e <= tol and bool(torch.isfinite(got["logits"]).all())
+        why = (f"tol {SERVE_TOL:g} of it" if yard is None else
+               f"tol {tol:.3g}: the larger of {SERVE_TOL:g} of it and 3x the plain f32 "
+               f"path's distance {yard:.3g} from the witness")
+        print(f"[serve] {tag} {what}: token ids {'identical' if same else 'DIFFER'} "
+              f"({tuple(got['ids'].shape)}), logits max_abs_err {e:.3g} = {e / top:.3g} of "
+              f"the largest {top:.3g} ({why}) {'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"phase 20 {tag}: {what} disagrees")
+
+    def witness_yard(plain, wit):
+        """The plain f32 path's largest logit distance from the f64 witness
+        over the steps whose inputs agree: up to and including the first
+        step whose greedy id differs."""
+        agree = (plain["ids"] == wit["ids"]).all(0).tolist()
+        k = agree.index(False) + 1 if False in agree else len(agree)
+        return (plain["logits"][:, :k] - wit["logits"][:, :k]).abs().max().item()
+
+    def report(tag, ranks, want, run, plain=None):
+        yard = None if plain is None else witness_yard(plain, want)
+        what = "the plain versions" + (" in f64" if plain is not None else "")
+        for r in ranks:
+            m = r["runs"][run]
+            print(f"[serve] {tag} rank {r['rank']} {run}: prefill {m['prefill_s'] * 1e3:.1f} ms, "
+                  f"{m['step_s'] * 1e3:.2f} ms a decode step (host clock, synchronized), "
+                  f"peak {m['peak_gib']:.2f} GiB, cache pieces {m['cache_shapes']} ({smi})")
+            expect(f"{tag} rank {r['rank']}", f"{run} prefill + {SERVE_DIMS[SERVE_RUNS[run][0]][2]} "
+                   "decode steps", m["launches"], m["per_run"], 1)
+            held(f"{tag} rank {r['rank']}", m, want,
+                 f"{run} over (1, {len(ranks)}) vs one process through {what}", yard)
+            add(m["launches"])
+
+    # -- references: one process, no group, the plain versions ------------------
+    t0 = time.perf_counter()
+    (one,) = _serve_spawn(1, "gloo", device, small, tmp,
+                          ["yi_plain", "mamba_plain", "mamba_f64"])
+    for run, m in one["runs"].items():
+        expect("(ref)", f"{run} with no group", m["launches"], m["per_run"], 1)
+        print(f"[serve] (ref) {run} one process: prefill {m['prefill_s'] * 1e3:.1f} ms, "
+              f"{m['step_s'] * 1e3:.2f} ms a decode step, peak {m['peak_gib']:.2f} GiB ({smi})")
+    print(f"[serve] references spawned and ran in {time.perf_counter() - t0:.1f}s (host clock)")
+
+    # -- (a) yi-9b, tp 2, the cache cut by heads ---------------------------------
+    t0 = time.perf_counter()
+    two = _serve_spawn(2, "gloo", device, small, tmp, ["yi_heads"])
+    print(f"[serve] (a) two ranks on one {device} over gloo, mesh (1, 2): {time.perf_counter() - t0:.1f}s")
+    report("(a)", two, one["runs"]["yi_plain"], "yi_heads")
+
+    # -- (b) yi-9b, tp 8, the cache cut by its length ------------------------------
+    t0 = time.perf_counter()
+    eight = _serve_spawn(8, "gloo", device, small, tmp, ["yi_len"])
+    print(f"[serve] (b) eight ranks on one {device} over gloo, mesh (1, 8): {time.perf_counter() - t0:.1f}s")
+    report("(b)", eight, one["runs"]["yi_plain"], "yi_len")
+
+    # -- (c) Mamba2-2.7B, tp 2 ----------------------------------------------------
+    t0 = time.perf_counter()
+    mam = _serve_spawn(2, "gloo", device, small, tmp, ["mamba"])
+    print(f"[serve] (c) two ranks on one {device} over gloo, mesh (1, 2): {time.perf_counter() - t0:.1f}s")
+    report("(c)", mam, one["runs"]["mamba_f64"], "mamba", one["runs"]["mamba_plain"])
+
+    # -- (d) the dry-run ------------------------------------------------------------
+    for (arch, shape), proc in drs.items():
+        out, _ = proc.communicate(timeout=900)
+        lines = [ln for ln in out.splitlines() if ln.startswith(("==", "roofline:", "memory_"))]
+        for ln in lines:
+            print(f"[serve] (d) {ln}")
+        if proc.returncode != 0 or not any(ln.startswith("roofline:") for ln in lines):
+            print(out[-3000:])
+            fail(f"phase 20 (d): the dry-run of {arch} x {shape} failed")
+    for r, proc in checks.items():
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            print(out[-3000:])
+            fail("phase 20 (d): the dry-run of (a)'s decode step failed")
+        fake = json.loads(out.strip().splitlines()[-1])
+        real = two[r]["runs"]["yi_heads"]["flops"]
+        good = int(fake["flops"]) == real
+        print(f"[serve] (d) (a)'s decode step, rank {r}: the dry-run's FLOPs at a fake (1, 2) "
+              f"mesh {int(fake['flops'])} vs FlopCounterMode's on the card's rank {real} "
+              f"{'ok' if good else 'FAIL'}")
+        if not good:
+            fail("phase 20 (d): the dry-run's FLOPs differ from the real rank's")
+    print(f"[serve] phase 20 wall {time.perf_counter() - t_phase:.1f}s (host clock) ({smi})")
+    return launches_total
+
+HOST_TIMES = """
+import sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+sys.path.insert(0, str(cs.SRC))
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+flush = torch.ones(16 * 2 ** 20, dtype=torch.int32, device=dev).sum
+print(f"[host-times] tree {sys.argv[1]} ({cs.smi_line()})", flush=True)
+t0 = time.perf_counter()
+cs._tp_kernels(torch, np, dev, flush, lambda op, e: None)
+cs.phase_mamba_train(torch, np, dev, flush)
+print(f"[host-times] tree {sys.argv[1]}: {time.perf_counter() - t0:.1f}s", flush=True)
+"""
+
+
+def host_times(trees) -> None:
+    """``--host-times``: every tree's kernels built at once, then phase 16
+    and phase 19 (e) of each tree in its own process, in order."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    trees = [str(Path(t).resolve()) for t in trees] or [str(SRC.parent)]
+    build = "import sys; sys.path.insert(0, sys.argv[1]); " \
+            "from repro_torch.kernels import build; build.build(force=True)"
+    procs = [subprocess.Popen([sys.executable, "-c", build, str(Path(t) / "src")])
+             for t in dict.fromkeys(trees)]
+    if any(p_.wait() for p_ in procs):
+        fail("a tree's kernels did not build")
+    for t in trees:
+        if subprocess.run([sys.executable, "-c", HOST_TIMES, t]).returncode:
+            fail(f"phase 16 or 19 (e) of {t} failed")
+    print(smi_line())
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--host-times"]:
+        host_times(sys.argv[2:])
+    else:
+        main()

@@ -184,6 +184,48 @@ def paged_decode_q8_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+# shape-only implementations and FLOP formulas (``backend.register``): q·kᵀ
+# and p·v, a multiply-add two, over every position the cache can hold (a
+# fake tensor has no lengths; a window caps a slab's)
+def _decode_shapes(ops, args):
+    return [(tuple(ops[0].shape), ops[0].dtype)]
+
+
+def _slab_flops(sh, args):
+    (B, KH, G, D), L = sh[0], sh[1][1]
+    window = int(args[0])
+    return 4 * B * KH * G * D * (min(L, window) if window else L)
+
+
+def _paged_flops(sh, args):
+    (B, KH, G, D), (_, _, PS, _), MP = sh[0], sh[1], sh[4][1]
+    return 4 * B * KH * G * D * MP * PS
+
+
+def causal_pairs(Sq: int, Sk: int, window: int = 0) -> int:
+    """The (query, key) pairs causal attention visits: query row i sits at
+    position max(Sk - Sq, 0) + i and sees keys at and before it, within
+    ``window`` of it when one is set."""
+    off = max(Sk - Sq, 0)
+    total = 0
+    for i in range(Sq):
+        hi = min(off + i, Sk - 1) + 1
+        total += hi - (max(0, hi - window) if window else 0)
+    return total
+
+
+def _attention_flops(sh, args):
+    (B, Sq, H, D), Sk = sh[0], sh[1][1]
+    return 4 * B * H * D * causal_pairs(Sq, Sk, int(args[0]))
+
+
+backend.register("flash_decode", _decode_shapes, _slab_flops)
+backend.register("flash_decode_q8", _decode_shapes, _slab_flops)
+backend.register("paged_decode", _decode_shapes, _paged_flops)
+backend.register("paged_decode_q8", _decode_shapes, _paged_flops)
+backend.register("flash_attention", _decode_shapes, _attention_flops)
+
+
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                  lengths: torch.Tensor, block_tables: torch.Tensor, *,
                  k_scale=None, v_scale=None) -> torch.Tensor:
@@ -209,14 +251,14 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                                                   v_scale),
             ref=lambda: paged_decode_q8_ref(qt, k_pages, v_pages, k_scale, v_scale,
                                             lengths, block_tables),
-            x=qt)
+            x=qt, operands=(qt, k_pages, v_pages, lengths, block_tables, k_scale, v_scale))
     else:
         o = backend.dispatch(
             "paged_decode",
             kernel=lambda: paged_decode_kernel(qt.contiguous(), k_pages, v_pages,
                                                lengths, block_tables),
             ref=lambda: paged_decode_ref(qt, k_pages, v_pages, lengths, block_tables),
-            x=qt)
+            x=qt, operands=(qt, k_pages, v_pages, lengths, block_tables))
     o = o.reshape(B, H, D)
     return o[:, None] if squeeze else o
 
@@ -322,7 +364,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                   v_scale, window=window),
             ref=lambda: flash_decode_q8_ref(qt, k.transpose(1, 2), v.transpose(1, 2),
                                             k_scale, v_scale, lengths, window=window),
-            x=qt)
+            x=qt, operands=(qt, k, v, lengths, k_scale, v_scale), args=(window,))
     else:
         o = backend.dispatch(
             "flash_decode",
@@ -330,7 +372,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                v.contiguous(), lengths, window=window),
             ref=lambda: flash_decode_ref(qt, k.transpose(1, 2), v.transpose(1, 2),
                                          lengths, window=window),
-            x=qt)
+            x=qt, operands=(qt, k, v, lengths), args=(window,))
     o = o.reshape(B, H, D)
     return o[:, None] if squeeze else o
 
@@ -400,4 +442,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         "flash_attention",
         kernel=lambda: flash_attention_kernel(q.contiguous(), k.contiguous(),
                                               v.contiguous(), window=window),
-        ref=lambda: flash_attention_ref(q, k, v, window=window), x=q)
+        ref=lambda: flash_attention_ref(q, k, v, window=window), x=q,
+        operands=(q, k, v), args=(window,))

@@ -22,9 +22,7 @@ serving decode never differentiates.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 
 import torch
 
@@ -314,6 +312,45 @@ def lora_matmul_q8_dx_kernel(dy: torch.Tensor, w_q: torch.Tensor, w_scale: torch
     return dx
 
 
+def lora_flops(M: int, K: int, N: int, r: int) -> int:
+    """The work of the fused forward (and of dX, the same three products
+    transposed) at (M, K, N, r): x W, x Aᵀ and (x Aᵀ) Bᵀ, a multiply-add
+    two."""
+    return 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+
+
+# shape-only implementations and FLOP formulas (``backend.register``)
+def _fwd_shapes(ops, args):
+    return [((ops[0].shape[0], ops[1].shape[1]), ops[0].dtype)]
+
+
+def _fwd_flops(shapes, args):
+    (M, K), N, r = shapes[0], shapes[1][1], shapes[-2][-2]
+    return lora_flops(M, K, N, r)
+
+
+def _dx_shapes(ops, args):
+    return [((ops[0].shape[0], ops[1].shape[0]), ops[0].dtype)]
+
+
+def _dx_flops(shapes, args):
+    (M, N), K, r = shapes[0], shapes[1][0], shapes[-1][-1]
+    return lora_flops(M, K, N, r)
+
+
+backend.register("lora_matmul", _fwd_shapes, _fwd_flops)
+backend.register("lora_matmul_q8", lambda ops, args: _fwd_shapes([ops[0], ops[1]], args),
+                 lambda sh, args: _fwd_flops([sh[0], sh[1], sh[3], sh[4]], args))
+backend.register("lora_matmul_gathered", _fwd_shapes,
+                 lambda sh, args: _fwd_flops([sh[0], sh[1], sh[2][1:], sh[3][1:]], args))
+backend.register("lora_matmul_dx", _dx_shapes, _dx_flops)
+backend.register("lora_matmul_q8_dx", lambda ops, args: _dx_shapes([ops[0], ops[1]], args),
+                 lambda sh, args: _dx_flops([sh[0], sh[1], sh[3], sh[4]], args))
+backend.register("lora_rank_reduce",
+                 lambda ops, args: [((ops[0].shape[1], ops[1].shape[1]), torch.float32)],
+                 lambda sh, args: 2 * sh[0][0] * sh[0][1] * sh[1][1])
+
+
 def lora_matmul_dx(dy, w, a, b, scale: float) -> torch.Tensor:
     """dX = dY Wᵀ + scale·(dY B) A, routed by dy's device (operands cast
     to dy's dtype, as JAX does before its kernel)."""
@@ -321,7 +358,8 @@ def lora_matmul_dx(dy, w, a, b, scale: float) -> torch.Tensor:
     return backend.dispatch(
         "lora_matmul_dx",
         kernel=lambda: lora_matmul_dx_kernel(dy.contiguous(), w, a, b, scale),
-        ref=lambda: lora_matmul_dx_ref(dy, w, a, b, scale), x=dy)
+        ref=lambda: lora_matmul_dx_ref(dy, w, a, b, scale), x=dy,
+        operands=(dy, w, a, b), args=(scale,))
 
 
 def lora_rank_reduce(u, v) -> torch.Tensor:
@@ -330,7 +368,7 @@ def lora_rank_reduce(u, v) -> torch.Tensor:
         "lora_rank_reduce",
         kernel=lambda: lora_rank_reduce_kernel(u.float().contiguous(),
                                                v.contiguous()),
-        ref=lambda: lora_rank_reduce_ref(u, v), x=v)
+        ref=lambda: lora_rank_reduce_ref(u, v), x=v, operands=(u, v))
 
 
 def lora_matmul_q8_dx(dy, w_q, w_scale, a, b, scale: float) -> torch.Tensor:
@@ -342,7 +380,8 @@ def lora_matmul_q8_dx(dy, w_q, w_scale, a, b, scale: float) -> torch.Tensor:
         "lora_matmul_q8_dx",
         kernel=lambda: lora_matmul_q8_dx_kernel(dy.contiguous(), w_q.contiguous(), ws,
                                                 a, b, scale),
-        ref=lambda: lora_matmul_q8_dx_ref(dy, w_q, ws, a, b, scale), x=dy)
+        ref=lambda: lora_matmul_q8_dx_ref(dy, w_q, ws, a, b, scale), x=dy,
+        operands=(dy, w_q, ws, a, b), args=(scale,))
 
 
 def _forward(x2: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -351,39 +390,8 @@ def _forward(x2: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor
         "lora_matmul",
         kernel=lambda: lora_matmul_kernel(x2, w.contiguous(), a.contiguous(),
                                           b.contiguous(), scale),
-        ref=lambda: lora_matmul_ref(x2, w, a, b, scale), x=x2)
-
-
-_OP_NAME = "repro_torch::lora_matmul_fwd"
-_AS_OP = threading.local()
-
-
-def lora_matmul_op():
-    """The forward as the custom op ``repro_torch::lora_matmul_fwd``
-    (registered at first use).  A ctypes launch is invisible to a
-    dispatch-level policy; as one opaque op, the forward is something
-    ``torch.utils.checkpoint``'s selective policy can save, so the "dots"
-    remat (``models.stack``) keeps its output and a recompute launches
-    nothing."""
-    ns = torch.ops.repro_torch
-    if not hasattr(ns, "lora_matmul_fwd"):
-        torch.library.custom_op(_OP_NAME, mutates_args=())(_forward)
-    return ns.lora_matmul_fwd.default
-
-
-@contextlib.contextmanager
-def forward_as_op():
-    """Within it, on this thread, the fused forward runs as
-    :func:`lora_matmul_op`; elsewhere as the bare launch.  Remat "dots"
-    enters it around each checkpointed block, in the forward and in the
-    recompute.  Everything else takes the bare launch: the op's dispatch
-    adds tens of µs of host time a call (``PERF.md`` §6)."""
-    depth = getattr(_AS_OP, "depth", 0)
-    _AS_OP.depth = depth + 1
-    try:
-        yield
-    finally:
-        _AS_OP.depth = depth
+        ref=lambda: lora_matmul_ref(x2, w, a, b, scale), x=x2,
+        operands=(x2, w, a, b), args=(scale,))
 
 
 class _FusedLoraMatmul(torch.autograd.Function):
@@ -393,8 +401,11 @@ class _FusedLoraMatmul(torch.autograd.Function):
     def forward(ctx, x2, w, a, b, scale: float):
         ctx.scale = scale
         ctx.save_for_backward(x2, w, a, b)
-        fwd = lora_matmul_op() if getattr(_AS_OP, "depth", 0) else _forward
-        return fwd(x2, w, a, b, scale)
+        # within backend.as_ops (remat "dots") as the custom op, entered
+        # above the dispatch: a recompute that takes the saved output enters
+        # nothing
+        return backend.launch("lora_matmul", (x2, w, a, b), (scale,),
+                              lambda: _forward(x2, w, a, b, scale))
 
     @staticmethod
     def backward(ctx, dy):
@@ -432,7 +443,8 @@ class _FusedLoraMatmulQ8(torch.autograd.Function):
             kernel=lambda: lora_matmul_q8_kernel(x2, w_q.contiguous(), ws,
                                                  a.to(x2.dtype).contiguous(),
                                                  b.to(x2.dtype).contiguous(), scale),
-            ref=lambda: lora_matmul_q8_ref(x2, w_q, ws, a, b, scale), x=x2)
+            ref=lambda: lora_matmul_q8_ref(x2, w_q, ws, a, b, scale), x=x2,
+            operands=(x2, w_q, ws, a, b), args=(scale,))
 
     @staticmethod
     def backward(ctx, dy):
@@ -507,5 +519,5 @@ def lora_matmul_gathered(x: torch.Tensor, w: torch.Tensor, a_pool: torch.Tensor,
     y = backend.dispatch(
         "lora_matmul_gathered", kernel=kernel,
         ref=lambda: lora_matmul_gathered_ref(x2, w, a_pool, b_pool, idx, float(scale)),
-        x=x2)
+        x=x2, operands=(x2, w, a_pool, b_pool, idx), args=(scale,))
     return y.reshape(*lead, N)

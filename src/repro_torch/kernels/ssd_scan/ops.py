@@ -138,17 +138,63 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, g: torch.Tensor, Bm: torch.Tensor,
     return outs
 
 
+def scan_flops(B: int, nh: int, S: int, hd: int, N: int, Q: int) -> int:
+    """The forward's work, a multiply-add two: per (batch, chunk) the causal
+    half of C Bᵀ (B and C are shared by the heads); per (batch, head,
+    chunk) the causal half of the masked product, the state update, and
+    C h where the incoming state is not zero (after the first chunk)."""
+    flops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        pairs = q * (q + 1) // 2
+        flops += B * 2 * pairs * N + B * nh * (2 * pairs * hd + 2 * q * N * hd)
+        if c0:
+            flops += B * nh * 2 * q * N * hd
+    return flops
+
+
+def scan_bwd_flops(B: int, nh: int, S: int, hd: int, N: int, Q: int) -> int:
+    """The backward's work: per (batch, chunk) the causal half of C Bᵀ; per
+    (batch, head, chunk) the causal halves of dy xdtᵀ, (C Bᵀ ∘ E)ᵀ dy
+    (K = hd), (E ∘ G)ᵀ C and (E ∘ G) B (K = N), and the Q x hd x N
+    products: dxdt's and dB's state terms in every chunk, dC's inter-chunk
+    term in every chunk but the first, the state recurrence in every chunk
+    but the last, dh's in every chunk but the first."""
+    nc = S // Q
+    pairs = Q * (Q + 1) // 2
+    return (B * nc * 2 * pairs * N + B * nh * nc * 2 * pairs * (2 * hd + 2 * N)
+            + B * nh * (5 * nc - 3) * 2 * Q * hd * N)
+
+
+def _scan_dims(sh, args):
+    (B, nh, S, hd), N = sh[0], sh[2][2]
+    return B, nh, S, hd, N, int(args[0])
+
+
+# shape-only implementations and FLOP formulas (``backend.register``)
+backend.register("ssd_scan",
+                 lambda ops, args: [(tuple(ops[0].shape), torch.float32),
+                                    ((*ops[0].shape[:2], ops[0].shape[3], ops[2].shape[2]),
+                                     torch.float32)],
+                 lambda sh, args: scan_flops(*_scan_dims(sh, args)))
+backend.register("ssd_scan_bwd",
+                 lambda ops, args: [(tuple(t.shape), torch.float32) for t in ops[:4]],
+                 lambda sh, args: scan_bwd_flops(*_scan_dims(sh, args)))
+
+
 def _scan(xdt, g, Bm, Cm, chunk):
     return backend.dispatch(
         "ssd_scan", kernel=lambda: ssd_scan_kernel(xdt, g, Bm, Cm, chunk=chunk),
-        ref=lambda: ssd_scan_ref(xdt, g, Bm, Cm, chunk=chunk), x=xdt)
+        ref=lambda: ssd_scan_ref(xdt, g, Bm, Cm, chunk=chunk), x=xdt,
+        operands=(xdt, g, Bm, Cm), args=(chunk,))
 
 
 def _scan_bwd(xdt, g, Bm, Cm, dy, dh_last, chunk):
     return backend.dispatch(
         "ssd_scan_bwd",
         kernel=lambda: ssd_scan_bwd_kernel(xdt, g, Bm, Cm, dy, dh_last, chunk=chunk),
-        ref=lambda: ssd_scan_bwd_ref(xdt, g, Bm, Cm, dy, dh_last, chunk=chunk), x=xdt)
+        ref=lambda: ssd_scan_bwd_ref(xdt, g, Bm, Cm, dy, dh_last, chunk=chunk), x=xdt,
+        operands=(xdt, g, Bm, Cm, dy, dh_last), args=(chunk,))
 
 
 class _SsdScan(torch.autograd.Function):

@@ -19,7 +19,8 @@ Process groups come from the environment that ``torchrun`` sets
 (:func:`init_from_env`: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``/``MASTER_PORT``; one card a rank) or, for tests and
 spawned workers, from a ``FileStore`` (:func:`init_file_store`), so that
-parallel test workers never race for a TCP port.  CUDA tensors go over
+parallel test workers never race for a TCP port; a dry-run joins a fake
+world (:func:`init_fake`) and plays one of its ranks.  CUDA tensors go over
 NCCL, CPU tensors over gloo.  A gloo group may also carry CUDA tensors
 (two ranks sharing one card, where NCCL refuses): the collectives in
 ``sharding.collectives`` then stage them through host memory, which the
@@ -69,6 +70,19 @@ def init_file_store(path: str, rank: int, world_size: int, device="cpu",
     dist.init_process_group(backend or default_backend(dev), store=store, rank=rank,
                             world_size=world_size)
     return dev
+
+
+def init_fake(world: int, rank: int = 0) -> None:
+    """Join a fake world of ``world`` ranks as ``rank``
+    (``torch.distributed``'s "fake" backend over a ``FakeStore``): every
+    collective returns at once with its result's shape and no data, so
+    one process can evaluate one rank of a production mesh abstractly
+    (``launch.dryrun``).  A group already joined is left first; the fake
+    group is global to the process."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
 
 
 def world_size() -> int:

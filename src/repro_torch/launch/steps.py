@@ -109,6 +109,11 @@ def make_full_finetune_step(cfg: ArchConfig, rt: Runtime, optimizer: Optimizer):
 
 
 def make_prefill_step(cfg: ArchConfig, rt: Runtime):
+    """``prefill_step(params, lora, batch) -> (logits, caches)``.  Over
+    ``rt.mesh`` (``tp_axis`` naming its "model" axis) ``params`` are this
+    rank's pieces (or a ``sharding.fsdp.ShardedParams`` view of them, cut
+    over "data" too), ``batch`` this rank's rows, and the logits and
+    caches this rank's pieces (``models.model.prefill``)."""
     def prefill_step(params, lora, batch):
         fe = batch.get("frontend_emb")
         return model_mod.prefill(
@@ -119,6 +124,9 @@ def make_prefill_step(cfg: ArchConfig, rt: Runtime):
 
 
 def make_decode_step(cfg: ArchConfig, rt: Runtime):
+    """``decode_step(params, lora, token, caches, cur_index) -> (logits,
+    caches)``; over ``rt.mesh`` as ``make_prefill_step``'s, the caches
+    this rank's pieces (``input_specs(mesh=)``)."""
     def decode_step(params, lora, token, caches, cur_index):
         return model_mod.decode_step(cfg, params, token, caches, cur_index, lora=lora, rt=rt)
 
@@ -147,20 +155,33 @@ def batch_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
 def input_specs(cfg: ArchConfig, shape: ShapeConfig, *,
                 optimizer: Optional[Optimizer] = None,
                 lora_rank: Optional[int] = None,
-                param_dtype=PARAM_DTYPE) -> Tuple[tuple, dict]:
-    """-> (args, {}) abstract argument tuple for the step of shape.kind."""
+                param_dtype=PARAM_DTYPE, mesh=None) -> Tuple[tuple, dict]:
+    """-> (args, {}) abstract argument tuple for the step of shape.kind.
+    With ``mesh``: this rank's pieces, by the ``sharding.specs`` rules —
+    the params cut over "data" and "model" (``param_spec``), the adapters
+    and their optimizer state whole (replicated), the batch rows over the
+    data axes (``batch_spec``), the caches by ``cache_spec``."""
+    from ..sharding.specs import batch_spec, map_with_path, param_spec, shard
     cfg = arch_for_shape(cfg, shape)
     params = model_mod.abstract_params(cfg, param_dtype)
     lora = model_mod.abstract_lora(cfg, lora_rank, param_dtype)
+    if mesh is not None:
+        params = map_with_path(
+            lambda p, v: shard(v, param_spec(p, tuple(v.shape), mesh), mesh), params)
+
+    def rows(tree):
+        return tree if mesh is None else tree_map(
+            lambda v: shard(v, batch_spec(tuple(v.shape), mesh), mesh), tree)
+
     if shape.kind == "train":
         opt = optimizer or adamw(1e-4)
         opt_state = tree_map(lambda v: v.to("meta"), opt.init(lora))
-        return (params, lora, opt_state, batch_specs(cfg, shape)), {}
+        return (params, lora, opt_state, rows(batch_specs(cfg, shape))), {}
     if shape.kind == "prefill":
-        return (params, lora, batch_specs(cfg, shape)), {}
+        return (params, lora, rows(batch_specs(cfg, shape))), {}
     # decode: ONE token + seq_len cache
     B = shape.global_batch
-    caches = model_mod.abstract_cache(cfg, B, shape.seq_len, ACT_DTYPE)
-    token = _meta((B, 1), torch.int32)
+    caches = model_mod.abstract_cache(cfg, B, shape.seq_len, ACT_DTYPE, mesh=mesh)
+    token = rows(_meta((B, 1), torch.int32))
     cur = _meta((), torch.int32)
     return (params, lora, token, caches, cur), {}

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_decode, paged_decode, paged_decode_ref
 from ..sharding.collectives import gather_whole, split_along
-from ..sharding.tp import WHOLE, Entry, TensorParallel, col_lora, is_cut, row_lora
+from ..sharding.tp import (WHOLE, Entry, TensorParallel, col_lora, is_cut, lse_combine,
+                           owned_slot, piece, row_lora)
 from .layers import apply_rope, dense, init_dense
 
 NEG_INF = -1e30
@@ -249,6 +250,45 @@ def attn_knobs(rt) -> dict:
                 s_low_precision=rt.attn_s_bf16)
 
 
+def _qkv_tp(cfg, p, ent: Entry, lora, lora_scale, dense_impl: str):
+    """q, k, v (B, S, h, D) of ``ent``'s input, rope not yet applied: a
+    projection whose weight is cut over ``ent.tp`` runs column-parallel on
+    this rank's heads, gathered whole where the cut falls within a KV
+    group (KH % tp != 0); a whole weight runs whole."""
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = ent.tp
+    local_heads = KH % tp.n == 0
+    B, S = ent.h.shape[0], ent.h.shape[1] * (tp.n if ent.seq else 1)
+
+    def proj(wname, lname, width):
+        w = p[wname]
+        if is_cut(w["w"], 1, width):
+            y = dense(ent.par(), w["w"], w.get("b"), col_lora(_lora(lora, lname), tp),
+                      lora_scale, impl=dense_impl)
+            y = y if local_heads else gather_whole(y, tp.group, -1)
+        else:
+            y = dense(ent.rep(), w["w"], w.get("b"), _lora(lora, lname), lora_scale,
+                      impl=dense_impl, w_scale=w.get("w_scale"))
+        return y.reshape(B, S, -1, hd)
+
+    return proj("wq", "q", H * hd), proj("wk", "k", KH * hd), proj("wv", "v", KH * hd)
+
+
+def _out_tp(cfg, p, ent: Entry, o, lora, lora_scale, dense_impl: str):
+    """The output projection of attention's output o (B, S, h * D) back to
+    ``ent``'s layout: row-parallel where ``wo`` is cut (on this rank's
+    heads, sliced out of a whole o first where KH % tp != 0), whole
+    otherwise."""
+    tp = ent.tp
+    wo = p["wo"]
+    if is_cut(wo["w"], 0, cfg.num_heads * cfg.head_dim):
+        if cfg.num_kv_heads % tp.n:
+            o = split_along(o, tp.group, -1)
+        return ent.exit(partial=dense(o, wo["w"], None, row_lora(_lora(lora, "o"), tp),
+                                      lora_scale, impl=dense_impl), bias=wo.get("b"))
+    return ent.exit(whole=_out_proj(p, o, lora, lora_scale, dense_impl))
+
+
 def self_attention(cfg, p, x, positions, *, lora=None, lora_scale=1.0,
                    dense_impl: str = "einsum", return_cache: bool = False,
                    cache_len: int = 0, impl: str = "chunked", kv_chunk: int = KV_CHUNK,
@@ -262,43 +302,25 @@ def self_attention(cfg, p, x, positions, *, lora=None, lora_scale=1.0,
     the trailing window when ``cfg.attn_window`` is smaller): {"k", "v":
     (B, L, KH, D), "pos": (B, L) int32, -1 = empty}.
 
-    Over a tensor-parallel axis ``tp`` (mode "train", ``sharding.tp``) x
-    is whole rows, or with ``seq`` this rank's piece of the sequence (the
+    Over a tensor-parallel axis ``tp`` (``sharding.tp``) x is whole rows,
+    or with ``seq`` (mode "train") this rank's piece of the sequence (the
     output likewise), and a projection whose weight is cut runs on this
     rank's heads: column-parallel q/k/v, row-parallel ``wo``.  Where the
     cut falls within a KV group (KH % tp != 0) q/k/v are gathered and
-    attention runs whole, each rank then taking its heads for ``wo``."""
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attention runs whole, each rank then taking its heads for ``wo``.
+    The cache is this rank's piece of it (``sharding.specs.cache_spec``):
+    its KV heads where KH % tp == 0, else its piece of the length L, which
+    must then divide over the axis."""
     B, S = x.shape[0], positions.shape[0]
     ent = Entry(x, tp, seq)
-    local_heads = KH % tp.n == 0
-
-    def proj(wname, lname, width):
-        w = p[wname]
-        if is_cut(w["w"], 1, width):
-            y = dense(ent.par(), w["w"], w.get("b"), col_lora(_lora(lora, lname), tp),
-                      lora_scale, impl=dense_impl)
-            return y if local_heads else gather_whole(y, tp.group, -1)
-        return dense(ent.rep(), w["w"], w.get("b"), _lora(lora, lname), lora_scale,
-                     impl=dense_impl, w_scale=w.get("w_scale"))
-
-    q = proj("wq", "q", H * hd).reshape(B, S, -1, hd)
-    k = proj("wk", "k", KH * hd).reshape(B, S, -1, hd)
-    v = proj("wv", "v", KH * hd).reshape(B, S, -1, hd)
+    q, k, v = _qkv_tp(cfg, p, ent, lora, lora_scale, dense_impl)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions.expand(B, S), cfg.rope_theta)
         k = apply_rope(k, positions.expand(B, S), cfg.rope_theta)
     o = run_attention(q, k, v, positions, positions, impl=impl, window=cfg.attn_window,
                       kv_chunk=kv_chunk, q_chunk=q_chunk, causal_prefix=True,
                       s_low_precision=s_low_precision).reshape(B, S, -1)
-    wo = p["wo"]
-    if is_cut(wo["w"], 0, H * hd):
-        if not local_heads:
-            o = split_along(o, tp.group, -1)
-        y = ent.exit(partial=dense(o, wo["w"], None, row_lora(_lora(lora, "o"), tp),
-                                   lora_scale, impl=dense_impl), bias=wo.get("b"))
-    else:
-        y = ent.exit(whole=_out_proj(p, o, lora, lora_scale, dense_impl))
+    y = _out_tp(cfg, p, ent, o, lora, lora_scale, dense_impl)
     if not return_cache:
         return y
     L = cache_len or S
@@ -316,8 +338,18 @@ def self_attention(cfg, p, x, positions, *, lora=None, lora_scale=1.0,
         vc = torch.roll(v[:, S - L:], shift, dims=1)
         pc = torch.roll(positions[S - L:].to(torch.int32), shift)
     # one position row per sequence: decode advances each row on its own
-    return y, {"k": kc.contiguous(), "v": vc.contiguous(),
-               "pos": pc.expand(B, L).contiguous()}
+    pc = pc.expand(B, L)
+    if tp.n > 1 and cfg.num_kv_heads % tp.n:
+        _check_length_cut(L, tp)
+        kc, vc, pc = piece(kc, 1, tp), piece(vc, 1, tp), piece(pc, 1, tp)
+    return y, {"k": kc.contiguous(), "v": vc.contiguous(), "pos": pc.contiguous()}
+
+
+def _check_length_cut(L: int, tp: TensorParallel) -> None:
+    if L % tp.n:
+        raise NotImplementedError(
+            f"a KV cache of {L} positions over {tp.n} ranks: with KH % tp != 0 the cache "
+            "is cut over its length, which must divide over the axis")
 
 
 def init_attn_cache(cfg, batch: int, cache_len: int, dtype, device) -> dict:
@@ -353,7 +385,8 @@ def decode_masked_attention(q, k, v, q_pos, k_pos, window: int = 0) -> torch.Ten
 
 
 def decode_attention(cfg, p, x, cache, cur_index, *, lora=None, lora_scale=1.0,
-                     impl="naive", dense_impl: str = "einsum", adapter_idx=None):
+                     impl="naive", dense_impl: str = "einsum", adapter_idx=None,
+                     tp: TensorParallel = WHOLE):
     """One-token decode over the slab cache: x (B, 1, d); cache {"k", "v":
     (B, L, KH, D), "pos": (B, L)}; cur_index a scalar absolute position or
     a (B,) vector (serving slots each at their own).
@@ -364,26 +397,99 @@ def decode_attention(cfg, p, x, cache, cur_index, *, lora=None, lora_scale=1.0,
     ``kernels.flash_attention.flash_decode`` with lengths ``cur_index + 1``
     (the CUDA kernel for a CUDA tensor, reading the cache in place); any
     other case takes ``decode_masked_attention``.  ``adapter_idx`` (B,)
-    gathers each slot's adapter out of a pooled ``lora``."""
+    gathers each slot's adapter out of a pooled ``lora``.
+
+    Over a tensor-parallel axis ``tp`` (``sharding.tp``) the cache is this
+    rank's piece (``self_attention``'s).  Cut over the KV heads, the
+    rank's heads run as above (``flash_decode`` on them under "flash").
+    Cut over the length (KH % tp != 0), q/k/v are whole, the new entry is
+    written only on the rank whose piece holds it, each rank takes the
+    plain partial softmax over its piece and ``sharding.tp.lse_combine``
+    joins them; no ported kernel returns its log-sum-exp, so "flash"
+    raises there."""
+    if tp.n > 1:
+        if adapter_idx is not None:
+            raise NotImplementedError("multi-tenant adapters need the paged engine, which "
+                                      "runs on one device")
+        return _tp_decode_attention(cfg, p, x, cache, cur_index, lora, lora_scale, impl,
+                                    dense_impl, tp)
     B = x.shape[0]
-    L = cache["k"].shape[1]
     q, k, v = _proj_qkv(cfg, p, x, lora, lora_scale, dense_impl, adapter_idx)
-    pos_vec = torch.as_tensor(cur_index, dtype=torch.int32, device=x.device).expand(B)
+    pos_vec, q, k = _decode_rope(cfg, q, k, cur_index, B, x.device)
+    o = _attend_slab(cfg, q, k, v, cache, pos_vec, impl)
+    y = _out_proj(p, o.reshape(B, 1, -1), lora, lora_scale, dense_impl, adapter_idx)
+    return y, cache
+
+
+def _decode_rope(cfg, q, k, cur_index, B: int, device):
+    pos_vec = torch.as_tensor(cur_index, dtype=torch.int32, device=device).expand(B)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, pos_vec[:, None], cfg.rope_theta)
         k = apply_rope(k, pos_vec[:, None], cfg.rope_theta)
-    bidx = torch.arange(B, device=x.device)
+    return pos_vec, q, k
+
+
+def _attend_slab(cfg, q, k, v, cache, pos_vec, impl):
+    """Write one token's k/v (B, 1, KH, D) at entry ``pos % L`` of a whole
+    slab cache (or of its KV heads' piece) and attend over it."""
+    B = q.shape[0]
+    L = cache["k"].shape[1]
+    bidx = torch.arange(B, device=q.device)
     slot = (pos_vec % L).long()
     cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
     cache["pos"][bidx, slot] = pos_vec
     if impl == "flash" and not cfg.attn_window:
-        o = flash_decode(q, cache["k"], cache["v"], (pos_vec + 1).to(torch.int32))
+        return flash_decode(q, cache["k"], cache["v"], (pos_vec + 1).to(torch.int32))
+    return decode_masked_attention(q, cache["k"], cache["v"], pos_vec, cache["pos"],
+                                   cfg.attn_window)
+
+
+def _tp_decode_attention(cfg, p, x, cache, cur_index, lora, lora_scale, impl, dense_impl,
+                         tp: TensorParallel):
+    B = x.shape[0]
+    ent = Entry(x, tp)
+    q, k, v = _qkv_tp(cfg, p, ent, lora, lora_scale, dense_impl)
+    pos_vec, q, k = _decode_rope(cfg, q, k, cur_index, B, x.device)
+    if cfg.num_kv_heads % tp.n == 0:
+        o = _attend_slab(cfg, q, k, v, cache, pos_vec, impl)
     else:
-        o = decode_masked_attention(q, cache["k"], cache["v"], pos_vec, cache["pos"],
-                                    cfg.attn_window)
-    y = _out_proj(p, o.reshape(B, 1, -1), lora, lora_scale, dense_impl, adapter_idx)
-    return y, cache
+        if impl == "flash":
+            raise NotImplementedError(
+                "decode_attn_impl='flash' over a KV cache cut over its length: no ported "
+                "kernel returns the log-sum-exp the ranks' pieces are joined by "
+                "(ROADMAP.md); use decode_attn_impl='naive'")
+        o = _length_cut_decode(cfg, q, k, v, cache, pos_vec, tp)
+    return _out_tp(cfg, p, ent, o.reshape(B, 1, -1), lora, lora_scale, dense_impl), cache
+
+
+def _length_cut_decode(cfg, q, k, v, cache, pos_vec, tp: TensorParallel):
+    """Decode over this rank's piece of a cache cut over its length: the
+    new entry written where it lies, the partial softmax over the piece
+    (f32, masked by position as ``decode_masked_attention``), joined over
+    the axis."""
+    B, _, H, D = q.shape
+    Lc, KH = cache["k"].shape[1], cache["k"].shape[2]
+    G = H // KH
+    idx, own = owned_slot((pos_vec % (Lc * tp.n)).long(), Lc, tp)
+    bidx = torch.arange(B, device=q.device)
+    for name, new in (("k", k[:, 0]), ("v", v[:, 0]), ("pos", pos_vec)):
+        t = cache[name]
+        keep = own.reshape((B,) + (1,) * (new.dim() - 1))
+        t[bidx, idx] = torch.where(keep, new.to(t.dtype), t[bidx, idx])
+    qr = q.reshape(B, KH, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qr, cache["k"].float()) * D ** -0.5
+    k_pos = cache["pos"]
+    valid = (k_pos <= pos_vec[:, None]) & (k_pos >= 0)
+    if cfg.attn_window:
+        valid &= (pos_vec[:, None] - k_pos) < cfg.attn_window
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    pr = torch.exp(s - m[..., None]) * valid
+    o = torch.einsum("bhgk,bkhd->bhgd", pr.to(cache["v"].dtype).float(), cache["v"].float())
+    out = lse_combine(m, pr.sum(-1), o, tp)
+    return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def init_paged_attn_cache(cfg, num_pages: int, page_size: int, dtype,

@@ -59,9 +59,15 @@ def abstract_lora(cfg, rank: Optional[int] = None, dtype=torch.float32) -> List[
     return _lora_stack(cfg, torch.Generator(), rank, dtype, META)
 
 
-def abstract_cache(cfg, batch: int, cache_len: int, dtype=torch.float32) -> List[dict]:
-    """One slab cache per layer as ``meta`` tensors."""
-    return stack_mod.init_stack_cache(cfg, batch, cache_len, dtype, META)
+def abstract_cache(cfg, batch: int, cache_len: int, dtype=torch.float32,
+                   mesh=None) -> List[dict]:
+    """One slab cache per layer as ``meta`` tensors; with ``mesh``, this
+    rank's pieces of them (``sharding.specs.shard_caches``)."""
+    caches = stack_mod.init_stack_cache(cfg, batch, cache_len, dtype, META)
+    if mesh is None:
+        return caches
+    from ..sharding.specs import shard_caches
+    return shard_caches(caches, mesh)
 
 
 def _lora_dims(cfg, pat, target: str):
@@ -202,17 +208,21 @@ def prefill(cfg, params: dict, tokens: torch.Tensor, *, lora=None,
     text token ``logit_index`` — the last row when None; bucket-padded
     serving prompts read the true last prompt token; the prefix offset F
     is added here — and one cache per layer of length ``cache_len`` or
-    F + S)."""
+    F + S).  Under tensor parallelism (``Runtime.tp_axis``, ``sharding.
+    tp``) ``params`` are this rank's pieces, the logits this rank's piece
+    of the vocabulary where the rule table cuts it (as ``forward``'s),
+    and the caches this rank's pieces (``sharding.specs.cache_spec``)."""
     F = prefix_len(frontend_emb)
     S = tokens.shape[1] + F
+    tp = tp_of(rt)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = embed_inputs(cfg, params, tokens, frontend_emb, positions)
+    x = embed_inputs(cfg, params, tokens, frontend_emb, positions, tp)
     x, caches, _ = stack_mod.apply_stack(cfg, params["layers"], x, positions=positions,
                                          lora=lora, rt=rt, mode="prefill",
                                          cache_len=cache_len)
     i = S - 1 if logit_index is None else int(logit_index) + F
     x = apply_norm(cfg, x[:, i:i + 1], params["final_norm"])
-    return unembed(cfg, params["embed"], x)[:, 0], caches
+    return unembed(cfg, params["embed"], x, tp)[:, 0], caches
 
 
 def decode_step(cfg, params: dict, token: torch.Tensor, caches, cur_index, *,
@@ -222,16 +232,20 @@ def decode_step(cfg, params: dict, token: torch.Tensor, caches, cur_index, *,
     (B,) vector, each sequence at its own (continuous-batching slots).
     ``adapter_idx`` (B,): multi-tenant decode — the lora leaves are
     per-layer pools and slot b wears adapter ``adapter_idx[b]``.
-    Returns (logits (B, V), caches) — the caches updated in place."""
+    Returns (logits (B, V), caches) — the caches updated in place.  Under
+    tensor parallelism, as ``prefill``: the caches are this rank's pieces
+    (``init_cache(mesh=)``, or ``prefill``'s), the logits its piece of the
+    vocabulary."""
     B = token.shape[0]
+    tp = tp_of(rt)
     cur_index = torch.as_tensor(cur_index, dtype=torch.int32, device=token.device)
     positions = cur_index[:, None] if cur_index.dim() else cur_index.expand(B)[:, None]
-    x = embed(cfg, params["embed"], token, positions)
+    x = embed(cfg, params["embed"], token, positions, tp)
     x, caches, _ = stack_mod.apply_stack(cfg, params["layers"], x, lora=lora, rt=rt,
                                          mode="decode", caches=caches,
                                          cur_index=cur_index, adapter_idx=adapter_idx)
     x = apply_norm(cfg, x, params["final_norm"])
-    return unembed(cfg, params["embed"], x)[:, 0], caches
+    return unembed(cfg, params["embed"], x, tp)[:, 0], caches
 
 
 def paged_decode_step(cfg, params: dict, token: torch.Tensor, caches,
@@ -273,10 +287,20 @@ def paged_prefill_chunk(cfg, params: dict, tokens: torch.Tensor, caches,
     return unembed(cfg, params["embed"], x)[:, 0], caches
 
 
-def init_cache(cfg, batch: int, cache_len: int, dtype=torch.float32, device="cuda"):
+def init_cache(cfg, batch: int, cache_len: int, dtype=torch.float32, device="cuda",
+               mesh=None):
     """Empty slab caches for ``batch`` sequences of ``cache_len`` positions
-    (a Mamba2 layer's state has no length axis)."""
-    return stack_mod.init_stack_cache(cfg, batch, cache_len, dtype, resolve_device(device))
+    (a Mamba2 layer's state has no length axis); with ``mesh``, this
+    rank's pieces of them (``sharding.specs.cache_piece_specs``), for
+    ``decode_step`` under tensor parallelism."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return stack_mod.init_stack_cache(cfg, batch, cache_len, dtype, dev)
+    from ..sharding.specs import shard_caches
+    return [{k: torch.full(v.shape, -1 if k == "pos" else 0, dtype=v.dtype, device=dev)
+             for k, v in layer.items()}
+            for layer in shard_caches(stack_mod.init_stack_cache(cfg, batch, cache_len,
+                                                                 dtype, META), mesh)]
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int, dtype=torch.float32,

@@ -146,15 +146,15 @@ def apply_moe(cfg, p: dict, x: torch.Tensor, *, group_size: int = 128,
     gradient is its rows' part of the pool's.  The capacity groups lie
     along each sequence, so a split of rows leaves the routing as it is.
 
-    Over a tensor-parallel axis ``tp`` (mode "train", ``sharding.tp``) x
-    is whole rows, or with ``seq`` this rank's piece of the sequence (the
-    output likewise), and where the experts are cut over the axis a rank
-    runs its E/tp of them.  Without ``constraints`` every rank routes
-    every token and runs its experts on its slice of the dispatch; the
-    partial combine is summed.  With ``constraints`` (``Runtime.
-    moe_constraints``) a rank routes its piece of the sequence and its
-    capacity buffers go to the experts' ranks by all-to-all
-    (``_experts_exchange``).  Either way the Switch aux is the one over
+    Over a tensor-parallel axis ``tp`` (``sharding.tp``; training,
+    prefill and decode alike) x is whole rows, or with ``seq`` this rank's
+    piece of the sequence (the output likewise), and where the experts are
+    cut over the axis a rank runs its E/tp of them.  Without
+    ``constraints`` every rank routes every token and runs its experts on
+    its slice of the dispatch; the partial combine is summed.  With
+    ``constraints`` (``Runtime.moe_constraints``) a rank routes its piece
+    of the sequence and its capacity buffers go to the experts' ranks by
+    all-to-all (``_experts_exchange``).  Either way the Switch aux is the one over
     all the tokens."""
     E = cfg.num_experts
     ent = Entry(x, tp, seq)

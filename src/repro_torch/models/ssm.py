@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan import ssd_chunked, ssd_scan_with_state
-from ..sharding.tp import WHOLE, Entry, TensorParallel, gather_cut
+from ..sharding.collectives import all_gather
+from ..sharding.tp import WHOLE, Entry, TensorParallel, gather_cut, is_cut, piece
 from .layers import _normal, dense, init_dense, rmsnorm, upcast
 
 
@@ -93,10 +94,12 @@ def mamba_block(cfg, p: dict, x: torch.Tensor, *, lora=None, lora_scale=1.0,
     PRE-activation conv inputs, recomputed by ``in_proj`` on the tail
     (zero-padded in front when S < W-1), as ``repro`` does.
 
-    Over a tensor-parallel axis ``tp`` (mode "train", ``sharding.tp``)
-    the block's pieces are gathered and it runs whole on every rank: x
-    whole rows, or with ``seq`` this rank's piece of the sequence (the
-    output likewise)."""
+    Over a tensor-parallel axis ``tp`` (``sharding.tp``) the block's
+    pieces are gathered and it runs whole on every rank: x whole rows, or
+    with ``seq`` (mode "train") this rank's piece of the sequence (the
+    output likewise).  The state it returns is then this rank's piece
+    (``sharding.specs.cache_spec``: ``ssm`` over its heads, ``conv`` over
+    its channels, each where the axis divides it)."""
     ent = Entry(x, tp, seq)
     if tp.group is not None:
         p = gather_cut(p, init_mamba(cfg, torch.Generator(), p["in_proj"]["w"].dtype, "meta"),
@@ -136,7 +139,28 @@ def mamba_block(cfg, p: dict, x: torch.Tensor, *, lora=None, lora_scale=1.0,
     pad = (W - 1) - xbc_tail.shape[1]
     if pad > 0:
         xbc_tail = F.pad(xbc_tail, (0, 0, pad, 0))
-    return out, {"ssm": upcast(h_last), "conv": xbc_tail.contiguous()}
+    state = {"ssm": upcast(h_last), "conv": xbc_tail}
+    return out, {k: _state_piece(cfg, k, v, tp) for k, v in state.items()}
+
+
+# the dim of each state leaf that ``sharding.specs.cache_spec`` cuts over
+# "model", and that dim's whole size
+_STATE_CUT = {"ssm": (1, lambda cfg: cfg.ssm_num_heads), "conv": (2, lambda cfg: _dims(cfg)[3])}
+
+
+def _state_piece(cfg, name: str, t: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """This rank's piece of a whole state leaf (the leaf itself where the
+    axis does not divide its cut dim)."""
+    dim, whole = _STATE_CUT[name]
+    if tp.n > 1 and whole(cfg) % tp.n == 0:
+        return piece(t, dim, tp)
+    return t.contiguous()
+
+
+def _state_whole(cfg, name: str, t: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """A state leaf whole: this rank's piece gathered over the axis."""
+    dim, whole = _STATE_CUT[name]
+    return all_gather(t, tp.group, dim) if is_cut(t, dim, whole(cfg)) else t
 
 
 def init_mamba_cache(cfg, batch: int, dtype, device) -> dict:
@@ -148,10 +172,29 @@ def init_mamba_cache(cfg, batch: int, dtype, device) -> dict:
 
 
 def mamba_step(cfg, p: dict, x: torch.Tensor, cache: dict, *, lora=None,
-               lora_scale=1.0, dense_impl: str = "einsum"):
+               lora_scale=1.0, dense_impl: str = "einsum", tp: TensorParallel = WHOLE):
     """One-token decode.  x: (B, 1, d_model); cache {"ssm", "conv"}.  O(1)
     state update, written into the cache IN PLACE.  Returns (out (B, 1,
-    d_model), cache)."""
+    d_model), cache).  Over a tensor-parallel axis ``tp`` the mixer's
+    pieces and the cache's are gathered, the step runs whole, and this
+    rank's piece of the new state is written back."""
+    if tp.group is not None:
+        p = gather_cut(p, init_mamba(cfg, torch.Generator(), p["in_proj"]["w"].dtype, "meta"),
+                       tp)
+        whole = {k: _state_whole(cfg, k, v, tp) for k, v in cache.items()}
+        out, h, conv = _step(cfg, p, x, whole, lora, lora_scale, dense_impl)
+        cache["ssm"].copy_(_state_piece(cfg, "ssm", h, tp))
+        cache["conv"].copy_(_state_piece(cfg, "conv", conv, tp))
+        return out, cache
+    out, h, conv = _step(cfg, p, x, cache, lora, lora_scale, dense_impl)
+    cache["ssm"].copy_(h)
+    cache["conv"].copy_(conv)
+    return out, cache
+
+
+def _step(cfg, p, x, cache, lora, lora_scale, dense_impl):
+    """(out (B, 1, d), the new ssm state, the new conv buffer) of one token
+    over a whole state."""
     B = x.shape[0]
     d_in, nh, N, conv_dim = _dims(cfg)
     zxbcdt = dense(x[:, 0], p["in_proj"]["w"], lora=_lora(lora, "ssm_in"),
@@ -173,6 +216,4 @@ def mamba_step(cfg, p: dict, x: torch.Tensor, cache: dict, *, lora=None,
     y = rmsnorm(y, p["norm"]["scale"], cfg.norm_eps)
     out = dense(y, p["out_proj"]["w"], lora=_lora(lora, "ssm_out"),
                 lora_scale=lora_scale, impl=dense_impl)
-    cache["ssm"].copy_(h)
-    cache["conv"].copy_(conv_buf)
-    return out[:, None, :], cache
+    return out[:, None, :], h, conv_buf

@@ -117,8 +117,9 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _dots_saved():
-    from ..kernels.lora_matmul.ops import lora_matmul_op
-    return (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, lora_matmul_op())
+    from ..kernels import backend, lora_matmul  # noqa: F401  (its registration)
+    return (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            backend.kernel_op("lora_matmul"))
 
 
 def _remat(block, x, policy: str):
@@ -130,10 +131,10 @@ def _remat(block, x, policy: str):
         raise ValueError(f"remat_policy {policy!r}: 'full' or 'dots'")
     from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
-    from ..kernels.lora_matmul.ops import forward_as_op
+    from ..kernels import backend
 
     def saving(x):
-        with forward_as_op():                # the fused forward as the op the policy saves
+        with backend.as_ops(("lora_matmul",)):   # the fused forward as the op the policy saves
             return block(x)
     return checkpoint(saving, x, use_reentrant=False,
                       context_fn=lambda: create_selective_checkpoint_contexts(_dots_policy))
@@ -168,20 +169,24 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
     ``rt.moe_group`` (it carries no LoRA, as in ``repro``).  Returns (x,
     cache, aux): aux is the MoE block's f32 load-balance loss, None for a
     block without one.  Under a ``Runtime`` whose ``tp_axis`` has more
-    than one rank, mode "train" runs on this rank's pieces
-    (``sharding.tp``): x is whole rows (B, S, d), or with ``seq_shard``
-    this rank's piece of the sequence, positions the whole (S,); the
-    other modes raise."""
+    than one rank, modes "train", "prefill" and slab "decode" run on this
+    rank's pieces (``sharding.tp``): x is whole rows (B, S, d), or in mode
+    "train" with ``seq_shard`` this rank's piece of the sequence,
+    positions the whole (S,); a cache is this rank's piece of it
+    (``sharding.specs.cache_spec``: an attention layer's KV heads, or its
+    length where KH % tp != 0; a Mamba2 layer's state heads and conv
+    channels).  The paged modes raise: no engine pages over a mesh."""
     tp = tp_of(rt)
     seq = False
     if tp.n > 1:
-        if mode != "train":
-            raise NotImplementedError(f"tensor parallelism runs mode 'train', not {mode!r} "
-                                      "(ROADMAP.md)")
-        S = positions.shape[0]
-        seq = seq_sharded(rt, tp, S)
-        if x.shape[1] != (S // tp.n if seq else S):
-            raise ValueError(f"tp block: x has {x.shape[1]} rows of a sequence of {S}")
+        if mode not in ("train", "prefill", "decode") or block_tables is not None:
+            raise NotImplementedError(f"tensor parallelism runs modes 'train', 'prefill' and "
+                                      f"slab 'decode', not paged {mode!r}")
+        if mode == "train":
+            S = positions.shape[0]
+            seq = seq_sharded(rt, tp, S)
+            if x.shape[1] != (S // tp.n if seq else S):
+                raise ValueError(f"tp block: x has {x.shape[1]} rows of a sequence of {S}")
     mixer_lora = None if lora is None else lora.get("mixer")
     h = apply_norm(cfg, x, p["norm1"])
     if pat.mixer == "mamba":
@@ -196,7 +201,7 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
             cfg, p["mixer"], h, positions, lora=mixer_lora, lora_scale=lora_scale,
             dense_impl=rt.dense_impl, return_cache=True,
             cache_len=cache["k"].shape[1] if cache is not None else cache_len,
-            **attn_mod.attn_knobs(rt))
+            tp=tp, **attn_mod.attn_knobs(rt))
     elif mode == "decode" and block_tables is not None:
         m, cache = attn_mod.paged_decode_attention(
             cfg, p["mixer"], h, cache, block_tables, cur_index,
@@ -206,7 +211,7 @@ def apply_block(cfg, pat, p: dict, x, *, lora, lora_scale, rt: Runtime,
         m, cache = attn_mod.decode_attention(
             cfg, p["mixer"], h, cache, cur_index, lora=mixer_lora,
             lora_scale=lora_scale, impl=rt.decode_attn_impl, dense_impl=rt.dense_impl,
-            adapter_idx=adapter_idx)
+            adapter_idx=adapter_idx, tp=tp)
     elif mode == "chunk":
         m, cache = attn_mod.paged_chunk_attention(
             cfg, p["mixer"], h, cache, block_tables, cur_index,
@@ -242,10 +247,10 @@ def _mamba_mixer(cfg, p, h, lora, lora_scale, rt: Runtime, mode: str, cache,
                                   "which is attention-only")
     kw = dict(lora=lora, lora_scale=lora_scale, dense_impl=rt.dense_impl)
     if mode == "decode":
-        return ssm_mod.mamba_step(cfg, p, h, cache, **kw)
+        return ssm_mod.mamba_step(cfg, p, h, cache, tp=tp, **kw)
     if mode == "prefill":
         return ssm_mod.mamba_block(cfg, p, h, return_state=True, ssd_impl=rt.ssd_impl,
-                                   **kw)
+                                   tp=tp, **kw)
     if mode == "train":
         return ssm_mod.mamba_block(cfg, p, h, ssd_impl=rt.ssd_impl, tp=tp, seq=seq,
                                    **kw), cache

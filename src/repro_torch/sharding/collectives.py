@@ -10,6 +10,13 @@ where NCCL refuses — stages them through host memory: the copy to the
 host, the collective, the copy back.  That route is chosen by the group's
 backend alone, before the call, and never taken after an error.
 
+Every collective these wrappers issue can be counted (:func:`counting`,
+off unless a dry-run switches it on): its kind, count and wire bytes, by
+the convention of ``repro``'s HLO cost model (``hlo_cost``): the larger
+of its input and output bytes, doubled for an all-reduce (a ring's
+reduce-scatter and all-gather), and the group's global ranks, so that a
+roofline can charge each call at the rate of the links it crosses.
+
 The all-to-all has a differentiable form, ``all_to_all_grad`` (a
 ``torch.autograd.Function`` over the same primitive, so the staged route
 differentiates too): an equal-split all-to-all is its own transpose.
@@ -31,7 +38,8 @@ gather/split pairs):
 """
 from __future__ import annotations
 
-from typing import Any, List
+import contextlib
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -39,6 +47,56 @@ import torch.distributed as dist
 from ..tree import tree_leaves, tree_unflatten
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+class CollectiveCount:
+    """What the wrappers issued while counting: ``calls``, one (kind, wire
+    bytes, the group's global ranks) per collective, and per kind its
+    count and wire bytes (:meth:`by_kind`)."""
+
+    def __init__(self):
+        self.calls: List[Tuple[str, int, Tuple[int, ...]]] = []
+
+    def by_kind(self) -> Dict[str, dict]:
+        out: Dict[str, dict] = {}
+        for kind, nbytes, _ in self.calls:
+            slot = out.setdefault(kind, {"count": 0, "bytes": 0})
+            slot["count"] += 1
+            slot["bytes"] += nbytes
+        return out
+
+    @property
+    def bytes(self) -> int:
+        return sum(c[1] for c in self.calls)
+
+
+_COUNT: Optional[CollectiveCount] = None
+_RANKS: Dict[object, Tuple[int, ...]] = {}
+
+
+@contextlib.contextmanager
+def counting():
+    """Count every collective the wrappers issue within it; yields the
+    :class:`CollectiveCount`."""
+    global _COUNT
+    prev, _COUNT = _COUNT, CollectiveCount()
+    try:
+        yield _COUNT
+    finally:
+        _COUNT = prev
+
+
+def _note(kind: str, group, in_bytes: int, out_bytes: int) -> None:
+    if _COUNT is None:
+        return
+    if group not in _RANKS:
+        _RANKS[group] = tuple(dist.get_process_group_ranks(group))
+    size = max(in_bytes, out_bytes) * (2 if kind == "all-reduce" else 1)
+    _COUNT.calls.append((kind, size, _RANKS[group]))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -56,6 +114,7 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         return t.clone()
     staged = _staged(t, group)
     buf = t.detach().to("cpu", copy=True) if staged else t.detach().clone()
+    _note("all-reduce", group, _nbytes(buf), _nbytes(buf))
     dist.all_reduce(buf, op=_OPS[op], group=group)
     return buf.to(t.device) if staged else buf
 
@@ -84,6 +143,7 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     staged = _staged(t, group)
     src = (t.detach().to("cpu") if staged else t.detach()).contiguous()
     parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
+    _note("all-gather", group, _nbytes(src), n * _nbytes(src))
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     return out.to(t.device) if staged else out
@@ -110,6 +170,7 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     staged = _staged(t, group)
     src = (t.detach().to("cpu") if staged else t.detach()).contiguous()
     out = torch.empty_like(src)
+    _note("all-to-all", group, _nbytes(src), _nbytes(out))
     dist.all_to_all_single(out, src, group=group)
     return out.to(t.device) if staged else out
 
@@ -155,6 +216,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     src = t.detach().movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
+    _note("reduce-scatter", group, _nbytes(src), _nbytes(out))
     dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
 

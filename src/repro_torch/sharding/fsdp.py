@@ -79,6 +79,15 @@ class ShardedParams:
                                                                         prefix + "/"))
         return self
 
+    @classmethod
+    def from_local(cls, whole: dict, local: dict, mesh) -> "ShardedParams":
+        """This rank's pieces ``local`` of the tree ``whole`` (its shapes, as
+        ``meta`` tensors), taken as they are: the dry-run's fake pieces."""
+        self = cls.__new__(cls)
+        self._setup(whole, mesh)
+        self.local = local
+        return self
+
     def _setup(self, params: dict, mesh) -> None:
         self.mesh = mesh
         self.group = mesh.group(DATA)

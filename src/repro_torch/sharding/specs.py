@@ -358,3 +358,28 @@ def path_specs(tree: Any, mesh, rule=param_spec) -> dict:
     ``rule(path, shape, mesh)``, made once from the whole shapes (a local
     piece's shape no longer tells whether its full dim divided)."""
     return {p: rule(p, tuple(v.shape), mesh) for p, v in tree_paths(tree)}
+
+
+def cache_piece_specs(caches: Any, mesh) -> list:
+    """The spec of every leaf of a whole per-layer slab-cache list (or of
+    ``models.model.abstract_cache``'s) by :func:`cache_spec`: k/v cut over
+    the KV heads where the "model" axis divides them, else over the cache
+    length L; ``ssm`` over its heads and ``conv`` over its channels where
+    they divide; the batch over the data axes.  ``pos`` (B, L), one row of
+    positions per sequence in the port (``repro`` keeps one row for all),
+    follows its layer's k: its rows as k's, its length as k's length."""
+    out = []
+    for i, layer in enumerate(caches):
+        sp = {n: cache_spec(f"{i}/{n}", tuple(v.shape), mesh) for n, v in layer.items()}
+        if "pos" in layer:
+            sp["pos"] = P(sp["k"][0], sp["k"][1])
+        out.append(sp)
+    return out
+
+
+def shard_caches(caches: Any, mesh) -> list:
+    """This rank's piece of every leaf of a whole per-layer cache list
+    (``meta`` leaves give ``meta`` pieces), by :func:`cache_piece_specs`."""
+    specs = cache_piece_specs(caches, mesh)
+    return [{n: shard(v, specs[i][n], mesh) for n, v in layer.items()}
+            for i, layer in enumerate(caches)]

@@ -4,10 +4,11 @@ written out (``sharding.fsdp`` is the same for ``"data"``).
 
 A rank holds its ``"model"`` piece of every leaf ``sharding.specs.
 param_spec`` cuts there, and the model functions run on those pieces
-when ``Runtime.tp_axis`` names the axis (mode "train" only).  There is
-one training path: ``models.stack.apply_block``, ``models.attention.
-self_attention``, ``models.layers.apply_mlp``/``embed``/``unembed``,
-``models.moe.apply_moe``, ``models.ssm.mamba_block`` and
+when ``Runtime.tp_axis`` names the axis: mode "train" and the serving
+modes "prefill" and slab "decode".  There is one path per mode:
+``models.stack.apply_block``, ``models.attention.self_attention``/
+``decode_attention``, ``models.layers.apply_mlp``/``embed``/``unembed``,
+``models.moe.apply_moe``, ``models.ssm.mamba_block``/``mamba_step`` and
 ``models.model.cross_entropy`` take the axis (``WHOLE`` when there is
 none, where every collective here is the identity and every leaf whole)
 and branch on whether a leaf is cut, read from its shape against the
@@ -53,8 +54,8 @@ from typing import Optional
 
 import torch
 
-from .collectives import (all_gather, copy_to, gather_along, gather_whole, reduce_from,
-                          reduce_scatter_along, split_along)
+from .collectives import (all_gather, all_reduce, copy_to, gather_along, gather_whole,
+                          reduce_from, reduce_scatter_along, split_along)
 
 
 @dataclass(frozen=True)
@@ -158,3 +159,33 @@ def gather_cut(p: dict, whole: dict, tp: TensorParallel) -> dict:
         dims = [i for i, (a, b) in enumerate(zip(v.shape, whole[k].shape)) if a != b]
         out[k] = all_gather(v, tp.group, dims[0]) if dims else v
     return out
+
+
+def piece(t: torch.Tensor, dim: int, tp: TensorParallel) -> torch.Tensor:
+    """This rank's equal piece of ``t`` along ``dim``, a copy (no gradient:
+    the serving caches)."""
+    c = t.shape[dim] // tp.n
+    return t.narrow(dim, tp.rank * c, c).contiguous()
+
+
+def owned_slot(slot: torch.Tensor, n_local: int, tp: TensorParallel):
+    """For whole-cache entries ``slot`` (B,) of a cache cut over its length
+    into pieces of ``n_local`` entries: (the entry's index in this rank's
+    piece, clamped into it; whether this rank's piece holds it)."""
+    lo = tp.rank * n_local
+    own = (slot >= lo) & (slot < lo + n_local)
+    return (slot - lo).clamp(0, n_local - 1), own
+
+
+def lse_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                tp: TensorParallel) -> torch.Tensor:
+    """The softmax-weighted sum over every rank's keys from each rank's
+    partial over its piece: ``m`` (...) its largest score, ``l`` (...) the
+    sum of exp(s - m) and ``o`` (..., D) the unnormalised sum of exp(s - m)
+    v, all f32 (a piece with no live key has l = 0 and o = 0).  One
+    all-reduce max and one all-reduce sum of (l, o) rescaled to the
+    common max."""
+    M = all_reduce(m, tp.group, "max")
+    w = torch.exp(m - M)
+    tot = all_reduce(torch.cat([(l * w)[..., None], o * w[..., None]], dim=-1), tp.group)
+    return tot[..., 1:] / tot[..., :1]

@@ -1,14 +1,15 @@
 """Cases of the port's multi-rank paths, run in one process (no group) and
 in every rank of a gloo group, for ``test_torch_mesh_sfl.py``,
-``test_torch_pod.py``, ``test_torch_tp.py`` and
-``test_torch_moe_shard_map.py``.  Imports no JAX: the ranks are plain PyTorch.
+``test_torch_pod.py``, ``test_torch_tp.py``, ``test_torch_tp_serving.py``
+and ``test_torch_moe_shard_map.py``.  Imports no JAX: the ranks are plain
+PyTorch.
 
 As a script it is one rank:
 
     python tests/torch_mesh_cases.py SUITE RANK WORLD STORE OUT [INPUTS]
 
-SUITE is ``sfl``, ``pod``, ``tp`` or ``moe``; STORE the FileStore path every rank shares;
-OUT the pickle rank 0 writes (every case's results, every tensor as
+SUITE is ``sfl``, ``pod``, ``tp``, ``serve`` or ``moe``; STORE the
+FileStore path every rank shares; OUT the pickle rank 0 writes (every case's results, every tensor as
 numpy); INPUTS a pickle of numpy trees handed over by the test (weights
 drawn by ``repro``).  Each rank prints ``RANK r OK`` at the end.
 """
@@ -25,6 +26,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", "src"))
 
 from repro_torch import models as TM  # noqa: E402
+from repro_torch.models import model as TMM  # noqa: E402
 from repro_torch.configs import TrainConfig, get_arch  # noqa: E402
 from repro_torch.core.aggregation import RobustAggConfig  # noqa: E402
 from repro_torch.core.sfl import RoundDynamics, SflLLM  # noqa: E402
@@ -281,6 +283,82 @@ def run_tp_case(case: str, mesh, inputs) -> dict:
             "tp": pod.rt.tp_axis, "remat": pod.rt.remat, "gap": min(gaps, default=None)}
 
 
+# the serving cases over "model": name -> (mesh shape, config key, decode
+# attention).  Each runs prefill and SERVE_STEPS decode steps on fixed tokens
+SERVE_CASES = {
+    "gqa_heads_12": ((1, 2), "gqa_heads", "flash"),
+    "gqa_heads_14": ((1, 4), "gqa_heads", "flash"),
+    "gqa_len_14": ((1, 4), "gqa_len", "naive"),
+    "mamba_12": ((1, 2), "mamba", "flash"),
+    "jamba_12": ((1, 2), "jamba", "naive"),
+    "olmoe_12": ((1, 2), "olmoe", "flash"),
+}
+SERVE_B, SERVE_S, SERVE_STEPS = 2, 12, 3
+SERVE_L = 16            # the cache length: divides over 4 ranks
+
+
+def serve_config(get_arch, key: str):
+    """A serving config key built alike by either package's ``get_arch``:
+    the GQA RoPE model (yi-9b at d 64, 4 heads of 16) with its 4 KV heads
+    (cut on whole heads at tp 2 and 4) or 2 (KH 2 over tp 4: q/k/v
+    gathered, the cache cut over its length); reduced Mamba2 (4 heads of
+    32, the state cut over heads and channels); Jamba's period of 8 at
+    d 64; olmoe with 4 experts of 2."""
+    if key.startswith("gqa"):
+        cfg = get_arch("yi-9b").reduced(num_layers=2, d_model=64)
+        return cfg.replace(num_kv_heads=2) if key == "gqa_len" else cfg
+    if key == "mamba":
+        return get_arch("mamba2-2.7b").reduced(num_layers=2, d_model=64)
+    if key == "jamba":
+        return get_arch("jamba-1.5-large-398b").reduced(num_layers=8, d_model=64)
+    if key == "olmoe":
+        return get_arch("olmoe-1b-7b").reduced(num_layers=2, d_model=64)
+    raise KeyError(key)
+
+
+def run_serve_case(case: str, mesh, inputs) -> dict:
+    """Prefill and ``SERVE_STEPS`` decode steps of ``case`` on ``repro``'s
+    weights, over ``mesh``'s "model" axis (None: one process); the logits
+    gathered whole, each rank's cache-leaf shapes and the pieces of
+    ``abstract_cache`` by ``sharding.specs.cache_spec``."""
+    from repro_torch.sharding.collectives import all_gather
+    from repro_torch.sharding.specs import map_with_path, param_spec, shard
+    _, key, impl = SERVE_CASES[case]
+    cfg = serve_config(get_arch, key)
+    inp = inputs["serve"][key]
+    params = params_from_numpy(inp["params"], "cpu")
+    lora = lora_from_numpy(inp["lora"], "cpu")
+    rt = TM.Runtime(dense_impl="fused", decode_attn_impl=impl, ssd_impl="kernel")
+    group = None
+    if mesh is not None:
+        params = map_with_path(lambda p, v: shard(v, param_spec(p, tuple(v.shape), mesh),
+                                                  mesh), params)
+        rt = rt.replace(tp_axis="model", mesh=mesh)
+        group = mesh.group("model")
+
+    def whole(logits):
+        return (logits if logits.shape[-1] == cfg.vocab_size
+                else all_gather(logits, group, -1)).numpy()
+
+    toks = torch.from_numpy(inp["tokens"])
+    L = SERVE_L
+    logits, caches = TM.prefill(cfg, params, toks[:, :SERVE_S], lora=lora, rt=rt,
+                                cache_len=L)
+    out = {"logits": [whole(logits)], "cache_shapes": [
+        {k: tuple(v.shape) for k, v in c.items()} for c in caches]}
+    if mesh is not None:
+        out["want_shapes"] = [{k: tuple(v.shape) for k, v in c.items()}
+                              for c in TMM.abstract_cache(cfg, SERVE_B, L, mesh=mesh)]
+        out["init_shapes"] = [{k: tuple(v.shape) for k, v in c.items()}
+                              for c in TM.init_cache(cfg, SERVE_B, L, device="cpu", mesh=mesh)]
+    for t in range(SERVE_STEPS):
+        logits, caches = TM.decode_step(cfg, params, toks[:, SERVE_S + t:SERVE_S + t + 1],
+                                        caches, SERVE_S + t, lora=lora, rt=rt)
+        out["logits"].append(whole(logits))
+    out["logits"] = np.stack(out["logits"])
+    return out
+
+
 MOE = dict(B=4, S=16, E=4, top=2, d=64, ff=32)
 
 
@@ -329,6 +407,11 @@ def main(argv) -> None:
         for case, (shape, axes, key, _) in TP_CASES.items():
             if key in inputs["tp"]:             # the configs handed over
                 results[case] = run_tp_case(case, tp_mesh(shape, axes), inputs)
+    elif suite == "serve":
+        for case, (shape, key, _) in SERVE_CASES.items():
+            if key in inputs["serve"]:
+                results[case] = run_serve_case(case, tp_mesh(shape, ("data", "model")),
+                                               inputs)
     elif suite == "moe":
         results["moe"] = run_moe_case(make_mesh((2, world // 2), ("data", "model")), inputs)
     else:
