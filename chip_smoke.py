@@ -33,7 +33,12 @@ Phases (each prints its own lines; any failure exits non-zero):
     pool); both pairs' split-K body at the edges of its plan (one slot at
     511-513 of 512, capacities 16-2048 for S = 1 to 8, G 4 and 8, D
     20-256, pages of 1, 16 and 48, K/V off a 16-byte boundary; one launch
-    a call, two runs bit-equal, dead slots exact zeros); and the SSD scan (y and the final state) against ``ssd_chunked``
+    a call, two runs bit-equal, dead slots exact zeros); flash decode's
+    partial-softmax entry (f32 m, l, o) against its plain version over the
+    last of tp 2, 4 and 8 length pieces (Lc 64 and 65, G 1 and 8, D 64
+    and 128; empty pieces exactly (-1e30, 0, 0)), and its pieces joined as
+    ``lse_combine`` joins them against flash_decode on the whole cache;
+    and the SSD scan (y and the final state) against ``ssd_chunked``
     and the per-token oracle, f32, at repro's test shapes and the
     full-width Mamba2-2.7B prefill (80 heads of 64, state 128, chunk 256,
     S 8, 200, 300 and 512), and at the model's decays against the oracle
@@ -55,7 +60,10 @@ Phases (each prints its own lines; any failure exits non-zero):
     M 768 and 256, r 4 and 8, f32 and bf16 v; a [floor] line, what any
     launch costs under these events, a [sweep] of flash attention over
     S, and [sweep] decode lines: the four decode kernels, f32 q, with every
-    slot at 16, 128 and 511 and one slot at 511, at the plan's split); two
+    slot at 16, 128 and 511 and one slot at 511, at the plan's split; the
+    partial entry at yi-9b's piece at tp 8, 4 slots x 4 KV heads of G 8 x
+    D 128 over Lc 65, beside aten's efficient attention with its
+    log-sum-exp); two
     runs bit-equal for ``lora_matmul`` at
     M 8 and 768, dX at M 256 and the q8 pair at M 256; a sweep of M with
     each regime forced, at K = N = 768 and at ``ssm_in``;
@@ -334,7 +342,10 @@ Phases (each prints its own lines; any failure exits non-zero):
     heads (``flash_decode`` on each rank's two); (b) the same at tp 8 over
     eight ranks (KH 4 does not divide 8: the cache cut by its length,
     ``decode_attn_impl="naive"``, the ranks' partial softmaxes joined by
-    one all-reduce max and one sum), held to (a)'s plain reference; (c)
+    one all-reduce max and one sum), then under "flash" from a copy of the
+    same prefill's caches (``flash_decode_partial`` on each rank's piece,
+    joined alike), each 4 of the 8 decode steps and held to (a)'s plain
+    reference's first 4; (c)
     Mamba2-2.7B (full width, 16 of its 64 layers) at tp 2 with
     ``ssd_impl="kernel"``: a 200-token prefill of 2 prompts and 8 decode
     steps, the mixer gathered whole, its state kept in pieces.  Each
@@ -343,12 +354,23 @@ Phases (each prints its own lines; any failure exits non-zero):
     largest (Mamba2's reference runs in f64, as phase 12's witness: a
     random Mamba2 amplifies f32 rounding over depth, so its logits may
     also lie up to 3x the plain f32 path's distance from it), its
-    launches are exactly rows 1, 6 and 12's counts; prefill
+    launches are exactly rows 1, 6 and 12's counts (and the partial
+    entry's); prefill
     and decode-step times and peak memory are printed.  (d) the dry-run
     (``python -m repro_torch.launch.dryrun``, no card) of one pair of each
-    shape kind at (16, 16), started first and run beside the ranks, prints
-    its roofline lines; its FLOPs of (a)'s decode step at a fake (1, 2)
-    mesh equal ``FlopCounterMode``'s count on each of (a)'s ranks.
+    shape kind at (16, 16) and of yi-9b x decode_32k under
+    ``--rt decode_attn_impl=flash``, started first and run beside the
+    ranks, prints its roofline lines; its FLOPs of (a)'s decode step at a
+    fake (1, 2) mesh equal ``FlopCounterMode``'s count on each of (a)'s
+    ranks.
+21. the five examples on the port (``examples/torch_*.py``) on the card
+    at ``REPRO_SMOKE=1``, each in its own process: the quickstart, the
+    train example (3 clients, 2 rounds of 2 steps at 32 tokens) writing
+    its adapters in ``repro``'s msgpack format, the resource-allocation
+    demo, continuous batching (paged, then naive) started together, then
+    the serve example loading the train example's file; each must exit 0,
+    and together they must launch rows 1-4 and 6; each one's wall time and
+    launches by kernel are printed.
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 
@@ -490,6 +512,8 @@ def main() -> None:
     from repro_torch.kernels import backend, build
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref, flash_decode,
+                                                     flash_decode_partial,
+                                                     flash_decode_partial_ref,
                                                      flash_decode_q8_ref, flash_decode_ref,
                                                      paged_decode, paged_decode_q8_ref,
                                                      paged_decode_ref)
@@ -784,6 +808,58 @@ def main() -> None:
             if dn == "float32" and G == 1:
                 err["paged_decode_q8"] = max(err["paged_decode_q8"], e)
 
+    def partial_pieces(q, k, v, lens, n):
+        """flash_decode_partial over the n length pieces of slab caches
+        (each with its live prefix clamp(length - r Lc, 0, Lc)), joined as
+        sharding.tp.lse_combine joins them."""
+        Lc = k.shape[1] // n
+        parts = [flash_decode_partial(q, k[:, r * Lc:(r + 1) * Lc], v[:, r * Lc:(r + 1) * Lc],
+                                      (lens - r * Lc).clamp(0, Lc).int()) for r in range(n)]
+        M = torch.stack([p_[0] for p_ in parts]).amax(0)
+        w = [torch.exp(p_[0] - M) for p_ in parts]
+        den = sum(wi * p_[1] for wi, p_ in zip(w, parts))
+        num = sum(wi[..., None] * p_[2] for wi, p_ in zip(w, parts))
+        return num / den.clamp_min(1e-30)[..., None]
+
+    def check_partial(dt, dn):
+        """flash_decode_partial (f32 m, l, o whatever q's dtype) against its
+        plain version at G 1 and 8, D 64 and 128, pieces of Lc 65 (not a
+        multiple of the 32-position tile) and 64, with lengths 0 (every
+        piece dead: m -1e30, l 0, o 0 exactly), inside the first piece, on
+        a piece's edge and past the cache (L + 1: every piece whole); then
+        its pieces over tp 2, 4 and 8 joined as lse_combine joins them,
+        against flash_decode on the whole cache."""
+        tol = dict(atol=PAGED_TOL["float32"], rtol=PAGED_TOL["float32"])
+        for B, KH, G, D, Lc in ((6, 4, 8, 128, 65), (6, 12, 1, 64, 64), (6, 2, 8, 64, 65)):
+            for n in (2, 4, 8):
+                L = Lc * n
+                lengths = [0, 1, Lc, Lc + 1, L, L + 1]
+                q, k, v, lens = slab_inputs(B, KH, G, D, L, lengths, dt)
+                what = f"{dn} B={B} KH={KH} G={G} D={D} Lc={Lc} tp={n} lengths={lengths}"
+                last = slice((n - 1) * Lc, L)
+                live = (lens - (n - 1) * Lc).clamp(0, Lc).int()
+                m, l, o = flash_decode_partial(q, k[:, last], v[:, last], live)
+                torch.cuda.synchronize()
+                qt = q[:, 0].reshape(B, KH, G, D)
+                ref = flash_decode_partial_ref(qt, k[:, last].transpose(1, 2),
+                                               v[:, last].transpose(1, 2), live)
+                e = max(close("flash_decode_partial", f"{what} ({x}, piece {n - 1})", got,
+                              want.reshape(got.shape), tol)
+                        for x, got, want in zip("mlo", (m, l, o), ref))
+                dead = live == 0
+                if not (bool((m[dead] == -1e30).all()) and bool((l[dead] == 0).all())
+                        and bool((o[dead] == 0).all())):
+                    fail(f"flash_decode_partial: a piece with no live key did not give "
+                         f"(-1e30, 0, 0) exactly ({what})")
+                joined = partial_pieces(q, k, v, lens, n)
+                whole = flash_decode(q, k, v, lens)
+                torch.cuda.synchronize()
+                close("flash_decode_partial", f"{what}: pieces joined vs flash_decode on "
+                      "the whole cache", whole, joined.reshape(whole.shape).to(dt),
+                      dict(atol=PAGED_TOL[dn], rtol=PAGED_TOL[dn]))
+                if dn == "float32" and G == 8 and D == 128:
+                    err["flash_decode_partial"] = max(err["flash_decode_partial"], e)
+
     def two_runs(op, fn):
         """fn() once, then again: one launch of op's kernel each (counted
         here) and equal bits."""
@@ -1072,7 +1148,7 @@ def main() -> None:
     err = {"ssd_scan": 0.0, "lora_matmul": 0.0, "lora_matmul_gather": 0.0, "paged_decode": 0.0, "lora_matmul_dx": 0.0,
            "lora_rank_reduce": 0.0, "flash_attention": 0.0, "lora_matmul_q8": 0.0,
            "lora_matmul_q8_dx": 0.0, "flash_decode": 0.0, "flash_decode_q8": 0.0,
-           "paged_decode_q8": 0.0}
+           "paged_decode_q8": 0.0, "flash_decode_partial": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         dn = str(dt).split(".")[1]
         # both regimes (M <= 16 decode, above it the 3xTF32 tile), both sides
@@ -1118,6 +1194,7 @@ def main() -> None:
         check_attention(dt, dn)
         check_q8(dt, dn)
         check_decode(dt, dn)
+        check_partial(dt, dn)
         check_decode_split(dt, dn)
     check_ssd()                       # f32 in and out: the op casts
 
@@ -1279,6 +1356,40 @@ def main() -> None:
             print(f"[sweep] decode {op} f32 q B={B_} KH={KH} G={G} D={D} capacity {L} "
                   f"(pages of {PS}) every length {n}: S={S} ({B_ * KH * S} blocks), kernel "
                   f"{time_ms(torch, fn, flush) * 1e3:.2f}us, bound {bms * 1e3:.2f}us")
+    # the partial-softmax entry at the shape phase 20 (b) gives it: yi-9b's
+    # piece of the cache at tp 8 (4 slots, 4 KV heads of 8 query heads x
+    # 128, Lc 65 of 520 positions), every piece full (ranks 0-6 at every
+    # decode step); the library call takes the G query heads of a KV head
+    # as its query length, since they see the same keys under the same mask
+    B, KH, G, D, Lc = 4, 4, 8, 128, 65
+    q, k, v, lens = slab_inputs(B, KH, G, D, Lc, [Lc] * B, torch.float32)
+    qt = q[:, 0].reshape(B, KH, G, D)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)              # views, no copy
+    ms = time_ms(torch, lambda: flash_decode_partial(q, k, v, lens), flush)
+    warm = time_ms(torch, lambda: flash_decode_partial(q, k, v, lens), lambda: None)
+    plain = time_ms(torch, lambda: flash_decode_partial_ref(qt, kt, vt, lens), flush)
+    # a length mask as an additive bias, its rows padded to 16-byte pitches
+    pad = torch.zeros(B, 1, 1, -(-Lc // 16) * 16, device=dev)
+    pad[..., :Lc].masked_fill_(torch.arange(Lc, device=dev) >= lens[:, None, None, None],
+                               float("-inf"))
+    bias = pad[..., :Lc].expand(B, KH, G, Lc)
+    lib_name = "aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True)"
+    try:
+        lib = time_ms(torch, lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True), flush)
+    except RuntimeError as exc:
+        lib = None
+        lib_name += f" refused the shape: {str(exc).splitlines()[0][:160]}"
+    nbytes = 4 * (B * KH * G * D + 2 * B * KH * Lc * D + B + B * KH * G * (2 + D))
+    bms, bby = bound(nbytes, 4 * B * KH * G * D * Lc)
+    rows[("flash_decode_partial", B)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                             bound_ms=bms, bound_by=bby)
+    print(f"[time] flash_decode_partial f32, B={B} KH={KH} G={G} D={D} Lc={Lc} every piece "
+          f"full: kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library({lib_name}) "
+          + (f"{lib * 1e3:.2f}us" if lib is not None else "-")
+          + f" bound {bms * 1e3:.2f}us ({bby}, {nbytes} B); kernel with L2 warm "
+          f"{warm * 1e3:.2f}us")
+
     # -- 4b. times at the training path's shapes (f32) -------------------------
     # the forward and dX at M above the decode threshold run the 3xTF32
     # tile: their bound is 3 TF32 products per f32 product over 495 TFLOP/s
@@ -2124,11 +2235,12 @@ def main() -> None:
     for k, v in tp_err.items():
         err[k] = max(err[k], v)
     serve_tp_launches = phase_serve_tp(torch, np, dev, flush)
+    example_launches = phase_examples(dev)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
             mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train,
             arch_launches, ssm_train, fe_launches, mesh_launches, tp_launches,
-            serve_tp_launches)
+            serve_tp_launches, example_launches)
     launches = {k: sum(r_.get(k, 0) for r_ in runs) for k in set().union(*runs)}
 
     # -- result ---------------------------------------------------------------
@@ -2178,6 +2290,15 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention/decode.py:177",
              launches=launches["flash_decode"], max_abs_err=err["flash_decode"],
              **rows[("flash_decode", 8)]),
+        # its partial-softmax entry, launched by phase 20 (b)'s decode over a
+        # cache cut by its length; timed at that piece's shape
+        dict(name="flash_decode_partial", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/flash_attention/decode.py:177 (partitioned by "
+                      "GSPMD over a cache sharded by length)",
+             launches=launches["flash_decode_partial"],
+             max_abs_err=err["flash_decode_partial"],
+             **rows[("flash_decode_partial", 4)]),
         # the int8-KV pair, launched on the ops' own path (phase 10) only
         dict(name="flash_decode_q8", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -5237,19 +5358,32 @@ SERVE_RUNS = {
     # are the references, one process through the plain PyTorch versions
     "yi_heads": ("yi-9b", 2, dict(dense_impl="fused", decode_attn_impl="flash")),
     "yi_len": ("yi-9b", 8, dict(dense_impl="fused", decode_attn_impl="naive")),
+    "yi_len_flash": ("yi-9b", 8, dict(dense_impl="fused", decode_attn_impl="flash")),
     "mamba": ("mamba2-2.7b", 2, dict(dense_impl="fused", ssd_impl="kernel")),
     "yi_plain": ("yi-9b", 1, dict(dense_impl="einsum", decode_attn_impl="naive")),
     "mamba_plain": ("mamba2-2.7b", 1, dict(dense_impl="einsum", ssd_impl="chunked")),
     "mamba_f64": ("mamba2-2.7b", 1, dict(dense_impl="einsum", ssd_impl="chunked")),
 }
+# (b)'s runs decode 4 of the cache's 8 new positions (eight ranks sharing
+# the card over host-staged gloo take 6.7-9.2 s a step), held to the
+# reference's first 4 steps; the cache keeps the reference's length (520:
+# pieces of 65 a rank)
+SERVE_STEPS = {"yi_len": 4, "yi_len_flash": 4}
+# runs that decode from a copy of another run's prefill on the same rank
+# (the same weights, tokens and prefill: only the decode attention
+# differs), which saves their own weights and prefill: run -> that run
+SERVE_FOLLOWS = {"yi_len_flash": "yi_len"}
 # runs whose weights and adapters are cast to float64: Mamba2's witness,
 # since a random Mamba2 amplifies f32 rounding over its depth and the
 # plain f32 path is itself far from exact (phase 12)
 SERVE_F64 = ("mamba_f64",)
 # the dry-run's pairs, one of each shape kind, at (16, 16): the shallowest
-# configs of each, so that the three abstract runs end within a minute or two
-DRYRUN_PAIRS = (("olmoe-1b-7b", "train_4k"), ("olmoe-1b-7b", "prefill_32k"),
-                ("yi-9b", "decode_32k"))
+# configs of each, so that the abstract runs end within a minute or two;
+# (arch, shape, --rt overrides): yi-9b's decode also under "flash", whose
+# KV cache (KH 4 over tp 16) is cut by its length
+DRYRUN_PAIRS = (("olmoe-1b-7b", "train_4k", ()), ("olmoe-1b-7b", "prefill_32k", ()),
+                ("yi-9b", "decode_32k", ()),
+                ("yi-9b", "decode_32k", ("decode_attn_impl=flash",)))
 SERVE_TOL = 1e-4        # logits: f32, against the largest of the reference's
 
 
@@ -5278,42 +5412,53 @@ def _serve_cfg(name: str, small: bool):
 
 
 def serve_per_run(cfg, run: str, steps: int) -> dict:
-    """Launches of one prefill and ``steps`` decode steps on every rank:
-    under ``dense_impl="fused"`` each adapted projection once a prefill
-    and once a step (a Mamba2 prefill also recomputes ``in_proj`` on the
-    conv tail); under ``decode_attn_impl="flash"`` one ``flash_decode`` a
-    layer a step over a cache cut by heads; under ``ssd_impl="kernel"``
-    one ``ssd_scan`` a Mamba2 layer a prefill.  The plain routes launch
-    nothing."""
+    """Launches of one prefill and ``steps`` decode steps on every rank (a
+    run of ``SERVE_FOLLOWS``: the steps alone): under
+    ``dense_impl="fused"`` each adapted projection once a prefill and once
+    a step (a Mamba2 prefill also recomputes ``in_proj`` on the conv
+    tail); under ``decode_attn_impl="flash"`` one ``flash_decode`` a
+    layer a step over a cache cut by heads, one ``flash_decode_partial``
+    over a cache cut by its length (KH % tp != 0); under
+    ``ssd_impl="kernel"`` one ``ssd_scan`` a Mamba2 layer a prefill.  The
+    plain routes launch nothing."""
     L = cfg.num_layers
     n = len(cfg.lora_targets)
-    knobs = SERVE_RUNS[run][2]
+    _, tp, knobs = SERVE_RUNS[run]
+    prefills = 0 if run in SERVE_FOLLOWS else 1
     out = {}
     if knobs["dense_impl"] == "fused":
-        out["lora_matmul"] = n * L * (1 + steps) + (L if cfg.family == "ssm" else 0)
+        out["lora_matmul"] = n * L * (prefills + steps) + \
+            (L * prefills if cfg.family == "ssm" else 0)
     if knobs.get("decode_attn_impl") == "flash":
-        out["flash_decode"] = L * steps
-    if knobs.get("ssd_impl") == "kernel":
+        cut = "flash_decode" if cfg.num_kv_heads % tp == 0 else "flash_decode_partial"
+        out[cut] = L * steps
+    if knobs.get("ssd_impl") == "kernel" and prefills:
         out["ssd_scan"] = L
     return out
 
 
-def _serve_run(torch, np, dev, mesh, small, run):
+def _serve_run(torch, np, dev, mesh, small, run, kept):
     """One prefill of ``run``'s prompts and greedy decode steps over
     ``mesh``'s "model" axis (None: one process, no group), the base drawn
     on the device a subtree at a time and cut to this rank's pieces
     (``ShardedParams.init``); the logits gathered whole each step.  Then,
     with the launch counts read, one more decode step under
-    ``FlopCounterMode`` (its count for the dry-run's to meet)."""
+    ``FlopCounterMode`` (its count for the dry-run's to meet).  ``kept``
+    (this rank's, across its runs): a run that others follow leaves its
+    weights, tokens, prefill logits and a copy of its prefill's caches
+    there, and a run of ``SERVE_FOLLOWS`` takes them instead of its own
+    (the launch counts then cover its decode steps alone)."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch import models as TM
     from repro_torch.kernels import backend
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.sharding.collectives import all_gather
     from repro_torch.sharding.fsdp import ShardedParams
+    from repro_torch.tree import tree_map
     name, _, knobs = SERVE_RUNS[run]
     cfg = _serve_cfg(name, small)
-    B, S, steps = SERVE_DIMS[name]
+    B, S, cap = SERVE_DIMS[name]
+    steps = SERVE_STEPS.get(run, cap)
     rt = TM.Runtime(**knobs)
     group = None
     if mesh is None:
@@ -5322,28 +5467,38 @@ def _serve_run(torch, np, dev, mesh, small, run):
         base_mesh = mesh
         rt = rt.replace(tp_axis="model", mesh=mesh)
         group = mesh.group("model")
-    params = ShardedParams.init(cfg, torch.Generator(device=dev).manual_seed(SERVE_SEED[name]),
-                                base_mesh).local
-    lora = _tp_lora(torch, TM, cfg, dev, SERVE_SEED[name] + 1)
-    if run in SERVE_F64:
-        from repro_torch.tree import tree_map
-        params, lora = (tree_map(lambda v: v.double() if v.is_floating_point() else v, t)
-                        for t in (params, lora))
-    tok = torch.from_numpy(np.random.default_rng(SERVE_SEED[name] + 2).integers(
-        0, cfg.vocab_size, (B, S)).astype(np.int64)).to(dev)
 
     def whole(lg):
         return lg if lg.shape[-1] == cfg.vocab_size else all_gather(lg, group, -1)
+
+    follows = SERVE_FOLLOWS.get(run)
+    if follows is None:
+        params = ShardedParams.init(
+            cfg, torch.Generator(device=dev).manual_seed(SERVE_SEED[name]), base_mesh).local
+        lora = _tp_lora(torch, TM, cfg, dev, SERVE_SEED[name] + 1)
+        if run in SERVE_F64:
+            params, lora = (tree_map(lambda v: v.double() if v.is_floating_point() else v, t)
+                            for t in (params, lora))
+        tok = torch.from_numpy(np.random.default_rng(SERVE_SEED[name] + 2).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int64)).to(dev)
+    else:
+        params, lora, tok, first, caches, t_pre = kept.pop(follows)
 
     logits_all, ids = [], []
     backend.reset_launch_counts()
     _mesh_sync(torch, dev)
     t0 = time.perf_counter()
     with torch.no_grad():
-        lg, caches = TM.prefill(cfg, params, tok, lora=lora, rt=rt, cache_len=S + steps)
-        lg = whole(lg)
-        _mesh_sync(torch, dev)
-        t_pre = time.perf_counter() - t0
+        if follows is None:
+            lg, caches = TM.prefill(cfg, params, tok, lora=lora, rt=rt, cache_len=S + cap)
+            lg = whole(lg)
+            _mesh_sync(torch, dev)
+            t_pre = time.perf_counter() - t0
+            if run in SERVE_FOLLOWS.values():
+                kept[run] = (params, lora, tok, lg, tree_map(lambda v: v.clone(), caches),
+                             t_pre)
+        else:                   # t_dec below takes t_pre off this clock
+            lg, t0 = first, t0 - t_pre
         for t in range(steps + 1):
             logits_all.append(lg.float().cpu())
             ids.append(lg.argmax(-1))
@@ -5360,7 +5515,7 @@ def _serve_run(torch, np, dev, mesh, small, run):
     with torch.no_grad(), FlopCounterMode(display=False) as fc, backend.as_ops():
         TM.decode_step(cfg, params, ids[-1][:, None], caches, S + steps - 1, lora=lora, rt=rt)
     return {"ids": torch.stack(ids, 1).cpu(), "logits": torch.stack(logits_all, 1),
-            "launches": launches, "prefill_s": t_pre, "step_s": t_dec,
+            "launches": launches, "prefill_s": t_pre, "step_s": t_dec, "steps": steps,
             "flops": int(fc.get_total_flops()), "cache_shapes": shapes,
             "per_run": serve_per_run(cfg, run, steps)}
 
@@ -5388,11 +5543,12 @@ def _serve_rank(rank, world, store, out, device, backend, small, runs):
         dev = init_file_store(store, rank, world, device=dev.type, backend=backend)
         mesh = make_mesh((1, world), ("data", "model"), dev)
     res = {"rank": rank, "runs": {}}
+    kept = {}
     for run in runs:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
-        res["runs"][run] = _serve_run(torch, np, dev, mesh, small, run)
+        res["runs"][run] = _serve_run(torch, np, dev, mesh, small, run, kept)
         res["runs"][run]["peak_gib"] = _mesh_peak(torch, dev)
     with open(f"{out}.{rank}", "wb") as f:
         pickle.dump(res, f)
@@ -5440,14 +5596,16 @@ def phase_serve_tp(torch, np, dev, flush=None, small=False):
     """20. Prefill and decode over a ("data", "model") mesh, and the
     dry-run: (a) yi-9b at tp 2 (its KV cache cut by heads, ``flash_decode``
     on each rank's), (b) at tp 8 (KH 4 does not divide 8: the cache cut by
-    its length, the partial softmaxes joined over the ranks), (c)
+    its length, the partial softmaxes joined over the ranks: the plain
+    ones, then ``flash_decode_partial``'s from the same prefill), (c)
     Mamba2-2.7B at tp 2 (``ssd_scan`` on each rank, the state in pieces),
     each held against one process of the port on the same weights through
     the plain PyTorch versions (einsum projections, the plain decode
     attention, the chunked scan; Mamba2's in f64 beside f32, held as
     phase 12 holds its witness), so that every kernel launched at a
     rank's local shapes answers to plain PyTorch on the same inputs; (d) the
-    dry-run of one pair of each shape kind at (16, 16), and its FLOPs of
+    dry-run of one pair of each shape kind at (16, 16) (yi-9b's decode
+    also under "flash"), and its FLOPs of
     (a)'s decode step against ``FlopCounterMode``'s on (a)'s ranks.
     Returns the launches of the main-path runs."""
     import os
@@ -5467,11 +5625,11 @@ def phase_serve_tp(torch, np, dev, flush=None, small=False):
     # other cores while the ranks run
     env = dict(os.environ, PYTHONPATH=str(SRC))
     drs = {}
-    for arch, shape in DRYRUN_PAIRS:
-        drs[(arch, shape)] = subprocess.Popen(
+    for i, (arch, shape, rt_) in enumerate(DRYRUN_PAIRS):
+        drs[(arch, shape, rt_)] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-             shape, "--out", str(tmp / "dryrun")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, env=env)
+             shape, "--out", str(tmp / f"dryrun{i}")] + (["--rt", *rt_] if rt_ else []),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
     yi = _serve_cfg("yi-9b", small)
     B, S, steps = SERVE_DIMS["yi-9b"]
     checks = {r: subprocess.Popen(
@@ -5483,7 +5641,10 @@ def phase_serve_tp(torch, np, dev, flush=None, small=False):
     def held(tag, got, want, what, yard=None):
         """``got``'s ids equal ``want``'s, its logits within SERVE_TOL of
         the largest; against an f64 witness, ``yard`` (the plain f32
-        path's distance from it) allows up to 3x that, as phase 12 does."""
+        path's distance from it) allows up to 3x that, as phase 12 does.
+        A run of ``SERVE_STEPS`` is held to ``want``'s first steps."""
+        n = got["logits"].shape[1]
+        want = {k: want[k][:, :n] for k in ("ids", "logits")}
         e = (got["logits"] - want["logits"]).abs().max().item()
         top = want["logits"].abs().max().item()
         same = torch.equal(got["ids"], want["ids"])
@@ -5514,8 +5675,10 @@ def phase_serve_tp(torch, np, dev, flush=None, small=False):
             print(f"[serve] {tag} rank {r['rank']} {run}: prefill {m['prefill_s'] * 1e3:.1f} ms, "
                   f"{m['step_s'] * 1e3:.2f} ms a decode step (host clock, synchronized), "
                   f"peak {m['peak_gib']:.2f} GiB, cache pieces {m['cache_shapes']} ({smi})")
-            expect(f"{tag} rank {r['rank']}", f"{run} prefill + {SERVE_DIMS[SERVE_RUNS[run][0]][2]} "
-                   "decode steps", m["launches"], m["per_run"], 1)
+            start = (f"{SERVE_FOLLOWS[run]}'s prefill," if run in SERVE_FOLLOWS
+                     else "prefill +")
+            expect(f"{tag} rank {r['rank']}", f"{run} {start} {m['steps']} decode steps",
+                   m["launches"], m["per_run"], 1)
             held(f"{tag} rank {r['rank']}", m, want,
                  f"{run} over (1, {len(ranks)}) vs one process through {what}", yard)
             add(m["launches"])
@@ -5536,11 +5699,13 @@ def phase_serve_tp(torch, np, dev, flush=None, small=False):
     print(f"[serve] (a) two ranks on one {device} over gloo, mesh (1, 2): {time.perf_counter() - t0:.1f}s")
     report("(a)", two, one["runs"]["yi_plain"], "yi_heads")
 
-    # -- (b) yi-9b, tp 8, the cache cut by its length ------------------------------
+    # -- (b) yi-9b, tp 8, the cache cut by its length: naive, then flash from a
+    # copy of the same prefill's caches --------------------------------------------
     t0 = time.perf_counter()
-    eight = _serve_spawn(8, "gloo", device, small, tmp, ["yi_len"])
+    eight = _serve_spawn(8, "gloo", device, small, tmp, ["yi_len", "yi_len_flash"])
     print(f"[serve] (b) eight ranks on one {device} over gloo, mesh (1, 8): {time.perf_counter() - t0:.1f}s")
     report("(b)", eight, one["runs"]["yi_plain"], "yi_len")
+    report("(b)", eight, one["runs"]["yi_plain"], "yi_len_flash")
 
     # -- (c) Mamba2-2.7B, tp 2 ----------------------------------------------------
     t0 = time.perf_counter()
@@ -5549,14 +5714,14 @@ def phase_serve_tp(torch, np, dev, flush=None, small=False):
     report("(c)", mam, one["runs"]["mamba_f64"], "mamba", one["runs"]["mamba_plain"])
 
     # -- (d) the dry-run ------------------------------------------------------------
-    for (arch, shape), proc in drs.items():
+    for (arch, shape, rt_), proc in drs.items():
         out, _ = proc.communicate(timeout=900)
         lines = [ln for ln in out.splitlines() if ln.startswith(("==", "roofline:", "memory_"))]
         for ln in lines:
-            print(f"[serve] (d) {ln}")
+            print(f"[serve] (d) {ln}" + (f" (--rt {' '.join(rt_)})" if rt_ else ""))
         if proc.returncode != 0 or not any(ln.startswith("roofline:") for ln in lines):
             print(out[-3000:])
-            fail(f"phase 20 (d): the dry-run of {arch} x {shape} failed")
+            fail(f"phase 20 (d): the dry-run of {arch} x {shape} {' '.join(rt_)} failed")
     for r, proc in checks.items():
         out, _ = proc.communicate(timeout=900)
         if proc.returncode != 0:
@@ -5572,6 +5737,85 @@ def phase_serve_tp(torch, np, dev, flush=None, small=False):
             fail("phase 20 (d): the dry-run's FLOPs differ from the real rank's")
     print(f"[serve] phase 20 wall {time.perf_counter() - t_phase:.1f}s (host clock) ({smi})")
     return launches_total
+
+# -- phase 21: the five examples on the port -----------------------------------
+
+# each example in its own process through this runner, which prints its
+# wall time (host clock, from the example's first line to its last) and its
+# launches by kernel after it (argv: src, the example, its arguments)
+EXAMPLE_RUN = """
+import json, runpy, sys, time
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import backend
+sys.argv = sys.argv[2:]
+t0 = time.perf_counter()
+runpy.run_path(sys.argv[0], run_name="__main__")
+print(f"WALL {time.perf_counter() - t0}")
+print("LAUNCHES " + json.dumps(dict(sorted(backend.LAUNCH_COUNTS.items()))))
+"""
+EXAMPLES = ("quickstart", "train_sfl_e2e", "resource_allocation_demo", "continuous_batching",
+            "serve_lora")
+EXAMPLE_TRAIN = ("--steps", "4", "--local-steps", "2", "--clients", "3", "--batch", "2",
+                 "--seq", "32")
+# what the examples reach together on the card: rows 1-4 and 6 of PERF.md's
+# table (the fused runtime's projections and their backward, the paged and
+# the slab decode)
+EXAMPLE_KERNELS = ("lora_matmul", "lora_matmul_dx", "lora_rank_reduce", "paged_decode",
+                   "flash_decode")
+
+
+def phase_examples(dev):
+    """21. ``examples/torch_*.py`` on the card at ``REPRO_SMOKE=1``, each in
+    a subprocess with its default device: the four that need nothing
+    started together, then ``torch_serve_lora.py --adapter`` on the file
+    ``torch_train_sfl_e2e.py`` wrote (``repro``'s msgpack format).  Each
+    must exit 0; prints each one's wall time (run beside the others) and
+    its launches by kernel.  Returns their launches."""
+    import os
+    import tempfile
+    t_phase = time.perf_counter()
+    smi = smi_line() if dev.type == "cuda" else "cpu"
+    ada = str(Path(tempfile.mkdtemp(prefix="chip_smoke_examples_")) / "ada.msgpack")
+    env = dict(os.environ, PYTHONPATH=str(SRC), REPRO_SMOKE="1")
+    args = {"train_sfl_e2e": [*EXAMPLE_TRAIN, "--out", ada],
+            "serve_lora": ["--adapter", ada, "--gen", "8"]}
+
+    def start(name):
+        return subprocess.Popen(
+            [sys.executable, "-c", EXAMPLE_RUN, str(SRC),
+             str(SRC.parent / "examples" / f"torch_{name}.py"), *args.get(name, [])]
+            + (["--device", "cpu"] if dev.type == "cpu" else []),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+
+    def finish(name, p_):
+        out, _ = p_.communicate(timeout=600)
+        tail = {ln.split(" ", 1)[0]: ln.split(" ", 1)[1] for ln in out.splitlines()
+                if ln.startswith(("WALL ", "LAUNCHES "))}
+        if p_.returncode != 0 or len(tail) != 2:
+            print(out[-3000:])
+            fail(f"phase 21: examples/torch_{name}.py exited {p_.returncode}")
+        n = json.loads(tail["LAUNCHES"])
+        print(f"[examples] torch_{name}.py: rc 0, {float(tail['WALL']):.1f}s wall (host clock, "
+              f"beside the others), launches {n} ({smi})")
+        return n
+
+    procs = {n_: start(n_) for n_ in EXAMPLES if n_ != "serve_lora"}
+    res = {"train_sfl_e2e": finish("train_sfl_e2e", procs.pop("train_sfl_e2e"))}
+    serve = start("serve_lora")
+    res.update({n_: finish(n_, p_) for n_, p_ in procs.items()})
+    res["serve_lora"] = finish("serve_lora", serve)
+    total = {}
+    for n in res.values():
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    missing = [k for k in EXAMPLE_KERNELS if not total.get(k)]
+    print(f"[examples] together: {total}; rows 1-4 and 6 reached: "
+          f"{'ok' if not missing else 'FAIL, missing ' + ', '.join(missing)}")
+    if missing:
+        fail(f"phase 21: the examples launched no {missing}")
+    print(f"[examples] phase 21 wall {time.perf_counter() - t_phase:.1f}s (host clock) ({smi})")
+    return total
+
 
 HOST_TIMES = """
 import sys, time

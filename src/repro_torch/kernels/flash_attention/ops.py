@@ -1,7 +1,8 @@
 """Attention kernel entries: layout, device routing, checks and the kernel
 launches.  A CUDA tensor launches ``csrc/paged_decode.cu`` (float and
-int8 pools), ``csrc/flash_decode.cu`` (float and int8 slab caches; all
-four decode entries with the split of ``plan.py``) or
+int8 pools), ``csrc/flash_decode.cu`` (float and int8 slab caches, and
+the partial softmax over a piece of one; every decode entry with the
+split of ``plan.py``) or
 ``csrc/flash_attention.cu``; a CPU tensor takes the plain version of
 ``ref.py``.  ``repro``'s ``bk``, ``interpret`` and ``use_kernel``
 arguments are gone: the tiles are fixed and the device alone routes."""
@@ -13,8 +14,8 @@ import torch
 
 from .. import backend, build
 from .plan import DECODE_MAX_HEAD_DIM, decode_plan
-from .ref import (flash_attention_ref, flash_decode_q8_ref, flash_decode_ref,
-                  paged_decode_q8_ref, paged_decode_ref)
+from .ref import (flash_attention_ref, flash_decode_partial_ref, flash_decode_q8_ref,
+                  flash_decode_ref, paged_decode_q8_ref, paged_decode_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -26,6 +27,7 @@ _SIGNATURES = {
     ("paged_decode", "paged_decode_q8_launch"): (8, 12),
     ("flash_decode", "flash_decode_launch"): (5, 11),
     ("flash_decode", "flash_decode_q8_launch"): (7, 11),
+    ("flash_decode", "flash_decode_partial_launch"): (7, 10),
     ("flash_attention", "flash_attention_launch"): (4, 8),
 }
 
@@ -197,6 +199,17 @@ def _slab_flops(sh, args):
     return 4 * B * KH * G * D * (min(L, window) if window else L)
 
 
+def _partial_shapes(ops, args):
+    B, KH, G, D = ops[0].shape
+    return [((B, KH, G), torch.float32), ((B, KH, G), torch.float32),
+            ((B, KH, G, D), torch.float32)]
+
+
+def _partial_flops(sh, args):
+    (B, KH, G, D), L = sh[0], sh[1][1]
+    return 4 * B * KH * G * D * L
+
+
 def _paged_flops(sh, args):
     (B, KH, G, D), (_, _, PS, _), MP = sh[0], sh[1], sh[4][1]
     return 4 * B * KH * G * D * MP * PS
@@ -221,6 +234,7 @@ def _attention_flops(sh, args):
 
 backend.register("flash_decode", _decode_shapes, _slab_flops)
 backend.register("flash_decode_q8", _decode_shapes, _slab_flops)
+backend.register("flash_decode_partial", _partial_shapes, _partial_flops)
 backend.register("paged_decode", _decode_shapes, _paged_flops)
 backend.register("paged_decode_q8", _decode_shapes, _paged_flops)
 backend.register("flash_attention", _decode_shapes, _attention_flops)
@@ -305,6 +319,39 @@ def flash_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_decode_partial_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                lengths: torch.Tensor):
+    """Launch the CUDA kernel's partial-softmax entry on the model's cache
+    layout, read in place: q (B, KH, G, D), k/v (B, L, KH, D) of q's
+    dtype (float32 or bfloat16), D <= 256, lengths (B,) int32, all
+    contiguous on one CUDA device; one cluster launch with
+    ``plan.decode_plan``'s split.  A length past L reads all L entries.
+    Returns float32 (m (B, KH, G), l (B, KH, G), o (B, KH, G, D)): the
+    largest scaled score of the live keys, the sum of exp(s - m) and the
+    unnormalised sum of exp(s - m) v (no live key: -1e30, 0, 0).  Raises
+    on anything else."""
+    dev = _on_card("flash_decode_partial", q=q, k=k, v=v, lengths=lengths)
+    _check_kv_dtypes("flash_decode_partial", q, k, v, lengths, int8=False)
+    B, KH, G, D, L = _slab_shapes("flash_decode_partial", q, k, v, lengths, 0)
+    if D > DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"flash_decode_partial: head dim {D} over the kernel's "
+                         f"{DECODE_MAX_HEAD_DIM}")
+    m = torch.empty((B, KH, G), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    o = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    if q.numel() == 0:
+        return m, l, o
+    plan = _split_plan(L, q, k, v)
+    with torch.cuda.device(dev):
+        err = _entry("flash_decode", "flash_decode_partial_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), m.data_ptr(),
+            l.data_ptr(), o.data_ptr(), B, KH, G, D, L, *plan, D ** -0.5,
+            _DTYPE_CODES[q.dtype], _stream(dev))
+    build.check("flash_decode", err)
+    backend.count_launch("flash_decode_partial")
+    return m, l, o
+
+
 def flash_decode_q8_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor, k_scale: torch.Tensor,
                            v_scale: torch.Tensor, *, window: int = 0) -> torch.Tensor:
@@ -375,6 +422,40 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             x=qt, operands=(qt, k, v, lengths), args=(window,))
     o = o.reshape(B, H, D)
     return o[:, None] if squeeze else o
+
+
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor):
+    """The partial softmax of one-token decode attention over per-slot
+    slab KV caches (or this rank's piece of caches cut by their length),
+    which ``sharding.tp.lse_combine`` joins over the pieces.
+
+    q: (B, 1, H, D) or (B, H, D); k/v: (B, L, KH, D) — the model cache
+    layout, read in place by the kernel; lengths: (B,) int32 live entries
+    per slot at [0, length), a length past L reading all L.  Returns
+    float32 ``(m, l, o)`` of shapes (B, H), (B, H) and (B, H, D) (with
+    q's singleton axis after B for a q of rank 4): the largest score
+    q·k * D^-0.5 of the live keys, the sum of exp(s - m) and the
+    unnormalised sum of exp(s - m) v; a slot with no live key gives m =
+    -1e30, l = 0, o = 0.  Routed by q's device
+    (``kernels.backend.dispatch``)."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    B, H, D = q.shape
+    KH = k.shape[2]
+    qt = q.reshape(B, KH, H // KH, D)
+    m, l, o = backend.dispatch(
+        "flash_decode_partial",
+        kernel=lambda: flash_decode_partial_kernel(qt.contiguous(), k.contiguous(),
+                                                   v.contiguous(), lengths),
+        ref=lambda: flash_decode_partial_ref(qt, k.transpose(1, 2), v.transpose(1, 2),
+                                             lengths),
+        x=qt, operands=(qt, k, v, lengths))
+    m, l, o = m.reshape(B, H), l.reshape(B, H), o.reshape(B, H, D)
+    if squeeze:
+        return m[:, None], l[:, None], o[:, None]
+    return m, l, o
 
 
 FLASH_MAX_HEAD_DIM = 128           # DMAX in csrc/flash_attention.cu

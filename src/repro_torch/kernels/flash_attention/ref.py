@@ -29,6 +29,24 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+def flash_decode_partial_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             lengths: torch.Tensor):
+    """The partial softmax of ``flash_decode_ref`` (no window): q (B, KH,
+    G, D), k/v (B, KH, L, D), lengths (B,).  Returns f32 (m, l, o): the
+    largest masked score (B, KH, G), the sum of exp(s - m) over the live
+    keys (B, KH, G) and the unnormalised sum of exp(s - m) v (B, KH, G,
+    D); a slot with no live key gives m = -1e30, l = 0, o = 0."""
+    D = q.shape[-1]
+    L = k.shape[2]
+    s = torch.einsum("bhgd,bhkd->bhgk", q.float(), k.float()) * D ** -0.5
+    mask = (torch.arange(L, device=q.device)[None, :]
+            < lengths.to(q.device).long()[:, None])[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]) * mask
+    return m, p.sum(-1), torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+
+
 def _dequantize_kv(kv: torch.Tensor, scale: torch.Tensor, head_axis: int) -> torch.Tensor:
     """int8 -> f32 times the (KH,) per-KV-head scale, as ``repro`` does."""
     shape = [1] * kv.dim()

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_decode, paged_decode, paged_decode_ref
+from ..kernels.flash_attention import (flash_decode, flash_decode_partial, paged_decode,
+                                       paged_decode_ref)
 from ..sharding.collectives import gather_whole, split_along
 from ..sharding.tp import (WHOLE, Entry, TensorParallel, col_lora, is_cut, lse_combine,
                            owned_slot, piece, row_lora)
@@ -404,9 +405,9 @@ def decode_attention(cfg, p, x, cache, cur_index, *, lora=None, lora_scale=1.0,
     rank's heads run as above (``flash_decode`` on them under "flash").
     Cut over the length (KH % tp != 0), q/k/v are whole, the new entry is
     written only on the rank whose piece holds it, each rank takes the
-    plain partial softmax over its piece and ``sharding.tp.lse_combine``
-    joins them; no ported kernel returns its log-sum-exp, so "flash"
-    raises there."""
+    partial softmax over its piece (``flash_decode_partial`` under "flash"
+    on a non-windowed cache, else the plain masked one) and
+    ``sharding.tp.lse_combine`` joins them."""
     if tp.n > 1:
         if adapter_idx is not None:
             raise NotImplementedError("multi-tenant adapters need the paged engine, which "
@@ -454,20 +455,18 @@ def _tp_decode_attention(cfg, p, x, cache, cur_index, lora, lora_scale, impl, de
     if cfg.num_kv_heads % tp.n == 0:
         o = _attend_slab(cfg, q, k, v, cache, pos_vec, impl)
     else:
-        if impl == "flash":
-            raise NotImplementedError(
-                "decode_attn_impl='flash' over a KV cache cut over its length: no ported "
-                "kernel returns the log-sum-exp the ranks' pieces are joined by "
-                "(ROADMAP.md); use decode_attn_impl='naive'")
-        o = _length_cut_decode(cfg, q, k, v, cache, pos_vec, tp)
+        o = _length_cut_decode(cfg, q, k, v, cache, pos_vec, impl, tp)
     return _out_tp(cfg, p, ent, o.reshape(B, 1, -1), lora, lora_scale, dense_impl), cache
 
 
-def _length_cut_decode(cfg, q, k, v, cache, pos_vec, tp: TensorParallel):
+def _length_cut_decode(cfg, q, k, v, cache, pos_vec, impl, tp: TensorParallel):
     """Decode over this rank's piece of a cache cut over its length: the
-    new entry written where it lies, the partial softmax over the piece
-    (f32, masked by position as ``decode_masked_attention``), joined over
-    the axis."""
+    new entry written where it lies, the partial softmax over the piece,
+    joined over the axis.  Under "flash" on a non-windowed cache the
+    partial is ``flash_decode_partial``'s over the piece's live prefix,
+    ``clamp(pos + 1 - rank * Lc, 0, Lc)`` entries (a finished slot past
+    L reads its whole piece, as one-process flash reads all L); else the
+    plain one in f32, masked by position as ``decode_masked_attention``."""
     B, _, H, D = q.shape
     Lc, KH = cache["k"].shape[1], cache["k"].shape[2]
     G = H // KH
@@ -477,18 +476,25 @@ def _length_cut_decode(cfg, q, k, v, cache, pos_vec, tp: TensorParallel):
         t = cache[name]
         keep = own.reshape((B,) + (1,) * (new.dim() - 1))
         t[bidx, idx] = torch.where(keep, new.to(t.dtype), t[bidx, idx])
-    qr = q.reshape(B, KH, G, D).float()
-    s = torch.einsum("bhgd,bkhd->bhgk", qr, cache["k"].float()) * D ** -0.5
-    k_pos = cache["pos"]
-    valid = (k_pos <= pos_vec[:, None]) & (k_pos >= 0)
-    if cfg.attn_window:
-        valid &= (pos_vec[:, None] - k_pos) < cfg.attn_window
-    valid = valid[:, None, None, :]
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    m = s.amax(-1)
-    pr = torch.exp(s - m[..., None]) * valid
-    o = torch.einsum("bhgk,bkhd->bhgd", pr.to(cache["v"].dtype).float(), cache["v"].float())
-    out = lse_combine(m, pr.sum(-1), o, tp)
+    if impl == "flash" and not cfg.attn_window:
+        live = (pos_vec + 1 - tp.rank * Lc).clamp(0, Lc).to(torch.int32)
+        m, l, o = flash_decode_partial(q[:, 0], cache["k"], cache["v"], live)
+        m, l, o = m.reshape(B, KH, G), l.reshape(B, KH, G), o.reshape(B, KH, G, D)
+    else:
+        qr = q.reshape(B, KH, G, D).float()
+        s = torch.einsum("bhgd,bkhd->bhgk", qr, cache["k"].float()) * D ** -0.5
+        k_pos = cache["pos"]
+        valid = (k_pos <= pos_vec[:, None]) & (k_pos >= 0)
+        if cfg.attn_window:
+            valid &= (pos_vec[:, None] - k_pos) < cfg.attn_window
+        valid = valid[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m = s.amax(-1)
+        pr = torch.exp(s - m[..., None]) * valid
+        l = pr.sum(-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", pr.to(cache["v"].dtype).float(),
+                         cache["v"].float())
+    out = lse_combine(m, l, o, tp)
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 

@@ -16,6 +16,8 @@ from repro_torch.kernels import backend                     # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
                                                  flash_attention_ref, flash_decode,
                                                  flash_decode_kernel,
+                                                 flash_decode_partial_kernel,
+                                                 flash_decode_partial_ref,
                                                  flash_decode_q8_kernel,
                                                  flash_decode_q8_ref, flash_decode_ref,
                                                  paged_decode, paged_decode_kernel,
@@ -475,6 +477,39 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, B, KH, G, D, L, window):
     ref = flash_decode_ref(q, k.transpose(1, 2), v.transpose(1, 2), lens, window=window)
     torch.testing.assert_close(o.float(), ref.float(), **DECODE_TOL[dtype])
     assert (o[0] == 0).all() and bool(torch.isfinite(o.float()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KH,G,D,L", [shape[:5] for shape in SLAB_SHAPES])
+def test_flash_decode_partial_kernel_matches_plain(cuda, dtype, B, KH, G, D, L):
+    """The partial-softmax entry (f32 m, l, o whatever q's dtype) against
+    its plain version, and its pieces joined as ``lse_combine`` joins them
+    against ``flash_decode_kernel`` on the whole cache: the cache cut into
+    two pieces, each with its live prefix (empty, partial, whole)."""
+    q, k, v, lens = _slab_inputs(cuda, dtype, B, KH, G, D, L, B * 1000 + D)
+    before = backend.LAUNCH_COUNTS.get("flash_decode_partial", 0)
+    m, l, o = flash_decode_partial_kernel(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS["flash_decode_partial"] == before + 1
+    assert all(t.dtype == torch.float32 for t in (m, l, o))
+    for got, want in zip((m, l, o), flash_decode_partial_ref(q, k.transpose(1, 2),
+                                                             v.transpose(1, 2), lens)):
+        torch.testing.assert_close(got, want, **DECODE_TOL[torch.float32])
+    assert (m[0] == -1e30).all() and (l[0] == 0).all() and (o[0] == 0).all()
+    if L < 2:
+        return
+    c = L // 2
+    parts = [flash_decode_partial_kernel(q, k[:, a:b].contiguous(), v[:, a:b].contiguous(),
+                                         (lens - a).clamp(0, b - a).int())
+             for a, b in ((0, c), (c, L))]
+    M = torch.maximum(parts[0][0], parts[1][0])
+    w = [torch.exp(p[0] - M) for p in parts]
+    num = sum(wi[..., None] * p[2] for wi, p in zip(w, parts))
+    den = sum(wi * p[1] for wi, p in zip(w, parts))
+    whole = (lens.clamp(max=L)).int()
+    want = flash_decode_kernel(q, k, v, whole).float()
+    torch.testing.assert_close(num / den.clamp_min(1e-30)[..., None], want,
+                               **DECODE_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -607,6 +607,23 @@ def test_flash_decode_wrapper_passes_its_plan(launches, dtype, B, KH, G, D, L):
     assert args[at + 6] == (0 if qd == torch.float32 else 1)
 
 
+@pytest.mark.parametrize("qd", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KH,G,D,L", [(4, 4, 8, 128, 65), (3, 2, 3, 42, 33)])
+def test_flash_decode_partial_wrapper_passes_its_plan(launches, qd, B, KH, G, D, L):
+    """The partial entry takes flash_decode's plan over the piece and
+    writes three f32 outputs: m and l (B, KH, G), o (B, KH, G, D)."""
+    q = torch.zeros(B, KH, G, D, dtype=qd)
+    k = torch.zeros(B, L, KH, D, dtype=qd)
+    m, l, o = ops.flash_decode_partial_kernel(q, k, k.clone(), torch.zeros(B, dtype=torch.int32))
+    (args,) = launches["flash_decode_partial_launch"]
+    assert args[7:12] == (B, KH, G, D, L)
+    assert args[12:17] == _plan_args(decode_plan(L, B, KH, G, D, qd))
+    assert args[18] == (0 if qd == torch.float32 else 1)
+    assert args[4:7] == (m.data_ptr(), l.data_ptr(), o.data_ptr())
+    assert [tuple(t.shape) for t in (m, l, o)] == [(B, KH, G), (B, KH, G), (B, KH, G, D)]
+    assert all(t.dtype == torch.float32 for t in (m, l, o))
+
+
 @pytest.mark.parametrize("PS,MP", [(16, 32), (1, 100), (48, 3)])
 def test_paged_decode_wrapper_passes_its_plan(launches, PS, MP):
     B, KH, G, D = 4, 2, 4, 64

@@ -13,7 +13,11 @@ one subprocess (``SCRIPT``), as ``test_dryrun_small.py`` runs ``repro``'s:
   collectives equal the closed form at ``hlo_cost``'s wire convention;
   two all-reduces a layer forward, their conjugates backward, the
   vocabulary-parallel embedding and loss, the LoRA factors' gradients
-  and the pool's sums.
+  and the pool's sums;
+* a decode step of reduced yi-9b with 2 KV heads on (1, 4) under
+  ``decode_attn_impl="flash"``: the cache cut by its length, each layer
+  one ``flash_decode_partial`` over the rank's piece, counted at its
+  formula.
 
 In this process: ``model_flops`` against ``repro``'s for every assigned
 architecture and shape; the report's tables and summary against
@@ -76,6 +80,12 @@ SCRIPT = textwrap.dedent("""
     train = dataclasses.replace(SHAPES["train_4k"], seq_len=S, global_batch=B)
     _, cost, _ = evaluate(yi, train, tp, {"remat": False})
     out["calls"] = [[k, n, list(r)] for k, n, r in cost.coll_calls]
+    init_fake(4, 1)
+    tp4 = make_mesh((1, 4), ("data", "model"), fake_device())
+    dec = dataclasses.replace(SHAPES["decode_32k"], seq_len=S, global_batch=B)
+    _, cost, _ = evaluate(yi.replace(num_kv_heads=2), dec, tp4,
+                          {"dense_impl": "fused", "decode_attn_impl": "flash"})
+    out["len_cut"] = cost.flops_by_op
     print(json.dumps(out))
 """)
 
@@ -155,6 +165,17 @@ def test_prefill_flops_equal_the_closed_form(fake_runs, route):
 def test_kernel_route_counts_the_einsum_routes_work(fake_runs):
     assert sum(fake_runs["flops"]["fused"].values()) == sum(
         fake_runs["flops"]["einsum"].values())
+
+
+def test_length_cut_flash_decode_counts_the_partial_entry(fake_runs):
+    """KH 2 over tp 4: every layer's decode attention is one partial entry
+    over the rank's S / 4 positions, 4 B H (S / 4) D FLOPs, and no whole
+    ``flash_decode``."""
+    cfg = _yi()
+    by_op = fake_runs["len_cut"]
+    assert "repro_torch.kernel_flash_decode" not in by_op
+    assert by_op["repro_torch.kernel_flash_decode_partial"] == \
+        cfg.num_layers * 4 * B * cfg.num_heads * (S // 4) * cfg.head_dim
 
 
 def _tp_train_calls(cfg):

@@ -3,8 +3,11 @@ plain versions) against ``repro``'s Pallas kernels in interpret mode:
 ragged lengths, windows, MHA/GQA/MQA, every length 0..L+1 (a finished
 slab slot passes L + 1, which reads the whole cache), dead slots (exact
 zeros), q of rank 3 and 4, int8 slab caches and pools; f32 at atol 1e-5,
-bf16 at 3e-2 (``repro``'s own decode tolerance).  The launchers refuse CPU
-tensors and the ops refuse unpaired or misplaced scales."""
+bf16 at 3e-2 (``repro``'s own decode tolerance).  The partial-softmax
+entry over the tp pieces of a cache cut by its length, joined by
+``sharding.tp.lse_combine``'s formula, against ``repro``'s kernel on the
+whole cache.  The launchers refuse CPU tensors and the ops refuse
+unpaired or misplaced scales."""
 import numpy as np
 import pytest
 
@@ -18,6 +21,8 @@ from repro.kernels.flash_attention import paged_decode as j_paged_decode  # noqa
 from repro_torch.kernels import backend                     # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_decode,  # noqa: E402
                                                  flash_decode_kernel,
+                                                 flash_decode_partial,
+                                                 flash_decode_partial_kernel,
                                                  flash_decode_q8_kernel,
                                                  flash_decode_ref, paged_decode,
                                                  paged_decode_q8_kernel)
@@ -111,6 +116,55 @@ def test_q_of_rank_three_and_four_agree():
     np.testing.assert_array_equal(o3.numpy(), ref.reshape(B, H, D).numpy())
 
 
+def _lse_join(parts):
+    """``sharding.tp.lse_combine``'s formula over the pieces' (m, l, o),
+    in one process: rescale to the common max, sum, divide."""
+    M = torch.stack([p[0] for p in parts]).amax(0)
+    w = [torch.exp(p[0] - M) for p in parts]
+    l = sum(wi * p[1] for wi, p in zip(w, parts))
+    o = sum(wi[..., None] * p[2] for wi, p in zip(w, parts))
+    return o / l[..., None]
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("H,KH", [(4, 2), (8, 1)], ids=["gqa", "mqa"])
+def test_partial_pieces_joined_match_repro_on_the_whole_cache(tp, H, KH):
+    """The cache cut into tp pieces of L / tp positions; each piece's live
+    prefix clamp(length - r * Lc, 0, Lc) (empty pieces past the length, a
+    length of L + 1 reading every piece whole); the joined partials
+    against repro's kernel (interpret mode) on the whole cache."""
+    B, L, D = 6, 32, 16
+    q, k, v = _inputs(B, H, KH, L, D, seed=40 + tp + KH)
+    lengths = np.array([1, 3, L // 2, L // 2 + 1, L, L + 1], np.int32)
+    qt, kt, vt, lt = _t(q, k, v, lengths)
+    Lc = L // tp
+    backend.reset_launch_counts()
+    parts = [flash_decode_partial(qt, kt[:, r * Lc:(r + 1) * Lc], vt[:, r * Lc:(r + 1) * Lc],
+                                  (lt - r * Lc).clamp(0, Lc).int()) for r in range(tp)]
+    assert not backend.LAUNCH_COUNTS                           # CPU: no launch
+    m, l, o = parts[-1]
+    assert tuple(m.shape) == tuple(l.shape) == (B, H) and tuple(o.shape) == (B, H, D)
+    dead = (lt <= (tp - 1) * Lc)[:, None]                      # the last piece is empty
+    assert bool(dead.any())
+    assert bool(((m == -1e30) == dead).all()) and bool((l[dead[:, 0]] == 0).all())
+    assert bool((o[dead[:, 0]] == 0).all())
+    jo = j_flash_decode(*(jnp.asarray(x) for x in (q, k, v, lengths)), bk=8, interpret=True)
+    np.testing.assert_allclose(_lse_join(parts).numpy(), np.asarray(jo), **F32)
+
+
+def test_partial_of_the_whole_cache_is_flash_decode_unnormalised():
+    """One piece: o / l is flash_decode's output, q of rank 4 keeps its
+    singleton axis, a dead slot gives (-1e30, 0, 0) exactly."""
+    B, H, KH, L, D = 3, 4, 2, 24, 8
+    q, k, v = _inputs(B, H, KH, L, D, seed=9)
+    lengths = np.array([0, 7, L + 1], np.int32)
+    m, l, o = flash_decode_partial(*_t(q[:, None], k, v, lengths))
+    assert tuple(m.shape) == (B, 1, H) and tuple(o.shape) == (B, 1, H, D)
+    assert bool((m[0] == -1e30).all()) and bool((l[0] == 0).all()) and bool((o[0] == 0).all())
+    want = flash_decode(*_t(q, k, v, lengths))
+    np.testing.assert_allclose((o[1:, 0] / l[1:, 0, :, None]).numpy(), want[1:].numpy(), **F32)
+
+
 @pytest.mark.parametrize("B,H,KH,L,D,bk,win", [(2, 4, 2, 64, 32, 32, 0),
                                                 (3, 4, 1, 40, 16, 16, 0),
                                                 (2, 4, 2, 48, 12, 16, 9)],
@@ -168,6 +222,7 @@ def test_launchers_refuse_cpu_tensors_and_ops_refuse_bad_scales():
     pool = torch.zeros(KH, 3, 4, D, dtype=torch.int8)
     bt = torch.ones(B, 2, dtype=torch.int32)
     for call in (lambda: flash_decode_kernel(qt, k, v, lengths),
+                 lambda: flash_decode_partial_kernel(qt, k, v, lengths),
                  lambda: flash_decode_q8_kernel(qt, kq, vq, lengths, ks, vs),
                  lambda: paged_decode_q8_kernel(qt, pool, pool, lengths, bt, ks, vs)):
         with pytest.raises(ValueError, match="CUDA"):

@@ -1,5 +1,6 @@
-"""The port stands alone: no file under src/repro_torch/, and not
-chip_smoke.py, imports jax, jaxlib or the JAX package ``repro``
+"""The port stands alone: no file under src/repro_torch/, no
+examples/torch_*.py and not chip_smoke.py imports jax, jaxlib or the JAX
+package ``repro``
 (``repro_torch`` itself is of course allowed), nor msgpack, which the
 machine with the card does not have (the port's checkpoints carry their
 own codec)."""
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path: Path):
@@ -38,6 +40,7 @@ def test_rule_tells_repro_from_repro_torch():
 
 def test_files_exist():
     assert len(FILES) > 20 and all(f.exists() for f in FILES)
+    assert sum(f.parent.name == "examples" for f in FILES) == 5
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -10,7 +10,9 @@ the CPU):
 * the GQA RoPE model with its KV heads cut over the axis (tp 2 and 4,
   ``decode_attn_impl="flash"``: ``flash_decode`` on the rank's heads);
 * KH 2 over tp 4: q/k/v gathered, the cache cut over its length, the
-  ranks' partial softmaxes joined by ``lse_combine``;
+  ranks' partial softmaxes joined by ``lse_combine``, under
+  ``decode_attn_impl="naive"`` (plain, masked by position) and "flash"
+  (``flash_decode_partial`` over each piece's live prefix);
 * reduced Mamba2 (the mixer gathered whole, its state kept in pieces over
   heads and channels), reduced Jamba (Mamba, attention and MoE), reduced
   olmoe (experts over the axis).
@@ -19,8 +21,7 @@ Each rank's logits, gathered over its vocabulary pieces, are held against
 the port in one process within 1e-5 and against ``repro``'s ``prefill`` /
 ``decode_step`` (jitted, one device) within 1e-4; each rank's cache
 leaves have the piece shapes ``sharding.specs.cache_spec`` gives, and so
-does ``init_cache(mesh=)``.  ``decode_attn_impl="flash"`` over a
-length-cut cache raises.
+does ``init_cache(mesh=)``.
 """
 import functools
 
@@ -131,21 +132,6 @@ def test_length_cut_cache_and_heads_cut_cache():
     assert tuple(heads[0]["pos"].shape) == (2, 16)
     assert tuple(length[0]["k"].shape) == (2, 4, 2, 16)
     assert tuple(length[0]["pos"].shape) == (2, 4)
-
-
-def test_flash_decode_over_a_length_cut_cache_raises():
-    """No ported kernel returns the log-sum-exp the length pieces are
-    joined by: "flash" refuses instead of taking the plain path."""
-    from repro_torch.models import attention as A
-    from repro_torch.sharding.tp import TensorParallel
-    cfg = C.serve_config(get_arch, "gqa_len")
-    p = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")["layers"][0]
-    tp = TensorParallel(None, 4, 0)
-    x = torch.zeros(2, 1, cfg.d_model)
-    cache = {"k": torch.zeros(2, 4, 2, 16), "v": torch.zeros(2, 4, 2, 16),
-             "pos": torch.full((2, 4), -1, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.decode_attention(cfg, p["mixer"], x, cache, 3, impl="flash", tp=tp)
 
 
 def test_paged_modes_refuse_a_model_axis():

@@ -289,6 +289,7 @@ SERVE_CASES = {
     "gqa_heads_12": ((1, 2), "gqa_heads", "flash"),
     "gqa_heads_14": ((1, 4), "gqa_heads", "flash"),
     "gqa_len_14": ((1, 4), "gqa_len", "naive"),
+    "gqa_len_flash_14": ((1, 4), "gqa_len", "flash"),
     "mamba_12": ((1, 2), "mamba", "flash"),
     "jamba_12": ((1, 2), "jamba", "naive"),
     "olmoe_12": ((1, 2), "olmoe", "flash"),
