@@ -7,12 +7,13 @@ card:
 
 Phases (each prints its own lines; any failure exits non-zero):
  1. device: name, power limit, TF32 off for the float32 references;
- 2. build: all eight CUDA sources from src/repro_torch/kernels/csrc with
+ 2. build: all nine CUDA sources from src/repro_torch/kernels/csrc with
     nvcc, in parallel; ptxas's registers, shared memory and spills of each
     kernel of the three LoRA libraries (the TF32 tile's instantiations and
     the rank reduce's), of flash attention, of the two decode libraries
     (the split-K body under its float and int8 element policies: no int8
-    instantiation may spill), of the SSD scan and of its backward;
+    instantiation may spill), of the partial-softmax decode, of the SSD
+    scan and of its backward;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
     forward LoRA matmul in both its regimes (M <= 16 and above, Mamba2's
@@ -34,9 +35,10 @@ Phases (each prints its own lines; any failure exits non-zero):
     511-513 of 512, capacities 16-2048 for S = 1 to 8, G 4 and 8, D
     20-256, pages of 1, 16 and 48, K/V off a 16-byte boundary; one launch
     a call, two runs bit-equal, dead slots exact zeros); flash decode's
-    partial-softmax entry (f32 m, l, o) against its plain version over the
-    last of tp 2, 4 and 8 length pieces (Lc 64 and 65, G 1 and 8, D 64
-    and 128; empty pieces exactly (-1e30, 0, 0)), and its pieces joined as
+    partial-softmax entry (f32 m, l, o; its own kernel) against its plain
+    version over the last of tp 2, 4 and 8 length pieces (Lc 64 and 65, G
+    1, 8 and 16, D 64, 128 and 256; empty pieces exactly (-1e30, 0, 0)),
+    and its pieces joined as
     ``lse_combine`` joins them against flash_decode on the whole cache;
     and the SSD scan (y and the final state) against ``ssd_chunked``
     and the per-token oracle, f32, at repro's test shapes and the
@@ -63,7 +65,8 @@ Phases (each prints its own lines; any failure exits non-zero):
     slot at 16, 128 and 511 and one slot at 511, at the plan's split; the
     partial entry at yi-9b's piece at tp 8, 4 slots x 4 KV heads of G 8 x
     D 128 over Lc 65, beside aten's efficient attention with its
-    log-sum-exp); two
+    log-sum-exp, and a [sweep] of it over pieces of 520 and 4096 and at
+    GPT-2-S's piece at tp 8, each with its plan, plain, library and bound); two
     runs bit-equal for ``lora_matmul`` at
     M 8 and 768, dX at M 256 and the q8 pair at M 256; a sweep of M with
     each regime forced, at K = N = 768 and at ``ssm_in``;
@@ -221,10 +224,12 @@ Phases (each prints its own lines; any failure exits non-zero):
     16), dt = softplus(N(0, 1))), a random dy and a nonzero dh_last, at row
     12's shapes (B 1, 80 heads of 64, N 128, S 200 and 512), Jamba's
     full-width heads (B 2, 8 of 128, N 64, S 512) and the reduced shape
-    (B 2, 4 of 32, N 16, S 40 at chunk 32): its four cotangents within
-    1e-4 of ``ssd_scan_bwd_ref``'s largest entry, no further from autograd
-    through the chunked algorithm in f64 than 3x the same autograd in f32,
-    one launch, two runs bit-equal; (b) its time at the training shapes (a
+    (B 2, 4 of 32, N 16, S 40 at chunk 32) and a head dim of 192 (B 1, 4
+    heads, N 64, S 256: two slices of the head dim, 128 and 64): its four
+    cotangents within 1e-4 of ``ssd_scan_bwd_ref``'s largest entry, no
+    further from autograd through the chunked algorithm in f64 than 3x the
+    same autograd in f32, one launch a slice, two runs bit-equal; (b) its
+    time at the training shapes (a
     client's B 2 and the server's pooled B 6, 320 tokens padded to 512) and
     at B 1, S 512, beside the
     plain version, autograd's backward through ``ssd_chunked`` and the
@@ -381,6 +386,12 @@ op-routed fused forward a call) of each TREE (a checkout: its own
 chip_smoke.py and src; this one where none is given), one process each,
 in the order given: parent, change, change, parent compares two commits
 on one card.
+
+    python3 chip_smoke.py --partial-times [TREE ...]
+
+times each TREE's ``flash_decode_partial`` (its own src, this script's
+shapes and timer) at phase 4's pieces, L2 cold and warm, one process
+each, in the order given.
 """
 import dataclasses
 import functools
@@ -490,6 +501,63 @@ def bound_tf32(nbytes: float, flops: float, passes: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# flash_decode_partial's pieces, f32 (what, (B, KH, G, D, Lc)): yi-9b's at tp 8
+# (phase 20 (b)), longer ones with its heads, GPT-2-S's at tp 8
+PARTIAL_SHAPES = (("yi-9b's piece at tp 8", (4, 4, 8, 128, 65)),
+                  ("yi-9b's heads, a piece of 520", (4, 4, 8, 128, 520)),
+                  ("yi-9b's heads, decode_32k's piece at tp 8", (4, 4, 8, 128, 4096)),
+                  ("GPT-2-S's piece at tp 8", (8, 12, 1, 64, 64)))
+PARTIAL_LIBRARY = "aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True)"
+
+
+def time_partial(torch, dev, flush, partial, B, KH, G, D, Lc, full=True):
+    """``partial`` (a tree's ``flash_decode_partial``) at a piece of Lc
+    positions of every slot, f32, L2 cold and warm; with ``full`` also its
+    plain version, the library call (the G query heads of a KV head as its
+    query length, since they see the same keys under the same mask) and
+    the bound: q read, the live K and V read once, m, l and o written."""
+    from repro_torch.kernels.flash_attention import flash_decode_partial_ref
+    gen = torch.Generator().manual_seed(Lc + D)
+    q = torch.randn(B, 1, KH * G, D, generator=gen).to(dev)
+    k = torch.randn(B, Lc, KH, D, generator=gen).to(dev)
+    v = torch.randn(B, Lc, KH, D, generator=gen).to(dev)
+    lens = torch.full((B,), Lc, dtype=torch.int32, device=dev)
+    row = dict(ms=time_ms(torch, lambda: partial(q, k, v, lens), flush),
+               warm_ms=time_ms(torch, lambda: partial(q, k, v, lens), lambda: None))
+    if not full:
+        return row
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.plan import partial_plan
+    qt = q[:, 0].reshape(B, KH, G, D)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)              # views, no copy
+    row["plain_ms"] = time_ms(torch, lambda: flash_decode_partial_ref(qt, kt, vt, lens), flush)
+    # a length mask as an additive bias, its rows padded to 16-byte pitches
+    pad = torch.zeros(B, 1, 1, -(-Lc // 16) * 16, device=dev)
+    pad[..., :Lc].masked_fill_(torch.arange(Lc, device=dev) >= lens[:, None, None, None],
+                               float("-inf"))
+    bias = pad[..., :Lc].expand(B, KH, G, Lc)
+    try:
+        row["library_ms"] = time_ms(
+            torch, lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, bias, True), flush)
+    except RuntimeError as exc:
+        row["library_ms"] = None
+        row["refused"] = f"refused the shape: {str(exc).splitlines()[0][:160]}"
+    nbytes = 4 * (B * KH * G * D + 2 * B * KH * Lc * D + B + B * KH * G * (2 + D))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * B * KH * G * D * Lc)
+    row["bytes"] = nbytes
+    p_ = partial_plan(Lc, B, KH, G, D, torch.float32)
+    resident = build.load("decode_partial").flash_decode_partial_clusters
+    resident.argtypes, resident.restype = [ctypes.c_int] * 5, ctypes.c_int
+    row["plan"] = (f"S {p_.splits} x {p_.warps} warps x {p_.stages} stages, "
+                   f"{B * KH * p_.groups * p_.splits} blocks in {B * KH * p_.groups} "
+                   f"clusters, {resident(D, p_.splits, p_.warps, p_.stages, 0)} resident "
+                   "at once")
+    return row
+
+
 def ids_digest(requests) -> str:
     """sha256 of the requests' token ids, in order: one line that two runs
     (or two commits) can be compared on."""
@@ -553,10 +621,10 @@ def main() -> None:
           + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
           + f"; wall {time.perf_counter() - t0:.1f}s")
     # the TF32 tile's (and the rank reduce's), flash attention's, the
-    # decode body's under its float and int8 policies, the SSD scan's and its
-    # backward's
+    # decode body's under its float and int8 policies, the partial softmax's,
+    # the SSD scan's and its backward's
     for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "flash_attention",
-                "flash_decode", "paged_decode", "ssd_scan", "ssd_scan_bwd"):
+                "flash_decode", "paged_decode", "decode_partial", "ssd_scan", "ssd_scan_bwd"):
         for line in build.resource_usage(lib):
             print(f"[ptxas] {lib}: {line}")
     int8 = [ln for lib in ("flash_decode", "paged_decode") for ln in build.resource_usage(lib)
@@ -823,14 +891,16 @@ def main() -> None:
 
     def check_partial(dt, dn):
         """flash_decode_partial (f32 m, l, o whatever q's dtype) against its
-        plain version at G 1 and 8, D 64 and 128, pieces of Lc 65 (not a
-        multiple of the 32-position tile) and 64, with lengths 0 (every
+        plain version at G 1, 8 and 16 (two head groups), D 64, 128 and
+        256, pieces of Lc 65 (not a multiple of the 16-position tile) and
+        64, with lengths 0 (every
         piece dead: m -1e30, l 0, o 0 exactly), inside the first piece, on
         a piece's edge and past the cache (L + 1: every piece whole); then
         its pieces over tp 2, 4 and 8 joined as lse_combine joins them,
         against flash_decode on the whole cache."""
         tol = dict(atol=PAGED_TOL["float32"], rtol=PAGED_TOL["float32"])
-        for B, KH, G, D, Lc in ((6, 4, 8, 128, 65), (6, 12, 1, 64, 64), (6, 2, 8, 64, 65)):
+        for B, KH, G, D, Lc in ((6, 4, 8, 128, 65), (6, 12, 1, 64, 64), (6, 2, 8, 64, 65),
+                                (6, 2, 16, 64, 65), (6, 1, 8, 256, 64), (6, 1, 16, 256, 65)):
             for n in (2, 4, 8):
                 L = Lc * n
                 lengths = [0, 1, Lc, Lc + 1, L, L + 1]
@@ -1356,39 +1426,22 @@ def main() -> None:
             print(f"[sweep] decode {op} f32 q B={B_} KH={KH} G={G} D={D} capacity {L} "
                   f"(pages of {PS}) every length {n}: S={S} ({B_ * KH * S} blocks), kernel "
                   f"{time_ms(torch, fn, flush) * 1e3:.2f}us, bound {bms * 1e3:.2f}us")
-    # the partial-softmax entry at the shape phase 20 (b) gives it: yi-9b's
-    # piece of the cache at tp 8 (4 slots, 4 KV heads of 8 query heads x
-    # 128, Lc 65 of 520 positions), every piece full (ranks 0-6 at every
-    # decode step); the library call takes the G query heads of a KV head
-    # as its query length, since they see the same keys under the same mask
-    B, KH, G, D, Lc = 4, 4, 8, 128, 65
-    q, k, v, lens = slab_inputs(B, KH, G, D, Lc, [Lc] * B, torch.float32)
-    qt = q[:, 0].reshape(B, KH, G, D)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)              # views, no copy
-    ms = time_ms(torch, lambda: flash_decode_partial(q, k, v, lens), flush)
-    warm = time_ms(torch, lambda: flash_decode_partial(q, k, v, lens), lambda: None)
-    plain = time_ms(torch, lambda: flash_decode_partial_ref(qt, kt, vt, lens), flush)
-    # a length mask as an additive bias, its rows padded to 16-byte pitches
-    pad = torch.zeros(B, 1, 1, -(-Lc // 16) * 16, device=dev)
-    pad[..., :Lc].masked_fill_(torch.arange(Lc, device=dev) >= lens[:, None, None, None],
-                               float("-inf"))
-    bias = pad[..., :Lc].expand(B, KH, G, Lc)
-    lib_name = "aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True)"
-    try:
-        lib = time_ms(torch, lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
-            qt, kt, vt, bias, True), flush)
-    except RuntimeError as exc:
-        lib = None
-        lib_name += f" refused the shape: {str(exc).splitlines()[0][:160]}"
-    nbytes = 4 * (B * KH * G * D + 2 * B * KH * Lc * D + B + B * KH * G * (2 + D))
-    bms, bby = bound(nbytes, 4 * B * KH * G * D * Lc)
-    rows[("flash_decode_partial", B)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                             bound_ms=bms, bound_by=bby)
-    print(f"[time] flash_decode_partial f32, B={B} KH={KH} G={G} D={D} Lc={Lc} every piece "
-          f"full: kernel {ms * 1e3:.2f}us plain {plain * 1e3:.2f}us library({lib_name}) "
-          + (f"{lib * 1e3:.2f}us" if lib is not None else "-")
-          + f" bound {bms * 1e3:.2f}us ({bby}, {nbytes} B); kernel with L2 warm "
-          f"{warm * 1e3:.2f}us")
+    # the partial-softmax entry at the shape phase 20 (b) gives it (yi-9b's
+    # piece of the cache at tp 8, every piece full: ranks 0-6 at every
+    # decode step), then a [sweep] over longer pieces and GPT-2-S's
+    for i, (what, shape) in enumerate(PARTIAL_SHAPES):
+        r_ = time_partial(torch, dev, flush, flash_decode_partial, *shape)
+        B, KH, G, D, Lc = shape
+        if i == 0:
+            rows[("flash_decode_partial", B)] = {k_: r_[k_] for k_ in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        print(f"[{'time' if i == 0 else 'sweep'}] flash_decode_partial f32, {what}: B={B} "
+              f"KH={KH} G={G} D={D} Lc={Lc}, every piece full, plan {r_['plan']}: kernel "
+              f"{r_['ms'] * 1e3:.2f}us plain {r_['plain_ms'] * 1e3:.2f}us library("
+              f"{PARTIAL_LIBRARY}) " + (f"{r_['library_ms'] * 1e3:.2f}us"
+                                        if r_['library_ms'] is not None else r_['refused'])
+              + f" bound {r_['bound_ms'] * 1e3:.2f}us ({r_['bound_by']}, {r_['bytes']} B); "
+              f"kernel with L2 warm {r_['warm_ms'] * 1e3:.2f}us")
 
     # -- 4b. times at the training path's shapes (f32) -------------------------
     # the forward and dX at M above the decode threshold run the 3xTF32
@@ -2290,10 +2343,10 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention/decode.py:177",
              launches=launches["flash_decode"], max_abs_err=err["flash_decode"],
              **rows[("flash_decode", 8)]),
-        # its partial-softmax entry, launched by phase 20 (b)'s decode over a
-        # cache cut by its length; timed at that piece's shape
+        # the partial softmax over a piece of a cache cut by its length,
+        # launched by phase 20 (b)'s decode; timed at that piece's shape
         dict(name="flash_decode_partial", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_decode.cu",
+             source="src/repro_torch/kernels/csrc/decode_partial.cu",
              replaces="src/repro/kernels/flash_attention/decode.py:177 (partitioned by "
                       "GSPMD over a cache sharded by length)",
              launches=launches["flash_decode_partial"],
@@ -3908,13 +3961,15 @@ def phase_mamba_train(torch, np, dev, flush):
     for B, nh, S, hd, N, Q, what in ((1, 80, 200, 64, 128, 256, "Mamba2-2.7B S 200"),
                                      (1, 80, 512, 64, 128, 256, "Mamba2-2.7B S 512"),
                                      (2, 8, 512, 128, 64, 256, "Jamba's heads"),
-                                     (2, 4, 40, 32, 16, 32, "reduced")):
+                                     (2, 4, 40, 32, 16, 32, "reduced"),
+                                     (1, 4, 256, 192, 64, 256, "a head dim of 192")):
         kern, dh, _ = ssd_bwd_inputs(torch, dev, B, nh, S, hd, N, Q, seed=S + nh)
         backend.reset_launch_counts()
         got = ssd_scan_bwd_kernel(*kern, dh, chunk=Q)
         again = ssd_scan_bwd_kernel(*kern, dh, chunk=Q)
         torch.cuda.synchronize()
-        one = dict(backend.LAUNCH_COUNTS) == {"ssd_scan_bwd": 2}
+        # one launch a slice of at most 128 head dims
+        one = dict(backend.LAUNCH_COUNTS) == {"ssd_scan_bwd": 2 * -(-hd // 128)}
         same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
         plain = ssd_scan_bwd_ref(*kern, dh, chunk=Q)
         w64 = autograd_grads(kern, dh, Q, torch.float64)
@@ -3933,7 +3988,7 @@ def phase_mamba_train(torch, np, dev, flush):
                          f"f64 kernel {dk:.3g} autograd f32 {da:.3g}")
         print(f"[train16] ssd_scan_bwd f32 B={B} S={S} nh={nh} hd={hd} N={N} chunk={Q} "
               f"({what}; model decays, dh_last != 0): " + "; ".join(parts)
-              + f" (kernel <= 3x autograd's distance from f64); one launch {one}, two runs "
+              + f" (kernel <= 3x autograd's distance from f64); one launch a slice {one}, two runs "
               f"bit-equal {same} {'ok' if good else 'FAIL'}")
         if not good:
             fail(f"ssd_scan_bwd disagrees at {what}")
@@ -5836,9 +5891,26 @@ print(f"[host-times] tree {sys.argv[1]}: {time.perf_counter() - t0:.1f}s", flush
 """
 
 
-def host_times(trees) -> None:
-    """``--host-times``: every tree's kernels built at once, then phase 16
-    and phase 19 (e) of each tree in its own process, in order."""
+PARTIAL_TIMES = """
+import sys
+sys.path.insert(0, sys.argv[2])
+import chip_smoke as cs
+sys.path.insert(0, sys.argv[1] + "/src")
+import torch
+from repro_torch.kernels.flash_attention import flash_decode_partial
+dev = torch.device("cuda", 0)
+flush = torch.ones(16 * 2 ** 20, dtype=torch.int32, device=dev).sum
+for what, shape in cs.PARTIAL_SHAPES:
+    r = cs.time_partial(torch, dev, flush, flash_decode_partial, *shape, full=False)
+    print(f"[partial-times] tree {sys.argv[1]}: {what} (B, KH, G, D, Lc) = {shape}: kernel "
+          f"{r['ms'] * 1e3:.2f}us, L2 warm {r['warm_ms'] * 1e3:.2f}us", flush=True)
+"""
+
+
+def tree_runs(trees, script: str, label: str) -> None:
+    """``--host-times`` and ``--partial-times``: every tree's kernels built
+    at once, then ``script`` (argv: the tree, this script's directory) for
+    each tree in its own process, in order."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -5850,13 +5922,15 @@ def host_times(trees) -> None:
     if any(p_.wait() for p_ in procs):
         fail("a tree's kernels did not build")
     for t in trees:
-        if subprocess.run([sys.executable, "-c", HOST_TIMES, t]).returncode:
-            fail(f"phase 16 or 19 (e) of {t} failed")
+        if subprocess.run([sys.executable, "-c", script, t, str(SRC.parent)]).returncode:
+            fail(f"{label} of {t} failed")
     print(smi_line())
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--host-times"]:
-        host_times(sys.argv[2:])
+        tree_runs(sys.argv[2:], HOST_TIMES, "phase 16 or 19 (e)")
+    elif sys.argv[1:2] == ["--partial-times"]:
+        tree_runs(sys.argv[2:], PARTIAL_TIMES, "flash_decode_partial's times")
     else:
         main()

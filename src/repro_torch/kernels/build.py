@@ -27,7 +27,7 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8", "paged_decode",
-           "flash_attention", "flash_decode", "ssd_scan", "ssd_scan_bwd")
+           "flash_attention", "flash_decode", "decode_partial", "ssd_scan", "ssd_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 

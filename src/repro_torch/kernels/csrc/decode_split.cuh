@@ -68,11 +68,6 @@
 //    live entry gives exact zeros (acc 0, l 0), the dead-slot contract of
 //    the Pallas kernels; a block with no live tile joins the barrier with
 //    m = -1e30, l = 0, acc = 0;
-//  * a third policy says what the epilogue writes: Out = NormOut<T> the
-//    normalised out in q's dtype, or PartialOut the merged M, the
-//    denominator and the unnormalised numerator in f32, the partial softmax
-//    that sharding/tp.py::lse_combine joins over the pieces of a cache cut
-//    by its length (a piece with no live entry: M = -1e30, l = 0, o = 0);
 //  * G query heads go in groups of GT (a power of two, at most the
 //    policy's MAX_GT); a G that GT does not divide leaves the last group's
 //    extra heads at q = 0, computed and not written.  q and acc take
@@ -270,40 +265,6 @@ struct Int8KV {                 // int8 entries, f32 (KH,) scales on the device
   }
 };
 
-// ---------------------------------------------------------------------------
-// outputs: what the epilogue writes for query head row = (b * KH + h) * G + g
-// and entry d from the cluster's merged max mm, denominator den and
-// numerator num (each (row, d) written by one thread of the cluster)
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct NormOut {                // out (B, KH, G, D) in T: num / den
-  T* out;
-  __device__ __forceinline__ void put(size_t row, int D, int d, float, float den,
-                                      float num) const {
-    store(out + row * D + d, num / fmaxf(den, 1e-30f));
-  }
-};
-
-template <typename T>
-inline NormOut<T> norm_out(void* out) {
-  return {static_cast<T*>(out)};
-}
-
-struct PartialOut {             // f32 m, l (B, KH, G) and o (B, KH, G, D), unnormalised
-  float* m;
-  float* l;
-  float* o;
-  __device__ __forceinline__ void put(size_t row, int D, int d, float mm, float den,
-                                      float num) const {
-    o[row * D + d] = num;
-    if (d == 0) {
-      m[row] = mm;
-      l[row] = den;
-    }
-  }
-};
-
 // Every row starts on a 16-byte boundary iff D * bytes is a multiple of 16
 // and both bases are (row offsets are multiples of D in either layout).
 inline bool vec16_rows(const void* k, const void* v, int D, int bytes) {
@@ -320,15 +281,14 @@ __host__ __device__ constexpr int rows_in_flight(int GT, int NC, int EPV, int ma
 }
 
 // ---------------------------------------------------------------------------
-// the kernel: q (B, KH, G, D) in T; lengths (B,) int32; out an Out policy.
-// Block x of the grid is rank x % S of unit x / S, unit = (b * KH + h) *
-// groups + grp.
+// the kernel: q and out (B, KH, G, D) in T; lengths (B,) int32.  Block x of
+// the grid is rank x % S of unit x / S, unit = (b * KH + h) * groups + grp.
 // ---------------------------------------------------------------------------
 
-template <typename T, typename KV, typename Addr, typename Out, int GT, int NC, bool VEC>
+template <typename T, typename KV, typename Addr, int GT, int NC, bool VEC>
 __global__ void __launch_bounds__(SPLIT_NT, KV::MIN_BLOCKS) decode_split(
     const T* __restrict__ q, const KV kv, const Addr addr,
-    const int* __restrict__ lengths, const Out out, int KH, int G, int D,
+    const int* __restrict__ lengths, T* __restrict__ out, int KH, int G, int D,
     int window, float scale, int lanes) {
   constexpr int EPV = KV::EPV;
   constexpr int U = rows_in_flight(GT, NC, EPV, KV::MAX_ROWS);
@@ -554,7 +514,7 @@ __global__ void __launch_bounds__(SPLIT_NT, KV::MIN_BLOCKS) decode_split(
         num += w * ra[r];
       }
     }
-    out.put((size_t)bh * G + g0 + g, D, d, mm, den, num);
+    store(out + ((size_t)bh * G + g0 + g) * D + d, num / fmaxf(den, 1e-30f));
   }
   cluster.sync();               // keep this block's record until all have read
 }
@@ -568,32 +528,32 @@ struct SplitPlan {
   int vec;                      // 16-byte loads (else entry by entry)
 };
 
-template <typename T, typename KV, typename Addr, typename Out, int GT, int NC>
+template <typename T, typename KV, typename Addr, int GT, int NC>
 cudaError_t run_split(const void* q, const KV& kv, const Addr& addr, const void* lengths,
-                      const Out& out, int units, int KH, int G, int D, int window,
-                      float scale, const SplitPlan& p, cudaStream_t st) {
+                      void* out, int units, int KH, int G, int D, int window, float scale,
+                      const SplitPlan& p, cudaStream_t st) {
   const int S = p.splits;
   const size_t bytes = sizeof(float) * (size_t)(SPLIT_NW + 1) * GT * (2 + D);
   const dim3 grid((unsigned)(S * units));
   const T* qp = static_cast<const T*>(q);
   const int* lp = static_cast<const int*>(lengths);
-  return p.vec ? cluster_launch<decode_split<T, KV, Addr, Out, GT, NC, true>, SPLIT_NT>(
-                     grid, S, bytes, st, qp, kv, addr, lp, out, KH, G, D, window, scale,
+  T* op = static_cast<T*>(out);
+  return p.vec ? cluster_launch<decode_split<T, KV, Addr, GT, NC, true>, SPLIT_NT>(
+                     grid, S, bytes, st, qp, kv, addr, lp, op, KH, G, D, window, scale,
                      p.lanes)
-               : cluster_launch<decode_split<T, KV, Addr, Out, GT, NC, false>, SPLIT_NT>(
-                     grid, S, bytes, st, qp, kv, addr, lp, out, KH, G, D, window, scale,
+               : cluster_launch<decode_split<T, KV, Addr, GT, NC, false>, SPLIT_NT>(
+                     grid, S, bytes, st, qp, kv, addr, lp, op, KH, G, D, window, scale,
                      p.lanes);
 }
 
-// Launch the instantiated kernel the plan names on stream st, writing
-// through `out` (NormOut<T> or PartialOut); `aligned` says every K and V
-// row starts on a 16-byte boundary (vec16_rows).  The checks follow the KV
-// policy's entries (EPV, MAX_GT), not q's dtype T.  Returns
+// Launch the instantiated kernel the plan names on stream st; `aligned` says
+// every K and V row starts on a 16-byte boundary (vec16_rows).  The checks
+// follow the KV policy's entries (EPV, MAX_GT), not q's dtype T.  Returns
 // cudaErrorInvalidValue for a plan that names none, else the launch's error
 // (0 = launched).
-template <typename T, typename KV, typename Addr, typename Out>
+template <typename T, typename KV, typename Addr>
 cudaError_t launch_decode_split(const void* q, const KV& kv, const Addr& addr,
-                                const void* lengths, const Out& out, int B, int KH, int G,
+                                const void* lengths, void* out, int B, int KH, int G,
                                 int D, int window, float scale, const SplitPlan& p,
                                 bool aligned, cudaStream_t st) {
   constexpr int EPV = KV::EPV;
@@ -608,8 +568,8 @@ cudaError_t launch_decode_split(const void* q, const KV& kv, const Addr& addr,
   if (units * S > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int n = (int)units;
 #define DECODE_SPLIT_RUN(gt, nc)                                                      \
-  return run_split<T, KV, Addr, Out, gt, nc>(q, kv, addr, lengths, out, n, KH, G, D,     \
-                                             window, scale, p, st)
+  return run_split<T, KV, Addr, gt, nc>(q, kv, addr, lengths, out, n, KH, G, D, window, \
+                                        scale, p, st)
   if (NC == 2) {
     if constexpr (EPV == 4) {
       switch (GT) {

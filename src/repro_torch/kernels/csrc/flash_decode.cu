@@ -31,32 +31,14 @@
 // slots x 12 KV heads of 64, lengths 8-255, f32), and at serving batch
 // sizes latency bound, by the launch and the DRAM round trips in series.
 //
-// All three run the split-K body of csrc/decode_split.cuh with its SlabAddr
-// addressing, 1 and 3 through the FloatKV<T> element policy and 2 through
+// Both run the split-K body of csrc/decode_split.cuh with its SlabAddr
+// addressing, 1 through the FloatKV<T> element policy and 2 through
 // Int8KV: a cluster of S blocks per (slot, KV head, head group), each
 // taking an equal share of the slot's live 32-position tiles (S from
 // kernels/flash_attention/plan.py::decode_plan over the K/V entries), rows
 // read 16 bytes a lane with several rows in flight, online softmax per
 // group of lanes in registers, and the blocks' (m, l, acc) merged in rank
 // order through distributed shared memory: one launch, no workspace.
-//
-// 3. flash_decode_partial: k/v in q's dtype, no window; writes f32
-//      m (B, KH, G)        the largest score q k^T * D^-0.5 of the live keys
-//      l (B, KH, G)        sum of exp(s - m) over them
-//      o (B, KH, G, D)     sum of exp(s - m) v, unnormalised
-//    (a slot with no live key: m = -1e30, l = 0, o = 0 exactly), the
-//    partial softmax over one piece of a cache cut by its length, which
-//    sharding/tp.py::lse_combine joins over the "model" axis with one
-//    all-reduce max and one sum.
-//    Replaces: what GSPMD makes of src/repro/kernels/flash_attention/
-//    decode.py::flash_decode_kernel (Pallas, TPU) over a cache sharded by
-//    length: each device runs the kernel on its piece and the partitioner
-//    joins the pieces' softmax statistics.
-//    What bounds it: the piece's live K and V, read once as by 1, and 2 + D
-//    floats written a query head instead of D in q's dtype; at serving
-//    batch sizes the launch and the DRAM round trips in series, as 1.
-//    It is 1's body with the PartialOut epilogue: the cluster's blocks
-//    merged in rank order as 1 merges them, the division left to the join.
 //
 // Trap: a finished slab slot keeps decoding at position L, writing at
 // L % L = 0 and passing length L + 1; the Pallas grid covered L/bk tiles
@@ -81,44 +63,15 @@ int flash_decode_launch(const void* q, const void* k, const void* v, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const FloatKV<float> kv{static_cast<const float*>(k), static_cast<const float*>(v)};
-    return (int)launch_decode_split<float>(q, kv, addr, lengths, norm_out<float>(out), B, KH,
-                                           G, D, window, scale, plan, vec16_rows(k, v, D, 4),
-                                           s);
+    return (int)launch_decode_split<float>(q, kv, addr, lengths, out, B, KH, G, D, window,
+                                           scale, plan, vec16_rows(k, v, D, 4), s);
   }
   if (dtype == 1) {
     const FloatKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k),
                                     static_cast<const __nv_bfloat16*>(v)};
-    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths,
-                                                   norm_out<__nv_bfloat16>(out), B, KH, G, D,
+    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D,
                                                    window, scale, plan,
                                                    vec16_rows(k, v, D, 2), s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// The partial softmax of 1 over the live entries, no window: m, l and o
-// f32 (above); dtype is q's, k's and v's.
-int flash_decode_partial_launch(const void* q, const void* k, const void* v,
-                                const void* lengths, void* m, void* l, void* o, int B,
-                                int KH, int G, int D, int L, int splits, int heads,
-                                int lanes, int vectors, int vec, float scale, int dtype,
-                                void* stream) {
-  if (L < 1) return (int)cudaErrorInvalidValue;
-  const SlabAddr addr{L, KH, D};
-  const SplitPlan plan{splits, heads, lanes, vectors, vec};
-  const PartialOut out{static_cast<float*>(m), static_cast<float*>(l),
-                       static_cast<float*>(o)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const FloatKV<float> kv{static_cast<const float*>(k), static_cast<const float*>(v)};
-    return (int)launch_decode_split<float>(q, kv, addr, lengths, out, B, KH, G, D, 0, scale,
-                                           plan, vec16_rows(k, v, D, 4), s);
-  }
-  if (dtype == 1) {
-    const FloatKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(k),
-                                    static_cast<const __nv_bfloat16*>(v)};
-    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D, 0,
-                                                   scale, plan, vec16_rows(k, v, D, 2), s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -138,11 +91,10 @@ int flash_decode_q8_launch(const void* q, const void* k, const void* v,
   const bool aligned = vec16_rows(k, v, D, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_decode_split<float>(q, kv, addr, lengths, norm_out<float>(out), B, KH,
-                                           G, D, window, scale, plan, aligned, s);
+    return (int)launch_decode_split<float>(q, kv, addr, lengths, out, B, KH, G, D, window,
+                                           scale, plan, aligned, s);
   if (dtype == 1)
-    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths,
-                                                   norm_out<__nv_bfloat16>(out), B, KH, G, D,
+    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D,
                                                    window, scale, plan, aligned, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -59,14 +59,13 @@ int paged_decode_launch(const void* q, const void* kp, const void* vp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const FloatKV<float> kv{static_cast<const float*>(kp), static_cast<const float*>(vp)};
-    return (int)launch_decode_split<float>(q, kv, addr, lengths, norm_out<float>(out), B, KH,
-                                           G, D, 0, scale, plan, vec16_rows(kp, vp, D, 4), s);
+    return (int)launch_decode_split<float>(q, kv, addr, lengths, out, B, KH, G, D, 0, scale,
+                                           plan, vec16_rows(kp, vp, D, 4), s);
   }
   if (dtype == 1) {
     const FloatKV<__nv_bfloat16> kv{static_cast<const __nv_bfloat16*>(kp),
                                     static_cast<const __nv_bfloat16*>(vp)};
-    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths,
-                                                   norm_out<__nv_bfloat16>(out), B, KH, G, D, 0,
+    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D, 0,
                                                    scale, plan, vec16_rows(kp, vp, D, 2), s);
   }
   return (int)cudaErrorInvalidValue;
@@ -88,11 +87,10 @@ int paged_decode_q8_launch(const void* q, const void* kp, const void* vp,
   const bool aligned = vec16_rows(kp, vp, D, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_decode_split<float>(q, kv, addr, lengths, norm_out<float>(out), B, KH,
-                                           G, D, 0, scale, plan, aligned, s);
+    return (int)launch_decode_split<float>(q, kv, addr, lengths, out, B, KH, G, D, 0, scale,
+                                           plan, aligned, s);
   if (dtype == 1)
-    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths,
-                                                   norm_out<__nv_bfloat16>(out), B, KH, G, D, 0,
+    return (int)launch_decode_split<__nv_bfloat16>(q, kv, addr, lengths, out, B, KH, G, D, 0,
                                                    scale, plan, aligned, s);
   return (int)cudaErrorInvalidValue;
 }

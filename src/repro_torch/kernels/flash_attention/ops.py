@@ -1,8 +1,8 @@
 """Attention kernel entries: layout, device routing, checks and the kernel
 launches.  A CUDA tensor launches ``csrc/paged_decode.cu`` (float and
-int8 pools), ``csrc/flash_decode.cu`` (float and int8 slab caches, and
-the partial softmax over a piece of one; every decode entry with the
-split of ``plan.py``) or
+int8 pools), ``csrc/flash_decode.cu`` (float and int8 slab caches; both
+with ``plan.decode_plan``'s split), ``csrc/decode_partial.cu`` (the
+partial softmax over a piece of a slab cache, ``plan.partial_plan``) or
 ``csrc/flash_attention.cu``; a CPU tensor takes the plain version of
 ``ref.py``.  ``repro``'s ``bk``, ``interpret`` and ``use_kernel``
 arguments are gone: the tiles are fixed and the device alone routes."""
@@ -13,21 +13,21 @@ import ctypes
 import torch
 
 from .. import backend, build
-from .plan import DECODE_MAX_HEAD_DIM, decode_plan
+from .plan import DECODE_MAX_HEAD_DIM, decode_plan, partial_plan
 from .ref import (flash_attention_ref, flash_decode_partial_ref, flash_decode_q8_ref,
                   flash_decode_ref, paged_decode_q8_ref, paged_decode_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # (library, entry) -> argtypes: pointers, then ints (the decode entries end
-# theirs with decode_plan's five), the softmax scale, the dtype code and the
-# stream
+# theirs with decode_plan's five, the partial entry with partial_plan's
+# four), the softmax scale, the dtype code and the stream
 _SIGNATURES = {
     ("paged_decode", "paged_decode_launch"): (6, 12),
     ("paged_decode", "paged_decode_q8_launch"): (8, 12),
     ("flash_decode", "flash_decode_launch"): (5, 11),
     ("flash_decode", "flash_decode_q8_launch"): (7, 11),
-    ("flash_decode", "flash_decode_partial_launch"): (7, 10),
+    ("decode_partial", "flash_decode_partial_launch"): (7, 9),
     ("flash_attention", "flash_attention_launch"): (4, 8),
 }
 
@@ -321,11 +321,12 @@ def flash_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode_partial_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 lengths: torch.Tensor):
-    """Launch the CUDA kernel's partial-softmax entry on the model's cache
+    """Launch the partial-softmax CUDA kernel on the model's cache
     layout, read in place: q (B, KH, G, D), k/v (B, L, KH, D) of q's
     dtype (float32 or bfloat16), D <= 256, lengths (B,) int32, all
-    contiguous on one CUDA device; one cluster launch with
-    ``plan.decode_plan``'s split.  A length past L reads all L entries.
+    contiguous on one CUDA device; one cluster launch of
+    ``csrc/decode_partial.cu`` with ``plan.partial_plan``'s split, warps
+    and stages.  A length past L reads all L entries.
     Returns float32 (m (B, KH, G), l (B, KH, G), o (B, KH, G, D)): the
     largest scaled score of the live keys, the sum of exp(s - m) and the
     unnormalised sum of exp(s - m) v (no live key: -1e30, 0, 0).  Raises
@@ -341,13 +342,14 @@ def flash_decode_partial_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     o = torch.empty(q.shape, dtype=torch.float32, device=dev)
     if q.numel() == 0:
         return m, l, o
-    plan = _split_plan(L, q, k, v)
+    p = partial_plan(L, B, KH, G, D, q.dtype,
+                     aligned=k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
-        err = _entry("flash_decode", "flash_decode_partial_launch")(
+        err = _entry("decode_partial", "flash_decode_partial_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), m.data_ptr(),
-            l.data_ptr(), o.data_ptr(), B, KH, G, D, L, *plan, D ** -0.5,
-            _DTYPE_CODES[q.dtype], _stream(dev))
-    build.check("flash_decode", err)
+            l.data_ptr(), o.data_ptr(), B, KH, G, D, L, p.splits, p.warps, p.stages,
+            int(p.vec), D ** -0.5, _DTYPE_CODES[q.dtype], _stream(dev))
+    build.check("decode_partial", err)
     backend.count_launch("flash_decode_partial")
     return m, l, o
 

@@ -1,6 +1,8 @@
-"""The launch plan of the decode kernels (``csrc/flash_decode.cu`` and
-``csrc/paged_decode.cu``: f32/bf16 K/V and int8 K/V, one body in
-``csrc/decode_split.cuh``).
+"""The launch plans of the decode kernels: ``decode_plan`` for
+``csrc/flash_decode.cu`` and ``csrc/paged_decode.cu`` (f32/bf16 K/V and
+int8 K/V, one body in ``csrc/decode_split.cuh``), ``partial_plan`` for
+``csrc/decode_partial.cu`` (the partial softmax over a piece of a cache
+cut by its length).
 
 The plan is computed here, in Python, so that the CPU tests can hold its
 rules; the CUDA launchers take it as it is and check only that it names
@@ -82,3 +84,75 @@ def decode_plan(capacity: int, B: int, KH: int, G: int, D: int, kv_dtype,
         s *= 2
     return DecodePlan(s, heads, groups, lanes, pieces // lanes,
                       aligned and D % per == 0)
+
+
+PARTIAL_TILE = 16       # positions of a tile (PT in csrc/decode_partial.cu)
+PARTIAL_HEADS = 8       # query heads a block serves: the N of its products (PH)
+PARTIAL_MAX_WARPS = 4   # MAX_WARPS: warps of a block
+PARTIAL_MAX_STAGES = 3  # MAX_STAGES: ring stages a warp
+# a block's shared memory when two share an SM: 228 KB less 1 KB reserved a
+# block, halved
+PARTIAL_SMEM = 115712
+
+
+@dataclass(frozen=True)
+class PartialPlan:
+    splits: int         # S: blocks of one cluster along the piece
+    warps: int          # warps of a block, each walking its own tiles
+    stages: int         # tiles a warp has staged or in flight
+    groups: int         # blocks along the G query heads: ceil(G / 8)
+    vec: bool           # 16-byte copies (else entry by entry)
+
+
+def partial_padded_dim(D: int) -> int:
+    """The kernel's padded head dim: 32, 64, 128 or 256 (16 x its
+    instantiation's 16-dim output fragments)."""
+    return next(dp for dp in (32, 64, 128, 256) if D <= dp)
+
+
+def partial_smem(D: int, dtype, warps: int, stages: int) -> int:
+    """Bytes of shared memory of a block (``partial_smem`` in the kernel):
+    each warp's ring of K and V tiles (row pitches f32 K DP + 4, V DP + 8;
+    bf16 both DP + 8), q's B fragments (16 bytes a lane a k step), the
+    warps' P tiles, the block's record (m, l, acc[D] of 8 heads) and, for
+    each head, the warps' max and sum and the cluster ranks' weights."""
+    dp = partial_padded_dim(D)
+    pk = dp + 4 if dtype.itemsize == 4 else dp + 8
+    stage = dtype.itemsize * PARTIAL_TILE * (pk + dp + 8)
+    return (warps * stages * stage + dp // 8 * 32 * 16 + warps * PARTIAL_TILE * PARTIAL_HEADS * 4
+            + PARTIAL_HEADS * (2 + D) * 4
+            + PARTIAL_HEADS * (2 * PARTIAL_MAX_WARPS + MAX_SPLITS) * 4)
+
+
+def partial_plan(capacity: int, B: int, KH: int, G: int, D: int, dtype,
+                 aligned: bool = True) -> PartialPlan:
+    """The plan of ``flash_decode_partial_kernel`` for q (B, KH, G, D) over
+    a piece of ``capacity`` positions of K/V in ``dtype`` (float32 or
+    bfloat16); ``aligned`` says K and V start on a 16-byte boundary.
+
+    A block serves 8 query heads of one (slot, KV head); the piece's
+    16-position tiles go over the S blocks of a cluster (equal contiguous
+    shares) and over each block's 4 warps (in turn).  The call is latency
+    bound, and a tile goes faster on a block of its own than beside
+    others: S (a power of two, at most ``MAX_SPLITS``) doubles while it is
+    below the capacity's tiles and the doubled grid stays within the SM
+    count.  Each warp stages up to 3 of its tiles; stages, then warps, go
+    until two blocks fit an SM (clusters of 8 blocks one an SM found 15 of
+    their 16 places at once on an H100)."""
+    if not 1 <= D <= DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"partial_plan: head dim {D} outside [1, {DECODE_MAX_HEAD_DIM}]")
+    tiles = -(-capacity // PARTIAL_TILE)
+    groups = -(-G // PARTIAL_HEADS)
+    units = B * KH * groups
+    s = 1
+    while s < MAX_SPLITS and s < tiles and units * 2 * s <= SMS:
+        s *= 2
+    warps = PARTIAL_MAX_WARPS
+    stages = min(PARTIAL_MAX_STAGES, -(-tiles // (s * warps)))
+    while partial_smem(D, dtype, warps, stages) > PARTIAL_SMEM:
+        if stages > 1:
+            stages -= 1
+        else:
+            warps -= 1
+    return PartialPlan(s, warps, stages, groups,
+                       aligned and D % (16 // dtype.itemsize) == 0)

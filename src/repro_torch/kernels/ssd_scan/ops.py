@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import backend, build
-from .plan import ssd_bwd_plan, ssd_plan, vec_loads
+from .plan import BWD_HD_MAX, bwd_head_slices, ssd_bwd_plan, ssd_plan, vec_loads
 from .ref import ssd_chunked, ssd_scan_bwd_ref, ssd_scan_ref, ssd_sequential_ref
 
 SSD_MAX_STATE = 256                # SSD_NMAX in csrc/ssd_scan.cu
@@ -102,8 +102,12 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, g: torch.Tensor, Bm: torch.Tensor,
     kernel layout: xdt, g, Bm, Cm as ``ssd_scan_kernel`` takes them, dy (B,
     nh, S, hd) the cotangent of y, dh_last (B, nh, hd, N) that of the final
     state or None (zero); float32, contiguous, on one CUDA device; S a
-    multiple of Q = min(chunk, S); N <= 256, hd <= 128.  Four launches with
-    ``plan.ssd_bwd_plan``'s heads a block and instantiation.  Returns (dxdt,
+    multiple of Q = min(chunk, S); N <= 256.  Four launches with
+    ``plan.ssd_bwd_plan``'s heads a block and instantiation.  A head dim
+    over ``BWD_HD_MAX`` runs the kernel once on each slice of
+    ``plan.bwd_head_slices``: y's channel p reads only xdt[..., p], so
+    each slice gives its own columns of dxdt, and dg, dBm and dCm (sums
+    over p) are the slices' sums, added in slice order.  Returns (dxdt,
     dg, dBm, dCm) in the layouts of xdt, g, Bm and Cm (dBm and dCm summed
     over heads), float32; two runs give equal bits.  Raises on anything
     else."""
@@ -114,6 +118,15 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, g: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} or dh_last "
                          f"{None if dh_last is None else tuple(dh_last.shape)} does not "
                          f"match xdt {tuple(xdt.shape)} and a state of {N}")
+    if hd > BWD_HD_MAX:
+        parts = [ssd_scan_bwd_kernel(
+            xdt[..., a:b].contiguous(), g, Bm, Cm, dy[..., a:b].contiguous(),
+            None if dh_last is None else dh_last[:, :, a:b].contiguous(), chunk=chunk)
+            for a, b in bwd_head_slices(hd)]
+        _, dg, dBm, dCm = parts[0]
+        for _, g_, b_, c_ in parts[1:]:
+            dg, dBm, dCm = dg + g_, dBm + b_, dCm + c_
+        return torch.cat([p_[0] for p_ in parts], -1), dg, dBm, dCm
     dev = xdt.device
     outs = (torch.empty_like(xdt), torch.empty_like(g), torch.empty_like(Bm),
             torch.empty_like(Cm))

@@ -50,7 +50,9 @@ ceil(nh / heads)`` partials instead of nh.  It is the largest of 8, 4, 2
 and 1 that leaves at least ``BWD_MIN_WAVES`` blocks per SM in those two
 launches (none of them is a cluster).  ``dtiles`` names the pairs
 kernel's instantiation: head dims padded to ``16 * dtiles`` (32, 64 or
-128), each warp holding ``dtiles`` 8-column tiles of dxdt.
+128), each warp holding ``dtiles`` 8-column tiles of dxdt.  A plan takes
+at most ``BWD_HD_MAX`` head dims: the wrapper runs a wider head dim as
+the slices of ``bwd_head_slices``, one plan and launch each.
 """
 from __future__ import annotations
 
@@ -120,6 +122,13 @@ def bwd_segments(S: int, Q: int):
     of Q rows cut into pieces of SUBCHUNK, the last one ragged."""
     return [(c + m, min(SUBCHUNK, Q - m)) for c in range(0, S, Q)
             for m in range(0, Q, SUBCHUNK)]
+
+
+def bwd_head_slices(hd: int):
+    """[a, b) of every launch of the backward over a head dim of hd: cuts
+    of ``BWD_HD_MAX`` in order, the last one ragged (one slice at hd <=
+    ``BWD_HD_MAX``)."""
+    return [(a, min(a + BWD_HD_MAX, hd)) for a in range(0, hd, BWD_HD_MAX)]
 
 
 def ssd_bwd_plan(B: int, nh: int, S: int, hd: int, N: int, Q: int,

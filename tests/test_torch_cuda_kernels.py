@@ -480,12 +480,15 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, B, KH, G, D, L, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,KH,G,D,L", [shape[:5] for shape in SLAB_SHAPES])
+@pytest.mark.parametrize("B,KH,G,D,L", [shape[:5] for shape in SLAB_SHAPES]
+                         + [(4, 2, 16, 64, 65), (3, 1, 8, 256, 64), (4, 1, 16, 256, 40),
+                            (6, 4, 8, 128, 65)])
 def test_flash_decode_partial_kernel_matches_plain(cuda, dtype, B, KH, G, D, L):
-    """The partial-softmax entry (f32 m, l, o whatever q's dtype) against
-    its plain version, and its pieces joined as ``lse_combine`` joins them
-    against ``flash_decode_kernel`` on the whole cache: the cache cut into
-    two pieces, each with its live prefix (empty, partial, whole)."""
+    """The partial-softmax kernel (f32 m, l, o whatever q's dtype) against
+    its plain version (G 1 to 16, D 1 to 256), and its pieces joined as
+    ``lse_combine`` joins them against ``flash_decode_kernel`` on the whole
+    cache: the cache cut into two pieces, each with its live prefix
+    (empty, partial, whole)."""
     q, k, v, lens = _slab_inputs(cuda, dtype, B, KH, G, D, L, B * 1000 + D)
     before = backend.LAUNCH_COUNTS.get("flash_decode_partial", 0)
     m, l, o = flash_decode_partial_kernel(q, k, v, lens)
@@ -1153,6 +1156,33 @@ def test_ssd_scan_bwd_kernel_matches_plain_one_launch_equal_bits(cuda, B, S, nh,
     again = ssd_scan_bwd_kernel(xdt, g, Bm, Cm, dy, dh, chunk=Q)
     torch.cuda.synchronize()
     assert backend.LAUNCH_COUNTS == {"ssd_scan_bwd": 2}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ssd_scan_bwd_ref(xdt, g, Bm, Cm, dy, dh, chunk=Q)
+    for k, r in zip(got, want):
+        assert k.shape == r.shape and bool(torch.isfinite(k).all())
+        assert (k - r).abs().max() <= 1e-4 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,Q", [(1, 128, 2, 192, 32, 64),
+                                           (2, 96, 3, 136, 16, 48),
+                                           (1, 256, 2, 256, 64, 256)])
+def test_ssd_scan_bwd_kernel_takes_any_head_dim(cuda, B, S, nh, hd, N, Q):
+    """A head dim over 128 runs one launch per slice of at most 128 (dg, dBm
+    and dCm summed over the slices): within 1e-4 of the plain version's
+    largest entry, two runs bit-equal."""
+    gen = torch.Generator().manual_seed(S + nh + hd)
+    dt = torch.nn.functional.softplus(torch.randn(B, nh, S, generator=gen))
+    xdt = (torch.randn(B, nh, S, hd, generator=gen) * dt[..., None]).to(cuda)
+    g = (-dt * torch.linspace(1.0, 16.0, nh)[None, :, None]).to(cuda)
+    Bm = (torch.randn(B, S, N, generator=gen) * N ** -0.5).to(cuda)
+    Cm = (torch.randn(B, S, N, generator=gen) * N ** -0.5).to(cuda)
+    dy = torch.randn(B, nh, S, hd, generator=gen).to(cuda)
+    dh = torch.randn(B, nh, hd, N, generator=gen).to(cuda)
+    backend.reset_launch_counts()
+    got = ssd_scan_bwd_kernel(xdt, g, Bm, Cm, dy, dh, chunk=Q)
+    again = ssd_scan_bwd_kernel(xdt, g, Bm, Cm, dy, dh, chunk=Q)
+    torch.cuda.synchronize()
+    assert backend.LAUNCH_COUNTS == {"ssd_scan_bwd": 2 * -(-hd // 128)}
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = ssd_scan_bwd_ref(xdt, g, Bm, Cm, dy, dh, chunk=Q)
     for k, r in zip(got, want):

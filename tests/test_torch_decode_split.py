@@ -32,7 +32,7 @@ from repro_torch.kernels.flash_attention import (flash_decode_q8_ref,  # noqa: E
 from repro_torch.kernels.flash_attention.plan import (DECODE_MAX_HEAD_DIM,  # noqa: E402
                                                       INT8_MAX_HEADS, MAX_HEADS,
                                                       MAX_SPLITS, SMS, TILE,
-                                                      decode_plan)
+                                                      decode_plan, partial_plan)
 from repro_torch.precision import quantize_kv_int8          # noqa: E402
 
 ops = importlib.import_module("repro_torch.kernels.flash_attention.ops")
@@ -610,15 +610,18 @@ def test_flash_decode_wrapper_passes_its_plan(launches, dtype, B, KH, G, D, L):
 @pytest.mark.parametrize("qd", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,KH,G,D,L", [(4, 4, 8, 128, 65), (3, 2, 3, 42, 33)])
 def test_flash_decode_partial_wrapper_passes_its_plan(launches, qd, B, KH, G, D, L):
-    """The partial entry takes flash_decode's plan over the piece and
+    """The partial softmax is csrc/decode_partial.cu's kernel: it takes
+    partial_plan's split, warps, stages and copy width over the piece and
     writes three f32 outputs: m and l (B, KH, G), o (B, KH, G, D)."""
     q = torch.zeros(B, KH, G, D, dtype=qd)
     k = torch.zeros(B, L, KH, D, dtype=qd)
     m, l, o = ops.flash_decode_partial_kernel(q, k, k.clone(), torch.zeros(B, dtype=torch.int32))
     (args,) = launches["flash_decode_partial_launch"]
+    assert ops._SIGNATURES[("decode_partial", "flash_decode_partial_launch")] == (7, 9)
     assert args[7:12] == (B, KH, G, D, L)
-    assert args[12:17] == _plan_args(decode_plan(L, B, KH, G, D, qd))
-    assert args[18] == (0 if qd == torch.float32 else 1)
+    p = partial_plan(L, B, KH, G, D, qd)
+    assert args[12:16] == (p.splits, p.warps, p.stages, int(p.vec))
+    assert args[16] == D ** -0.5 and args[17] == (0 if qd == torch.float32 else 1)
     assert args[4:7] == (m.data_ptr(), l.data_ptr(), o.data_ptr())
     assert [tuple(t.shape) for t in (m, l, o)] == [(B, KH, G), (B, KH, G), (B, KH, G, D)]
     assert all(t.dtype == torch.float32 for t in (m, l, o))

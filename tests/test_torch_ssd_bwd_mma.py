@@ -22,6 +22,7 @@ held on the CPU before the card.
   ``jax.grad`` of ``repro``'s ``ssd_chunked``.  One TF32 pass misses the
   tolerance.
 """
+import ctypes
 import importlib
 
 import numpy as np
@@ -32,7 +33,8 @@ import torch.nn.functional as F
 import jax.numpy as jnp
 
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref, ssd_scan_ref
-from repro_torch.kernels.ssd_scan.plan import (BWD_MIN_WAVES, SUBCHUNK, TILE, bwd_segments,
+from repro_torch.kernels.ssd_scan.plan import (BWD_MIN_WAVES, SUBCHUNK, TILE,
+                                               bwd_head_slices, bwd_segments,
                                                ssd_bwd_plan, vec_loads)
 from test_torch_ssd_mma import OnCard
 from test_torch_ssd_scan_grad import CASES, IDS, Q as GRAD_Q, _inputs, _j_grad, _kernel_layout
@@ -210,12 +212,68 @@ def test_bwd_wrapper_passes_its_plan(bwd_launches, B, S, nh, hd, N, with_dh):
                            int(vec_loads(N, hd, *(t.data_ptr() for t in ptrs))))
 
 
-def test_bwd_wrapper_refuses_a_head_dim_above_128(bwd_launches):
-    xdt, g = _on_card(1, 2, 64, 136), _on_card(1, 2, 64)
-    Bm = _on_card(1, 64, 16)
-    with pytest.raises(ValueError, match="head dim 136"):
-        ops.ssd_scan_bwd_kernel(xdt, g, Bm, Bm, xdt, chunk=32)
-    assert not bwd_launches
+def test_bwd_wrapper_refuses_a_head_dim_above_128(bwd_launches, monkeypatch):
+    """A head dim over 128 (136 and 256) no longer raises: the wrapper
+    launches the kernel once per contiguous slice of at most 128 head
+    dims, in order, each at its own width, on a contiguous copy of its
+    columns of xdt, dy and dh_last (read here through the pointers the
+    entry is given)."""
+    B, nh, S, N = 1, 2, 64, 16
+    recorder, seen = ops._bwd_entries, []
+
+    def reading():
+        ws, fn = recorder()
+
+        def launch(*args):
+            w = args[14]
+            seen.append([np.ctypeslib.as_array((ctypes.c_float * n).from_address(args[i]))
+                         .copy() for i, n in ((0, B * nh * S * w), (4, B * nh * S * w),
+                                              (5, B * nh * w * N))])
+            return fn(*args)
+        return ws, launch
+
+    monkeypatch.setattr(ops, "_bwd_entries", reading)
+    for hd in (136, 256):
+        bwd_launches.clear()
+        seen.clear()
+        xdt, dh = _on_card(B, nh, S, hd), _on_card(B, nh, hd, N)
+        for t in (xdt, dh):
+            t.copy_(torch.arange(t.numel(), dtype=torch.float32).view(t.shape))
+        dy, g, Bm = xdt * 2, _on_card(B, nh, S), _on_card(B, S, N)
+        dxdt, dg, dBm, dCm = ops.ssd_scan_bwd_kernel(xdt, g, Bm, Bm, dy, dh, chunk=32)
+        cuts = [(a, min(a + 128, hd)) for a in range(0, hd, 128)]
+        widths = [args[14] for kind, args in bwd_launches if kind == "launch"]
+        assert widths == [b - a for a, b in cuts] and len(widths) == -(-hd // 128)
+        for (a, b), (x_, dy_, dh_) in zip(cuts, seen):
+            assert np.array_equal(x_, xdt[..., a:b].reshape(-1).numpy())
+            assert np.array_equal(dy_, dy[..., a:b].reshape(-1).numpy())
+            assert np.array_equal(dh_, dh[:, :, a:b].reshape(-1).numpy())
+        assert [tuple(t.shape) for t in (dxdt, dg, dBm, dCm)] == [
+            (B, nh, S, hd), (B, nh, S), (B, S, N), (B, S, N)]
+
+
+def test_head_dim_slices_sum_to_the_whole_gradient():
+    """The wrapper's rule at hd 192 on the plain version: dxdt's columns
+    from each slice, dg, dBm and dCm the slices' sums, within 1e-5 of the
+    unsliced ssd_scan_bwd_ref."""
+    rng = np.random.default_rng(192)
+    B, nh, S, hd, N, Q = 1, 2, 48, 192, 8, 16
+    xdt = torch.tensor(rng.standard_normal((B, nh, S, hd)), dtype=torch.float32)
+    g = -torch.tensor(rng.random((B, nh, S)), dtype=torch.float32)
+    Bm, Cm = (torch.tensor(rng.standard_normal((B, S, N)) * N ** -0.5, dtype=torch.float32)
+              for _ in range(2))
+    dy = torch.tensor(rng.standard_normal((B, nh, S, hd)), dtype=torch.float32)
+    dh = torch.tensor(rng.standard_normal((B, nh, hd, N)), dtype=torch.float32)
+    whole = ssd_scan_bwd_ref(xdt, g, Bm, Cm, dy, dh, chunk=Q)
+    cuts = bwd_head_slices(hd)
+    assert cuts == [(0, 128), (128, 192)]
+    parts = [ssd_scan_bwd_ref(xdt[..., a:b].contiguous(), g, Bm, Cm,
+                              dy[..., a:b].contiguous(), dh[:, :, a:b].contiguous(), chunk=Q)
+             for a, b in cuts]
+    sliced = (torch.cat([p_[0] for p_ in parts], -1),
+              *(parts[0][i] + parts[1][i] for i in (1, 2, 3)))
+    for got, want in zip(sliced, whole):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------
