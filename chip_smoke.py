@@ -13,7 +13,9 @@ Phases (each prints its own lines; any failure exits non-zero):
     the rank reduce's), of flash attention, of the two decode libraries
     (the split-K body under its float and int8 element policies: no int8
     instantiation may spill), of the partial-softmax decode, of the SSD
-    scan and of its backward;
+    scan and of its backward; the 15 instantiations of the tiles only the
+    tuner picks (64 x 128 and 32 x 64 with 16-byte copies,
+    ``lora_matmul/plan.py::TUNED_TILES``) may not spill;
  3. kernel vs plain PyTorch version, on the card, at the serving and
     training paths' shapes (plus ragged ones), float32 and bfloat16: the
     forward LoRA matmul in both its regimes (M <= 16 and above, Mamba2's
@@ -376,6 +378,22 @@ Phases (each prints its own lines; any failure exits non-zero):
     the serve example loading the train example's file; each must exit 0,
     and together they must launch rows 1-4 and 6; each one's wall time and
     launches by kernel are printed.
+22. the launch-plan tuners (``kernels/lora_matmul/tune.py``,
+    ``kernels/flash_attention/tune.py``), memos emptied first, at the
+    main path's shapes: rows 1 (M 8 and 768 at K = N = 768, Mamba2's
+    ``ssm_in``/``ssm_out`` at M 200, the front ends' M 1280 at K = N =
+    2048, yi-9b's TP-local ``down`` at M 512), 3 and 8, 9 at M 768, 7 at M
+    8 over 8 adapters, 2 and 6 at GPT-2-S's serving shape and yi-9b's G 8,
+    D 128 over 4 KV heads (8 slots x 512); each candidate's output
+    ``torch.equal`` to the heuristic plan's, f32 and bf16; the tuner's
+    pick, its tuning ms, a second ``best_*`` call memoized with no launch
+    and a hit's host cost; in f32 the heuristic plan and every candidate
+    timed as phase 4 times, the pick's time beside the heuristic's; under
+    60 s.  Every phase before it launches through the tuners (the kernels
+    line's ``ms`` is at their pick) and prints a ``[tune]`` line: keys
+    timed, candidates, tuning launches (no launch counter sees them) and
+    host ms (phases 18-21: this process's share; their ranks and
+    examples tune in their own).
 The second-to-last line is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  Imports no JAX.
 
@@ -392,6 +410,10 @@ on one card.
 times each TREE's ``flash_decode_partial`` (its own src, this script's
 shapes and timer) at phase 4's pieces, L2 cold and warm, one process
 each, in the order given.
+
+    python3 chip_smoke.py --tuner
+
+builds the kernels and runs phase 22 alone (~1.5 min).
 """
 import dataclasses
 import functools
@@ -634,6 +656,18 @@ def main() -> None:
           f"{'ok' if int8 and not spilled else 'FAIL'}")
     if not int8 or spilled:
         fail(f"the int8 decode instantiations spill or are missing: {spilled}")
+    # the tiles only the tuner picks (lora_matmul/plan.py::TUNED_TILES) are
+    # instantiated where ptxas showed no spill: 8 forward and gather, 2 dX,
+    # 5 of the q8 pair; they must stay so
+    tuned = [ln for lib in ("lora_matmul", "lora_matmul_bwd", "lora_matmul_q8")
+             for ln in build.resource_usage(lib)
+             if "tile" in ln and (", 64, 128, " in ln or ", 32, 64, " in ln)]
+    spilled = [ln for ln in tuned if not ln.endswith("spill stores/loads 0/0 B")]
+    print(f"[check] tuner's tiles: {len(tuned)} instantiations of 64 x 128 and 32 x 64, "
+          f"{len(spilled)} spilling {'ok' if len(tuned) == 15 and not spilled else 'FAIL'}")
+    if len(tuned) != 15 or spilled:
+        fail(f"the tuner's tile instantiations spill or are missing: {spilled or tuned}")
+    tune_line("phases 1-2")
 
     # -- 3. kernel vs plain, on the card ----------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -1268,6 +1302,8 @@ def main() -> None:
         check_decode_split(dt, dn)
     check_ssd()                       # f32 in and out: the op casts
 
+    tune_line("phase 3")
+
     # -- 4. times at the serving path's shapes (f32, as the engine serves) --
     # reading 64 MB (> the 50 MB L2) between launches evicts the operands,
     # as the decode path finds them: 12 layers of weights and KV pools
@@ -1661,6 +1697,8 @@ def main() -> None:
               f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     del flush_buf
 
+    tune_line("phase 4")
+
     # -- 5. serving on full-width GPT-2-S ------------------------------------
     cfg = get_arch("gpt2-s")
     t0 = time.perf_counter()
@@ -1745,6 +1783,8 @@ def main() -> None:
     if not good:
         fail("decode step through the kernels disagrees with the plain path")
 
+    tune_line("phase 5")
+
     # -- 6. training on full-width GPT-2-S -------------------------------------
     serve_launches = launches
     from repro_torch.launch.train import build_argparser, run
@@ -1819,6 +1859,8 @@ def main() -> None:
     if not good:
         fail("a local step through the kernels disagrees with the plain path")
 
+    tune_line("phase 6")
+
     # -- 7. the flash_attention op's own path --------------------------------
     # No model path calls kernels.flash_attention.flash_attention (training
     # attention is plain PyTorch, as it is jnp in JAX), so its path is the
@@ -1838,6 +1880,8 @@ def main() -> None:
     if not good:
         fail(f"flash_attention op path launched {attn_launches}, expected "
              f"{{'flash_attention': {L}}}, or gave a bad output")
+
+    tune_line("phase 7")
 
     # -- 8. heterogeneous, precision-aware fleets over an int8 base -------------
     import dataclasses
@@ -1978,6 +2022,8 @@ def main() -> None:
     if not good:
         fail("fleet b: a local step through the kernels disagrees with the plain path")
 
+    tune_line("phase 8")
+
     # -- 9. the slab engine on full-width GPT-2-S ------------------------------
     L = cfg.num_layers
     slab = ServingEngine(cfg, params, lora=lora, max_slots=8, max_len=512, paged=False,
@@ -2081,6 +2127,8 @@ def main() -> None:
         fail("the naive loop's launches or token ids are off")
     print(f"[naive] token ids digest of the {len(nreqs)} requests: {ids_digest(nreqs)}")
 
+    tune_line("phase 9")
+
     # -- 10. the int8-KV ops' own path ----------------------------------------
     # No engine of repro builds an int8 KV; the q8 kernels are reached
     # through the ops' own entry points.  Their inputs: the real GPT-2-S KV
@@ -2142,6 +2190,8 @@ def main() -> None:
     if not good:
         fail("the int8-KV ops' path launched the wrong counts or disagrees with its "
              "plain version")
+
+    tune_line("phase 10")
 
     # -- 11. multi-tenant serving on full-width GPT-2-S -------------------------
     from repro_torch.launch.serve import tenant_adapter
@@ -2267,28 +2317,42 @@ def main() -> None:
     if not good:
         fail("a mixed-tenant decode step through the kernels disagrees with the plain path")
 
+    tune_line("phase 11")
     mamba_launches = phase_mamba(torch, np, dev, reqs)
+    tune_line("phase 12")
     dyn_train, dyn_serve, dyn_err = phase_dynamic(torch, np, dev, reqs)
     for k, v in dyn_err.items():
         err[k] = max(err[k], v)
+    tune_line("phase 13")
     fault_serve, fault_train = phase_faults(torch, np, dev, reqs, eng.params, eng.lora)
+    tune_line("phase 14")
     # phase 15 builds models of 11-35 GB: GPT-2-S's engines go first
     del eng, slab, naive, mt, params, lora, caches, cc, outs
     arch_launches, arch_err = phase_archs(torch, np, dev, reqs, flush)
     for k, v in arch_err.items():
         err[k] = max(err[k], v)
+    tune_line("phase 15")
     ssm_train, ssm_err, ssm_rows = phase_mamba_train(torch, np, dev, flush)
     err.update(ssm_err)
     rows.update(ssm_rows)
+    tune_line("phase 16")
     fe_launches, fe_err = phase_frontends(torch, np, dev, flush)
     for k, v in fe_err.items():
         err[k] = max(err[k], v)
+    tune_line("phase 17")
+    # phases 18-21 run most of their work in processes of their own, each
+    # tuning apart: the lines count this process's share only
     mesh_launches = phase_mesh(torch, np, dev)
+    tune_line("phase 18 (this process)")
     tp_launches, tp_err = phase_tp(torch, np, dev, flush)
     for k, v in tp_err.items():
         err[k] = max(err[k], v)
+    tune_line("phase 19 (this process)")
     serve_tp_launches = phase_serve_tp(torch, np, dev, flush)
+    tune_line("phase 20 (this process)")
     example_launches = phase_examples(dev)
+    tune_line("phase 21 (this process)")
+    phase_tuner(torch, dev, flush)
     runs = (serve_launches, train_launches, attn_launches, fleet_a, fleet_b,
             slab_launches, naive_launches, q8_launches,
             mt_launches, mamba_launches, dyn_train, dyn_serve, fault_serve, fault_train,
@@ -5872,6 +5936,208 @@ def phase_examples(dev):
     return total
 
 
+# -- phase 22: the launch-plan tuners ------------------------------------------
+
+# (row, problem, what, (M, K, N, r)): phase 22's LoRA shapes, f32 and bf16;
+# problem is the launch: forward, gather (8 adapters), dx, q8, q8_dx
+TUNE_LORA = (("1", "forward", "GPT-2-S decode", (8, 768, 768, 4)),
+             ("1", "forward", "GPT-2-S training", (768, 768, 768, 4)),
+             ("1", "forward", "Mamba2 ssm_in prefill", (200, 2560, 10576, 4)),
+             ("1", "forward", "Mamba2 ssm_out prefill", (200, 5120, 2560, 4)),
+             ("1", "forward", "front ends' prefill", (1280, 2048, 2048, 4)),
+             ("1", "forward", "yi-9b's TP-local down", (512, 5504, 4096, 4)),
+             ("3", "dx", "GPT-2-S training", (768, 768, 768, 4)),
+             ("7", "gather", "multi-tenant decode", (8, 768, 768, 4)),
+             ("8", "q8", "fleet server", (768, 768, 768, 8)),
+             ("9", "q8_dx", "fleet server", (768, 768, 768, 8)))
+# (row, what, (B, KH, G, D), paged): the decode shapes at 512 positions
+# (16-position pages), the serving spread of lengths
+TUNE_DECODE = (("2", "GPT-2-S serving", (8, 12, 1, 64), True),
+               ("6", "GPT-2-S serving", (8, 12, 1, 64), False),
+               ("2", "yi-9b", (8, 4, 8, 128), True),
+               ("6", "yi-9b", (8, 4, 8, 128), False))
+TUNE_LENGTHS = [8, 40, 77, 120, 160, 200, 232, 255]
+
+
+def tune_line(label: str) -> None:
+    """Print the tuning this process has done since the last such line
+    (keys timed, their candidates and launches, host ms) and count anew."""
+    from repro_torch.kernels import autotune
+    s = autotune.STATS
+    print(f"[tune] {label}: {s['keys']} keys timed, {s['candidates']} candidates, "
+          f"{s['launches']} tuning launches, {s['ms']:.1f} ms (host clock)")
+    autotune.reset_stats()
+
+
+def phase_tuner(torch, dev, flush):
+    """22. The launch-plan tuners at the main path's shapes (``PERF.md``
+    §6 rows 1, 2, 3, 6, 7, 8, 9), memos emptied first: each shape's
+    heuristic plan and every candidate timed as phase 4 times (median of
+    60, L2 flushed), the tuner's pick (``best_*`` with the caller's
+    operands, as the wrapper asks) and its time; every candidate's output
+    ``torch.equal`` to the heuristic plan's, f32 and bf16; a second
+    ``best_*`` call returns the memoized plan with no launch and nothing
+    timed, and its host cost a hit."""
+    from repro_torch.kernels import autotune, backend
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import tune as ftune
+    from repro_torch.kernels.flash_attention.plan import decode_plan
+    from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.lora_matmul import tune as ltune
+    t_phase = time.perf_counter()
+    smi = smi_line()
+    for clear in (ltune.clear_cache, ftune.clear_cache, ftune.clear_paged_cache):
+        clear()
+    autotune.reset_stats()
+    gen = torch.Generator().manual_seed(22)
+    picks = {}
+
+    def rnd(*shape, std=1.0, dt=torch.float32):
+        return (torch.randn(shape, generator=gen) * std).to(dev, dt)
+
+    def lora_case(problem, M, K, N, r, dt):
+        """(best_* of the wrapper's call, launch(plan) into out, out,
+        heuristic plan, candidates)."""
+        x_or_dy = rnd(M, N if problem in ("dx", "q8_dx") else K, dt=dt)
+        a, b = rnd(r, K, std=r ** -0.5, dt=dt), rnd(N, r, std=0.05, dt=dt)
+        int8 = problem in ("q8", "q8_dx")
+        w = (torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).to(dev)
+             if int8 else rnd(K, N, std=K ** -0.5, dt=dt))
+        ws = (torch.rand(N, generator=gen) * 0.01).to(dev)
+        dx = problem in ("dx", "q8_dx")
+        out = torch.empty(M, K if dx else N, dtype=dt, device=dev)
+        aligned = lops._aligned(x_or_dy, w) if problem != "q8_dx" else lops._aligned(
+            x_or_dy, w, ws)
+        if problem == "gather":
+            ap, bp = rnd(8, r, K, std=r ** -0.5, dt=dt), rnd(8, N, r, std=0.05, dt=dt)
+            idx = torch.arange(M, dtype=torch.int32, device=dev) % 8
+
+            def launch(p):
+                lops.launch_gather(x_or_dy, w, ap, bp, idx, out, 2.0, p)
+
+            def best():
+                return ltune.best_gather_blocks(M, K, N, r, 8, dt, torch.int32, dev,
+                                                aligned=aligned, run=launch)
+        else:
+            launch = {"forward": lambda p: lops.launch_forward(x_or_dy, w, a, b, out, 2.0, p),
+                      "dx": lambda p: lops.launch_dx(x_or_dy, w, a, b, out, 2.0, p),
+                      "q8": lambda p: lops.launch_q8(x_or_dy, w, ws, a, b, out, 2.0, p),
+                      "q8_dx": lambda p: lops.launch_q8_dx(x_or_dy, w, ws, a, b, out, 2.0,
+                                                           p)}[problem]
+
+            def best():
+                return ltune.best_blocks(M, K, N, r, dt, dev, torch.int8 if int8 else None,
+                                         problem="dx" if dx else "forward", aligned=aligned,
+                                         run=launch)
+        plan = ltune.heuristic_plan("dx" if dx else "forward", M, K, N, dt.itemsize, int8,
+                                    aligned)
+        cands = ltune.candidates(plan, M, dt.itemsize, 1 if int8 else dt.itemsize, dx)
+        return best, launch, out, plan, cands
+
+    def decode_case(B, KH, G, D, paged, dt):
+        PS, MP = 16, 32
+        q = rnd(B, KH, G, D, dt=dt)
+        lens = torch.tensor(TUNE_LENGTHS[:B], dtype=torch.int32, device=dev)
+        out = torch.empty_like(q)
+        if paged:
+            NP = B * MP + 1
+            kp, vp = rnd(KH, NP, PS, D, dt=dt), rnd(KH, NP, PS, D, dt=dt)
+            bt = (torch.randperm(NP - 1, generator=gen)[:B * MP].int() + 1).reshape(
+                B, MP).to(dev)
+
+            def launch(p, n=lens):
+                fops.launch_paged(q, kp, vp, n, bt, out, p)
+
+            def best():
+                return ftune.best_paged_block(B, KH, G, MP, PS, D, dt, dev, dt,
+                                              aligned=fops._kv_aligned(kp, vp), run=launch)
+        else:
+            k, v = rnd(B, MP * PS, KH, D, dt=dt), rnd(B, MP * PS, KH, D, dt=dt)
+
+            def launch(p, n=lens):
+                fops.launch_slab(q, k, v, n, out, 0, p)
+
+            def best():
+                return ftune.best_decode_block(B, KH, G, MP * PS, D, dt, dev, dt,
+                                               aligned=fops._kv_aligned(k, v), run=launch)
+        plan = decode_plan(MP * PS, B, KH, G, D, dt)
+        return best, launch, out, plan, ftune.candidates(plan, G, dt)
+
+    def run_case(label, op, case, dn):
+        best, launch, out, plan, cands = case
+        outs = []
+        for p in cands:
+            launch(p)
+            torch.cuda.synchronize()
+            outs.append(out.clone())
+        differ = [p for p, o in zip(cands, outs) if not torch.equal(o, outs[0])]
+        finite = bool(torch.isfinite(outs[0].float()).all())
+        st0 = dict(autotune.STATS)
+        t0 = time.perf_counter()
+        pick = best()
+        tune_ms = (time.perf_counter() - t0) * 1e3
+        before, st1 = dict(backend.LAUNCH_COUNTS), dict(autotune.STATS)
+        again = best()
+        memo_ok = (again is pick and dict(autotune.STATS) == st1
+                   and dict(backend.LAUNCH_COUNTS) == before)
+        n_hit = 20000
+        t0 = time.perf_counter()
+        for _ in range(n_hit):
+            best()
+        hit_us = (time.perf_counter() - t0) / n_hit * 1e6
+        good = not differ and finite and memo_ok and pick in cands
+        print(f"[tuner] {label} {dn}: {len(cands)} candidates, all torch.equal to the "
+              f"heuristic plan's: {not differ}; pick {pick}; tuning {tune_ms:.1f} ms "
+              f"({st1['keys'] - st0['keys']} key timed); second call memoized with no "
+              f"launch: {memo_ok}; a hit {hit_us:.2f} us (host clock) "
+              f"{'ok' if good else 'FAIL'}")
+        if not good:
+            fail(f"phase 22: {label} {dn}: differing {differ}, finite {finite}, "
+                 f"memo {memo_ok}, pick {pick}")
+        if dn != "float32":
+            return
+        times = {p: time_ms(torch, lambda p=p: launch(p), flush) for p in cands}
+        for p, t in times.items():
+            tag = "heuristic" if p == plan else "candidate"
+            tag += ", picked" if p == pick else ""
+            print(f"[tuner]   {op} {label} f32 {tag}: {p} {t * 1e3:.2f}us ({smi})")
+        print(f"[tuner]   {op} {label} f32: heuristic {times[plan] * 1e3:.2f}us, tuner's "
+              f"pick {times[pick] * 1e3:.2f}us ({times[plan] / times[pick]:.3f}x)")
+
+    for dt, dn in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        for row, problem, what, (M, K, N, r) in TUNE_LORA:
+            op = {"forward": "lora_matmul", "gather": "lora_matmul_gather",
+                  "dx": "lora_matmul_dx", "q8": "lora_matmul_q8",
+                  "q8_dx": "lora_matmul_q8_dx"}[problem]
+            label = f"row {row} {what} M={M} K={K} N={N} r={r}"
+            run_case(label, op, lora_case(problem, M, K, N, r, dt), dn)
+        for row, what, (B, KH, G, D), paged in TUNE_DECODE:
+            op = "paged_decode" if paged else "flash_decode"
+            label = f"row {row} {what} B={B} KH={KH} G={G} D={D} capacity 512"
+            run_case(label, op, decode_case(B, KH, G, D, paged, dt), dn)
+    tune_line("phase 22")
+    wall = time.perf_counter() - t_phase
+    print(f"[tuner] phase 22 wall {wall:.1f}s (host clock; budget 60 s) "
+          f"{'ok' if wall < 60 else 'FAIL'} ({smi})")
+    if wall >= 60:
+        fail(f"phase 22 took {wall:.1f} s")
+
+
+def tuner_only() -> None:
+    """``--tuner``: the kernels built, then phase 22 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+    build.build(force=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush_buf = torch.ones(16 * 2 ** 20, dtype=torch.int32, device=dev)
+    phase_tuner(torch, dev, flush_buf.sum)
+    print(smi_line())
+
+
 HOST_TIMES = """
 import sys, time
 sys.path.insert(0, sys.argv[1])
@@ -5932,5 +6198,7 @@ if __name__ == "__main__":
         tree_runs(sys.argv[2:], HOST_TIMES, "phase 16 or 19 (e)")
     elif sys.argv[1:2] == ["--partial-times"]:
         tree_runs(sys.argv[2:], PARTIAL_TIMES, "flash_decode_partial's times")
+    elif sys.argv[1:2] == ["--tuner"]:
+        tuner_only()
     else:
         main()

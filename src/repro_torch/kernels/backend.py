@@ -84,6 +84,11 @@ def abstract_evaluation():
         _STATE.abstract = depth
 
 
+def in_abstract_evaluation() -> bool:
+    """Whether this thread is within :func:`abstract_evaluation`."""
+    return getattr(_STATE, "abstract", 0) > 0
+
+
 @contextlib.contextmanager
 def as_ops(ops: Sequence[str] = None):
     """Within it, on this thread, a real tensor's launch of a kernel in

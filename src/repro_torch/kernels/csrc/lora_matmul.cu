@@ -41,7 +41,9 @@
 //       the epilogue is spread over the cluster's blocks.  No float
 //       atomics, no workspace, no second launch.
 // 2. tile (M > 16: prefill, training): the 3xTF32 mma.sync tile on a
-//    cp.async ring of csrc/lora_mma.cuh (see its note).
+//    cp.async ring of csrc/lora_mma.cuh (see its note), 64 x 64 or 32 x 32
+//    from plan.py, 64 x 128 or 32 x 64 (16-byte copies only) where the
+//    tuner's timing picks them.
 //
 // A row's terms are summed in an order fixed by the regime, K and N alone,
 // never by M or the other rows: so a gathered row equals the
@@ -385,6 +387,14 @@ cudaError_t run_vec(const T* x, const T* w, const T* a, const T* b, PoolArgs poo
       return run_tile<T, Pooled, 64, 64, VEC>(x, w, a, b, pool, y, M, K, N, r, scale, S, st);
     if (bm == 32 && bn == 32)
       return run_tile<T, Pooled, 32, 32, VEC>(x, w, a, b, pool, y, M, K, N, r, scale, S, st);
+    if constexpr (VEC) {        // the tuner's shapes: ptxas spills some at element copies
+      if (bm == 64 && bn == 128)
+        return run_tile<T, Pooled, 64, 128, true>(x, w, a, b, pool, y, M, K, N, r, scale, S,
+                                                  st);
+      if (bm == 32 && bn == 64)
+        return run_tile<T, Pooled, 32, 64, true>(x, w, a, b, pool, y, M, K, N, r, scale, S,
+                                                 st);
+    }
   }
   return cudaErrorInvalidValue;
 }

@@ -111,6 +111,10 @@ cudaError_t run_dx_plan(const void* dy, const void* w, const void* a, const void
   if (bm == 32 && bn == 32)
     return vec ? run_dx<T, 32, 32, true>(dy, w, a, b, dx, M, K, N, r, scale, S, st)
                : run_dx<T, 32, 32, false>(dy, w, a, b, dx, M, K, N, r, scale, S, st);
+  // the tuner's shape, 16-byte copies only (ptxas spills it at element
+  // copies, and a 32 x 64 dX tile in f32)
+  if (bm == 64 && bn == 128 && vec)
+    return run_dx<T, 64, 128, true>(dy, w, a, b, dx, M, K, N, r, scale, S, st);
   return cudaErrorInvalidValue;
 }
 

@@ -150,6 +150,17 @@ cudaError_t run_q8_plan(const void* l, const void* wq, const void* ws, const voi
   if (bm == 32 && bn == 32)
     return vec ? run_q8<T, DX, 32, 32, true>(l, wq, ws, a, b, out, M, K, N, r, scale, S, st)
                : run_q8<T, DX, 32, 32, false>(l, wq, ws, a, b, out, M, K, N, r, scale, S, st);
+  // the tuner's shapes, 16-byte copies only (as lora_matmul.cu's and
+  // lora_matmul_bwd.cu's): 32 x 64 for the forward; 64 x 128 where the ring
+  // holds its partial tile (not the bf16 forward's: int8 W, p-major)
+  if constexpr (!DX) {
+    if (bm == 32 && bn == 64 && vec)
+      return run_q8<T, DX, 32, 64, true>(l, wq, ws, a, b, out, M, K, N, r, scale, S, st);
+  }
+  if constexpr (mma_ring_holds_tile<T, int8_t, 64, 128, DX>()) {
+    if (bm == 64 && bn == 128 && vec)
+      return run_q8<T, DX, 64, 128, true>(l, wq, ws, a, b, out, M, K, N, r, scale, S, st);
+  }
   return cudaErrorInvalidValue;
 }
 

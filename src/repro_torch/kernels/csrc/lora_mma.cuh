@@ -44,7 +44,10 @@
 // Design:
 //  * 128 threads (2 x 2 warps) per (BM x BN) output tile, BM = BN = 64 or
 //    32 (plan.py picks the larger where the grid still has a block per
-//    SM); each warp holds (BM/2 x BN/2) f32 accumulators in m16n8k8
+//    SM), or, with 16-byte copies, (64, 128) and (the forward's) (32, 64),
+//    which only the tuner picks (kernels/lora_matmul/tune.py: the order
+//    below does not depend on the shape); each warp holds (BM/2 x BN/2) f32
+//    accumulators in m16n8k8
 //    fragments of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32;
 //    the blocks that share a column tile of R are launched together;
 //  * L and R tiles, 32 deep along q, stream through a ring of NS = 3
@@ -138,6 +141,14 @@ struct MmaLayout {
   static constexpr int S_ELEMS = LS ? MMA_BK * sizeof(float) / sizeof(T) : 0;
   static constexpr int U_OFF = L_ELEMS + R_ELEMS + S_ELEMS;
 };
+
+// Whether the ring holds the (BM x BN) f32 partial tile after the loop
+// (plan.py::ring_holds_tile): a tile is instantiated only where it does.
+template <typename T, typename TR, int BM, int BN, bool RQ>
+__host__ __device__ constexpr bool mma_ring_holds_tile() {
+  using Ly = MmaLayout<T, TR, BM, BN, RQ, false>;
+  return MMA_NS * (Ly::L_ELEMS + Ly::R_ELEMS) * sizeof(T) >= BM * BN * sizeof(float);
+}
 
 template <typename T, typename TR, int BM, int BN, bool RQ, bool US, bool LS>
 __host__ __device__ constexpr int mma_stage_elems(int r) {
@@ -268,7 +279,7 @@ __device__ __forceinline__ void mma_tile(const T* __restrict__ lhs, const Op& op
   using TR = typename Op::TR;
   using Ly = MmaLayout<T, TR, BM, BN, Op::RQ, Op::L_SCALE>;
   static_assert(2 * BM <= MMA_NT, "the rank tile takes two threads per row");
-  static_assert(MMA_NS * (Ly::L_ELEMS + Ly::R_ELEMS) * sizeof(T) >= BM * BN * sizeof(float),
+  static_assert(mma_ring_holds_tile<T, TR, BM, BN, Op::RQ>(),
                 "the ring holds the partial tile after the loop");
   constexpr int MI = BM / 32, NI = BN / 16;      // m16 and n8 fragments per warp
   // an f32 operand is split into big + small; bf16 and int8 are exact in

@@ -5,7 +5,12 @@ with ``plan.decode_plan``'s split), ``csrc/decode_partial.cu`` (the
 partial softmax over a piece of a slab cache, ``plan.partial_plan``) or
 ``csrc/flash_attention.cu``; a CPU tensor takes the plain version of
 ``ref.py``.  ``repro``'s ``bk``, ``interpret`` and ``use_kernel``
-arguments are gone: the tiles are fixed and the device alone routes."""
+arguments are gone: the device alone routes, and the four split-K
+decode launchers take their plan from ``tune.py`` (``decode_plan``'s,
+or a candidate with the same order of addition that the card timed
+faster).  ``launch_slab`` and ``launch_paged`` launch with a given plan
+and count nothing (the tuner's timing, ``chip_smoke.py``'s
+comparisons)."""
 from __future__ import annotations
 
 import ctypes
@@ -13,7 +18,8 @@ import ctypes
 import torch
 
 from .. import backend, build
-from .plan import DECODE_MAX_HEAD_DIM, decode_plan, partial_plan
+from . import tune
+from .plan import DECODE_MAX_HEAD_DIM, partial_plan
 from .ref import (flash_attention_ref, flash_decode_partial_ref, flash_decode_q8_ref,
                   flash_decode_ref, paged_decode_q8_ref, paged_decode_ref)
 
@@ -46,13 +52,79 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _split_plan(capacity: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """decode_plan for q (B, KH, G, D) over K/V rows of ``capacity``
-    positions and K's entries, as the C entry's five ints."""
-    B, KH, G, D = q.shape
-    p = decode_plan(capacity, B, KH, G, D, k.dtype,
-                    aligned=k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+def _plan_ints(p) -> tuple:
+    """A DecodePlan as the C entry's five ints."""
     return p.splits, p.heads, p.lanes, p.vectors, int(p.vec)
+
+
+def _kv_aligned(k: torch.Tensor, v: torch.Tensor) -> bool:
+    return k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+
+
+def launch_slab(q, k, v, lengths, out, window: int, plan, k_scale=None,
+                v_scale=None) -> None:
+    """One launch of ``flash_decode`` (``flash_decode_q8`` with the scales)
+    with ``plan`` into ``out``, checked operands taken as they are;
+    counts nothing."""
+    B, KH, G, D = q.shape
+    L = k.shape[1]
+    dev = q.device
+    with torch.cuda.device(dev):
+        if k_scale is None:
+            err = _entry("flash_decode", "flash_decode_launch")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), B, KH, G, D, L, int(window), *_plan_ints(plan),
+                D ** -0.5, _DTYPE_CODES[q.dtype], _stream(dev))
+        else:
+            err = _entry("flash_decode", "flash_decode_q8_launch")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), B, KH, G, D, L,
+                int(window), *_plan_ints(plan), D ** -0.5, _DTYPE_CODES[q.dtype],
+                _stream(dev))
+    build.check("flash_decode", err)
+
+
+def launch_paged(q, k_pages, v_pages, lengths, block_tables, out, plan, k_scale=None,
+                 v_scale=None) -> None:
+    """One launch of ``paged_decode`` (``paged_decode_q8`` with the scales)
+    with ``plan`` into ``out``; counts nothing."""
+    B, KH, G, D = q.shape
+    _, NP, PS, _ = k_pages.shape
+    MP = block_tables.shape[1]
+    dev = q.device
+    with torch.cuda.device(dev):
+        if k_scale is None:
+            err = _entry("paged_decode", "paged_decode_launch")(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+                block_tables.data_ptr(), out.data_ptr(), B, KH, G, D, NP, PS, MP,
+                *_plan_ints(plan), D ** -0.5, _DTYPE_CODES[q.dtype], _stream(dev))
+        else:
+            err = _entry("paged_decode", "paged_decode_q8_launch")(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+                block_tables.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                out.data_ptr(), B, KH, G, D, NP, PS, MP, *_plan_ints(plan), D ** -0.5,
+                _DTYPE_CODES[q.dtype], _stream(dev))
+    build.check("paged_decode", err)
+
+
+def _paged_plan(q, k_pages, v_pages, block_tables, out, k_scale=None, v_scale=None):
+    """``tune.best_paged_block``'s plan, its candidates timed on these operands."""
+    B, KH, G, D = q.shape
+    PS, MP = k_pages.shape[2], block_tables.shape[1]
+    return tune.best_paged_block(
+        B, KH, G, MP, PS, D, q.dtype, q.device, k_pages.dtype,
+        aligned=_kv_aligned(k_pages, v_pages),
+        run=lambda p, n: launch_paged(q, k_pages, v_pages, n, block_tables, out, p,
+                                      k_scale, v_scale))
+
+
+def _slab_plan(q, k, v, out, k_scale=None, v_scale=None):
+    """``tune.best_decode_block``'s plan, its candidates timed on these
+    operands (no window: the key has none)."""
+    B, KH, G, D = q.shape
+    return tune.best_decode_block(
+        B, KH, G, k.shape[1], D, q.dtype, q.device, k.dtype, aligned=_kv_aligned(k, v),
+        run=lambda p, n: launch_slab(q, k, v, n, out, 0, p, k_scale, v_scale))
 
 
 def _on_card(op: str, **tensors: torch.Tensor) -> torch.device:
@@ -128,8 +200,8 @@ def paged_decode_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     """Launch the CUDA kernel: q (B, KH, G, D) and the pools
     (KH, NP, PS, D) of one dtype (float32 or bfloat16), D <= 256, lengths
     (B,) and block_tables (B, MP) int32, all contiguous on one CUDA
-    device; one cluster launch with ``plan.decode_plan``'s split.  Returns
-    (B, KH, G, D) in q's dtype.  Raises on anything else."""
+    device; one cluster launch with the tuner's plan (``tune.py``).
+    Returns (B, KH, G, D) in q's dtype.  Raises on anything else."""
     dev = _on_card("paged_decode", q=q, k_pages=k_pages, v_pages=v_pages,
                    lengths=lengths, block_tables=block_tables)
     _check_kv_dtypes("paged_decode", q, k_pages, v_pages, lengths, int8=False)
@@ -140,13 +212,8 @@ def paged_decode_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    plan = _split_plan(MP * PS, q, k_pages, v_pages)
-    with torch.cuda.device(dev):
-        err = _entry("paged_decode", "paged_decode_launch")(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-            block_tables.data_ptr(), out.data_ptr(), B, KH, G, D, NP, PS, MP, *plan,
-            D ** -0.5, _DTYPE_CODES[q.dtype], _stream(dev))
-    build.check("paged_decode", err)
+    plan = _paged_plan(q, k_pages, v_pages, block_tables, out)
+    launch_paged(q, k_pages, v_pages, lengths, block_tables, out, plan)
     backend.count_launch("paged_decode")
     return out
 
@@ -158,8 +225,8 @@ def paged_decode_q8_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     """Launch the int8-pool CUDA kernel: q (B, KH, G, D) float32 or
     bfloat16, int8 pools (KH, NP, PS, D), D <= 256, float32 (KH,) scales,
     lengths (B,) and block_tables (B, MP) int32, all contiguous on one
-    CUDA device; one cluster launch with ``plan.decode_plan``'s split over
-    int8 entries.  Returns (B, KH, G, D) in q's dtype.  Raises on anything
+    CUDA device; one cluster launch with the tuner's plan over int8
+    entries.  Returns (B, KH, G, D) in q's dtype.  Raises on anything
     else."""
     dev = _on_card("paged_decode_q8", q=q, k_pages=k_pages, v_pages=v_pages,
                    lengths=lengths, block_tables=block_tables, k_scale=k_scale,
@@ -174,14 +241,8 @@ def paged_decode_q8_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    plan = _split_plan(MP * PS, q, k_pages, v_pages)
-    with torch.cuda.device(dev):
-        err = _entry("paged_decode", "paged_decode_q8_launch")(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-            block_tables.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            out.data_ptr(), B, KH, G, D, NP, PS, MP, *plan, D ** -0.5,
-            _DTYPE_CODES[q.dtype], _stream(dev))
-    build.check("paged_decode", err)
+    plan = _paged_plan(q, k_pages, v_pages, block_tables, out, k_scale, v_scale)
+    launch_paged(q, k_pages, v_pages, lengths, block_tables, out, plan, k_scale, v_scale)
     backend.count_launch("paged_decode_q8")
     return out
 
@@ -297,7 +358,7 @@ def flash_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA kernel on the model's cache layout, read in place:
     q (B, KH, G, D), k/v (B, L, KH, D) of q's dtype (float32 or
     bfloat16), D <= 256, lengths (B,) int32, all contiguous on one CUDA
-    device; one cluster launch with ``plan.decode_plan``'s split.  A
+    device; one cluster launch with the tuner's plan (``tune.py``).  A
     length past L reads all L entries.  Returns (B, KH, G, D) in q's
     dtype.  Raises on anything else."""
     dev = _on_card("flash_decode", q=q, k=k, v=v, lengths=lengths)
@@ -308,13 +369,7 @@ def flash_decode_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    plan = _split_plan(L, q, k, v)
-    with torch.cuda.device(dev):
-        err = _entry("flash_decode", "flash_decode_launch")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, KH, G, D, L, int(window), *plan, D ** -0.5, _DTYPE_CODES[q.dtype],
-            _stream(dev))
-    build.check("flash_decode", err)
+    launch_slab(q, k, v, lengths, out, window, _slab_plan(q, k, v, out))
     backend.count_launch("flash_decode")
     return out
 
@@ -360,9 +415,8 @@ def flash_decode_q8_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the int8-KV CUDA kernel: q (B, KH, G, D) float32 or
     bfloat16, int8 k/v (B, L, KH, D) read in place, D <= 256, float32
     (KH,) scales, lengths (B,) int32, all contiguous on one CUDA device;
-    one cluster launch with ``plan.decode_plan``'s split over int8
-    entries.  Returns (B, KH, G, D) in q's dtype.  Raises on anything
-    else."""
+    one cluster launch with the tuner's plan over int8 entries.  Returns
+    (B, KH, G, D) in q's dtype.  Raises on anything else."""
     dev = _on_card("flash_decode_q8", q=q, k=k, v=v, lengths=lengths, k_scale=k_scale,
                    v_scale=v_scale)
     _check_kv_dtypes("flash_decode_q8", q, k, v, lengths, int8=True)
@@ -374,13 +428,8 @@ def flash_decode_q8_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    plan = _split_plan(L, q, k, v)
-    with torch.cuda.device(dev):
-        err = _entry("flash_decode", "flash_decode_q8_launch")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), B, KH, G, D, L,
-            int(window), *plan, D ** -0.5, _DTYPE_CODES[q.dtype], _stream(dev))
-    build.check("flash_decode", err)
+    launch_slab(q, k, v, lengths, out, window, _slab_plan(q, k, v, out, k_scale, v_scale),
+                k_scale, v_scale)
     backend.count_launch("flash_decode_q8")
     return out
 

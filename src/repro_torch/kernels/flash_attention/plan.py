@@ -43,6 +43,12 @@ DECODE_MAX_HEAD_DIM = 256   # f32: 32 lanes x 2 pieces x 4 entries; bf16: 32 x 1
                             # int8: 16 lanes x 1 x 16
 
 
+# rows of K and V a lane has in flight (U, ``rows_in_flight`` in
+# csrc/decode_split.cuh): at most the element policy's MAX_ROWS, fewer
+# where q and acc take more registers
+MAX_ROWS = {4: 8, 2: 8, 1: 2}       # by K/V entry width: FloatKV f32, bf16; Int8KV
+
+
 @dataclass(frozen=True)
 class DecodePlan:
     splits: int         # S: blocks along the cache in one cluster
@@ -58,6 +64,15 @@ def _pow2_at_least(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def rows_in_flight(plan: DecodePlan, kv_dtype) -> int:
+    """U of the kernel ``plan`` names over K/V entries of ``kv_dtype``:
+    each lane's online softmax takes its rows in batches of U, so U, like
+    the split, fixes the order of a head's sums."""
+    per = 16 // kv_dtype.itemsize
+    n = plan.heads * plan.vectors * per
+    return min(8 if n <= 16 else 4 if n <= 32 else 2, MAX_ROWS[kv_dtype.itemsize])
 
 
 def decode_plan(capacity: int, B: int, KH: int, G: int, D: int, kv_dtype,

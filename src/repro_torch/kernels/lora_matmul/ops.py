@@ -7,7 +7,8 @@ every LoRA-adapted projection through.  It is differentiable through
 (``repro.kernels.lora_matmul.ops._bwd_value``):
 
 * forward  — ``csrc/lora_matmul.cu`` on a CUDA tensor (the regime and
-  split from ``plan.py``), ``lora_matmul_ref`` on a CPU one;
+  split from ``plan.py``, the tile the tuner's, ``tune.py``),
+  ``lora_matmul_ref`` on a CPU one;
 * backward — dX through ``csrc/lora_matmul_bwd.cu::lora_matmul_dx`` (only
   when x needs a gradient), dA = s·(dY·B)ᵀ·x and dBᵀ = (x·Aᵀ)ᵀ·dY through
   ``lora_rank_reduce`` from the same source (the rank-thin z = x·Aᵀ and
@@ -19,6 +20,11 @@ every LoRA-adapted projection through.  It is differentiable through
 ``idx[m]`` of a pool): ``csrc/lora_matmul.cu``'s gather entry on a CUDA
 tensor, ``lora_matmul_gathered_ref`` on a CPU one; forward only, as the
 serving decode never differentiates.
+
+Each ``*_kernel`` wrapper asks ``tune.py`` for its plan (timing the
+candidates on its own operands at a new key) and then launches once and
+counts that launch; the ``launch_*`` functions launch with a given plan
+and count nothing (the tuner's timing, ``chip_smoke.py``'s comparisons).
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ import ctypes
 import torch
 
 from .. import backend, build
-from .plan import dx_plan, forward_plan, q8_dx_plan, q8_forward_plan, rank_reduce_plan
+from . import tune
+from .plan import rank_reduce_plan
 from .ref import (acc_dtype, lora_matmul_dx_ref, lora_matmul_gathered_ref,
                   lora_matmul_q8_dx_ref, lora_matmul_q8_ref, lora_matmul_ref,
                   lora_rank_reduce_ref)
@@ -78,6 +85,76 @@ def _plan_args(plan) -> tuple:
 
 
 _FWD_PLAN_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p]      # the plan, the stream
+_Q8_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def launch_forward(x, w, a, b, y, scale: float, plan) -> None:
+    """One launch of the forward entry with ``plan`` into ``y``, checked
+    operands taken as they are; counts nothing."""
+    M, K = x.shape
+    N, r = b.shape
+    fn = _bind("lora_matmul", "lora_matmul_fwd_launch",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+               + [ctypes.c_float, ctypes.c_int] + _FWD_PLAN_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 y.data_ptr(), M, K, N, r, float(scale), _DTYPE_CODES[x.dtype],
+                 *_plan_args(plan), _stream(x.device))
+    build.check("lora_matmul", err)
+
+
+def launch_gather(x, w, a_pool, b_pool, idx, y, scale: float, plan) -> None:
+    """One launch of the gather entry with ``plan`` into ``y``; counts nothing."""
+    M, K = x.shape
+    N = w.shape[1]
+    A, r = a_pool.shape[:2]
+    fn = _bind("lora_matmul", "lora_matmul_gather_launch",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+               + [ctypes.c_float, ctypes.c_int] + _FWD_PLAN_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
+                 idx.data_ptr(), y.data_ptr(), M, K, N, r, A, float(scale),
+                 _DTYPE_CODES[x.dtype], *_plan_args(plan), _stream(x.device))
+    build.check("lora_matmul", err)
+
+
+def launch_dx(dy, w, a, b, dx, scale: float, plan) -> None:
+    """One launch of the dX entry with ``plan`` into ``dx``; counts nothing."""
+    M, N = dy.shape
+    K, r = w.shape[0], a.shape[0]
+    fn = _bind("lora_matmul_bwd", "lora_matmul_dx_launch",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+               + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with torch.cuda.device(dy.device):
+        err = fn(dy.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 dx.data_ptr(), M, K, N, r, float(scale), _DTYPE_CODES[dy.dtype],
+                 plan.row_tile, plan.col_tile, plan.splits, int(plan.vec),
+                 _stream(dy.device))
+    build.check("lora_matmul_bwd", err)
+
+
+def _launch_q8(entry: str, lhs, w_q, w_scale, a, b, out, scale: float, plan) -> None:
+    M = lhs.shape[0]
+    r, K = a.shape
+    N = b.shape[0]
+    fn = _bind("lora_matmul_q8", entry, _Q8_ARGTYPES)
+    with torch.cuda.device(lhs.device):
+        err = fn(lhs.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a.data_ptr(),
+                 b.data_ptr(), out.data_ptr(), M, K, N, r, float(scale),
+                 _DTYPE_CODES[lhs.dtype], plan.row_tile, plan.col_tile, plan.splits,
+                 int(plan.vec), _stream(lhs.device))
+    build.check("lora_matmul_q8", err)
+
+
+def launch_q8(x, w_q, w_scale, a, b, y, scale: float, plan) -> None:
+    """One launch of the int8-base forward with ``plan`` into ``y``; counts nothing."""
+    _launch_q8("lora_matmul_q8_fwd_launch", x, w_q, w_scale, a, b, y, scale, plan)
+
+
+def launch_q8_dx(dy, w_q, w_scale, a, b, dx, scale: float, plan) -> None:
+    """One launch of the int8-base dX with ``plan`` into ``dx``; counts nothing."""
+    _launch_q8("lora_matmul_q8_dx_launch", dy, w_q, w_scale, a, b, dx, scale, plan)
 
 
 def lora_matmul_kernel(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -85,8 +162,8 @@ def lora_matmul_kernel(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     """Launch the forward CUDA kernel on 2-D operands x (M, K), w (K, N),
     a (r, K), b (N, r): all on one CUDA device, contiguous, and of one
     dtype (float32 or bfloat16).  M picks the regime (``plan.py``);
-    ``regime`` forces one, for the crossover sweep.  Raises on anything
-    else."""
+    ``regime`` forces one, for the crossover sweep; the plan is
+    ``tune.best_blocks``'s.  Raises on anything else."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"lora_matmul: dtype {x.dtype} not supported "
                         "(float32, bfloat16)")
@@ -102,15 +179,10 @@ def lora_matmul_kernel(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
-    plan = forward_plan(M, K, N, x.element_size(), _aligned(x, w), regime)
-    fn = _bind("lora_matmul", "lora_matmul_fwd_launch",
-               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-               + [ctypes.c_float, ctypes.c_int] + _FWD_PLAN_ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), M, K, N, r, float(scale), _DTYPE_CODES[x.dtype],
-                 *_plan_args(plan), _stream(x.device))
-    build.check("lora_matmul", err)
+    plan = tune.best_blocks(M, K, N, r, x.dtype, x.device, aligned=_aligned(x, w),
+                            regime=regime,
+                            run=lambda p: launch_forward(x, w, a, b, y, scale, p))
+    launch_forward(x, w, a, b, y, scale, plan)
     backend.count_launch("lora_matmul")
     return y
 
@@ -150,15 +222,10 @@ def lora_matmul_gather_kernel(x: torch.Tensor, w: torch.Tensor, a_pool: torch.Te
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
-    plan = forward_plan(M, K, N, x.element_size(), _aligned(x, w))
-    fn = _bind("lora_matmul", "lora_matmul_gather_launch",
-               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-               + [ctypes.c_float, ctypes.c_int] + _FWD_PLAN_ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
-                 idx.data_ptr(), y.data_ptr(), M, K, N, r, A, float(scale),
-                 _DTYPE_CODES[x.dtype], *_plan_args(plan), _stream(x.device))
-    build.check("lora_matmul", err)
+    plan = tune.best_gather_blocks(
+        M, K, N, r, A, x.dtype, idx.dtype, x.device, aligned=_aligned(x, w),
+        run=lambda p: launch_gather(x, w, a_pool, b_pool, idx, y, scale, p))
+    launch_gather(x, w, a_pool, b_pool, idx, y, scale, plan)
     backend.count_launch(op)
     return y
 
@@ -184,16 +251,10 @@ def lora_matmul_dx_kernel(dy: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
     if M == 0 or K == 0:
         return dx
-    plan = dx_plan(M, K, N, dy.element_size(), _aligned(dy, w))
-    fn = _bind("lora_matmul_bwd", "lora_matmul_dx_launch",
-               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-               + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    with torch.cuda.device(dy.device):
-        err = fn(dy.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 dx.data_ptr(), M, K, N, r, float(scale), _DTYPE_CODES[dy.dtype],
-                 plan.row_tile, plan.col_tile, plan.splits, int(plan.vec),
-                 _stream(dy.device))
-    build.check("lora_matmul_bwd", err)
+    plan = tune.best_blocks(M, K, N, r, dy.dtype, dy.device, problem=tune.DX,
+                            aligned=_aligned(dy, w),
+                            run=lambda p: launch_dx(dy, w, a, b, dx, scale, p))
+    launch_dx(dy, w, a, b, dx, scale, plan)
     backend.count_launch("lora_matmul_dx")
     return dx
 
@@ -244,10 +305,6 @@ def _check_q8(op: str, dev: torch.device, w_q: torch.Tensor, w_scale: torch.Tens
                          f"{w_scale.device}")
 
 
-_Q8_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-
-
 def lora_matmul_q8_kernel(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                           a: torch.Tensor, b: torch.Tensor, scale: float) -> torch.Tensor:
     """Launch the int8-base forward kernel: x (M, K), w_q int8 (K, N),
@@ -268,14 +325,10 @@ def lora_matmul_q8_kernel(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Ten
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return y
-    plan = q8_forward_plan(M, K, N, x.element_size(), _aligned(x, w_q))
-    fn = _bind("lora_matmul_q8", "lora_matmul_q8_fwd_launch", _Q8_ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a.data_ptr(),
-                 b.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
-                 _DTYPE_CODES[x.dtype], plan.row_tile, plan.col_tile, plan.splits,
-                 int(plan.vec), _stream(x.device))
-    build.check("lora_matmul_q8", err)
+    plan = tune.best_blocks(M, K, N, r, x.dtype, x.device, torch.int8,
+                            aligned=_aligned(x, w_q),
+                            run=lambda p: launch_q8(x, w_q, w_scale, a, b, y, scale, p))
+    launch_q8(x, w_q, w_scale, a, b, y, scale, plan)
     backend.count_launch("lora_matmul_q8")
     return y
 
@@ -300,14 +353,10 @@ def lora_matmul_q8_dx_kernel(dy: torch.Tensor, w_q: torch.Tensor, w_scale: torch
     dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
     if M == 0 or K == 0:
         return dx
-    plan = q8_dx_plan(M, K, N, dy.element_size(), _aligned(dy, w_q, w_scale))
-    fn = _bind("lora_matmul_q8", "lora_matmul_q8_dx_launch", _Q8_ARGTYPES)
-    with torch.cuda.device(dy.device):
-        err = fn(dy.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), a.data_ptr(),
-                 b.data_ptr(), dx.data_ptr(), M, K, N, r, float(scale),
-                 _DTYPE_CODES[dy.dtype], plan.row_tile, plan.col_tile, plan.splits,
-                 int(plan.vec), _stream(dy.device))
-    build.check("lora_matmul_q8", err)
+    plan = tune.best_blocks(M, K, N, r, dy.dtype, dy.device, torch.int8, problem=tune.DX,
+                            aligned=_aligned(dy, w_q, w_scale),
+                            run=lambda p: launch_q8_dx(dy, w_q, w_scale, a, b, dx, scale, p))
+    launch_q8_dx(dy, w_q, w_scale, a, b, dx, scale, plan)
     backend.count_launch("lora_matmul_q8_dx")
     return dx
 

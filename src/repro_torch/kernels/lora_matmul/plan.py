@@ -46,7 +46,15 @@ DECODE_MAX_M = 16       # T: the largest M served by the decode regime
 MIN_SPLIT_ROWS = 64     # each decode split keeps at least this many rows of K
 MIN_TILE_SPLIT_ROWS = 128   # each tile split: 4 chunks of 32 through its ring
 DECODE_COL_TILES = (128, 64, 32)
+DECODE_ROW_TILES = (8, 16)
 TILE_SHAPES = ((64, 64), (32, 32))      # (rows, columns) of the mma tile
+# the tiles only the tuner picks (``tune.py``), instantiated with 16-byte
+# copies only (ptxas spilled several at element copies): for the forward,
+# the gather and the q8 forward (R read p-major) and for dX and the q8 dX
+# (q-major; a 32 x 64 f32 dX spilled); the q8 forward in bf16 lacks
+# (64, 128) (``ring_holds_tile``)
+TUNED_TILES = {False: ((64, 128), (32, 64)), True: ((64, 128),)}
+MMA_BK, MMA_NS = 32, 3                  # ring stages of MMA_BK rows (csrc/lora_mma.cuh)
 DECODE, TILE = 0, 1
 
 
@@ -102,6 +110,19 @@ def tile_shape(M: int, P: int, splits: int):
         if -(-M // bm) * -(-P // bn) * splits >= SMS:
             return bm, bn
     return TILE_SHAPES[-1]
+
+
+def ring_holds_tile(elem_bytes: int, r_bytes: int, bm: int, bn: int, rq: bool) -> bool:
+    """Whether the mma tile's ring (``MmaLayout`` in ``csrc/lora_mma.cuh``:
+    ``MMA_NS`` stages of L and R, L of ``elem_bytes``-byte elements, R of
+    ``r_bytes``-byte ones, q-major when ``rq``) holds its (bm, bn) f32
+    partial tile after the loop; the C source instantiates a tile only
+    where it does."""
+    e, re_ = 16 // elem_bytes, 16 // r_bytes
+    l_elems = bm * (MMA_BK + e)
+    rp = MMA_BK + re_ if rq else bn + max(re_, 8)
+    r_elems = (bn if rq else MMA_BK) * rp * r_bytes // elem_bytes
+    return MMA_NS * (l_elems + r_elems) * elem_bytes >= bm * bn * 4
 
 
 def _vec(elem_bytes: int, pitches, aligned: bool) -> bool:

@@ -1407,3 +1407,121 @@ def test_collectives_carry_cuda_tensors(cuda, tmp_path, world, backend):
             p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"RANK {r} OK {backend == 'gloo'}" in out, out[-2000:]
+
+
+# -- the launch-plan tuners (kernels/lora_matmul/tune.py,
+# kernels/flash_attention/tune.py): every candidate a tuner may pick gives
+# the heuristic plan's bits, since each keeps its order of addition
+
+TUNE_LORA = [("forward", 8, 768, 768, 4), ("forward", 200, 768, 768, 4),
+             ("forward", 768, 768, 768, 4), ("forward", 200, 2560, 10576, 4),
+             ("forward", 1280, 2048, 2048, 4), ("forward", 33, 300, 129, 64),
+             ("dx", 256, 768, 768, 4), ("dx", 33, 300, 129, 8), ("dx", 512, 5504, 4096, 4),
+             ("q8", 256, 768, 768, 8), ("q8", 200, 5120, 2560, 8),
+             ("q8_dx", 768, 768, 770, 8), ("gather", 8, 768, 768, 4),
+             ("gather", 40, 768, 768, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("problem,M,K,N,r", TUNE_LORA)
+def test_every_lora_tuner_candidate_gives_the_heuristic_plans_bits(cuda, dtype, problem,
+                                                                   M, K, N, r):
+    from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.lora_matmul import tune
+    g = torch.Generator().manual_seed(M + K + N)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g) * std).to(cuda, dtype)
+
+    a, b = rnd(r, K, std=r ** -0.5), rnd(N, r, std=0.05)
+    int8 = problem in ("q8", "q8_dx")
+    if int8:
+        w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).to(cuda)
+        ws = (torch.rand(N, generator=g) * 0.01).to(cuda)
+    else:
+        w = rnd(K, N, std=K ** -0.5)
+    if problem in ("dx", "q8_dx"):
+        lhs, out = rnd(M, N), torch.empty(M, K, dtype=dtype, device=cuda)
+        launch = ((lambda p: lops.launch_q8_dx(lhs, w, ws, a, b, out, 2.0, p)) if int8
+                  else (lambda p: lops.launch_dx(lhs, w, a, b, out, 2.0, p)))
+    else:
+        lhs, out = rnd(M, K), torch.empty(M, N, dtype=dtype, device=cuda)
+        if problem == "gather":
+            ap, bp = rnd(3, r, K, std=r ** -0.5), rnd(3, N, r, std=0.05)
+            idx = (torch.arange(M, dtype=torch.int32) % 3).to(cuda)
+            launch = (lambda p: lops.launch_gather(lhs, w, ap, bp, idx, out, 2.0, p))
+        elif int8:
+            launch = (lambda p: lops.launch_q8(lhs, w, ws, a, b, out, 2.0, p))
+        else:
+            launch = (lambda p: lops.launch_forward(lhs, w, a, b, out, 2.0, p))
+    plan = tune.heuristic_plan("dx" if problem in ("dx", "q8_dx") else "forward", M, K, N,
+                               dtype.itemsize, int8, True)
+    cands = tune.candidates(plan, M, dtype.itemsize, 1 if int8 else dtype.itemsize,
+                            problem in ("dx", "q8_dx"))
+    assert len(cands) > 1
+    outs = []
+    for p in cands:
+        launch(p)
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    assert torch.isfinite(outs[0].float()).all()
+    bad = [p for p, o in zip(cands, outs) if not torch.equal(o, outs[0])]
+    assert not bad, f"{problem} M={M} K={K} N={N}: {bad} differ from {plan}"
+
+
+TUNE_DECODE = [(8, 4, 4, 64, 512), (4, 8, 2, 128, 512), (3, 2, 3, 42, 300),
+               (2, 2, 2, 256, 1000), (4, 4, 4, 128, 65)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KH,G,D,L", TUNE_DECODE)
+def test_every_decode_tuner_candidate_gives_the_heuristic_plans_bits(cuda, dtype, B, KH, G,
+                                                                     D, L):
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import tune
+    from repro_torch.kernels.flash_attention.plan import decode_plan
+    g = torch.Generator().manual_seed(B * L + D)
+    q = torch.randn(B, KH, G, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, L, KH, D, generator=g).to(cuda, dtype)
+    lens = torch.randint(0, L + 2, (B,), generator=g, dtype=torch.int32).to(cuda)
+    PS = 16
+    MP = -(-L // PS)
+    kp = torch.randn(KH, B * MP + 1, PS, D, generator=g).to(cuda, dtype)
+    vp = torch.randn(KH, B * MP + 1, PS, D, generator=g).to(cuda, dtype)
+    bt = (torch.randperm(B * MP, generator=g).int() + 1).reshape(B, MP).to(cuda)
+    plens = torch.clamp(lens, max=MP * PS)
+    out = torch.empty_like(q)
+    for window, paged in ((0, False), (37, False), (0, True)):
+        plan = decode_plan(MP * PS if paged else L, B, KH, G, D, dtype)
+        cands = tune.candidates(plan, G, dtype)
+        outs = []
+        for p in cands:
+            if paged:
+                fops.launch_paged(q, kp, vp, plens, bt, out, p)
+            else:
+                fops.launch_slab(q, k, v, lens, out, window, p)
+            torch.cuda.synchronize()
+            outs.append(out.clone())
+        bad = [p for p, o in zip(cands, outs) if not torch.equal(o, outs[0])]
+        assert not bad, f"paged={paged} window={window}: {bad} differ from {plan}"
+
+
+def test_the_tuners_memoize_on_the_card_and_count_nothing(cuda):
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import best_decode_block
+    from repro_torch.kernels.flash_attention import clear_cache as clear_decode_cache
+    from repro_torch.kernels.lora_matmul import best_blocks, best_gather_blocks, clear_cache
+    clear_cache()
+    clear_decode_cache()
+    before = dict(backend.LAUNCH_COUNTS)
+    autotune.reset_stats()
+    p = best_blocks(200, 768, 768, 4, torch.float32, cuda)
+    g = best_gather_blocks(40, 768, 768, 4, 3, torch.float32, torch.int32, cuda)
+    d = best_decode_block(8, 4, 4, 512, 64, torch.float32, cuda)
+    timed = dict(autotune.STATS)
+    assert timed["keys"] >= 1 and timed["launches"] > 0
+    assert best_blocks(200, 768, 768, 4, torch.float32, cuda) is p
+    assert best_gather_blocks(40, 768, 768, 4, 3, torch.float32, torch.int32, cuda) is g
+    assert best_decode_block(8, 4, 4, 512, 64, torch.float32, cuda) is d
+    assert autotune.STATS == timed and dict(backend.LAUNCH_COUNTS) == before

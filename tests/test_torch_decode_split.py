@@ -80,12 +80,15 @@ def _merge(m, l, acc, m2, l2, acc2):
     return mm, l * a + l2 * b, acc * a[..., None] + acc2 * b[..., None]
 
 
-def emulate(q, rows, lengths, capacity, plan, window=0, entry_bytes=4):
+def emulate(q, rows, lengths, capacity, plan, window=0, entry_bytes=4, per_head=False):
     """The kernel's arithmetic in f32 torch.  q (B, KH, G, D); rows(b, j)
     gives the K and V rows (KH, *j.shape, D) of slot b at positions j as
     f32, as the element policy unpacks them; ``entry_bytes`` is the width
     of a K/V entry (4 f32, 2 bf16, 1 int8), which sets the entries of a
-    16-byte piece and so the rows in flight."""
+    16-byte piece and so the rows in flight.  ``per_head`` takes each
+    query head's products apart, as the kernel does (no head's sum meets
+    another's), so that a head's bits do not depend on the block's
+    number of heads through torch's own blocking of a batched product."""
     B, KH, G, D = q.shape
     S, GT, lanes, NC = plan.splits, plan.heads, plan.lanes, plan.vectors
     U = rows_in_flight(GT, NC, 16 // entry_bytes, MAX_ROWS[entry_bytes])
@@ -109,12 +112,21 @@ def emulate(q, rows, lengths, capacity, plan, window=0, entry_bytes=4):
                     live = j < p1
                     k, v = rows(b, torch.where(live, j, p0))
                     k, v = k * live[..., None], v * live[..., None]
-                    s = torch.einsum("hgd,husd->hgus", qg, k)
+                    if per_head:
+                        s = torch.stack([torch.einsum("hd,husd->hus", qg[:, g], k)
+                                         for g in range(GT)], 1)
+                    else:
+                        s = torch.einsum("hgd,husd->hgus", qg, k)
                     mx = torch.maximum(m, torch.where(live, s, NEG_INF).amax(2))
                     alpha = torch.exp(m - mx)
                     p = torch.where(live, torch.exp(s - mx[:, :, None]), 0.0)
                     m, l = mx, l * alpha + p.sum(2)
-                    acc = acc * alpha[..., None] + torch.einsum("hgus,husd->hgsd", p, v)
+                    if per_head:
+                        pv = torch.stack([torch.einsum("hus,husd->hsd", p[:, g], v)
+                                          for g in range(GT)], 1)
+                    else:
+                        pv = torch.einsum("hgus,husd->hgsd", p, v)
+                    acc = acc * alpha[..., None] + pv
                 # the warp's streams: xor butterfly over the row slot
                 m, l = m.reshape(KH, GT, NW, rpw), l.reshape(KH, GT, NW, rpw)
                 acc = acc.reshape(KH, GT, NW, rpw, D)
